@@ -1,0 +1,98 @@
+"""bs=1 decode throughput of the port (counterpart of measure_latency.py).
+
+  python -m qpalette_tpu_torch.measure_latency --dummy
+  python -m qpalette_tpu_torch.measure_latency --dummy --impl exact \\
+      --num_hidden_layers 4 --max_new_tokens 64
+
+Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
+with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Reports
+tokens/s and achieved GB/s (streamed bytes x tokens/s) beside the device
+name; a CPU run (``--device cpu``) is for rehearsal only.
+"""
+
+import argparse
+import json
+import os
+
+_QDIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "msq_results", "3_8b", "lat_constrained", "v5e",
+                     "default_err")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--hf_path", default="meta-llama/Llama-3.1-8B")
+    ap.add_argument("--qdict_path",
+                    default=os.path.join(_QDIR, "215.0thp_cc.json"))
+    ap.add_argument("--merge_info_path",
+                    default=os.path.join(_QDIR, "215.0thp_cc_merge_info.json"))
+    ap.add_argument("--max_new_tokens", type=int, default=128)
+    ap.add_argument("--num_samples", type=int, default=3)
+    ap.add_argument("--dummy", action="store_true")
+    ap.add_argument("--impl", default="a8", choices=["exact", "a8"])
+    ap.add_argument("--num_hidden_layers", type=int, default=-1)
+    ap.add_argument("--lm_head_bits", type=int, default=4, choices=[4, 16])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    if not args.dummy:
+        ap.error("only --dummy (random weights) is supported by the port")
+
+    import numpy as np
+    import torch
+    from qpalette_tpu_torch.msq.memmodel import calc_avg_bits
+    from qpalette_tpu_torch.runtime.decode import generate, model_bytes
+    from qpalette_tpu_torch.runtime.loader import (CONFIGS, MODEL_KEYS,
+                                                   build_quantized_model)
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device")
+        dev_name = torch.cuda.get_device_name(device)
+    else:
+        dev_name = "cpu (rehearsal, not a device measurement)"
+    cfg = CONFIGS[MODEL_KEYS[args.hf_path]]()
+    nl = (args.num_hidden_layers if args.num_hidden_layers > 0
+          else cfg.num_layers)
+    with open(args.qdict_path) as f:
+        qdict = {k: tuple(v) if isinstance(v, list) else v
+                 for k, v in json.load(f).items()}
+    merge_info = None
+    if args.merge_info_path:
+        with open(args.merge_info_path) as f:
+            merge_info = json.load(f)
+
+    spec, params = build_quantized_model(
+        cfg, qdict, merge_info=merge_info, dummy=True, impl=args.impl,
+        num_layers=nl, lm_head_bits=args.lm_head_bits, seed=args.seed,
+        device=device)
+    mbytes = model_bytes(params)
+    streamed = mbytes - model_bytes(params["embed"])
+    bits = calc_avg_bits(cfg, qdict, num_layers=nl)
+    print(f"device: {dev_name}")
+    print(f"model size: {mbytes / 1e9:.3f} GB, streamed per token: "
+          f"{streamed / 1e9:.3f} GB, {bits:.2f} bits/weight avg, "
+          f"{nl} layers, impl {args.impl}")
+
+    prompt = np.ones((1, 1), dtype=np.int64)
+    all_tps = []
+    for i in range(args.num_samples):
+        _, stats = generate(spec, params, prompt,
+                            max_new_tokens=args.max_new_tokens,
+                            max_seq=2 * args.max_new_tokens, seed=args.seed)
+        tps = stats["tokens_per_sec"]
+        all_tps.append(tps)
+        print(f"sample {i}: {tps:.2f} tokens/sec, "
+              f"{streamed * tps / 1e9:.1f} GB/s streamed", flush=True)
+    avg = float(np.mean(all_tps))
+    print(f"Average tokens/sec: {avg:.2f} on {dev_name}")
+    print(json.dumps({"average_tokens_per_sec": avg, "device": dev_name,
+                      "model_size_gb": mbytes / 1e9,
+                      "streamed_gb_per_token": streamed / 1e9,
+                      "avg_bits": bits, "impl": args.impl, "num_layers": nl,
+                      "lm_head_bits": args.lm_head_bits}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,235 @@
+"""Llama with incoherent quantized linears.
+
+Counterpart of ``qpalette_tpu/models/llama.py``: a functional forward over
+a params dict, with the static layout in hashable specs.  Serving only,
+no autograd.  The KV cache is a preallocated bf16 tensor per layer that
+the forward writes in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from qpalette_tpu_torch.ops.hadamard import hadamard_transform_t
+from qpalette_tpu_torch.runtime.qlinear import qlinear_apply
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def kv_out(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @staticmethod
+    def llama31_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def llama32_1b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=128256, hidden_size=2048,
+                           intermediate_size=8192, num_layers=16,
+                           num_heads=32, num_kv_heads=8, head_dim=64,
+                           rope_theta=500000.0, tie_embeddings=True)
+
+    @staticmethod
+    def llama32_3b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=128256, hidden_size=3072,
+                           intermediate_size=8192, num_layers=28,
+                           num_heads=24, num_kv_heads=8, head_dim=128,
+                           rope_theta=500000.0, tie_embeddings=True)
+
+    @staticmethod
+    def tiny(vocab: int = 256) -> "LlamaConfig":
+        return LlamaConfig(vocab_size=vocab, hidden_size=128,
+                           intermediate_size=256, num_layers=2,
+                           num_heads=4, num_kv_heads=2, head_dim=32,
+                           rope_theta=10000.0)
+
+
+@dataclass(frozen=True)
+class AttnSpec:
+    """merge in {None, 'qkv'}; projs = ((name, LinearSpec), ..., ('o', _))."""
+    merge: Optional[str]
+    projs: tuple
+
+
+@dataclass(frozen=True)
+class MLPSpec:
+    merge_ug: bool
+    projs: tuple  # (("ug",) | ("up", "gate")) + ("down",)
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    config: LlamaConfig
+    layers: tuple  # ((AttnSpec, MLPSpec), ...)
+    # non-None: quantized lm_head (params "lm_head_q4" + "lm_head_su")
+    lm_head_spec: Optional[object] = None
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., head_dim) float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., heads, head_dim); HF rotate_half convention."""
+    h = x.shape[-1] // 2
+    rot = torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+    return (x.float() * cos[..., None, :]
+            + rot.float() * sin[..., None, :]).to(x.dtype)
+
+
+def _rotate_in(x: torch.Tensor, su: torch.Tensor) -> torch.Tensor:
+    """Incoherence rotation of activations: z = (x * SU) @ H^T."""
+    return hadamard_transform_t(x * su).to(x.dtype)
+
+
+def _causal_mask(S: int, T: int, offset: int, device) -> torch.Tensor:
+    """Additive (S, T) mask: query i (position offset+i) sees keys <= it."""
+    q = torch.arange(S, device=device)[:, None] + offset
+    kpos = torch.arange(T, device=device)[None, :]
+    return torch.where(kpos <= q, 0.0, -1e30).to(torch.float32)
+
+
+def _attention(q, k, v, offset: int, cfg: LlamaConfig):
+    """q (B,S,h,d), k/v (B,T,hk,d); grouped heads, float32 softmax."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    hk = cfg.num_kv_heads
+    g = H // hk
+    qf = (q.float() * (D ** -0.5)).reshape(B, S, hk, g, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    logits = logits + _causal_mask(S, T, offset, q.device)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(B, S, H * D).to(q.dtype)
+
+
+def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
+                 cos, sin, kv_cache=None, cache_pos: int = 0):
+    """x (B, S, hidden) -> (out, (k, v)).  With kv_cache, k/v are written
+    into the caches in place at cache_pos (the reference's
+    dynamic_update_slice) and attention runs over the whole cache."""
+    B, S, N = x.shape
+    xs = x.reshape(-1, N)
+    non_o = [(nm, ls) for nm, ls in spec.projs if nm != "o"]
+    hs = cfg.num_heads * cfg.head_dim
+    kv = cfg.kv_out
+    if spec.merge == "qkv":
+        (name, lspec), = non_o
+        y = qlinear_apply(lspec, p[name], xs, pre_rot=p["su_qkv"])
+        q, k, v = torch.split(y, [hs, kv, kv], dim=-1)
+    elif spec.merge is None:
+        z = _rotate_in(xs, p["su_qkv"])
+        q, k, v = (qlinear_apply(ls, p[nm], z) for nm, ls in non_o)
+    else:
+        raise NotImplementedError(f"attention merge {spec.merge!r}")
+    q = apply_rope(q.reshape(B, S, cfg.num_heads, cfg.head_dim), cos, sin)
+    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim), cos, sin)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        k_full, v_full, new_kv = ck, cv, (ck, cv)
+    else:
+        k_full, v_full, new_kv = k, v, (k, v)
+    att = _attention(q, k_full, v_full, cache_pos, cfg)
+    oname, ospec = spec.projs[-1]
+    if oname != "o":
+        raise ValueError(f"last attention projection is {oname!r}")
+    out = qlinear_apply(ospec, p["o"], att.reshape(B * S, -1),
+                        pre_rot=p["su_o"])
+    return out.reshape(B, S, N), new_kv
+
+
+def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor):
+    B, S, N = x.shape
+    I = cfg.intermediate_size
+    xs = x.reshape(-1, N)
+    if spec.merge_ug:
+        (ug_name, ug_spec), (_, d_spec) = spec.projs
+        y = qlinear_apply(ug_spec, p[ug_name], xs, pre_rot=p["su_ug"])
+        up, gate = y[:, :I], y[:, I:]
+    else:
+        z = _rotate_in(xs, p["su_ug"])
+        (_, u_spec), (_, g_spec), (_, d_spec) = spec.projs
+        up = qlinear_apply(u_spec, p["up"], z)
+        gate = qlinear_apply(g_spec, p["gate"], z)
+    h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
+    out = qlinear_apply(d_spec, p["down"], h, pre_rot=p["su_dp"])
+    return out.reshape(B, S, N)
+
+
+@torch.inference_mode()
+def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
+            kv_caches=None, cache_pos: int = 0):
+    """tokens (B, S) -> logits (B, S, vocab) float32 (and the caches when
+    kv_caches is given: the incremental path writing at cache_pos)."""
+    cfg = spec.config
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    offset = cache_pos if kv_caches is not None else 0
+    pos = torch.arange(S, device=tokens.device)[None, :] + offset
+    cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    new_caches = []
+    for li, (aspec, mspec) in enumerate(spec.layers):
+        lp = params["layers"][li]
+        h = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
+        a, kv = attn_forward(aspec, cfg, lp, h, cos, sin,
+                             kv_cache=None if kv_caches is None
+                             else kv_caches[li], cache_pos=offset)
+        x = x + a
+        h = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
+        x = x + mlp_forward(mspec, cfg, lp, h)
+        new_caches.append(kv)
+    x = rms_norm(x, params["ln_f"], cfg.rms_eps)
+    if spec.lm_head_spec is not None:
+        # quantized lm_head: f32 logits over the padded vocab, sliced back
+        logits = qlinear_apply(spec.lm_head_spec, params["lm_head_q4"],
+                               x.reshape(-1, cfg.hidden_size),
+                               pre_rot=params["lm_head_su"],
+                               out_dtype=torch.float32)
+        logits = logits[:, :cfg.vocab_size].reshape(B, S, cfg.vocab_size)
+    else:
+        logits = x.float() @ params["lm_head"].float().T
+    if kv_caches is not None:
+        return logits, new_caches
+    return logits
+
+
+def init_kv_caches(spec: ModelSpec, batch: int, max_seq: int, device):
+    """Preallocated bf16 (k, v) caches, (B, T, kv_heads, head_dim) each."""
+    cfg = spec.config
+    shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return [(torch.zeros(shp, dtype=cfg.dtype, device=device),
+             torch.zeros(shp, dtype=cfg.dtype, device=device))
+            for _ in range(cfg.num_layers)]

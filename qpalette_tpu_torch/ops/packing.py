@@ -1,0 +1,62 @@
+"""Canonical trellis format and its executable-spec decoder.
+
+Counterpart of ``qpalette_tpu/ops/packing.py`` (``unpack_trellis``,
+``tiles_to_mat``, ``dequant_tcq2``).  The canonical ``trellis`` is
+(T, 4*KV) 32-bit words, T = (m/16)*(k/16) tiles in tile-row-major order.
+Each tile is one tail-biting trellis of 128 states; state i is the 16-bit
+window at bit KV*i of the tile's *circular* 128*KV-bit stream (word
+indices wrap modulo 4*KV).
+
+The port keeps the words in int32 tensors holding the uint32 bit
+pattern (torch's uint32 support is partial); arithmetic on them widens
+to int64 and masks with 0xFFFFFFFF.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+L = 16  # trellis window length (bits per state)
+TD = 16  # weight tile edge
+V = 2  # weights per trellis state
+
+_M32 = 0xFFFFFFFF
+
+
+def words_to_torch(words: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 numpy words -> int32 tensor with the same bits."""
+    arr = np.array(words, dtype=np.uint32, order="C")  # a writable copy
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def unpack_trellis(packed: torch.Tensor, KV: int, v: int = V) -> torch.Tensor:
+    """packed (T, 8*KV/v) words -> states (T, 256/v) int64 (circular)."""
+    W = packed.shape[-1]
+    n_pos = 256 // v
+    o = torch.arange(n_pos, dtype=torch.int64, device=packed.device) * KV
+    w0 = o >> 5
+    w1 = (w0 + 1) % W
+    w0 = w0 % W
+    sh = o & 31
+    u = packed.to(torch.int64) & _M32
+    lo = u[..., w0]
+    hi = u[..., w1]
+    return ((lo >> sh) | (hi << (32 - sh))) & ((1 << L) - 1)
+
+
+def tiles_to_mat(tiles: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """tiles ((m/16)*(k/16), 16, 16) tile-row-major -> mat (m, k)."""
+    t = tiles.reshape(m // TD, k // TD, TD, TD)
+    return t.permute(0, 2, 1, 3).reshape(m, k)
+
+
+def dequant_tcq2(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
+                 KV: int) -> torch.Tensor:
+    """V=2 trellis in PAIRED-K-MAJOR order -> weights (m, k): state
+    s = 16*t + row covers (row, 2t) and (row, 2t+1) of its 16x16 tile."""
+    states = unpack_trellis(packed, KV, 2)  # (T, 128)
+    vals = lut[states]  # (T, 128, 2)
+    tiles = vals.reshape(-1, TD // 2, TD, 2)  # (T, t, row, c)
+    tiles = tiles.permute(0, 2, 1, 3).reshape(-1, TD, TD)
+    return tiles_to_mat(tiles, m, k)

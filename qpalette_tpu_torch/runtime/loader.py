@@ -1,0 +1,276 @@
+"""Model assembly: qdict + merge_info -> (ModelSpec, params).
+
+Counterpart of ``qpalette_tpu/runtime/loader.py`` for the tcq2s path,
+keeping its seeds (``su_for``, the lm_head SU ``seed*7+99`` and dummy
+artifact ``seed*11+5``), its merge semantics and the 4096-multiple
+vocab pad of the quantized lm_head.  Projections keep the canonical
+``trellis`` words; the port defines no kernel-side layout yet.  Dummy
+packed words come from a ``torch.Generator`` on the target device.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from qpalette_tpu_torch.models.llama import (AttnSpec, LlamaConfig, MLPSpec,
+                                             ModelSpec)
+from qpalette_tpu_torch.ops.packing import TD, words_to_torch
+from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
+from qpalette_tpu_torch.runtime.qlinear import IMPLS, LinearSpec
+
+LAYER_KEYS = [
+    "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+    "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj",
+]
+
+MODEL_KEYS = {
+    "meta-llama/Llama-3.1-8B": "3_8b",
+    "meta-llama/Llama-3.2-1B": "3_1b",
+    "meta-llama/Llama-3.2-3B": "3_3b",
+}
+
+CONFIGS = {
+    "3_8b": LlamaConfig.llama31_8b,
+    "3_1b": LlamaConfig.llama32_1b,
+    "3_3b": LlamaConfig.llama32_3b,
+}
+
+LM_HEAD_QSTR = "tcq2s_8_none_0.9"
+# the reference's solver emits these names for an explicit per-layer impl
+_IMPL_NAMES = {"pallas": "exact", "pallas_a8": "a8"}
+
+
+def proj_shape(cfg: LlamaConfig, key: str):
+    h, i, kv = cfg.hidden_size, cfg.intermediate_size, cfg.kv_out
+    return {
+        "self_attn.q_proj": (h, h), "self_attn.k_proj": (kv, h),
+        "self_attn.v_proj": (kv, h), "self_attn.o_proj": (h, h),
+        "mlp.gate_proj": (i, h), "mlp.up_proj": (i, h),
+        "mlp.down_proj": (h, i),
+    }[key]
+
+
+def su_for(cfg: LlamaConfig, layer: int, key: str, seed: int) -> np.ndarray:
+    """Deterministic shared sign vectors (q/k/v share, up/gate share)."""
+    group = {"self_attn.q_proj": "qkv", "self_attn.k_proj": "qkv",
+             "self_attn.v_proj": "qkv", "self_attn.o_proj": "o",
+             "mlp.gate_proj": "ug", "mlp.up_proj": "ug",
+             "mlp.down_proj": "dp"}[key]
+    n = proj_shape(cfg, key)[1]
+    gid = {"qkv": 0, "o": 1, "ug": 2, "dp": 3}[group]
+    rng = np.random.default_rng(seed * 1000003 + layer * 101 + gid)
+    return (rng.standard_normal(n) > 0).astype(np.float32) * 2.0 - 1.0
+
+
+def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
+    kind = meta["kind"]
+    common = dict(in_features=meta["in_features"],
+                  out_features=meta["out_features"], impl=impl)
+    if kind == "tcq2":
+        if meta["decode_mode"] != "sum2" or meta["KV"] % 2:
+            raise NotImplementedError(
+                f"tcq2 mode {meta['decode_mode']!r} KV={meta['KV']}: only "
+                f"sum2 with even KV is ported")
+        return LinearSpec("tcq2", KV=(meta["KV"],), mode="sum2", **common)
+    raise NotImplementedError(f"scheme kind {kind!r} is not ported")
+
+
+def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
+    """Shape-only artifact; packed words are generated on the target device
+    in _params_from_artifact (``__device_dummy__`` holds their seed)."""
+    m, n = shape
+    spec = parse_quantizer_str(qstr)
+    if spec.family not in ("tcq2", "tcq2s"):
+        raise NotImplementedError(f"dummy {spec.family!r} is not ported")
+    rng = np.random.default_rng(seed)
+    return {"SU": (rng.standard_normal(n) > 0).astype(np.float32) * 2 - 1,
+            "Wscale": np.full((m,), 0.02, np.float32),
+            "__device_dummy__": seed,
+            "meta": {"kind": "tcq2", "quantizer_str": qstr, "KV": spec.KV[0],
+                     "decode_mode": ("sum2" if spec.family == "tcq2s"
+                                     else "dualmad"),
+                     "in_features": n, "out_features": m}}
+
+
+def merge_artifacts(arts: list) -> dict:
+    """Row-concat merge of same-scheme tcq2 artifacts (fused qkv / ug):
+    tiles are tile-row-major with a shared in_features, so stacking
+    artifacts stacks output rows.  SU must already be shared."""
+    m0 = arts[0]["meta"]
+    if m0["kind"] != "tcq2":
+        raise NotImplementedError(f"merge of {m0['kind']!r} is not ported")
+    for a in arts[1:]:
+        if (a["meta"]["kind"] != "tcq2"
+                or a["meta"]["in_features"] != m0["in_features"]
+                or a["meta"]["KV"] != m0["KV"]
+                or a["meta"]["decode_mode"] != m0["decode_mode"]):
+            raise ValueError("can only merge the same scheme and in_features")
+        if not np.array_equal(a["SU"], arts[0]["SU"]):
+            raise ValueError("merge needs a shared SU")
+    out = {
+        "meta": dict(m0, out_features=sum(a["meta"]["out_features"]
+                                          for a in arts)),
+        "SU": arts[0]["SU"],
+        "Wscale": np.concatenate([a["Wscale"] for a in arts]),
+    }
+    if all(a.get("__device_dummy__") is not None for a in arts):
+        out["__device_dummy__"] = arts[0]["__device_dummy__"]
+    else:
+        out["trellis"] = np.concatenate([a["trellis"] for a in arts], axis=0)
+    return out
+
+
+def _params_from_artifact(art: dict, device) -> dict:
+    meta = art["meta"]
+    p = {"wscale": torch.as_tensor(art["Wscale"], dtype=torch.float32,
+                                   device=device)}
+    m, n = meta["out_features"], meta["in_features"]
+    shape = ((m // TD) * (n // TD), 4 * meta["KV"])
+    if art.get("__device_dummy__") is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(art["__device_dummy__"]))
+        p["trellis"] = torch.randint(-(1 << 31), 1 << 31, shape,
+                                     generator=gen, dtype=torch.int32,
+                                     device=device)
+    else:
+        words = np.asarray(art["trellis"], dtype=np.uint32)
+        if words.shape != shape:
+            raise ValueError(f"trellis {words.shape} != {shape}")
+        p["trellis"] = words_to_torch(words, device)
+    return p
+
+
+def _get_dummy_artifact(cfg, layer, key, qstr, seed):
+    # crc32, not hash(): stable across processes
+    dseed = zlib.crc32(f"{layer}_{key}".encode()) % (1 << 31)
+    art = dummy_artifact(qstr, proj_shape(cfg, key), seed=dseed)
+    art["SU"] = su_for(cfg, layer, key, seed)
+    return art
+
+
+def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
+                          dummy: bool = True, impl: str = "a8",
+                          num_layers: Optional[int] = None,
+                          lm_head_bits: int = 16, seed: int = 0,
+                          device="cpu"):
+    """Assemble (ModelSpec, params) with random (dummy) packed weights.
+
+    qdict: quantizer_str, or {f"{i}_{key}": qstr | (qstr, impl_choice)}
+    where impl_choice "0" is the default ``impl`` and "pallas"/"pallas_a8"
+    name an impl explicitly.  merge_info: per-layer lists such as
+    ["merge_qkv", "merge_ug"].  lm_head_bits: 16 (bf16) or 4 (tcq2s_8,
+    always impl a8 as in the reference)."""
+    if not dummy:
+        raise NotImplementedError("loading quantized artifacts is not "
+                                  "ported; use dummy=True")
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if lm_head_bits not in (4, 16):
+        raise NotImplementedError(f"lm_head_bits={lm_head_bits}")
+    device = torch.device(device)
+    nl = num_layers if num_layers is not None else cfg.num_layers
+    dtype = cfg.dtype
+    rng = np.random.default_rng(seed)
+
+    def qstr_for(i, key):
+        if isinstance(qdict, str):
+            return qdict, impl
+        v = qdict[f"{i}_{key}"]
+        if not isinstance(v, (tuple, list)):
+            return v, impl
+        qs, choice = v
+        if choice in _IMPL_NAMES:
+            return qs, _IMPL_NAMES[choice]
+        if choice in ("0", 0, False, "False"):
+            return qs, impl
+        raise NotImplementedError(f"impl choice {choice!r} for {i}_{key}: "
+                                  f"the dequant path is not ported")
+
+    def bf16(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=device).to(dtype)
+
+    layers_params, layer_specs = [], []
+    for i in range(nl):
+        mi = merge_info[i] if merge_info is not None else []
+        unknown = set(mi) - {"merge_qkv", "merge_ug"}
+        if unknown:
+            raise NotImplementedError(f"merges {sorted(unknown)}")
+        arts, impls = {}, {}
+        for key in LAYER_KEYS:
+            qs, impls[key] = qstr_for(i, key)
+            arts[key] = _get_dummy_artifact(cfg, i, key, qs, seed)
+
+        def group_impl(*keys):
+            ims = {impls[k] for k in keys}
+            if len(ims) != 1:
+                raise ValueError(f"merged projections need one impl, got "
+                                 f"{ims} for {keys}")
+            return ims.pop()
+
+        KQ, KK, KV_, KO = LAYER_KEYS[:4]
+        KG, KU, KD = LAYER_KEYS[4:]
+        lp = {"su_qkv": bf16(arts[KQ]["SU"]), "su_o": bf16(arts[KO]["SU"]),
+              "su_ug": bf16(arts[KU]["SU"]), "su_dp": bf16(arts[KD]["SU"])}
+        if "merge_qkv" in mi:
+            m = merge_artifacts([arts[KQ], arts[KK], arts[KV_]])
+            im = group_impl(KQ, KK, KV_)
+            attn_projs = [("qkv", _spec_from_meta(m["meta"], im))]
+            lp["qkv"] = _params_from_artifact(m, device)
+            merge_attn = "qkv"
+        else:
+            attn_projs = []
+            for nm, kk in (("q", KQ), ("k", KK), ("v", KV_)):
+                attn_projs.append((nm, _spec_from_meta(arts[kk]["meta"],
+                                                       impls[kk])))
+                lp[nm] = _params_from_artifact(arts[kk], device)
+            merge_attn = None
+        attn_projs.append(("o", _spec_from_meta(arts[KO]["meta"], impls[KO])))
+        lp["o"] = _params_from_artifact(arts[KO], device)
+        d_spec = ("down", _spec_from_meta(arts[KD]["meta"], impls[KD]))
+        if "merge_ug" in mi:
+            m = merge_artifacts([arts[KU], arts[KG]])
+            mlp_projs = (("ug", _spec_from_meta(m["meta"],
+                                                group_impl(KU, KG))), d_spec)
+            lp["ug"] = _params_from_artifact(m, device)
+        else:
+            mlp_projs = (("up", _spec_from_meta(arts[KU]["meta"], impls[KU])),
+                         ("gate", _spec_from_meta(arts[KG]["meta"],
+                                                  impls[KG])), d_spec)
+            lp["up"] = _params_from_artifact(arts[KU], device)
+            lp["gate"] = _params_from_artifact(arts[KG], device)
+        lp["down"] = _params_from_artifact(arts[KD], device)
+        lp["ln_attn"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
+        lp["ln_mlp"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
+        layers_params.append(lp)
+        layer_specs.append((AttnSpec(merge_attn, tuple(attn_projs)),
+                            MLPSpec("merge_ug" in mi, mlp_projs)))
+
+    cfg_nl = cfg if nl == cfg.num_layers else \
+        LlamaConfig(**{**cfg.__dict__, "num_layers": nl})
+    params = {"layers": layers_params}
+    # the same numpy draws as the reference, so dummy embeddings agree
+    scale = 0.02
+    params["embed"] = bf16(
+        rng.standard_normal((cfg.vocab_size, cfg.hidden_size)) * scale)
+    params["ln_f"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
+    lm_spec = None
+    if lm_head_bits == 16:
+        params["lm_head"] = (params["embed"] if cfg.tie_embeddings else
+                             bf16(rng.standard_normal(
+                                 (cfg.vocab_size, cfg.hidden_size)) * scale))
+    else:
+        h = cfg.hidden_size
+        VP = -(-cfg.vocab_size // 4096) * 4096  # 128256 -> 131072
+        su = ((np.random.default_rng(seed * 7 + 99).standard_normal(h) > 0)
+              * 2.0 - 1.0).astype(np.float32)
+        art = dummy_artifact(LM_HEAD_QSTR, (VP, h), seed=seed * 11 + 5)
+        art["SU"] = su
+        lm_spec = _spec_from_meta(art["meta"], "a8")
+        params["lm_head_q4"] = _params_from_artifact(art, device)
+        params["lm_head_su"] = torch.as_tensor(su, device=device)
+    return ModelSpec(cfg_nl, tuple(layer_specs), lm_head_spec=lm_spec), params
