@@ -6,7 +6,12 @@ imports jax) and the port's ModelSpec of the same model, and returns the
 port's params dict on ``device``.  Canonical ``trellis`` words are taken
 as they are; the even-KV planar ``trellis_pl`` (the reference's
 quantized lm_head, and every tcq2 projection under its pallas impls) is
-inverted to canonical words.  Any other layout raises.
+inverted to canonical words.  tcq / tcomb projections come as canonical
+``trellis`` / ``trellis1`` + ``trellis2`` (the reference's impl ``xla``)
+or as the kernel layouts ``trellis_kt`` / ``trellisc_kt`` plus ``clut``
+(its ``pallas`` impls), inverted to canonical words; their tables must
+be the committed ones (``luts`` entries ``tcq{S}``, ``clut``), which the
+port holds once per S.  Any other layout raises.
 """
 
 from __future__ import annotations
@@ -14,8 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qpalette_tpu_torch.kernels.formats import tcq2_planar_to_canonical
+from qpalette_tpu_torch.kernels.formats import (tcomb_kernel_to_canonical,
+                                                tcq2_planar_to_canonical,
+                                                tcq_kernel_to_canonical)
+from qpalette_tpu_torch.ops.codebooks import trellis_lut, trellis_tlut
 from qpalette_tpu_torch.ops.packing import words_to_torch
+from qpalette_tpu_torch.runtime.loader import tlut_tensors, trellis_shapes
 from qpalette_tpu_torch.runtime.qlinear import LinearSpec
 
 _LAYER_TENSORS = ("su_qkv", "su_o", "su_ug", "su_dp", "ln_attn", "ln_mlp")
@@ -30,24 +39,66 @@ def _f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
-def _proj(p: dict, ls: LinearSpec, device) -> dict:
-    if ls.kind != "tcq2":
+def _u32(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.uint32)
+
+
+def _canonical_words(p: dict, ls: LinearSpec) -> dict:
+    """The projection's trellis words in the canonical layout."""
+    m, k = ls.out_features, ls.in_features
+    layouts = {"tcq2": ({"trellis"}, {"trellis_pl"}),
+               "tcq": ({"trellis"}, {"trellis_kt", "clut"}),
+               "tcomb": ({"trellis1", "trellis2"}, {"trellisc_kt", "clut"})}
+    if ls.kind not in layouts:
         raise NotImplementedError(f"kind {ls.kind!r}")
-    m, k, KV = ls.out_features, ls.in_features, ls.KV[0]
-    extra = set(p) - {"wscale", "trellis", "trellis_pl"}
-    if extra or ("trellis" in p) == ("trellis_pl" in p):
+    keys = set(p) - {"wscale"}
+    canonical, kernel = layouts[ls.kind]
+    if keys == canonical:
+        return {name: _u32(p[name]) for name in canonical}
+    if keys != kernel:
         raise ValueError(f"unsupported projection layout {sorted(p)}")
-    if "trellis" in p:
-        words = np.asarray(p["trellis"], dtype=np.uint32)
-    else:
-        words = tcq2_planar_to_canonical(np.asarray(p["trellis_pl"],
-                                                    dtype=np.uint32), m, k, KV)
-    if words.shape != ((m // 16) * (k // 16), 4 * KV):
-        raise ValueError(f"trellis {words.shape} does not fit {ls}")
-    wscale = _f32(p["wscale"], device)
-    if wscale.shape != (m,):
-        raise ValueError(f"wscale {tuple(wscale.shape)} != ({m},)")
-    return {"trellis": words_to_torch(words, device), "wscale": wscale}
+    if ls.kind == "tcq2":
+        return {"trellis": tcq2_planar_to_canonical(_u32(p["trellis_pl"]),
+                                                    m, k, ls.KV[0])}
+    if not np.array_equal(np.asarray(p["clut"], np.float32),
+                          trellis_tlut(ls.tlut_bits)):
+        raise ValueError("the projection's table is not the committed "
+                         f"tcq_tlut_{ls.tlut_bits}")
+    if ls.kind == "tcq":
+        return {"trellis": tcq_kernel_to_canonical(_u32(p["trellis_kt"]), m,
+                                                   k, ls.KV[0])}
+    t1, t2 = tcomb_kernel_to_canonical(_u32(p["trellisc_kt"]), m,
+                                       *ls.split, *ls.KV)
+    return {"trellis1": t1, "trellis2": t2}
+
+
+def _proj(p: dict, ls: LinearSpec, device) -> dict:
+    m = ls.out_features
+    shapes = trellis_shapes(ls)
+    out = {}
+    for name, words in _canonical_words(p, ls).items():
+        if words.shape != shapes[name]:
+            raise ValueError(f"{name} {words.shape} does not fit {ls}")
+        out[name] = words_to_torch(words, device)
+    out["wscale"] = _f32(p["wscale"], device)
+    if out["wscale"].shape != (m,):
+        raise ValueError(f"wscale {tuple(out['wscale'].shape)} != ({m},)")
+    return out
+
+
+def _check_luts(luts: dict):
+    """The reference's shared tables: ``mad_sum2`` (not read: the port
+    decodes sum2 arithmetically) and ``tcq{S}``, its bf16 (2^16, 2)
+    expansion of the committed table, which must agree with the port's."""
+    for key, lut in luts.items():
+        if key == "mad_sum2":
+            continue
+        if not (key.startswith("tcq") and key[3:].isdigit()):
+            raise ValueError(f"unsupported luts entry {key!r}")
+        want = trellis_lut(int(key[3:])).to(torch.bfloat16).float().numpy()
+        if not np.array_equal(np.asarray(lut, np.float32), want):
+            raise ValueError(f"luts[{key!r}] is not the expansion of the "
+                             f"committed table")
 
 
 def params_from_jax(np_params: dict, spec, device="cpu") -> dict:
@@ -58,8 +109,7 @@ def params_from_jax(np_params: dict, spec, device="cpu") -> dict:
                             "lm_head_q4", "lm_head_su"}
     if top:
         raise ValueError(f"unsupported params {sorted(top)}")
-    if set(np_params.get("luts", {})) - {"mad_sum2"}:
-        raise ValueError(f"unsupported luts {sorted(np_params['luts'])}")
+    _check_luts(np_params.get("luts", {}))
     layers = []
     for (aspec, mspec), lp in zip(spec.layers, np_params["layers"],
                                   strict=True):
@@ -71,7 +121,8 @@ def params_from_jax(np_params: dict, spec, device="cpu") -> dict:
         for name, ls in projs.items():
             out[name] = _proj(lp[name], ls, device)
         layers.append(out)
-    params = {"layers": layers, "embed": _bf16(np_params["embed"], device),
+    params = {"layers": layers, "luts": tlut_tensors(spec, device),
+              "embed": _bf16(np_params["embed"], device),
               "ln_f": _bf16(np_params["ln_f"], device)}
     if spec.lm_head_spec is not None:
         params["lm_head_q4"] = _proj(np_params["lm_head_q4"],

@@ -1,0 +1,65 @@
+"""Build and load the port's CUDA sources: nvcc -> shared library with a
+plain C interface -> ctypes.
+
+Each ``csrc/<name>.cu`` compiles into ``qpalette_tpu_torch/_build/
+lib<name>.so`` at first use, and again whenever the source is newer than
+the library.  A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "_build"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    return BUILD / f"lib{name}.so"
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` for sm_90a and return nvcc's output
+    (``-Xptxas -v``: registers, shared memory, spills)."""
+    BUILD.mkdir(exist_ok=True)
+    lib = lib_path(name)
+    tmp = BUILD / f".{lib.name}.{os.getpid()}"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)
+    return res.stdout + res.stderr
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build if missing or stale, load, and set each C function's
+    argtypes (``signatures``: function name -> list of ctypes types);
+    every function returns an int (a cudaError_t)."""
+    lib_file = lib_path(name)
+    src = CSRC / f"{name}.cu"
+    if not lib_file.exists() or lib_file.stat().st_mtime < src.stat().st_mtime:
+        build(name)
+    lib = ctypes.CDLL(str(lib_file))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib

@@ -9,20 +9,17 @@ runs the plain version; on a CUDA tensor it launches the kernel or
 raises.
 
 The kernel is compiled with nvcc into ``qpalette_tpu_torch/_build/`` at
-first use and loaded with ctypes.
+first use and loaded with ctypes (``kernels/_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from qpalette_tpu_torch.kernels import _build
 from qpalette_tpu_torch.ops.codebooks import MAD_SCALE, sum2_pairs
 from qpalette_tpu_torch.ops.packing import TD, unpack_trellis
 
@@ -31,49 +28,15 @@ CHUNK = 512  # a8 columns per activation scale (kernel's kChunk)
 MAX_ROWS = 256
 SUPPORTED_KV = (4, 6, 8)
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "tcq2s_gemv.cu"
-_BUILD = _PKG / "_build"
-_LIB = _BUILD / "libtcq2s_gemv.so"
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the tcq2s kernel cannot be built")
-    return path
-
-
-def build() -> str:
-    """Compile the kernel library from the repository's source and return
-    nvcc's output (``-Xptxas -v``: registers, shared memory, spills)."""
-    _BUILD.mkdir(exist_ok=True)
-    tmp = _BUILD / f".{_LIB.name}.{os.getpid()}"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, _LIB)
-    return res.stdout + res.stderr
+SOURCE = "tcq2s_gemv"  # csrc/tcq2s_gemv.cu
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-        build()
-    lib = ctypes.CDLL(str(_LIB))
-    lib.tcq2s_gemv.argtypes = [
+    return _build.load(SOURCE, {"tcq2s_gemv": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.tcq2s_gemv.restype = ctypes.c_int
-    return lib
+        ctypes.c_void_p]})
 
 
 def _check(x, trellis, KV, m, k, out):

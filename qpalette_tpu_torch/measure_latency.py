@@ -4,6 +4,13 @@
   python -m qpalette_tpu_torch.measure_latency --dummy --impl exact \\
       --num_hidden_layers 4 --max_new_tokens 64
 
+The 3.25-bit memory-constrained flagship (tcq 6/8/10 and tcomb 8/9,
+unmerged, bf16 lm_head):
+
+  python -m qpalette_tpu_torch.measure_latency --dummy --impl exact \
+      --qdict_path msq_results/3_8b/mem_constrained/default/3.25bit.json \
+      --merge_info_path "" --lm_head_bits 16
+
 Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
 with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Reports
 tokens/s and achieved GB/s (streamed bytes x tokens/s) beside the device

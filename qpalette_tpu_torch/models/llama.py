@@ -134,7 +134,7 @@ def _attention(q, k, v, offset: int, cfg: LlamaConfig):
 
 
 def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
-                 cos, sin, kv_cache=None, cache_pos: int = 0):
+                 cos, sin, kv_cache=None, cache_pos: int = 0, luts=None):
     """x (B, S, hidden) -> (out, (k, v)).  With kv_cache, k/v are written
     into the caches in place at cache_pos (the reference's
     dynamic_update_slice) and attention runs over the whole cache."""
@@ -145,11 +145,13 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     kv = cfg.kv_out
     if spec.merge == "qkv":
         (name, lspec), = non_o
-        y = qlinear_apply(lspec, p[name], xs, pre_rot=p["su_qkv"])
+        y = qlinear_apply(lspec, p[name], xs, pre_rot=p["su_qkv"],
+                          luts=luts)
         q, k, v = torch.split(y, [hs, kv, kv], dim=-1)
     elif spec.merge is None:
         z = _rotate_in(xs, p["su_qkv"])
-        q, k, v = (qlinear_apply(ls, p[nm], z) for nm, ls in non_o)
+        q, k, v = (qlinear_apply(ls, p[nm], z, luts=luts)
+                   for nm, ls in non_o)
     else:
         raise NotImplementedError(f"attention merge {spec.merge!r}")
     q = apply_rope(q.reshape(B, S, cfg.num_heads, cfg.head_dim), cos, sin)
@@ -167,25 +169,28 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     if oname != "o":
         raise ValueError(f"last attention projection is {oname!r}")
     out = qlinear_apply(ospec, p["o"], att.reshape(B * S, -1),
-                        pre_rot=p["su_o"])
+                        pre_rot=p["su_o"], luts=luts)
     return out.reshape(B, S, N), new_kv
 
 
-def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor):
+def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
+                luts=None):
     B, S, N = x.shape
     I = cfg.intermediate_size
     xs = x.reshape(-1, N)
     if spec.merge_ug:
         (ug_name, ug_spec), (_, d_spec) = spec.projs
-        y = qlinear_apply(ug_spec, p[ug_name], xs, pre_rot=p["su_ug"])
+        y = qlinear_apply(ug_spec, p[ug_name], xs, pre_rot=p["su_ug"],
+                          luts=luts)
         up, gate = y[:, :I], y[:, I:]
     else:
         z = _rotate_in(xs, p["su_ug"])
         (_, u_spec), (_, g_spec), (_, d_spec) = spec.projs
-        up = qlinear_apply(u_spec, p["up"], z)
-        gate = qlinear_apply(g_spec, p["gate"], z)
+        up = qlinear_apply(u_spec, p["up"], z, luts=luts)
+        gate = qlinear_apply(g_spec, p["gate"], z, luts=luts)
     h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
-    out = qlinear_apply(d_spec, p["down"], h, pre_rot=p["su_dp"])
+    out = qlinear_apply(d_spec, p["down"], h, pre_rot=p["su_dp"],
+                        luts=luts)
     return out.reshape(B, S, N)
 
 
@@ -200,16 +205,18 @@ def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
     offset = cache_pos if kv_caches is not None else 0
     pos = torch.arange(S, device=tokens.device)[None, :] + offset
     cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    luts = params.get("luts")
     new_caches = []
     for li, (aspec, mspec) in enumerate(spec.layers):
         lp = params["layers"][li]
         h = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
         a, kv = attn_forward(aspec, cfg, lp, h, cos, sin,
                              kv_cache=None if kv_caches is None
-                             else kv_caches[li], cache_pos=offset)
+                             else kv_caches[li], cache_pos=offset,
+                             luts=luts)
         x = x + a
         h = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-        x = x + mlp_forward(mspec, cfg, lp, h)
+        x = x + mlp_forward(mspec, cfg, lp, h, luts=luts)
         new_caches.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
     if spec.lm_head_spec is not None:

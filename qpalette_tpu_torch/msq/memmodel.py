@@ -8,15 +8,12 @@ the SU sign vectors of the four rotation groups).
 from __future__ import annotations
 
 from qpalette_tpu_torch.models.llama import LlamaConfig
+from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv
 from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
 from qpalette_tpu_torch.runtime.loader import LAYER_KEYS, proj_shape
 
 SU_KEYS = ["self_attn.q_proj", "self_attn.o_proj", "mlp.up_proj",
            "mlp.down_proj"]  # one SU per rotation group
-
-
-def _tlut_bits_for_kv(kv: int) -> int:
-    return 9 if kv <= 8 else kv + 1
 
 
 def layer_mem_bytes(cfg: LlamaConfig, key: str, quantizer_str: str) -> float:
@@ -32,10 +29,10 @@ def layer_mem_bytes(cfg: LlamaConfig, key: str, quantizer_str: str) -> float:
         return m * n * s.KV[0] / 2 / 8
     if s.family == "tcq":
         return (m * n * s.KV[0] / 2 / 8
-                + (1 << _tlut_bits_for_kv(s.KV[0])) * 2 * 2)
+                + (1 << tlut_bits_for_kv(s.KV[0])) * 2 * 2)
     if s.family in ("tcomb", "comb"):
         return (m * n * (s.KV[0] + s.KV[1]) / 4 / 8
-                + (1 << _tlut_bits_for_kv(max(s.KV))) * 2 * 2)
+                + (1 << tlut_bits_for_kv(max(s.KV))) * 2 * 2)
     raise ValueError(s.family)
 
 

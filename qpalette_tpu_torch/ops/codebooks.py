@@ -1,7 +1,8 @@
-"""Arithmetic (gather-free) trellis decoders.
+"""Trellis decoders: arithmetic (gather-free) and LUT (quantlut_sym).
 
 Counterpart of ``qpalette_tpu/ops/codebooks.py`` (the MAD constants,
-``decode_sum2`` and ``trellis_lut_arith("sum2")``).  The 32-bit modular
+``decode_sum2``, ``trellis_lut_arith("sum2")``, ``tlut_bits_for_kv``,
+``trellis_tlut`` from the committed tables and ``trellis_lut``).  The 32-bit modular
 arithmetic runs in int64 and is masked with ``& 0xFFFFFFFF``: torch's
 uint32 support is partial.
 """
@@ -9,7 +10,9 @@ uint32 support is partial.
 from __future__ import annotations
 
 import functools
+from pathlib import Path
 
+import numpy as np
 import torch
 
 L = 16
@@ -54,3 +57,52 @@ def trellis_lut_arith(mode: str) -> torch.Tensor:
     if mode != "sum2":
         raise NotImplementedError(f"decode mode {mode!r} is not ported")
     return decode_sum2(torch.arange(1 << L, dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# LUT trellis (quantlut_sym): a 2^S x 2 table expanded to 2^16 states
+# ---------------------------------------------------------------------------
+
+_ASSET_DIR = Path(__file__).resolve().parents[2] / "assets" / "lut_cache"
+
+
+def tlut_bits_for_kv(kv: int) -> int:
+    """Table bits S of a KV: KV <= 8 -> 9, else KV + 1."""
+    return 9 if kv <= 8 else kv + 1
+
+
+@functools.lru_cache(maxsize=None)
+def trellis_tlut(tlut_bits: int) -> np.ndarray:
+    """The committed (2^S, 2) float32 k-means table
+    ``assets/lut_cache/tcq_tlut_{S}.npy``.  The port runs no k-means:
+    a missing table raises."""
+    path = _ASSET_DIR / f"tcq_tlut_{tlut_bits}.npy"
+    if not path.exists():
+        raise FileNotFoundError(f"{path}: the trellis table for S="
+                                f"{tlut_bits} is not committed")
+    tlut = np.load(path).astype(np.float32)
+    if tlut.shape != (1 << tlut_bits, 2):
+        raise ValueError(f"{path}: shape {tlut.shape}")
+    tlut.setflags(write=False)
+    return tlut
+
+
+def expand_tlut(tlut: torch.Tensor) -> torch.Tensor:
+    """(2^S, 2) table -> (2^16, 2) state values in tlut's dtype (the
+    quantlut_sym expansion): h = u*(u+1) mod 2^32 for state u, bits
+    [15-S, 15) of h index the table, bit 15 flips the sign of
+    component 0."""
+    S = tlut.shape[0].bit_length() - 1
+    u = torch.arange(1 << L, dtype=torch.int64, device=tlut.device)
+    h = (u * (u + 1)) & _M32
+    lut = tlut[(h >> (15 - S)) & ((1 << S) - 1)].clone()
+    flip = ((h >> 15) & 1).bool()
+    lut[:, 0] = torch.where(flip, -lut[:, 0], lut[:, 0])
+    return lut
+
+
+@functools.lru_cache(maxsize=None)
+def trellis_lut(tlut_bits: int) -> torch.Tensor:
+    """The full (2^16, 2) float32 quantlut_sym table of the committed
+    tlut."""
+    return expand_tlut(torch.from_numpy(trellis_tlut(tlut_bits).copy()))

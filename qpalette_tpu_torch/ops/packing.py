@@ -1,7 +1,7 @@
 """Canonical trellis format and its executable-spec decoder.
 
 Counterpart of ``qpalette_tpu/ops/packing.py`` (``unpack_trellis``,
-``tiles_to_mat``, ``dequant_tcq2``).  The canonical ``trellis`` is
+``tiles_to_mat``, ``dequant_tcq`` for V=2, ``dequant_tcq2``).  The canonical ``trellis`` is
 (T, 4*KV) 32-bit words, T = (m/16)*(k/16) tiles in tile-row-major order.
 Each tile is one tail-biting trellis of 128 states; state i is the 16-bit
 window at bit KV*i of the tile's *circular* 128*KV-bit stream (word
@@ -59,4 +59,15 @@ def dequant_tcq2(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
     vals = lut[states]  # (T, 128, 2)
     tiles = vals.reshape(-1, TD // 2, TD, 2)  # (T, t, row, c)
     tiles = tiles.permute(0, 2, 1, 3).reshape(-1, TD, TD)
+    return tiles_to_mat(tiles, m, k)
+
+
+def dequant_tcq(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
+                KV: int) -> torch.Tensor:
+    """V=2 trellis in M-MAJOR order -> weights (m, k) in lut's dtype:
+    state s = 8*row + t covers (row, 2t) and (row, 2t+1) of its 16x16
+    tile.  (Not dequant_tcq2's paired-K-major order.)  lut is the full
+    (2^16, 2) state table."""
+    states = unpack_trellis(packed, KV, 2)  # (T, 128)
+    tiles = lut[states].reshape(-1, TD, TD)  # (T, row, col)
     return tiles_to_mat(tiles, m, k)

@@ -1,15 +1,18 @@
 """Model assembly: qdict + merge_info -> (ModelSpec, params).
 
-Counterpart of ``qpalette_tpu/runtime/loader.py`` for the tcq2s path,
-keeping its seeds (``su_for``, the lm_head SU ``seed*7+99`` and dummy
-artifact ``seed*11+5``), its merge semantics and the 4096-multiple
-vocab pad of the quantized lm_head.  Projections keep the canonical
-``trellis`` words; the port defines no kernel-side layout yet.  Dummy
-packed words come from a ``torch.Generator`` on the target device.
+Counterpart of ``qpalette_tpu/runtime/loader.py`` for the tcq2s, tcq and
+tcomb kinds, keeping its seeds (``su_for``, the lm_head SU ``seed*7+99``
+and dummy artifact ``seed*11+5``), its merge semantics (qkv / ug merges
+of tcq2 only) and the 4096-multiple vocab pad of the quantized lm_head.
+Projections keep the canonical ``trellis`` (tcomb: ``trellis1`` /
+``trellis2``) words; the port defines no kernel-side layout yet.  The
+(2^S, 2) tables of tcq / tcomb are held once per S in ``params["luts"]``.
+Dummy packed words come from a ``torch.Generator`` on the target device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from typing import Optional
 
@@ -18,6 +21,7 @@ import torch
 
 from qpalette_tpu_torch.models.llama import (AttnSpec, LlamaConfig, MLPSpec,
                                              ModelSpec)
+from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
 from qpalette_tpu_torch.ops.packing import TD, words_to_torch
 from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
 from qpalette_tpu_torch.runtime.qlinear import IMPLS, LinearSpec
@@ -76,6 +80,13 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
                 f"tcq2 mode {meta['decode_mode']!r} KV={meta['KV']}: only "
                 f"sum2 with even KV is ported")
         return LinearSpec("tcq2", KV=(meta["KV"],), mode="sum2", **common)
+    if kind == "tcq":
+        return LinearSpec("tcq", KV=(meta["KV"],),
+                          tlut_bits=meta["tlut_bits"], **common)
+    if kind == "tcomb":
+        return LinearSpec("tcomb", KV=(meta["KV1"], meta["KV2"]),
+                          tlut_bits=meta["tlut_bits"],
+                          split=tuple(meta["in_part"]), **common)
     raise NotImplementedError(f"scheme kind {kind!r} is not ported")
 
 
@@ -84,16 +95,25 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
     in _params_from_artifact (``__device_dummy__`` holds their seed)."""
     m, n = shape
     spec = parse_quantizer_str(qstr)
-    if spec.family not in ("tcq2", "tcq2s"):
+    dims = {"quantizer_str": qstr, "in_features": n, "out_features": m}
+    if spec.family in ("tcq2", "tcq2s"):
+        meta = {"kind": "tcq2", "KV": spec.KV[0],
+                "decode_mode": ("sum2" if spec.family == "tcq2s"
+                                else "dualmad"), **dims}
+    elif spec.family == "tcq":
+        meta = {"kind": "tcq", "KV": spec.KV[0],
+                "tlut_bits": tlut_bits_for_kv(spec.KV[0]), **dims}
+    elif spec.family == "tcomb":
+        KV1, KV2 = spec.KV
+        meta = {"kind": "tcomb", "KV1": KV1, "KV2": KV2,
+                "tlut_bits": tlut_bits_for_kv(max(KV1, KV2)),
+                "in_part": (n // 2, n // 2), **dims}
+    else:
         raise NotImplementedError(f"dummy {spec.family!r} is not ported")
     rng = np.random.default_rng(seed)
     return {"SU": (rng.standard_normal(n) > 0).astype(np.float32) * 2 - 1,
             "Wscale": np.full((m,), 0.02, np.float32),
-            "__device_dummy__": seed,
-            "meta": {"kind": "tcq2", "quantizer_str": qstr, "KV": spec.KV[0],
-                     "decode_mode": ("sum2" if spec.family == "tcq2s"
-                                     else "dualmad"),
-                     "in_features": n, "out_features": m}}
+            "__device_dummy__": seed, "meta": meta}
 
 
 def merge_artifacts(arts: list) -> dict:
@@ -124,24 +144,44 @@ def merge_artifacts(arts: list) -> dict:
     return out
 
 
+def trellis_shapes(ls: LinearSpec) -> dict:
+    """Canonical word arrays of a tcq2 / tcq / tcomb projection:
+    name -> ((m/16)*(n_i/16), 4*KV_i)."""
+    m, n = ls.out_features, ls.in_features
+    if ls.kind == "tcomb":
+        n1, n2 = ls.split
+        return {"trellis1": ((m // TD) * (n1 // TD), 4 * ls.KV[0]),
+                "trellis2": ((m // TD) * (n2 // TD), 4 * ls.KV[1])}
+    return {"trellis": ((m // TD) * (n // TD), 4 * ls.KV[0])}
+
+
 def _params_from_artifact(art: dict, device) -> dict:
-    meta = art["meta"]
     p = {"wscale": torch.as_tensor(art["Wscale"], dtype=torch.float32,
                                    device=device)}
-    m, n = meta["out_features"], meta["in_features"]
-    shape = ((m // TD) * (n // TD), 4 * meta["KV"])
+    shapes = trellis_shapes(_spec_from_meta(art["meta"], "exact"))
     if art.get("__device_dummy__") is not None:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(art["__device_dummy__"]))
-        p["trellis"] = torch.randint(-(1 << 31), 1 << 31, shape,
-                                     generator=gen, dtype=torch.int32,
-                                     device=device)
-    else:
-        words = np.asarray(art["trellis"], dtype=np.uint32)
+        for name, shape in shapes.items():
+            p[name] = torch.randint(-(1 << 31), 1 << 31, shape,
+                                    generator=gen, dtype=torch.int32,
+                                    device=device)
+        return p
+    for name, shape in shapes.items():
+        words = np.asarray(art[name], dtype=np.uint32)
         if words.shape != shape:
-            raise ValueError(f"trellis {words.shape} != {shape}")
-        p["trellis"] = words_to_torch(words, device)
+            raise ValueError(f"{name} {words.shape} != {shape}")
+        p[name] = words_to_torch(words, device)
     return p
+
+
+def tlut_tensors(spec, device) -> dict:
+    """One (2^S, 2) float32 table per tlut_bits that the model's tcq /
+    tcomb projections use, shared by all of them: {"tcq{S}": table}."""
+    bits = {ls.tlut_bits for a, m in spec.layers
+            for _, ls in a.projs + m.projs if ls.kind in ("tcq", "tcomb")}
+    return {f"tcq{S}": torch.tensor(trellis_tlut(S), device=device)
+            for S in sorted(bits)}
 
 
 def _get_dummy_artifact(cfg, layer, key, qstr, seed):
@@ -252,7 +292,8 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
 
     cfg_nl = cfg if nl == cfg.num_layers else \
         LlamaConfig(**{**cfg.__dict__, "num_layers": nl})
-    params = {"layers": layers_params}
+    spec = ModelSpec(cfg_nl, tuple(layer_specs))
+    params = {"layers": layers_params, "luts": tlut_tensors(spec, device)}
     # the same numpy draws as the reference, so dummy embeddings agree
     scale = 0.02
     params["embed"] = bf16(
@@ -273,4 +314,4 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         lm_spec = _spec_from_meta(art["meta"], "a8")
         params["lm_head_q4"] = _params_from_artifact(art, device)
         params["lm_head_su"] = torch.as_tensor(su, device=device)
-    return ModelSpec(cfg_nl, tuple(layer_specs), lm_head_spec=lm_spec), params
+    return dataclasses.replace(spec, lm_head_spec=lm_spec), params

@@ -1,10 +1,13 @@
 """Quantized-linear dispatch.
 
 Counterpart of ``qpalette_tpu/runtime/qlinear.py`` for the kinds the port
-runs: ``dense``, ``dense_rot`` and ``tcq2`` in mode ``sum2`` (tcq2s).
-Impl names: ``exact`` (the reference's ``pallas``: bf16 activations,
-exact decode) and ``a8`` (``pallas_a8``: int8 activations quantized
-inside the kernel).
+runs: ``dense``, ``dense_rot``, ``tcq2`` in mode ``sum2`` (tcq2s), and the
+LUT trellis kinds ``tcq`` and input-split ``tcomb``.  Impl names:
+``exact`` (the reference's ``pallas``: bf16 activations, exact decode)
+and ``a8`` (``pallas_a8``: int8 activations quantized inside the kernel;
+for tcq/tcomb the reference runs the same bf16 kernels, and so does the
+port).  The LUT kinds read their (2^S, 2) table from the model's shared
+``luts`` dict, one entry per ``tlut_bits``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
+from qpalette_tpu_torch.kernels import tcq_lut
 from qpalette_tpu_torch.kernels.tcq2s import MAX_ROWS, tcq2s_decode_gemv
 from qpalette_tpu_torch.ops.hadamard import get_had_factors, hadamard_transform_t
 
@@ -22,12 +26,17 @@ FUSE_ROT_ROWS = 8  # rows up to which the rotation output stays float32
 
 @dataclass(frozen=True)
 class LinearSpec:
-    kind: str                 # dense | dense_rot | tcq2
+    kind: str                 # dense | dense_rot | tcq2 | tcq | tcomb
     in_features: int
     out_features: int
-    KV: tuple = ()            # (KV,)
+    KV: tuple = ()            # (KV,) or (KV1, KV2)
+    tlut_bits: int = 0        # tcq / tcomb table bits S
+    split: tuple = ()         # tcomb in_part (n1, n2)
     mode: str = ""            # tcq2 decode mode (sum2)
     impl: str = "exact"       # exact | a8
+
+    def tcq_lut_key(self) -> str:
+        return f"tcq{self.tlut_bits}"
 
 
 def can_fuse_rot(spec: LinearSpec, rows: int) -> bool:
@@ -42,14 +51,43 @@ def can_fuse_rot(spec: LinearSpec, rows: int) -> bool:
     return len(get_had_factors(spec.in_features)) <= 2
 
 
+def _lut_matmul(spec: LinearSpec, p: dict, x: torch.Tensor,
+                tlut: torch.Tensor) -> torch.Tensor:
+    """tcq / tcomb: x (rows, n) bf16 -> (rows, m) float32 without Wscale.
+    Up to 8 rows through the GEMV kernels, more through the dequant
+    kernels and a product."""
+    m, n = spec.out_features, spec.in_features
+    small = x.shape[0] <= tcq_lut.MAX_ROWS
+    if spec.kind == "tcq":
+        KV = spec.KV[0]
+        if small:
+            return tcq_lut.tcq_lut_gemv(x, p["trellis"], tlut, KV, m, n)
+        w = tcq_lut.tcq_lut_dequant(p["trellis"], tlut, KV, m, n)
+    else:
+        if spec.split != (n // 2, n // 2):
+            raise NotImplementedError(f"tcomb split {spec.split}: only "
+                                      f"equal halves are ported")
+        KV1, KV2 = spec.KV
+        if small:
+            return tcq_lut.tcomb_lut_gemv(x, p["trellis1"], p["trellis2"],
+                                          tlut, KV1, KV2, m, n)
+        w = tcq_lut.tcomb_lut_dequant(p["trellis1"], p["trellis2"], tlut,
+                                      KV1, KV2, m, n)
+    # the reference's dot of bf16 operands into float32 (fused._dot_v16):
+    # bf16 products are exact in float32, so with TF32 off (PyTorch's
+    # default) this differs from it only in the order of the f32 sums
+    return x.float() @ w.float().T
+
+
 def qlinear_apply(spec: LinearSpec, p: dict, z: torch.Tensor, pre_rot=None,
-                  out_dtype=None) -> torch.Tensor:
+                  out_dtype=None, luts=None) -> torch.Tensor:
     """z (rows, in_features) -> (rows, out_features), Wscale applied in f32.
 
     pre_rot=su: z is UN-rotated; the rotation (z * su) @ H^T is applied
     here, in float32 and kept float32 where the reference fuses it
     (can_fuse_rot), else cast back to z's dtype.  out_dtype overrides the
-    output dtype (default z's dtype)."""
+    output dtype (default z's dtype).  luts: the model's tables
+    ({"tcq{S}": (2^S, 2) float32}), read by tcq / tcomb."""
     odt = out_dtype or z.dtype
     rows = z.shape[0]
     fused = pre_rot is not None and can_fuse_rot(spec, rows)
@@ -62,10 +100,14 @@ def qlinear_apply(spec: LinearSpec, p: dict, z: torch.Tensor, pre_rot=None,
     if spec.kind == "dense_rot":
         y = z.float() @ p["w"].float().T
         return (y * p["wscale"].float()[None, :]).to(odt)
-    if spec.kind != "tcq2" or spec.mode != "sum2":
-        raise NotImplementedError(f"kind {spec.kind!r} mode {spec.mode!r}")
     if spec.impl not in IMPLS:
         raise ValueError(f"impl {spec.impl!r} not in {IMPLS}")
+    if spec.kind in ("tcq", "tcomb"):
+        y = _lut_matmul(spec, p, z.to(torch.bfloat16).contiguous(),
+                        luts[spec.tcq_lut_key()])
+        return (y * p["wscale"].float()[None, :]).to(odt)
+    if spec.kind != "tcq2" or spec.mode != "sum2":
+        raise NotImplementedError(f"kind {spec.kind!r} mode {spec.mode!r}")
     a8 = spec.impl == "a8"
     x = (z if fused else z.to(torch.bfloat16)).contiguous()
     m, n, KV = spec.out_features, spec.in_features, spec.KV[0]
