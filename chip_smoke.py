@@ -5,31 +5,43 @@
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
-  2. build both CUDA libraries from qpalette_tpu_torch/csrc, one nvcc each,
-     started together (ptxas -v: registers, shared memory, spills)
-  3. tcq2s kernel against its plain PyTorch version at every Llama-3.1-8B
-     shape of the 215.0thp_cc path (plus KV 4/6/8 at 4096x4096), N in
-     {1,4,16}, exact and a8; kernel and plain times at N=1
-  4. LUT trellis kernels against their plain versions at every shape of
-     the 3.25-bit flagship: tcq/tcomb GEMV (N in {1,4,8}, within 1e-4 of
-     max|y|) and dequant (bit-equal), the dequant + product at N=16;
-     kernel and plain times: GEMV at N=1, dequant alone, and the
-     dequant + product at N=16
-  5. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
+  2. build every CUDA library from qpalette_tpu_torch/csrc, one nvcc each,
+     all started together (ptxas -v: registers, shared memory, spills)
+  3. the arithmetic trellis GEMV (K1) against its plain PyTorch version:
+     sum2 at every Llama-3.1-8B shape of the 215.0thp_cc path (N in
+     {1,4,16}); dualmad, 1mad, 2mad and odd-KV sum2 at every shape of
+     bench.py's tcq2mix scheme plus 4096x4096 and odd k/16 shapes (N in
+     {1,8,256}); exact and a8; kernel and plain times at N=1
+  4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
+     versions at the tcq2mix and 215 shapes; kernel and plain times
+  5. the LUT trellis kernels (K4-K7) against their plain versions at every
+     shape of the 3.25-bit flagship: GEMV (N in {1,4,8}, within 1e-4 of
+     max|y|), dequant (bit-equal), the dequant + product at N=16; times
+  6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
      cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
-     129 tcq2s launches per forward; decode twice for determinism
-  6. the flagship path: the 8B model from the 3.25-bit mem-constrained
+     129 sum2 K1 launches per forward; decode twice for determinism
+  7. the flagship path: the 8B model from the 3.25-bit mem-constrained
      solver output (unmerged tcq 6/8/10 and tcomb 8/9, bf16 lm_head, impl
      exact, dummy weights from seed 0); the 16-token prefill launches 194
      tcq + 30 tcomb dequants, each of 64 decode forwards 194 tcq + 30
      tcomb GEMVs; decode twice for determinism
-  7. 2-layer models with each path's scheme mix on the CPU (plain
-     versions) against the same weights on the card (kernels)
-  8. a JSON line of kernels, the nvidia-smi name/power line, and the final
+  8. Path A: the 8B tcq2mix model (merged qkv tcq2_6 and ug tcq2_7 in mode
+     dualmad, o/down tcq1_3 in mode 1mad, the 4-bit tcq2s_8 lm_head), impl
+     a8 and impl exact; prefill 16 and decode 64, 129 K1 launches per
+     forward (32 dualmad KV6 + 32 dualmad KV7, 64 1mad KV3, 1 sum2);
+     tokens/s and peak memory
+  9. Path B: a 512-token prefill at impl exact on tcq2mix (64 K2 + 64 K3,
+     the head as 2 chunked sum2 K1 launches) and on the 215 config (128 K2
+     sum2 + 2); prefill time and peak memory
+ 10. 2-layer models with each path's scheme mix on the CPU (plain
+     versions) against the same weights on the card (kernels); the tcq2mix
+     one with a 300-token exact prompt (K2/K3) and one decode step
+ 11. a JSON line of kernels, the nvidia-smi name/power line, and the final
      JSON status line
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -51,8 +63,38 @@ EXTRA_KV = [("kv4", 4096, 4096, 4), ("kv8", 4096, 4096, 8)]
 # per decode step: qkv, o, ug, down in each of 32 layers, plus the lm_head
 CALLS_PER_STEP = {"qkv": 32, "o": 32, "ug": 32, "down": 32, "lm_head": 1}
 LAUNCHES_PER_FORWARD = 129
+# bench.py's tcq2mix scheme (3.27 bits/weight): (projection, m, k, mode,
+# KV, calls a forward), then 2mad and odd-KV sum2 at 4096x4096 and odd
+# k/16 shapes (calls 0: checked, not on a path)
+TCQ2MIX = {"self_attn.q_proj": "tcq2_6_none_0.9",
+           "self_attn.k_proj": "tcq2_6_none_0.9",
+           "self_attn.v_proj": "tcq2_6_none_0.9",
+           "self_attn.o_proj": "tcq1_3_none_0.9",
+           "mlp.gate_proj": "tcq2_7_none_0.9",
+           "mlp.up_proj": "tcq2_7_none_0.9",
+           "mlp.down_proj": "tcq1_3_none_0.9"}
+SHAPES_ARITH = [("qkv", 6144, 4096, "dualmad", 6, 32),
+                ("ug", 28672, 4096, "dualmad", 7, 32),
+                ("o", 4096, 4096, "1mad", 3, 32),
+                ("down", 4096, 14336, "1mad", 3, 32),
+                ("2mad3", 4096, 4096, "2mad", 3, 0),
+                ("2mad4", 4096, 4096, "2mad", 4, 0),
+                ("sum2_5", 4096, 4096, "sum2", 5, 0),
+                ("sum2_7", 4096, 4096, "sum2", 7, 0),
+                ("odd_kt", 256, 4112, "1mad", 3, 0),
+                ("odd_kt", 256, 4112, "sum2", 5, 0),
+                ("odd_kt", 256, 4112, "dualmad", 7, 0),
+                ("odd_kt", 256, 4112, "dualmad", 9, 0)]
+PATH_A_STEP = {"tcq2_decode_gemv": 64, "tcq1_decode_gemv": 64,
+               "tcq2s_decode_gemv": 1}
+PATH_A_MIX = {("tcq2", "dualmad", 6): 32, ("tcq2", "dualmad", 7): 32,
+              ("tcq1", "1mad", 3): 64}
+PREFILL_B = 512
+PATH_B = {"tcq2mix": {"tcq2_dequant": 64, "tcq1_dequant": 64,
+                      "tcq2s_decode_gemv": 2},
+          "215": {"tcq2_dequant": 128, "tcq2s_decode_gemv": 2}}
 PROMPT_LEN, NEW_TOKENS = 16, 64
-TOL = {False: 1e-4, True: 1e-3}  # kernel vs plain, of max|y|
+TOL = {False: 1e-4, True: 1e-3}  # GEMV kernel vs plain, of max|y|
 SMALL_TOL = 2e-2  # CPU plain vs card kernel through a 2-layer model
 # flagship projections per forward, by (shape m x k, KV): 194 tcq, 30 tcomb
 FLAGSHIP_TCQ, FLAGSHIP_TCOMB = 194, 30
@@ -61,11 +103,34 @@ LUT_TOL = 1e-4  # LUT GEMV kernel vs plain, of max|y|
 # so the two products see the same operands
 PRODUCT_TOL = 1e-6
 L2_BYTES = 50_000_000
+# the least time for a call: bytes over the H100's 3.35 TB/s, operations
+# over its dense peak for their type (NVIDIA's data sheet, SXM, 700 W)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1979e12, "float32": 67e12}
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound_ms(nbytes, ops, kind):
+    """(least ms, "bytes" or "operations") for a call's work."""
+    tb, to = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def gemv_bound(trellis_bytes, N, m, k, x_bytes, a8):
+    """K1/K4/K5: packed words + x read once, f32 y written once; 2*N*m*k
+    operations in int8 (a8) or float32."""
+    return bound_ms(trellis_bytes + N * k * x_bytes + N * m * 4,
+                    2 * N * m * k, "int8" if a8 else "float32")
+
+
+def dequant_bound(trellis_bytes, m, k):
+    """K2/K3/K6/K7: packed words read once, bf16 W written once; one
+    float32 operation a weight."""
+    return bound_ms(trellis_bytes + 2 * m * k, m * k, "float32")
 
 
 def card():
@@ -83,31 +148,63 @@ def card():
     return name, count, smi
 
 
-def _words(m, k, KV, device, seed):
+def all_kernels():
+    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
+    return arith.KERNELS + arith_dequant.KERNELS + tcq_lut.KERNELS
+
+
+def counts():
+    return {f.__name__: f.launches for f in all_kernels()}
+
+
+def _words(m, k, W, device, seed):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return torch.randint(-(1 << 31), 1 << 31,
-                         ((m // 16) * (k // 16), 4 * KV), generator=gen,
-                         dtype=torch.int32, device=device)
+    return torch.randint(-(1 << 31), 1 << 31, ((m // 16) * (k // 16), W),
+                         generator=gen, dtype=torch.int32, device=device)
 
 
 def _time_ms(fn, reps):
+    """ms per call: the better of two windows of reps calls each (a window
+    can catch the card in another state)."""
     fn()
     torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for i in range(reps):
-        fn(i)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    best = float("inf")
+    for _ in range(2):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for i in range(reps):
+            fn(i)
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
 
 
-def kernel_checks(tcq2s, device):
-    """Kernel vs plain at every shape; returns (max_abs_err, times)."""
+def _copies(m, k, W, device):
+    """Copies of random weights enough to exceed the L2 cache three times,
+    so that repeated launches stream from device memory as a forward does."""
+    nbytes = (m // 16) * (k // 16) * W * 4
+    return [_words(m, k, W, device, seed=100 + i)
+            for i in range(min(64, -(-3 * L2_BYTES // nbytes)))], nbytes
+
+
+def _rel_check(label, y, ref, tol):
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    check(bool(torch.isfinite(y).all()), f"{label} non-finite")
+    print(f"[kernel] {label}: max_abs_err={err:.3e} rel={rel:.3e} "
+          f"(limit {tol:.0e})", flush=True)
+    check(rel <= tol, f"{label}: rel {rel}")
+    return err
+
+
+def sum2_checks(arith, device):
+    """K1 sum2 vs plain at every 215 shape; returns (max_abs_err,
+    {(name, KV): (ms, plain_ms, bound_ms)} at a8, N=1)."""
     max_abs = 0.0
     for name, m, k, KV in SHAPES_215 + EXTRA_KV:
-        words = _words(m, k, KV, device, seed=m + k + KV)
+        words = _words(m, k, 4 * KV, device, seed=m + k + KV)
         for N in (1, 4, 16):
             # decode rows reach the kernel as the f32 rotation output,
             # prefill rows as bf16 (qlinear_apply)
@@ -116,148 +213,314 @@ def kernel_checks(tcq2s, device):
             gen.manual_seed(N)
             x = torch.randn((N, k), generator=gen, device=device).to(x_dtype)
             for a8 in (False, True):
-                y = tcq2s.tcq2s_decode_gemv(x, words, KV, m, k, a8)
+                y = arith.tcq2s_decode_gemv(x, words, KV, m, k, a8)
                 torch.cuda.synchronize()
-                ref = tcq2s.tcq2s_decode_gemv_plain(x, words, KV, m, k, a8)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                rel = err / ref.abs().max().item()
-                check(bool(torch.isfinite(y).all()), f"{name} non-finite")
-                max_abs = max(max_abs, err)
-                print(f"[kernel] {name} {m}x{k} KV={KV} N={N} "
-                      f"{'a8' if a8 else 'exact'}: max_abs_err={err:.3e} "
-                      f"rel={rel:.3e} (limit {TOL[a8]:.0e})", flush=True)
-                check(rel <= TOL[a8], f"{name} N={N} a8={a8}: rel {rel}")
+                ref = arith.arith_gemv_plain(x, words, "sum2", KV, m, k, a8)
+                max_abs = max(max_abs, _rel_check(
+                    f"sum2 {name} {m}x{k} KV={KV} N={N} "
+                    f"{'a8' if a8 else 'exact'}", y, ref, TOL[a8]))
     times = {}
     for name, m, k, KV in SHAPES_215:
-        # cycle through copies of the weights so that repeated launches
-        # stream from device memory, as a decode step does, not from L2
-        nbytes = m * k * KV // 16
-        copies = [_words(m, k, KV, device, seed=i)
-                  for i in range(min(16, -(-150_000_000 // nbytes)))]
+        copies, nbytes = _copies(m, k, 4 * KV, device)
         x = torch.randn((1, k), device=device)
         out = torch.empty((1, m), device=device)
 
         def kern(i=0):
-            tcq2s.tcq2s_decode_gemv(x, copies[i % len(copies)], KV, m, k,
+            arith.tcq2s_decode_gemv(x, copies[i % len(copies)], KV, m, k,
                                     True, out=out)
 
         def plain(i=0):
-            tcq2s.tcq2s_decode_gemv_plain(x, copies[i % len(copies)], KV, m,
-                                          k, True)
+            arith.arith_gemv_plain(x, copies[i % len(copies)], "sum2", KV, m,
+                                   k, True)
 
         ms = _time_ms(kern, 200)
         pms = _time_ms(plain, 5)
-        gbps = nbytes / (ms * 1e-3) / 1e9
-        times[(name, KV)] = (ms, pms)
-        print(f"[time] {name} {m}x{k} KV={KV} a8 N=1: kernel {ms:.4f} ms "
-              f"({gbps:.0f} GB/s of packed trellis), plain {pms:.4f} ms",
-              flush=True)
+        bms, _ = gemv_bound(nbytes, 1, m, k, 4, True)
+        times[(name, KV)] = (ms, pms, bms)
+        print(f"[time] sum2 {name} {m}x{k} KV={KV} a8 N=1: kernel {ms:.4f} ms "
+              f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of packed trellis), "
+              f"plain {pms:.4f} ms, bound {bms:.4f} ms", flush=True)
         del copies
     return max_abs, times
 
 
 def step_ms(times, qdict):
-    """Kernel (or plain) time of one decode step's 129 calls, weighting the
-    ug shape by the 215 qdict's KV mix."""
+    """(kernel, plain, bound) ms of one 215 decode step's 129 calls,
+    weighting the ug shape by the 215 qdict's KV mix."""
     ug_kv = [int(qdict[f"{i}_mlp.up_proj"][0].split("_")[1])
              for i in range(32)]
-    tot = [0.0, 0.0]
-    for (name, KV), pair in times.items():
+    tot = [0.0, 0.0, 0.0]
+    for (name, KV), trio in times.items():
         n = (sum(kv == KV for kv in ug_kv) if name == "ug"
              else CALLS_PER_STEP[name])
-        for j in (0, 1):
-            tot[j] += n * pair[j]
+        for j in range(3):
+            tot[j] += n * trio[j]
     return tot
 
 
-def main_path(tcq2s, device, card_label):
-    from qpalette_tpu_torch.models import llama
-    from qpalette_tpu_torch.models.llama import LlamaConfig
-    from qpalette_tpu_torch.runtime import decode
-    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+def arith_checks(arith, arith_dequant, device):
+    """K1 (dualmad, 1mad, 2mad, odd-KV sum2) and K2/K3 against their plain
+    versions at SHAPES_ARITH, and K2 sum2 at the 215 shapes.  Returns
+    ({wrapper: max_abs_err}, {wrapper: [ms, plain_ms, bound_ms] summed over
+    a Path A decode step's calls (K1, a8, N=1) or a tcq2mix Path B
+    prefill's calls (K2/K3)}, {(name, KV): (ms, plain_ms, bound_ms)} of K2
+    sum2 at the 215 shapes)."""
+    gemv_of = {"sum2": arith.tcq2s_decode_gemv,
+               "dualmad": arith.tcq2_decode_gemv,
+               "1mad": arith.tcq1_decode_gemv, "2mad": arith.tcq1_decode_gemv}
+    names = [f.__name__ for f in arith.KERNELS + arith_dequant.KERNELS]
+    err = {n: 0.0 for n in names}
+    times = {n: [0.0, 0.0, 0.0] for n in names}
+    deq215 = {}
+    shapes = [(*sh, True) for sh in SHAPES_ARITH] + [
+        (name, m, k, "sum2", KV, 0, False) for name, m, k, KV in SHAPES_215
+        if name != "lm_head"]
+    for name, m, k, mode, KV, calls, k1 in shapes:
+        W = arith.words_per_tile(mode, KV)
+        words = _words(m, k, W, device, seed=m + k + KV)
+        label = f"{mode} {name} {m}x{k} KV={KV}"
+        gemv = gemv_of[mode]
+        deq = (arith_dequant.tcq2_dequant if mode in ("sum2", "dualmad")
+               else arith_dequant.tcq1_dequant)
+        for N in ((1, 8, 256) if k1 else ()):
+            x_dtype = torch.float32 if N <= 8 else torch.bfloat16
+            gen = torch.Generator(device=device)
+            gen.manual_seed(N)
+            x = torch.randn((N, k), generator=gen, device=device).to(x_dtype)
+            for a8 in (False, True):
+                y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
+                torch.cuda.synchronize()
+                ref = arith.arith_gemv_plain(x, words, mode, KV, m, k, a8)
+                err[gemv.__name__] = max(err[gemv.__name__], _rel_check(
+                    f"{label} N={N} {'a8' if a8 else 'exact'}", y, ref,
+                    TOL[a8]))
+        w = arith_dequant.dequant(mode, words, KV, m, k)
+        torch.cuda.synchronize()
+        w_ref = arith_dequant.arith_dequant_plain(words, mode, KV, m, k)
+        same = torch.equal(w.view(torch.int16), w_ref.view(torch.int16))
+        print(f"[kernel] {deq.__name__} {label}: bit-equal={same}",
+              flush=True)
+        check(same, f"{deq.__name__} {label}: not bit-equal")
+        del w, w_ref
+        if k1 and not calls:
+            continue  # checked, not on a path: no times
 
-    with open(os.path.join(QDIR, "215.0thp_cc.json")) as f:
-        qdict = {k: tuple(v) for k, v in json.load(f).items()}
-    with open(os.path.join(QDIR, "215.0thp_cc_merge_info.json")) as f:
-        merge_info = json.load(f)
-    cfg = LlamaConfig.llama31_8b()
-    t0 = time.perf_counter()
-    spec, params = build_quantized_model(cfg, qdict, merge_info=merge_info,
-                                         dummy=True, impl="a8",
-                                         lm_head_bits=4, seed=0,
-                                         device=device)
-    torch.cuda.synchronize()
-    print(f"[main] 8B 215.0thp_cc built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    V = cfg.vocab_size
-    prompt = np.random.default_rng(0).integers(0, V, (1, PROMPT_LEN))
-    T = PROMPT_LEN + NEW_TOKENS + 1
+        copies, nbytes = _copies(m, k, W, device)
+        x1 = torch.randn((1, k), device=device)
+        out = torch.empty((1, m), device=device)
+        wout = torch.empty((m, k), dtype=torch.bfloat16, device=device)
 
-    # the counted run: every forward must launch the kernel 129 times
-    caches = llama.init_kv_caches(spec, 1, T, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1234)
-    tcq2s.tcq2s_decode_gemv.launches = 0
-    logits, caches = decode.prefill(spec, params,
-                                    torch.as_tensor(prompt, device=device),
-                                    caches)
-    counts = [tcq2s.tcq2s_decode_gemv.launches]
-    finite = bool(torch.isfinite(logits).all())
-    cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
-    toks = [cur]
-    for pos in range(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS):
-        logits, caches = llama.forward(spec, params, cur, kv_caches=caches,
-                                       cache_pos=pos)
-        counts.append(tcq2s.tcq2s_decode_gemv.launches)
-        finite = finite and bool(torch.isfinite(logits).all())
-        cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
-        toks.append(cur)
-    torch.cuda.synchronize()
-    launches = tcq2s.tcq2s_decode_gemv.launches
-    check(logits.shape == (1, 1, V), f"logits shape {tuple(logits.shape)}")
-    check(finite, "non-finite logits")
-    per_forward = np.diff([0] + counts)
-    check(bool((per_forward == LAUNCHES_PER_FORWARD).all()),
-          f"launches per forward {sorted(set(per_forward.tolist()))}")
-    toks = torch.cat(toks, dim=1).cpu().numpy()
-    check(bool(((toks >= 0) & (toks < V)).all()), "token out of vocab")
-    print(f"[main] prefill {PROMPT_LEN} + {NEW_TOKENS} decode steps: "
-          f"{launches} kernel launches ({LAUNCHES_PER_FORWARD} per forward), "
-          f"logits finite, tokens in vocab", flush=True)
+        def kern(i=0):
+            arith.decode_gemv(mode, x1, copies[i % len(copies)], KV, m, k,
+                              True, out=out)
 
-    # determinism and throughput through the user-facing generate()
-    runs = [decode.generate(spec, params, prompt, NEW_TOKENS + 1,
-                            max_seq=T, temperature=0.6, top_k=5, seed=99)
-            for _ in range(2)]
-    check(np.array_equal(runs[0][0], runs[1][0]),
-          "same seed, different tokens")
-    tps = runs[1][1]["tokens_per_sec"]
-    mbytes = decode.model_bytes(params)
-    streamed = mbytes - decode.model_bytes(params["embed"])
-    print(f"[main] decode {tps:.2f} tokens/s bs=1 (eager loop, host clock, "
-          f"{runs[1][1]['timed_tokens']} steps), model {mbytes / 1e9:.3f} GB, "
-          f"streamed {streamed / 1e9:.3f} GB/token, "
-          f"{streamed * tps / 1e9:.1f} GB/s; card {card_label}", flush=True)
-    del params, caches
-    torch.cuda.empty_cache()
-    return launches, qdict
+        def kern_exact(i=0):
+            arith.decode_gemv(mode, x1, copies[i % len(copies)], KV, m, k,
+                              False, out=out)
+
+        def plain(i=0):
+            arith.arith_gemv_plain(x1, copies[i % len(copies)], mode, KV, m,
+                                   k, True)
+
+        def kern_deq(i=0):
+            arith_dequant.dequant(mode, copies[i % len(copies)], KV, m, k,
+                                  out=wout)
+
+        def plain_deq(i=0):
+            arith_dequant.arith_dequant_plain(copies[i % len(copies)], mode,
+                                              KV, m, k)
+
+        routes = ([(kern, 200), (kern_exact, 200), (plain, 5)] if k1
+                  else []) + [(kern_deq, 50), (plain_deq, 5)]
+        res = {}
+        for route, reps in routes:
+            res[route.__name__] = ms = _time_ms(route, reps)
+            gb = (f" ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of packed "
+                  f"trellis)" if route in (kern, kern_exact, kern_deq) else "")
+            print(f"[time] {label} {route.__name__}: {ms:.4f} ms{gb}",
+                  flush=True)
+        gb_ms, _ = gemv_bound(nbytes, 1, m, k, 4, True)
+        db_ms, _ = dequant_bound(nbytes, m, k)
+        print(f"[time] {label} bounds: GEMV a8 N=1 {gb_ms:.4f} ms, dequant "
+              f"{db_ms:.4f} ms", flush=True)
+        if k1:
+            for fn, trio in ((gemv, (res["kern"], res["plain"], gb_ms)),
+                             (deq, (res["kern_deq"], res["plain_deq"],
+                                    db_ms))):
+                for j, v in enumerate(trio):
+                    times[fn.__name__][j] += calls * v
+        else:
+            deq215[(name, KV)] = (res["kern_deq"], res["plain_deq"], db_ms)
+        del copies, wout
+    return err, times, deq215
 
 
 def build_all():
     """One nvcc per CUDA source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from qpalette_tpu_torch.kernels import _build, tcq2s, tcq_lut
+    from qpalette_tpu_torch.kernels import (_build, arith, arith_dequant,
+                                            tcq_lut)
 
-    names = [tcq2s.SOURCE, tcq_lut.SOURCE]
+    names = [*arith.SOURCES, arith_dequant.SOURCE, tcq_lut.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         logs = list(ex.map(_build.build, names))
-    print(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[build] {len(names)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in zip(names, logs):
-        print(f"[build] {name}.cu\n{log.strip()}", flush=True)
+        lines = log.strip().splitlines()
+        spills = [ln for ln in lines if "spill" in ln and " 0 bytes" not in ln]
+        print(f"[build] {name}.cu: {len(lines)} lines of ptxas output, "
+              f"{len(spills)} with spills; first lines:", flush=True)
+        print("\n".join(lines[:6] + spills[:6]), flush=True)
+
+
+def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
+          want_step):
+    """The counted run of a path: every count is set to 0 just before the
+    prefill and read after it and after each decode forward; each must
+    match want_prefill / want_step exactly (other kernels 0).  Returns the
+    counts of the whole run."""
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import decode
+
+    V = spec.config.vocab_size
+    prompt = np.random.default_rng(0).integers(0, V, (1, prompt_len))
+    caches = llama.init_kv_caches(spec, 1, prompt_len + new_tokens + 1,
+                                  device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    for f in all_kernels():
+        f.launches = 0
+    logits, caches = decode.prefill(spec, params,
+                                    torch.as_tensor(prompt, device=device),
+                                    caches)
+    seen = [counts()]
+    finite = bool(torch.isfinite(logits).all())
+    check(logits.shape == (1, prompt_len, V),
+          f"{label}: prefill logits shape {tuple(logits.shape)}")
+    cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
+    toks = [cur]
+    for pos in range(prompt_len, prompt_len + new_tokens):
+        logits, caches = llama.forward(spec, params, cur, kv_caches=caches,
+                                       cache_pos=pos)
+        seen.append(counts())
+        finite = finite and bool(torch.isfinite(logits).all())
+        cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
+        toks.append(cur)
+    torch.cuda.synchronize()
+    zero = {k: 0 for k in seen[0]}
+    check(seen[0] == {**zero, **want_prefill},
+          f"{label}: prefill launches {seen[0]}")
+    for a, b in zip(seen, seen[1:]):
+        step = {k: b[k] - a[k] for k in b}
+        check(step == {**zero, **want_step},
+              f"{label}: decode launches per forward {step}")
+    if new_tokens:
+        check(logits.shape == (1, 1, V), f"logits shape {tuple(logits.shape)}")
+    check(finite, f"{label}: non-finite logits")
+    toks = torch.cat(toks, dim=1).cpu().numpy()
+    check(bool(((toks >= 0) & (toks < V)).all()), "token out of vocab")
+    total = {k: v for k, v in seen[-1].items() if v}
+    print(f"[{label}] prefill {prompt_len}: "
+          f"{ {k: v for k, v in seen[0].items() if v} }; {new_tokens} decode "
+          f"forwards: {want_step} each; total {total}; logits finite, tokens "
+          f"in vocab", flush=True)
+    return seen[-1]
+
+
+def throughput(label, spec, params, device, card_label):
+    """Determinism and tokens/s through the user-facing generate()."""
+    from qpalette_tpu_torch.runtime import decode
+
+    V = spec.config.vocab_size
+    prompt = np.random.default_rng(0).integers(0, V, (1, PROMPT_LEN))
+    T = PROMPT_LEN + NEW_TOKENS + 1
+    torch.cuda.reset_peak_memory_stats(device)
+    runs = [decode.generate(spec, params, prompt, NEW_TOKENS + 1,
+                            max_seq=T, temperature=0.6, top_k=5, seed=99)
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated(device)
+    check(np.array_equal(runs[0][0], runs[1][0]),
+          f"{label}: same seed, different tokens")
+    tps = runs[1][1]["tokens_per_sec"]
+    mbytes = decode.model_bytes(params)
+    streamed = mbytes - decode.model_bytes(params["embed"])
+    print(f"[{label}] decode {tps:.2f} tokens/s bs=1 (eager loop, host "
+          f"clock, {runs[1][1]['timed_tokens']} steps), model "
+          f"{mbytes / 1e9:.3f} GB, streamed {streamed / 1e9:.3f} GB/token "
+          f"(computed from tensor sizes), {streamed * tps / 1e9:.1f} GB/s, "
+          f"peak memory {peak / 1e9:.3f} GB; card {card_label}", flush=True)
+    return tps
+
+
+def prefill_time(label, spec, params, device, n, card_label):
+    """A warm n-token prefill: host clock around a synchronized call, and
+    the peak memory during it."""
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import decode
+
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, spec.config.vocab_size, (1, n)), device=device)
+    caches = llama.init_kv_caches(spec, 1, n, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    logits, _ = decode.prefill(spec, params, prompt, caches)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    print(f"[{label}] warm {n}-token prefill {dt * 1e3:.1f} ms, peak memory "
+          f"{peak / 1e9:.3f} GB; card {card_label}", flush=True)
+    return dt
+
+
+def _load_215():
+    with open(os.path.join(QDIR, "215.0thp_cc.json")) as f:
+        qdict = {k: tuple(v) for k, v in json.load(f).items()}
+    with open(os.path.join(QDIR, "215.0thp_cc_merge_info.json")) as f:
+        merge_info = json.load(f)
+    return qdict, merge_info
+
+
+def _build(what, qdict, merge_info, impl, lm_head_bits, device):
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+
+    t0 = time.perf_counter()
+    spec, params = build_quantized_model(
+        LlamaConfig.llama31_8b(), qdict, merge_info=merge_info, dummy=True,
+        impl=impl, lm_head_bits=lm_head_bits, seed=0, device=device)
+    torch.cuda.synchronize()
+    print(f"[{what}] 8B built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return spec, params
+
+
+def with_impl(spec, impl):
+    """The same model with every decoder projection at another impl (the
+    4-bit head stays a8, as in the reference)."""
+    def proj(ls):
+        return dataclasses.replace(ls, impl=impl)
+    layers = tuple((dataclasses.replace(a, projs=tuple(
+        (n, proj(ls)) for n, ls in a.projs)), dataclasses.replace(
+        m, projs=tuple((n, proj(ls)) for n, ls in m.projs)))
+        for a, m in spec.layers)
+    return dataclasses.replace(spec, layers=layers)
+
+
+def main_path(device, card_label):
+    """The 215 path: 129 sum2 K1 launches per forward."""
+    qdict, merge_info = _load_215()
+    spec, params = _build("main", qdict, merge_info, "a8", 4, device)
+    want = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD}
+    launches = drive("main", spec, params, device, PROMPT_LEN, NEW_TOKENS,
+                     want, want)
+    throughput("main", spec, params, device, card_label)
+    del params
+    torch.cuda.empty_cache()
+    return launches, qdict
 
 
 def flagship_shapes(cfg, qdict):
@@ -265,27 +528,28 @@ def flagship_shapes(cfg, qdict):
     from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
     from qpalette_tpu_torch.runtime.loader import proj_shape
 
-    counts = {}
+    out = {}
     for key, qstr in qdict.items():
         m, k = proj_shape(cfg, key.split("_", 1)[1])
         q = parse_quantizer_str(qstr)
         check(q.family in ("tcq", "tcomb"), f"{key}: {qstr}")
-        counts[m, k, q.KV] = counts.get((m, k, q.KV), 0) + 1
-    return counts
+        out[m, k, q.KV] = out.get((m, k, q.KV), 0) + 1
+    return out
 
 
 def _lut_words(m, k, KV, device, seed):
-    return [_words(m, k // len(KV), kv, device, seed + i)
+    return [_words(m, k // len(KV), 4 * kv, device, seed + i)
             for i, kv in enumerate(KV)]
 
 
 def lut_kernel_checks(tcq_lut, shapes, device):
     """K4-K7 against their plain versions at every flagship shape; returns
-    ({kernel: max_abs_err}, {kernel: [ms per forward, plain ms]})."""
+    ({kernel: max_abs_err}, {kernel: [ms, plain ms, bound ms per
+    forward]})."""
     from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
 
     err = {f.__name__: 0.0 for f in tcq_lut.KERNELS}
-    times = {f.__name__: [0.0, 0.0] for f in tcq_lut.KERNELS}
+    times = {f.__name__: [0.0, 0.0, 0.0] for f in tcq_lut.KERNELS}
     for (m, k, KV), count in sorted(shapes.items()):
         tcomb = len(KV) == 2
         gemv, gemv_plain, deq, deq_plain = (
@@ -306,15 +570,8 @@ def lut_kernel_checks(tcq_lut, shapes, device):
                 y = gemv(x, *words, tlut, *KV, m, k)
                 torch.cuda.synchronize()
                 ref = gemv_plain(x, *words, tlut, *KV, m, k)
-                e = (y - ref).abs().max().item()
-                rel = e / ref.abs().max().item()
-                check(bool(torch.isfinite(y).all()), f"{label} non-finite")
-                err[gemv.__name__] = max(err[gemv.__name__], e)
-                print(f"[lut] {gemv.__name__} {label} N={N}: max_abs_err="
-                      f"{e:.3e} rel={rel:.3e} (limit {LUT_TOL:.0e})",
-                      flush=True)
-                check(rel <= LUT_TOL, f"{gemv.__name__} {label} N={N}: "
-                      f"rel {rel}")
+                err[gemv.__name__] = max(err[gemv.__name__], _rel_check(
+                    f"{gemv.__name__} {label} N={N}", y, ref, LUT_TOL))
                 continue
             w = deq(*words, tlut, *KV, m, k)
             torch.cuda.synchronize()
@@ -364,6 +621,9 @@ def lut_kernel_checks(tcq_lut, shapes, device):
         # the kernels' entries in the JSON line: the kernel alone (GEMV at
         # N=1, dequant) against its plain version alone, summed over a
         # forward's calls; the dequant + product at N=16 is printed beside
+        tbytes = nbytes + 2 * 4 * (1 << tlut_bits_for_kv(max(KV)))
+        bounds = {gemv: gemv_bound(tbytes, 1, m, k, 2, False)[0],
+                  deq: dequant_bound(tbytes, m, k)[0]}
         for fn, route, reps, plain_route in (
                 (gemv, kern, 200, False), (gemv, plain, 5, True),
                 (deq, kern_deq, 50, False), (deq, plain_deq, 5, True),
@@ -371,97 +631,87 @@ def lut_kernel_checks(tcq_lut, shapes, device):
             ms = _time_ms(route, reps)
             if fn is not None:
                 times[fn.__name__][plain_route] += count * ms
+                if not plain_route:
+                    times[fn.__name__][2] += count * bounds[fn]
             gbps = nbytes / (ms * 1e-3) / 1e9
             print(f"[time] {label} {route.__name__}: {ms:.4f} ms"
-                  + (f" ({gbps:.0f} GB/s of packed trellis)"
+                  + (f" ({gbps:.0f} GB/s of packed trellis, bound "
+                     f"{bounds[fn]:.4f} ms)"
                      if route in (kern, kern_deq) else ""), flush=True)
         del copies, wout
     return err, times
 
 
-def _counts(tcq_lut):
-    return {f.__name__: f.launches for f in tcq_lut.KERNELS}
-
-
-def flagship_path(tcq_lut, device, card_label):
+def flagship_path(device, card_label):
     """The 8B model from the 3.25-bit solver output: 194 tcq + 30 tcomb
     dequants in the prefill, 194 + 30 GEMVs in each decode forward."""
-    from qpalette_tpu_torch.models import llama
-    from qpalette_tpu_torch.models.llama import LlamaConfig
-    from qpalette_tpu_torch.runtime import decode
-    from qpalette_tpu_torch.runtime.loader import build_quantized_model
-
     with open(FLAGSHIP_QDICT) as f:
         qdict = json.load(f)
-    cfg = LlamaConfig.llama31_8b()
-    t0 = time.perf_counter()
-    spec, params = build_quantized_model(cfg, qdict, merge_info=None,
-                                         dummy=True, impl="exact",
-                                         lm_head_bits=16, seed=0,
-                                         device=device)
-    torch.cuda.synchronize()
-    print(f"[flagship] 8B 3.25bit built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    V = cfg.vocab_size
-    prompt = np.random.default_rng(0).integers(0, V, (1, PROMPT_LEN))
-    T = PROMPT_LEN + NEW_TOKENS + 1
-    gemv = {"tcq_lut_gemv": FLAGSHIP_TCQ, "tcomb_lut_gemv": FLAGSHIP_TCOMB}
-    deq = {"tcq_lut_dequant": FLAGSHIP_TCQ,
-           "tcomb_lut_dequant": FLAGSHIP_TCOMB}
-
-    # the counted run
-    caches = llama.init_kv_caches(spec, 1, T, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1234)
-    for fn in tcq_lut.KERNELS:
-        fn.launches = 0
-    logits, caches = decode.prefill(spec, params,
-                                    torch.as_tensor(prompt, device=device),
-                                    caches)
-    seen = [_counts(tcq_lut)]
-    finite = bool(torch.isfinite(logits).all())
-    cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
-    toks = [cur]
-    for pos in range(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS):
-        logits, caches = llama.forward(spec, params, cur, kv_caches=caches,
-                                       cache_pos=pos)
-        seen.append(_counts(tcq_lut))
-        finite = finite and bool(torch.isfinite(logits).all())
-        cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
-        toks.append(cur)
-    torch.cuda.synchronize()
-    launches = _counts(tcq_lut)
-    check(seen[0] == {**deq, **{k: 0 for k in gemv}},
-          f"prefill launches {seen[0]}")
-    for a, b in zip(seen, seen[1:]):
-        step = {k: b[k] - a[k] for k in b}
-        check(step == {**gemv, **{k: 0 for k in deq}},
-              f"decode launches per forward {step}")
-    check(logits.shape == (1, 1, V), f"logits shape {tuple(logits.shape)}")
-    check(finite, "non-finite logits")
-    toks = torch.cat(toks, dim=1).cpu().numpy()
-    check(bool(((toks >= 0) & (toks < V)).all()), "token out of vocab")
-    print(f"[flagship] prefill {PROMPT_LEN}: {seen[0]}; {NEW_TOKENS} decode "
-          f"forwards: {FLAGSHIP_TCQ} tcq + {FLAGSHIP_TCOMB} tcomb GEMVs "
-          f"each; total {launches}; logits finite, tokens in vocab",
-          flush=True)
-
-    runs = [decode.generate(spec, params, prompt, NEW_TOKENS + 1,
-                            max_seq=T, temperature=0.6, top_k=5, seed=99)
-            for _ in range(2)]
-    check(np.array_equal(runs[0][0], runs[1][0]),
-          "same seed, different tokens")
-    tps = runs[1][1]["tokens_per_sec"]
-    mbytes = decode.model_bytes(params)
-    streamed = mbytes - decode.model_bytes(params["embed"])
-    print(f"[flagship] decode {tps:.2f} tokens/s bs=1 (eager loop, host "
-          f"clock, {runs[1][1]['timed_tokens']} steps), model "
-          f"{mbytes / 1e9:.3f} GB, streamed {streamed / 1e9:.3f} GB/token "
-          f"(computed from tensor sizes), {streamed * tps / 1e9:.1f} GB/s; "
-          f"card {card_label}", flush=True)
-    del params, caches
+    spec, params = _build("flagship", qdict, None, "exact", 16, device)
+    launches = drive(
+        "flagship", spec, params, device, PROMPT_LEN, NEW_TOKENS,
+        {"tcq_lut_dequant": FLAGSHIP_TCQ, "tcomb_lut_dequant": FLAGSHIP_TCOMB},
+        {"tcq_lut_gemv": FLAGSHIP_TCQ, "tcomb_lut_gemv": FLAGSHIP_TCOMB})
+    throughput("flagship", spec, params, device, card_label)
+    del params
     torch.cuda.empty_cache()
     return launches
+
+
+def tcq2mix_qdict(num_layers=32):
+    return {f"{i}_{key}": q for i in range(num_layers)
+            for key, q in TCQ2MIX.items()}
+
+
+def path_a_b(device, card_label):
+    """Path A (tcq2mix decode at a8 and exact) and Path B (512-token exact
+    prefill on tcq2mix and on the 215 config).  Returns (launch counts
+    summed over the counted runs, tokens/s by impl, prefill s by config)."""
+    spec, params = _build("pathA", tcq2mix_qdict(), [["merge_qkv",
+                                                       "merge_ug"]] * 32,
+                          "a8", 4, device)
+    mix = {}
+    for a, m in spec.layers:
+        for _, ls in a.projs + m.projs:
+            key = (ls.kind, ls.mode, ls.KV[0])
+            mix[key] = mix.get(key, 0) + 1
+    head = spec.lm_head_spec
+    check(mix == PATH_A_MIX and (head.kind, head.mode, head.KV[0],
+                                 head.out_features) ==
+          ("tcq2", "sum2", 8, 131072), f"tcq2mix projections {mix}, {head}")
+    print(f"[pathA] projections per forward {mix} + the sum2 KV8 head "
+          f"(131072x4096)", flush=True)
+    total = {}
+    tps = {}
+    for impl in ("a8", "exact"):
+        sp = with_impl(spec, impl)
+        got = drive(f"pathA {impl}", sp, params, device, PROMPT_LEN,
+                    NEW_TOKENS, PATH_A_STEP, PATH_A_STEP)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        tps[impl] = throughput(f"pathA {impl}", sp, params, device,
+                               card_label)
+    pre = {}
+    sp = with_impl(spec, "exact")
+    got = drive("pathB tcq2mix", sp, params, device, PREFILL_B, 0,
+                PATH_B["tcq2mix"], {})
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    pre["tcq2mix"] = prefill_time("pathB tcq2mix", sp, params, device,
+                                  PREFILL_B, card_label)
+    del params
+    torch.cuda.empty_cache()
+    qdict, merge_info = _load_215()
+    spec, params = _build("pathB 215", qdict, merge_info, "exact", 4, device)
+    got = drive("pathB 215", spec, params, device, PREFILL_B, 0,
+                PATH_B["215"], {})
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    pre["215"] = prefill_time("pathB 215", spec, params, device, PREFILL_B,
+                              card_label)
+    del params
+    torch.cuda.empty_cache()
+    return total, tps, pre
 
 
 SMALL_CFG = dict(vocab_size=512, hidden_size=512, intermediate_size=1792,
@@ -525,16 +775,39 @@ def small_model_checks(device):
         flagship = json.load(f)
     small_model_check(device, "flagship mix (tcq/tcomb, unmerged, exact)",
                       flagship, None, "exact", 16, 12, seed=4)
+    # tcq2mix with a 300-token prompt at exact: K2 (qkv, ug) and K3 (o,
+    # down) in the prefill, K1 in the decode step
+    small_model_check(device, "tcq2mix (tcq2 dualmad + tcq1 1mad, merged, "
+                      "exact)", tcq2mix_qdict(2),
+                      [["merge_qkv", "merge_ug"]] * 2, "exact", 4, 300,
+                      seed=6)
+
+
+REPLACES = "qpalette_tpu/kernels/fused.py:"
+KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
+    "tcq2s_decode_gemv": ("tcq2_gemv.cu", REPLACES + "508"),
+    "tcq2_decode_gemv": ("tcq2_gemv.cu", REPLACES + "508"),
+    "tcq1_decode_gemv": ("tcq1_gemv.cu", REPLACES + "508"),
+    "tcq2_dequant": ("arith_dequant.cu", REPLACES + "902"),
+    "tcq1_dequant": ("arith_dequant.cu", REPLACES + "1007"),
+    "tcq_lut_gemv": ("tcq_lut.cu", REPLACES + "253"),
+    "tcomb_lut_gemv": ("tcq_lut.cu", REPLACES + "314"),
+    "tcq_lut_dequant": ("tcq_lut.cu", REPLACES + "1083"),
+    "tcomb_lut_dequant": ("tcq_lut.cu", REPLACES + "1089"),
+}
 
 
 def main():
     name, count, smi = card()
-    from qpalette_tpu_torch.kernels import tcq2s, tcq_lut
+    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
     from qpalette_tpu_torch.models.llama import LlamaConfig
 
     build_all()
     device = torch.device("cuda:0")
-    max_abs, times = kernel_checks(tcq2s, device)
+    t0 = time.perf_counter()
+    sum2_err, sum2_times = sum2_checks(arith, device)
+    err, times, deq215 = arith_checks(arith, arith_dequant, device)
+    err["tcq2s_decode_gemv"] = sum2_err
     with open(FLAGSHIP_QDICT) as f:
         shapes = flagship_shapes(LlamaConfig.llama31_8b(), json.load(f))
     check(sum(n for (_, _, KV), n in shapes.items() if len(KV) == 1)
@@ -542,33 +815,57 @@ def main():
                                   if len(KV) == 2) == FLAGSHIP_TCOMB,
           f"flagship shapes {shapes}")
     lut_err, lut_times = lut_kernel_checks(tcq_lut, shapes, device)
-    launches, qdict = main_path(tcq2s, device, f"{smi}")
-    lut_launches = flagship_path(tcq_lut, device, f"{smi}")
+    err.update(lut_err)
+    times.update(lut_times)
+    print(f"[time] kernel checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches, qdict = main_path(device, smi)
+    for k, v in flagship_path(device, smi).items():
+        launches[k] += v
+    ab, tps, pre = path_a_b(device, smi)
+    for k, v in ab.items():
+        launches[k] += v
     small_model_checks(device)
-    ms, pms = step_ms(times, qdict)
-    print(f"[time] one decode step's 129 calls: kernel {ms:.3f} ms, "
-          f"plain {pms:.3f} ms (a8, N=1; {smi})", flush=True)
-    for kname, (kms, kpms) in lut_times.items():
+    times["tcq2s_decode_gemv"] = step_ms(sum2_times, qdict)
+    ms, pms, bms = times["tcq2s_decode_gemv"]
+    print(f"[time] one 215 decode step's 129 sum2 calls: kernel {ms:.3f} ms, "
+          f"plain {pms:.3f} ms, bound {bms:.3f} ms (a8, N=1; {smi})",
+          flush=True)
+    for kname in ("tcq2_decode_gemv", "tcq1_decode_gemv"):
+        kms, kpms, kbms = times[kname]
+        print(f"[time] Path A decode step's 64 calls of {kname}: kernel "
+              f"{kms:.3f} ms, plain {kpms:.3f} ms, bound {kbms:.3f} ms (a8, "
+              f"N=1; {smi})", flush=True)
+    for kname in ("tcq2_dequant", "tcq1_dequant"):
+        kms, kpms, kbms = times[kname]
+        print(f"[time] tcq2mix 512-token prefill's 64 calls of {kname}: "
+              f"kernel {kms:.3f} ms, plain {kpms:.3f} ms, bound {kbms:.3f} "
+              f"ms ({smi})", flush=True)
+    kms, kpms, kbms = step_ms(deq215, qdict)
+    print(f"[time] 215 512-token prefill's 128 calls of tcq2_dequant (sum2): "
+          f"kernel {kms:.3f} ms, plain {kpms:.3f} ms, bound {kbms:.3f} ms "
+          f"({smi})", flush=True)
+    for kname in ("tcq_lut_gemv", "tcomb_lut_gemv", "tcq_lut_dequant",
+                  "tcomb_lut_dequant"):
+        kms, kpms, kbms = times[kname]
         print(f"[time] flagship forward's calls of {kname}: kernel "
-              f"{kms:.3f} ms, plain {kpms:.3f} ms ({smi})", flush=True)
-    lut_line = "qpalette_tpu/kernels/fused.py:"
-    replaces = {"tcq_lut_gemv": lut_line + "253",
-                "tcomb_lut_gemv": lut_line + "314",
-                "tcq_lut_dequant": lut_line + "1083",
-                "tcomb_lut_dequant": lut_line + "1089"}
-    kernels = [{
-        "name": "tcq2s_decode_gemv", "route": "cuda",
-        "source": "qpalette_tpu_torch/csrc/tcq2s_gemv.cu",
-        "replaces": "qpalette_tpu/kernels/fused.py:508",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": pms}]
-    for kname, where in replaces.items():
+              f"{kms:.3f} ms, plain {kpms:.3f} ms, bound {kbms:.3f} ms "
+              f"({smi})", flush=True)
+    print(f"[pathA] tokens/s a8 {tps['a8']:.2f}, exact {tps['exact']:.2f}; "
+          f"[pathB] 512-token exact prefill tcq2mix {pre['tcq2mix'] * 1e3:.1f}"
+          f" ms, 215 {pre['215'] * 1e3:.1f} ms ({smi})", flush=True)
+    kernels = []
+    for f in all_kernels():
+        kname = f.__name__
+        check(launches[kname] > 0, f"{kname} launched no time on a path")
+        src, where = KERNEL_INFO[kname]
+        kms, kpms, kbms = times[kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "qpalette_tpu_torch/csrc/tcq_lut.cu",
-            "replaces": where, "launches": lut_launches[kname],
-            "max_abs_err": lut_err[kname], "ms": lut_times[kname][0],
-            "plain_ms": lut_times[kname][1]})
+            "source": f"qpalette_tpu_torch/csrc/{src}", "replaces": where,
+            "launches": launches[kname], "max_abs_err": err[kname],
+            "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
+            "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

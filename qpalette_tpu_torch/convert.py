@@ -3,15 +3,17 @@
 ``params_from_jax`` takes the ``qpalette_tpu`` params pytree with every
 leaf already a numpy array (the caller converts; this module never
 imports jax) and the port's ModelSpec of the same model, and returns the
-port's params dict on ``device``.  Canonical ``trellis`` words are taken
-as they are; the even-KV planar ``trellis_pl`` (the reference's
-quantized lm_head, and every tcq2 projection under its pallas impls) is
-inverted to canonical words.  tcq / tcomb projections come as canonical
-``trellis`` / ``trellis1`` + ``trellis2`` (the reference's impl ``xla``)
-or as the kernel layouts ``trellis_kt`` / ``trellisc_kt`` plus ``clut``
-(its ``pallas`` impls), inverted to canonical words; their tables must
-be the committed ones (``luts`` entries ``tcq{S}``, ``clut``), which the
-port holds once per S.  Any other layout raises.
+port's params dict on ``device`` (the card unless the caller asks for
+the CPU).  Canonical ``trellis`` words are taken as they are (the
+reference's impl ``xla``); the dense planar ``trellis_pl`` of tcq1 and
+tcq2 (the reference's quantized lm_head, and every tcq1 / tcq2
+projection under its pallas impls; even KV, or odd KV with an even
+k/16) is inverted to canonical words.  tcq / tcomb projections come as
+canonical ``trellis`` / ``trellis1`` + ``trellis2`` (the reference's
+impl ``xla``) or as the kernel layouts ``trellis_kt`` / ``trellisc_kt``
+plus ``clut`` (its ``pallas`` impls), inverted to canonical words; their
+tables must be the committed ones (``luts`` entries ``tcq{S}``,
+``clut``), which the port holds once per S.  Any other layout raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from qpalette_tpu_torch.kernels.formats import (tcomb_kernel_to_canonical,
+                                                tcq1_planar_to_canonical,
                                                 tcq2_planar_to_canonical,
                                                 tcq_kernel_to_canonical)
 from qpalette_tpu_torch.ops.codebooks import trellis_lut, trellis_tlut
@@ -46,7 +49,8 @@ def _u32(a) -> np.ndarray:
 def _canonical_words(p: dict, ls: LinearSpec) -> dict:
     """The projection's trellis words in the canonical layout."""
     m, k = ls.out_features, ls.in_features
-    layouts = {"tcq2": ({"trellis"}, {"trellis_pl"}),
+    layouts = {"tcq1": ({"trellis"}, {"trellis_pl"}),
+               "tcq2": ({"trellis"}, {"trellis_pl"}),
                "tcq": ({"trellis"}, {"trellis_kt", "clut"}),
                "tcomb": ({"trellis1", "trellis2"}, {"trellisc_kt", "clut"})}
     if ls.kind not in layouts:
@@ -57,9 +61,10 @@ def _canonical_words(p: dict, ls: LinearSpec) -> dict:
         return {name: _u32(p[name]) for name in canonical}
     if keys != kernel:
         raise ValueError(f"unsupported projection layout {sorted(p)}")
-    if ls.kind == "tcq2":
-        return {"trellis": tcq2_planar_to_canonical(_u32(p["trellis_pl"]),
-                                                    m, k, ls.KV[0])}
+    if ls.kind in ("tcq1", "tcq2"):
+        inverse = (tcq1_planar_to_canonical if ls.kind == "tcq1"
+                   else tcq2_planar_to_canonical)
+        return {"trellis": inverse(_u32(p["trellis_pl"]), m, k, ls.KV[0])}
     if not np.array_equal(np.asarray(p["clut"], np.float32),
                           trellis_tlut(ls.tlut_bits)):
         raise ValueError("the projection's table is not the committed "
@@ -87,11 +92,12 @@ def _proj(p: dict, ls: LinearSpec, device) -> dict:
 
 
 def _check_luts(luts: dict):
-    """The reference's shared tables: ``mad_sum2`` (not read: the port
-    decodes sum2 arithmetically) and ``tcq{S}``, its bf16 (2^16, 2)
-    expansion of the committed table, which must agree with the port's."""
+    """The reference's shared tables: ``mad_{mode}`` of the arithmetic
+    modes (not read: the port decodes them arithmetically) and
+    ``tcq{S}``, its bf16 (2^16, 2) expansion of the committed table, which
+    must agree with the port's."""
     for key, lut in luts.items():
-        if key == "mad_sum2":
+        if key in ("mad_sum2", "mad_dualmad", "mad_1mad", "mad_2mad"):
             continue
         if not (key.startswith("tcq") and key[3:].isdigit()):
             raise ValueError(f"unsupported luts entry {key!r}")
@@ -101,7 +107,7 @@ def _check_luts(luts: dict):
                              f"committed table")
 
 
-def params_from_jax(np_params: dict, spec, device="cpu") -> dict:
+def params_from_jax(np_params: dict, spec, device="cuda") -> dict:
     """Reference params (numpy leaves) + the port's ModelSpec -> port
     params with identical weights."""
     device = torch.device(device)

@@ -2,8 +2,8 @@
 plain C interface -> ctypes.
 
 Each ``csrc/<name>.cu`` compiles into ``qpalette_tpu_torch/_build/
-lib<name>.so`` at first use, and again whenever the source is newer than
-the library.  A failed build raises with nvcc's output.
+lib<name>.so`` at first use, and again whenever the source or a shared
+header ``csrc/*.cuh`` is newer than the library.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -55,8 +55,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     argtypes (``signatures``: function name -> list of ctypes types);
     every function returns an int (a cudaError_t)."""
     lib_file = lib_path(name)
-    src = CSRC / f"{name}.cu"
-    if not lib_file.exists() or lib_file.stat().st_mtime < src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in
+                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    if not lib_file.exists() or lib_file.stat().st_mtime < newest:
         build(name)
     lib = ctypes.CDLL(str(lib_file))
     for fn, argtypes in signatures.items():

@@ -1,16 +1,22 @@
 """Inverses of the reference's kernel-side trellis layouts.
 
-The port keeps the canonical (T, 4*KV) tile-row-major words; these turn
-what the reference holds for its Pallas kernels back into them, so that
-its weights can be carried over exactly (``convert.py``).
+The port keeps the canonical tile-row-major words, (T, 4*KV) for V=2 and
+(T, 8*KV) for V=1; these turn what the reference holds for its Pallas
+kernels back into them, so that its weights can be carried over exactly
+(``convert.py``).
 
-Dense even-KV planar layout:
-``qpalette_tpu/kernels/formats.py::tcq2_planar_weights`` turns the
-canonical (T, 4*KV) tile-row-major words into (k/16, NP*8, m/16) with,
-for even KV (NP = KV/2), row ``j*8 + t`` = the tile's raw word
-``KV/2*t + j``: a pure permutation.  The port keeps no TPU layout; this
-inverse lets weights that exist only in that layout (the reference's
-quantized lm_head) be carried over exactly.
+Planar layouts (``qpalette_tpu/kernels/formats.py::tcq2_planar_weights``
+and ``tcq1_planar_weights``), with ``sub`` = 8 sublanes a plane for V=2 and
+16 for V=1, so a tile holds W = sub*KV/2 words:
+
+- dense even KV: (k/16, KV/2*sub, m/16), row ``j*sub + t`` = the tile's
+  raw word ``KV/2*t + j``;
+- dense odd KV (k/16 even): (k/32, KV*sub, m/16), a block per two
+  k-tiles; row ``j*sub + s`` = tile ``2g + (s&1)``'s raw word
+  ``(s>>1)*KV + j``.
+
+Both are pure permutations.  The aligned fallback (odd KV with odd k/16,
+tiny shapes only) packs shifted windows and is not inverted here.
 """
 
 from __future__ import annotations
@@ -18,20 +24,42 @@ from __future__ import annotations
 import numpy as np
 
 
-def tcq2_planar_to_canonical(tr_pl: np.ndarray, m: int, k: int,
-                             KV: int) -> np.ndarray:
-    """planar (k/16, KV/2*8, m/16) uint32 -> canonical (T, 4*KV) uint32."""
-    if KV % 2:
-        raise ValueError(f"only the dense even-KV planar layout inverts "
-                         f"here, got KV={KV}")
-    NP = KV // 2
+def _planar_to_canonical(tr_pl: np.ndarray, m: int, k: int, KV: int,
+                         sub: int) -> np.ndarray:
     kt, mt = k // 16, m // 16
     arr = np.asarray(tr_pl)
-    if arr.shape != (kt, NP * 8, mt):
-        raise ValueError(f"planar shape {arr.shape} != {(kt, NP * 8, mt)}")
-    # arr[kt, j*8+t, mt] = word[NP*t + j]  ->  (kt, j, t, mt) -> (mt, kt, t, j)
-    words = arr.reshape(kt, NP, 8, mt).transpose(3, 0, 2, 1)
-    return np.ascontiguousarray(words.reshape(mt * kt, 4 * KV))
+    W = sub * KV // 2
+    if KV % 2 == 0:
+        NP = KV // 2
+        if arr.shape != (kt, NP * sub, mt):
+            raise ValueError(f"planar shape {arr.shape} != "
+                             f"{(kt, NP * sub, mt)}")
+        # arr[kt, j*sub+t, mt] = word[NP*t + j] -> (mt, kt, t, j)
+        words = arr.reshape(kt, NP, sub, mt).transpose(3, 0, 2, 1)
+    else:
+        if kt % 2:
+            raise ValueError(f"odd KV={KV} with odd k/16={kt}: the "
+                             f"reference's aligned layout is not inverted")
+        if arr.shape != (kt // 2, KV * sub, mt):
+            raise ValueError(f"planar shape {arr.shape} != "
+                             f"{(kt // 2, KV * sub, mt)}")
+        # arr[g, j*sub + 2r + h, mt] = tile (2g+h)'s word[r*KV + j]
+        # -> (mt, g, h, r, j)
+        words = arr.reshape(kt // 2, KV, sub // 2, 2, mt).transpose(
+            4, 0, 3, 2, 1)
+    return np.ascontiguousarray(words.reshape(mt * kt, W))
+
+
+def tcq2_planar_to_canonical(tr_pl: np.ndarray, m: int, k: int,
+                             KV: int) -> np.ndarray:
+    """V=2 planar (dense even or dense odd KV) -> canonical (T, 4*KV)."""
+    return _planar_to_canonical(tr_pl, m, k, KV, 8)
+
+
+def tcq1_planar_to_canonical(tr_pl: np.ndarray, m: int, k: int,
+                             KV: int) -> np.ndarray:
+    """V=1 planar (dense even or dense odd KV) -> canonical (T, 8*KV)."""
+    return _planar_to_canonical(tr_pl, m, k, KV, 16)
 
 
 def tcq_kernel_to_canonical(tr_kt: np.ndarray, m: int, k: int,

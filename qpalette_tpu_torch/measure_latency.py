@@ -11,6 +11,12 @@ unmerged, bf16 lm_head):
       --qdict_path msq_results/3_8b/mem_constrained/default/3.25bit.json \
       --merge_info_path "" --lm_head_bits 16
 
+One scheme for every projection (unmerged unless --merge_info_path is
+given; merges take tcq1 / tcq2 only):
+
+  python -m qpalette_tpu_torch.measure_latency --dummy \
+      --quantizer_str tcq2_7_none_0.9
+
 Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
 with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Reports
 tokens/s and achieved GB/s (streamed bytes x tokens/s) beside the device
@@ -31,8 +37,12 @@ def main():
     ap.add_argument("--hf_path", default="meta-llama/Llama-3.1-8B")
     ap.add_argument("--qdict_path",
                     default=os.path.join(_QDIR, "215.0thp_cc.json"))
-    ap.add_argument("--merge_info_path",
-                    default=os.path.join(_QDIR, "215.0thp_cc_merge_info.json"))
+    ap.add_argument("--merge_info_path", default=None,
+                    help="default: the 215 merge_info with the default "
+                    "qdict, none with --quantizer_str; '' for none")
+    ap.add_argument("--quantizer_str", default=None,
+                    help="one scheme for every projection, instead of "
+                    "--qdict_path")
     ap.add_argument("--max_new_tokens", type=int, default=128)
     ap.add_argument("--num_samples", type=int, default=3)
     ap.add_argument("--dummy", action="store_true")
@@ -62,12 +72,18 @@ def main():
     cfg = CONFIGS[MODEL_KEYS[args.hf_path]]()
     nl = (args.num_hidden_layers if args.num_hidden_layers > 0
           else cfg.num_layers)
-    with open(args.qdict_path) as f:
-        qdict = {k: tuple(v) if isinstance(v, list) else v
-                 for k, v in json.load(f).items()}
+    if args.quantizer_str is not None:
+        qdict = args.quantizer_str
+    else:
+        with open(args.qdict_path) as f:
+            qdict = {k: tuple(v) if isinstance(v, list) else v
+                     for k, v in json.load(f).items()}
+    mi_path = args.merge_info_path
+    if mi_path is None and args.quantizer_str is None:
+        mi_path = os.path.join(_QDIR, "215.0thp_cc_merge_info.json")
     merge_info = None
-    if args.merge_info_path:
-        with open(args.merge_info_path) as f:
+    if mi_path:
+        with open(mi_path) as f:
             merge_info = json.load(f)
 
     spec, params = build_quantized_model(
@@ -98,6 +114,7 @@ def main():
                       "model_size_gb": mbytes / 1e9,
                       "streamed_gb_per_token": streamed / 1e9,
                       "avg_bits": bits, "impl": args.impl, "num_layers": nl,
+                      "quantizer_str": args.quantizer_str,
                       "lm_head_bits": args.lm_head_bits}))
 
 

@@ -1,10 +1,11 @@
 """Trellis decoders: arithmetic (gather-free) and LUT (quantlut_sym).
 
-Counterpart of ``qpalette_tpu/ops/codebooks.py`` (the MAD constants,
-``decode_sum2``, ``trellis_lut_arith("sum2")``, ``tlut_bits_for_kv``,
-``trellis_tlut`` from the committed tables and ``trellis_lut``).  The 32-bit modular
-arithmetic runs in int64 and is masked with ``& 0xFFFFFFFF``: torch's
-uint32 support is partial.
+Counterpart of ``qpalette_tpu/ops/codebooks.py`` (the MAD constants, the
+arithmetic decoders ``decode_1mad`` / ``decode_2mad`` / ``decode_dualmad`` /
+``decode_sum2`` and ``trellis_lut_arith``, ``tlut_bits_for_kv``,
+``trellis_tlut`` from the committed tables and ``trellis_lut``).  The
+32-bit modular arithmetic runs in int64 and is masked with
+``& 0xFFFFFFFF``: torch's uint32 support is partial.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ import torch
 L = 16
 
 MAD1_A, MAD1_B = 34038481, 76625530
+MAD2_A, MAD2_B, MAD2_C = 264435761, 1013904223, 1664525
 MAD_SCALE = 147.800537109375
+
+# decode mode -> weights per trellis state (V)
+ARITH_V = {"1mad": 1, "2mad": 1, "dualmad": 2, "sum2": 2}
 
 _M32 = 0xFFFFFFFF
 
@@ -28,9 +33,14 @@ def sum2_scramble(u: torch.Tensor) -> torch.Tensor:
     return (u.to(torch.int64) * MAD1_A + MAD1_B) & _M32
 
 
+def _bytes(h: torch.Tensor) -> torch.Tensor:
+    """int64 h (< 2^32) -> (..., 4) int64 unsigned bytes, lowest first."""
+    return torch.stack([(h >> (8 * i)) & 255 for i in range(4)], dim=-1)
+
+
 def signed_bytes(h: torch.Tensor) -> torch.Tensor:
     """int64 h (< 2^32) -> (..., 4) int64 signed bytes, lowest byte first."""
-    b = torch.stack([(h >> (8 * i)) & 255 for i in range(4)], dim=-1)
+    b = _bytes(h)
     return torch.where(b >= 128, b - 256, b)
 
 
@@ -41,22 +51,70 @@ def sum2_pairs(u: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def mad_scramble(u: torch.Tensor, mode: str) -> torch.Tensor:
+    """V=1 states -> the scrambled word h (int64 < 2^32) whose unsigned
+    byte sum minus 510 is the weight.  1mad: h = u*A1 + B1; 2mad:
+    h0 = u*A2 + B2, h = h0 + hi32(h0*C)."""
+    u = u.to(torch.int64) & _M32
+    if mode == "1mad":
+        return (u * MAD1_A + MAD1_B) & _M32
+    if mode != "2mad":
+        raise ValueError(f"V=1 decode mode {mode!r}")
+    h0 = (u * MAD2_A + MAD2_B) & _M32
+    return (h0 + ((h0 * MAD2_C) >> 32)) & _M32
+
+
+def arith_weights_int(u: torch.Tensor, mode: str) -> torch.Tensor:
+    """States -> (..., V) int64 unscaled weights (value * MAD_SCALE) of an
+    arithmetic decode mode: sum2 and dualmad give a pair per state (V=2),
+    1mad and 2mad one weight (V=1)."""
+    if mode == "sum2":
+        return sum2_pairs(u)
+    if mode == "dualmad":
+        u = u.to(torch.int64) & _M32
+        return torch.stack([signed_bytes((u * a) & _M32).sum(-1)
+                            for a in (MAD1_A, MAD2_A)], dim=-1)
+    return (_bytes(mad_scramble(u, mode)).sum(-1) - 510)[..., None]
+
+
+def _scaled(w: torch.Tensor) -> torch.Tensor:
+    # the reference's (float64 / MAD_SCALE).astype(float32)
+    return (w.to(torch.float64) / MAD_SCALE).to(torch.float32)
+
+
+def decode_1mad(x: torch.Tensor) -> torch.Tensor:
+    """V=1 decoder: one LCG step, (unsigned byte sum - 510) / MAD_SCALE.
+    Returns (len(x),) float32."""
+    return _scaled(arith_weights_int(torch.as_tensor(x), "1mad")[..., 0])
+
+
+def decode_2mad(x: torch.Tensor) -> torch.Tensor:
+    """V=1 two-stage LCG decoder.  Returns (len(x),) float32."""
+    return _scaled(arith_weights_int(torch.as_tensor(x), "2mad")[..., 0])
+
+
+def decode_dualmad(x: torch.Tensor) -> torch.Tensor:
+    """V=2 decoder ('tcq2'): weight i = signed-byte sum of h_i = u*A_i mod
+    2^32 (A_1 = MAD1_A, A_2 = MAD2_A, no additive constant), / MAD_SCALE.
+    Returns (len(x), 2) float32."""
+    return _scaled(arith_weights_int(torch.as_tensor(x), "dualmad"))
+
+
 def decode_sum2(x: torch.Tensor) -> torch.Tensor:
     """V=2 sum2 decoder ('tcq2s'): ONE LCG scramble h = u*A + B per weight
     pair; weight 0 = signed bytes b0+b1, weight 1 = b2+b3, both / MAD_SCALE.
     Returns (len(x), 2) float32."""
-    u = torch.as_tensor(x).to(torch.int64) & _M32
-    out = sum2_pairs(u).to(torch.float64) / MAD_SCALE
-    return out.to(torch.float32)
+    return _scaled(arith_weights_int(torch.as_tensor(x), "sum2"))
 
 
 @functools.lru_cache(maxsize=None)
 def trellis_lut_arith(mode: str) -> torch.Tensor:
-    """State -> value table (2^16, 2) float32 for the arithmetic decode
-    modes.  Only ``sum2`` is ported."""
-    if mode != "sum2":
+    """State -> value table of an arithmetic decode mode, float32:
+    (2^16, 1) for 1mad / 2mad (V=1), (2^16, 2) for dualmad / sum2."""
+    if mode not in ARITH_V:
         raise NotImplementedError(f"decode mode {mode!r} is not ported")
-    return decode_sum2(torch.arange(1 << L, dtype=torch.int64))
+    s = torch.arange(1 << L, dtype=torch.int64)
+    return _scaled(arith_weights_int(s, mode))
 
 
 # ---------------------------------------------------------------------------

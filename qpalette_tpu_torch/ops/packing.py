@@ -1,11 +1,12 @@
 """Canonical trellis format and its executable-spec decoder.
 
 Counterpart of ``qpalette_tpu/ops/packing.py`` (``unpack_trellis``,
-``tiles_to_mat``, ``dequant_tcq`` for V=2, ``dequant_tcq2``).  The canonical ``trellis`` is
-(T, 4*KV) 32-bit words, T = (m/16)*(k/16) tiles in tile-row-major order.
-Each tile is one tail-biting trellis of 128 states; state i is the 16-bit
-window at bit KV*i of the tile's *circular* 128*KV-bit stream (word
-indices wrap modulo 4*KV).
+``tiles_to_mat``, ``dequant_tcq`` for V=2 and V=1, ``dequant_tcq2``).  The
+canonical ``trellis`` is (T, 8*KV/V) 32-bit words, T = (m/16)*(k/16) tiles
+in tile-row-major order.  Each tile is one tail-biting trellis of 256/V
+states (V weights per state); state i is the 16-bit window at bit KV*i of
+the tile's *circular* 256*KV/V-bit stream (word indices wrap modulo the
+tile's word count).
 
 The port keeps the words in int32 tensors holding the uint32 bit
 pattern (torch's uint32 support is partial); arithmetic on them widens
@@ -63,11 +64,13 @@ def dequant_tcq2(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
 
 
 def dequant_tcq(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
-                KV: int) -> torch.Tensor:
-    """V=2 trellis in M-MAJOR order -> weights (m, k) in lut's dtype:
-    state s = 8*row + t covers (row, 2t) and (row, 2t+1) of its 16x16
-    tile.  (Not dequant_tcq2's paired-K-major order.)  lut is the full
-    (2^16, 2) state table."""
-    states = unpack_trellis(packed, KV, 2)  # (T, 128)
-    tiles = lut[states].reshape(-1, TD, TD)  # (T, row, col)
+                KV: int, v: int = V) -> torch.Tensor:
+    """Trellis -> weights (m, k) in lut's dtype; lut is the full (2^16, v)
+    state table.  v=2: M-MAJOR order, state s = 8*row + t covers (row, 2t)
+    and (row, 2t+1) of its 16x16 tile (not dequant_tcq2's paired-K-major
+    order).  v=1: K-MAJOR order, state p = 16*col + row."""
+    states = unpack_trellis(packed, KV, v)  # (T, 256/v)
+    tiles = lut[states].reshape(-1, TD, TD)  # (T, row, col) for v=2
+    if v == 1:
+        tiles = tiles.transpose(1, 2)  # (T, col, row) -> (T, row, col)
     return tiles_to_mat(tiles, m, k)

@@ -1,13 +1,15 @@
 """Model assembly: qdict + merge_info -> (ModelSpec, params).
 
-Counterpart of ``qpalette_tpu/runtime/loader.py`` for the tcq2s, tcq and
-tcomb kinds, keeping its seeds (``su_for``, the lm_head SU ``seed*7+99``
+Counterpart of ``qpalette_tpu/runtime/loader.py`` for the arithmetic
+trellis kinds (tcq1 1mad/2mad, tcq2 dualmad/sum2) and the LUT trellis kinds
+(tcq, tcomb), keeping its seeds (``su_for``, the lm_head SU ``seed*7+99``
 and dummy artifact ``seed*11+5``), its merge semantics (qkv / ug merges
-of tcq2 only) and the 4096-multiple vocab pad of the quantized lm_head.
-Projections keep the canonical ``trellis`` (tcomb: ``trellis1`` /
-``trellis2``) words; the port defines no kernel-side layout yet.  The
-(2^S, 2) tables of tcq / tcomb are held once per S in ``params["luts"]``.
-Dummy packed words come from a ``torch.Generator`` on the target device.
+of tcq1 / tcq2 with one KV and decode mode) and the 4096-multiple vocab
+pad of the quantized lm_head.  Projections keep the canonical ``trellis``
+(tcomb: ``trellis1`` / ``trellis2``) words; the port defines no
+kernel-side layout yet.  The (2^S, 2) tables of tcq / tcomb are held once
+per S in ``params["luts"]``.  Dummy packed words come from a
+``torch.Generator`` on the target device.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from qpalette_tpu_torch.kernels.arith import SUPPORTED_KV
 from qpalette_tpu_torch.models.llama import (AttnSpec, LlamaConfig, MLPSpec,
                                              ModelSpec)
 from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
@@ -74,12 +77,14 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
     kind = meta["kind"]
     common = dict(in_features=meta["in_features"],
                   out_features=meta["out_features"], impl=impl)
-    if kind == "tcq2":
-        if meta["decode_mode"] != "sum2" or meta["KV"] % 2:
-            raise NotImplementedError(
-                f"tcq2 mode {meta['decode_mode']!r} KV={meta['KV']}: only "
-                f"sum2 with even KV is ported")
-        return LinearSpec("tcq2", KV=(meta["KV"],), mode="sum2", **common)
+    if kind in ("tcq1", "tcq2"):
+        mode, KV = meta["decode_mode"], meta["KV"]
+        if (mode not in (("1mad", "2mad") if kind == "tcq1"
+                         else ("sum2", "dualmad"))
+                or KV not in SUPPORTED_KV[mode]):
+            raise NotImplementedError(f"{kind} mode {mode!r} KV={KV} is "
+                                      f"not ported")
+        return LinearSpec(kind, KV=(KV,), mode=mode, **common)
     if kind == "tcq":
         return LinearSpec("tcq", KV=(meta["KV"],),
                           tlut_bits=meta["tlut_bits"], **common)
@@ -96,7 +101,11 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
     m, n = shape
     spec = parse_quantizer_str(qstr)
     dims = {"quantizer_str": qstr, "in_features": n, "out_features": m}
-    if spec.family in ("tcq2", "tcq2s"):
+    if spec.family in ("tcq1", "tcq1x2"):
+        meta = {"kind": "tcq1", "KV": spec.KV[0],
+                "decode_mode": "1mad" if spec.family == "tcq1" else "2mad",
+                **dims}
+    elif spec.family in ("tcq2", "tcq2s"):
         meta = {"kind": "tcq2", "KV": spec.KV[0],
                 "decode_mode": ("sum2" if spec.family == "tcq2s"
                                 else "dualmad"), **dims}
@@ -117,14 +126,15 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
 
 
 def merge_artifacts(arts: list) -> dict:
-    """Row-concat merge of same-scheme tcq2 artifacts (fused qkv / ug):
-    tiles are tile-row-major with a shared in_features, so stacking
-    artifacts stacks output rows.  SU must already be shared."""
+    """Row-concat merge of same-scheme tcq1 / tcq2 artifacts (fused qkv /
+    ug): tiles are tile-row-major with a shared in_features, so stacking
+    artifacts stacks output rows.  KV and decode mode must agree, and SU
+    must already be shared."""
     m0 = arts[0]["meta"]
-    if m0["kind"] != "tcq2":
+    if m0["kind"] not in ("tcq1", "tcq2"):
         raise NotImplementedError(f"merge of {m0['kind']!r} is not ported")
     for a in arts[1:]:
-        if (a["meta"]["kind"] != "tcq2"
+        if (a["meta"]["kind"] != m0["kind"]
                 or a["meta"]["in_features"] != m0["in_features"]
                 or a["meta"]["KV"] != m0["KV"]
                 or a["meta"]["decode_mode"] != m0["decode_mode"]):
@@ -145,14 +155,15 @@ def merge_artifacts(arts: list) -> dict:
 
 
 def trellis_shapes(ls: LinearSpec) -> dict:
-    """Canonical word arrays of a tcq2 / tcq / tcomb projection:
-    name -> ((m/16)*(n_i/16), 4*KV_i)."""
+    """Canonical word arrays of a tcq1 / tcq2 / tcq / tcomb projection:
+    name -> ((m/16)*(n_i/16), 4*KV_i), or 8*KV words a tile for tcq1."""
     m, n = ls.out_features, ls.in_features
     if ls.kind == "tcomb":
         n1, n2 = ls.split
         return {"trellis1": ((m // TD) * (n1 // TD), 4 * ls.KV[0]),
                 "trellis2": ((m // TD) * (n2 // TD), 4 * ls.KV[1])}
-    return {"trellis": ((m // TD) * (n // TD), 4 * ls.KV[0])}
+    per_state = 8 if ls.kind == "tcq1" else 4
+    return {"trellis": ((m // TD) * (n // TD), per_state * ls.KV[0])}
 
 
 def _params_from_artifact(art: dict, device) -> dict:
@@ -196,14 +207,15 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                           dummy: bool = True, impl: str = "a8",
                           num_layers: Optional[int] = None,
                           lm_head_bits: int = 16, seed: int = 0,
-                          device="cpu"):
+                          device="cuda"):
     """Assemble (ModelSpec, params) with random (dummy) packed weights.
 
     qdict: quantizer_str, or {f"{i}_{key}": qstr | (qstr, impl_choice)}
     where impl_choice "0" is the default ``impl`` and "pallas"/"pallas_a8"
     name an impl explicitly.  merge_info: per-layer lists such as
     ["merge_qkv", "merge_ug"].  lm_head_bits: 16 (bf16) or 4 (tcq2s_8,
-    always impl a8 as in the reference)."""
+    always impl a8 as in the reference).  device: the card unless the
+    caller asks for the CPU (``device="cpu"`` runs the plain versions)."""
     if not dummy:
         raise NotImplementedError("loading quantized artifacts is not "
                                   "ported; use dummy=True")

@@ -1,13 +1,14 @@
 """Quantized-linear dispatch.
 
 Counterpart of ``qpalette_tpu/runtime/qlinear.py`` for the kinds the port
-runs: ``dense``, ``dense_rot``, ``tcq2`` in mode ``sum2`` (tcq2s), and the
-LUT trellis kinds ``tcq`` and input-split ``tcomb``.  Impl names:
-``exact`` (the reference's ``pallas``: bf16 activations, exact decode)
-and ``a8`` (``pallas_a8``: int8 activations quantized inside the kernel;
-for tcq/tcomb the reference runs the same bf16 kernels, and so does the
-port).  The LUT kinds read their (2^S, 2) table from the model's shared
-``luts`` dict, one entry per ``tlut_bits``.
+runs: ``dense``, ``dense_rot``, the arithmetic trellis kinds ``tcq2``
+(modes ``sum2`` and ``dualmad``) and ``tcq1`` (modes ``1mad`` and
+``2mad``), and the LUT trellis kinds ``tcq`` and input-split ``tcomb``.
+Impl names: ``exact`` (the reference's ``pallas``: bf16 activations,
+exact decode) and ``a8`` (``pallas_a8``: int8 activations quantized
+inside the kernel; for tcq/tcomb the reference runs the same bf16
+kernels, and so does the port).  The LUT kinds read their (2^S, 2) table
+from the model's shared ``luts`` dict, one entry per ``tlut_bits``.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
-from qpalette_tpu_torch.kernels import tcq_lut
-from qpalette_tpu_torch.kernels.tcq2s import MAX_ROWS, tcq2s_decode_gemv
+from qpalette_tpu_torch.kernels import arith_dequant, tcq_lut
+from qpalette_tpu_torch.kernels.arith import MAX_ROWS, decode_gemv
 from qpalette_tpu_torch.ops.hadamard import get_had_factors, hadamard_transform_t
 
 IMPLS = ("exact", "a8")
@@ -26,13 +27,13 @@ FUSE_ROT_ROWS = 8  # rows up to which the rotation output stays float32
 
 @dataclass(frozen=True)
 class LinearSpec:
-    kind: str                 # dense | dense_rot | tcq2 | tcq | tcomb
+    kind: str                 # dense | dense_rot | tcq1 | tcq2 | tcq | tcomb
     in_features: int
     out_features: int
     KV: tuple = ()            # (KV,) or (KV1, KV2)
     tlut_bits: int = 0        # tcq / tcomb table bits S
     split: tuple = ()         # tcomb in_part (n1, n2)
-    mode: str = ""            # tcq2 decode mode (sum2)
+    mode: str = ""            # tcq2: sum2 | dualmad; tcq1: 1mad | 2mad
     impl: str = "exact"       # exact | a8
 
     def tcq_lut_key(self) -> str:
@@ -41,14 +42,22 @@ class LinearSpec:
 
 def can_fuse_rot(spec: LinearSpec, rows: int) -> bool:
     """True where the reference fuses the incoherence rotation into the
-    kernel's activation prologue: tcq2 sum2, decode regime (rows <= 8) and
-    a <= 2-factor Hadamard.  Then the rotated activation reaches the
-    kernel in float32 instead of being cast back to the activation dtype."""
+    kernel's activation prologue: tcq1 (any mode) or tcq2 sum2, decode
+    regime (rows <= 8), a <= 2-factor Hadamard and, for the reference's
+    dense odd-KV layout (odd KV, even k/16), a last factor that is a
+    multiple of 32.  Then the rotated activation reaches the kernel in
+    float32 instead of being cast back to the activation dtype."""
     if spec.impl not in IMPLS or rows > FUSE_ROT_ROWS:
         return False
-    if spec.kind != "tcq2" or spec.mode != "sum2":
+    if not (spec.kind == "tcq1"
+            or (spec.kind == "tcq2" and spec.mode == "sum2")):
         return False
-    return len(get_had_factors(spec.in_features)) <= 2
+    facs = get_had_factors(spec.in_features)
+    if len(facs) > 2:
+        return False
+    if spec.KV[0] % 2 and (spec.in_features // 16) % 2 == 0:
+        return facs[-1] % 32 == 0
+    return True
 
 
 def _lut_matmul(spec: LinearSpec, p: dict, x: torch.Tensor,
@@ -79,6 +88,27 @@ def _lut_matmul(spec: LinearSpec, p: dict, x: torch.Tensor,
     return x.float() @ w.float().T
 
 
+def _arith_matmul(spec: LinearSpec, p: dict,
+                  x: torch.Tensor) -> torch.Tensor:
+    """tcq1 / tcq2: x (rows, n) -> (rows, m) float32 without Wscale.  Up
+    to 256 rows through K1; more rows as 256-row chunks of K1 under a8,
+    and under exact through the dequant kernel (K2 / K3) and a product."""
+    m, n, KV, mode = (spec.out_features, spec.in_features, spec.KV[0],
+                      spec.mode)
+    x = x.contiguous()
+    a8 = spec.impl == "a8"
+    if x.shape[0] <= MAX_ROWS:
+        return decode_gemv(mode, x, p["trellis"], KV, m, n, a8)
+    if a8:
+        return torch.cat([decode_gemv(mode, x[r:r + MAX_ROWS], p["trellis"],
+                                      KV, m, n, a8)
+                          for r in range(0, x.shape[0], MAX_ROWS)])
+    w = arith_dequant.dequant(mode, p["trellis"], KV, m, n)
+    # the reference's bf16 x bf16 -> float32 dot (fused.dequant_matmul),
+    # as in _lut_matmul
+    return x.float() @ w.float().T
+
+
 def qlinear_apply(spec: LinearSpec, p: dict, z: torch.Tensor, pre_rot=None,
                   out_dtype=None, luts=None) -> torch.Tensor:
     """z (rows, in_features) -> (rows, out_features), Wscale applied in f32.
@@ -106,20 +136,7 @@ def qlinear_apply(spec: LinearSpec, p: dict, z: torch.Tensor, pre_rot=None,
         y = _lut_matmul(spec, p, z.to(torch.bfloat16).contiguous(),
                         luts[spec.tcq_lut_key()])
         return (y * p["wscale"].float()[None, :]).to(odt)
-    if spec.kind != "tcq2" or spec.mode != "sum2":
-        raise NotImplementedError(f"kind {spec.kind!r} mode {spec.mode!r}")
-    a8 = spec.impl == "a8"
-    x = (z if fused else z.to(torch.bfloat16)).contiguous()
-    m, n, KV = spec.out_features, spec.in_features, spec.KV[0]
-    if rows <= MAX_ROWS:
-        y = tcq2s_decode_gemv(x, p["trellis"], KV, m, n, a8)
-    elif a8:
-        # very large row counts: 256-row chunks through the same kernel
-        y = torch.cat([tcq2s_decode_gemv(x[r:r + MAX_ROWS], p["trellis"],
-                                         KV, m, n, a8)
-                       for r in range(0, rows, MAX_ROWS)])
-    else:
-        raise NotImplementedError(
-            "impl 'exact' above 256 rows needs the tcq2_dequant kernel "
-            "(K2), which is not ported yet")
+    if spec.kind not in ("tcq1", "tcq2"):
+        raise NotImplementedError(f"kind {spec.kind!r}")
+    y = _arith_matmul(spec, p, z if fused else z.to(torch.bfloat16))
     return (y * p["wscale"].float()[None, :]).to(odt)

@@ -1,8 +1,9 @@
-"""The CUDA kernels against their plain PyTorch versions on the card: tcq2s
-at the Llama-3.1-8B shapes of the 215.0thp_cc path, and the LUT trellis
-kernels (tcq / tcomb GEMV and dequant) at the shapes of the 3.25-bit
-flagship.  Marked ``gpu``; each test skips itself when no CUDA device is
-present.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+arithmetic trellis GEMV (K1) in all four modes at the Llama-3.1-8B shapes
+of the 215.0thp_cc path and of bench.py's tcq2mix scheme, the arithmetic
+dequants (K2, K3) at the same shapes, and the LUT trellis kernels (tcq /
+tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship.  Marked
+``gpu``; each test skips itself when no CUDA device is present.
 
   python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -10,10 +11,11 @@ present.
 import pytest
 import torch
 
-from qpalette_tpu_torch.kernels import tcq_lut
-from qpalette_tpu_torch.kernels.tcq2s import (tcq2s_decode_gemv,
-                                              tcq2s_decode_gemv_plain)
+from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
+from qpalette_tpu_torch.kernels.arith import (arith_gemv_plain,
+                                              tcq2s_decode_gemv)
 from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+from qpalette_tpu_torch.runtime.qlinear import LinearSpec, qlinear_apply
 
 pytestmark = pytest.mark.gpu
 
@@ -21,6 +23,19 @@ pytestmark = pytest.mark.gpu
 SHAPES_215 = [("qkv", 6144, 4096, 8), ("o", 4096, 4096, 6),
               ("ug", 28672, 4096, 4), ("ug", 28672, 4096, 6),
               ("down", 4096, 14336, 6), ("lm_head", 131072, 4096, 8)]
+# (projection, m, k, mode, KV): bench.py's tcq2mix (merged qkv tcq2_6, ug
+# tcq2_7, o/down tcq1_3), then 2mad and odd-KV sum2 at 4096x4096
+SHAPES_ARITH = [("qkv", 6144, 4096, "dualmad", 6),
+                ("ug", 28672, 4096, "dualmad", 7),
+                ("o", 4096, 4096, "1mad", 3), ("down", 4096, 14336, "1mad", 3),
+                ("2mad3", 4096, 4096, "2mad", 3),
+                ("2mad4", 4096, 4096, "2mad", 4),
+                ("sum2_5", 4096, 4096, "sum2", 5),
+                ("sum2_7", 4096, 4096, "sum2", 7)]
+# K2 sum2 at the 215 shapes too
+SHAPES_DEQUANT = SHAPES_ARITH + [
+    (name, m, k, "sum2", KV) for name, m, k, KV in SHAPES_215
+    if name != "lm_head"]
 # (projection, m, k, KV) of the 3.25-bit flagship (unmerged)
 SHAPES_FLAGSHIP = [("q/o", 4096, 4096, (8,)), ("q/o", 4096, 4096, (8, 9)),
                    ("k/v", 1024, 4096, (10,)), ("gate/up", 14336, 4096, (6,)),
@@ -36,10 +51,11 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _case(m, k, KV, N, x_dtype, device, seed):
+def _case(m, k, KV, N, x_dtype, device, seed, mode="sum2"):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    words = torch.randint(-(1 << 31), 1 << 31, ((m // 16) * (k // 16), 4 * KV),
+    W = arith.words_per_tile(mode, KV)
+    words = torch.randint(-(1 << 31), 1 << 31, ((m // 16) * (k // 16), W),
                           generator=gen, dtype=torch.int32, device=device)
     x = torch.randn((N, k), generator=gen, device=device).to(x_dtype)
     return words, x
@@ -55,7 +71,7 @@ def test_kernel_matches_plain_on_card(cuda, name, m, k, KV, a8):
         y = tcq2s_decode_gemv(x, words, KV, m, k, a8)
         torch.cuda.synchronize()
         assert tcq2s_decode_gemv.launches == before + 1
-        ref = tcq2s_decode_gemv_plain(x, words, KV, m, k, a8)
+        ref = arith_gemv_plain(x, words, "sum2", KV, m, k, a8)
         rel = ((y - ref).abs().max() / ref.abs().max()).item()
         # exact: f32 sums over up to 14336 terms in another order; a8: the
         # same chunks and rounding, but a tie may round the other way
@@ -66,6 +82,72 @@ def test_kernel_rejects_cpu_trellis_with_cuda_x(cuda):
     words, x = _case(64, 256, 6, 1, torch.float32, cuda, seed=1)
     with pytest.raises(ValueError):
         tcq2s_decode_gemv(x, words.cpu(), 6, 64, 256, True)
+    with pytest.raises(ValueError):
+        arith_dequant.tcq2_dequant(words, 6, 64, 256, "sum2",
+                                   out=torch.empty((64, 256)))
+
+
+def _counted(mode):
+    return {"sum2": arith.tcq2s_decode_gemv, "dualmad": arith.tcq2_decode_gemv,
+            "1mad": arith.tcq1_decode_gemv,
+            "2mad": arith.tcq1_decode_gemv}[mode]
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_ARITH)
+def test_arith_gemv_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
+    for N, x_dtype in ((1, torch.float32), (8, torch.float32),
+                       (256, torch.bfloat16)):
+        words, x = _case(m, k, KV, N, x_dtype, cuda, seed=m + k + KV + N,
+                         mode=mode)
+        fn = _counted(mode)
+        before = fn.launches
+        y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = arith_gemv_plain(x, words, mode, KV, m, k, a8)
+        rel = ((y - ref).abs().max() / ref.abs().max()).item()
+        # exact: f32 sums in another order; a8: the same chunks and
+        # rounding, but a tie may round the other way
+        assert rel <= (1e-3 if a8 else 1e-4), (name, N, rel)
+
+
+@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_DEQUANT)
+def test_arith_dequant_bit_equal_to_plain_on_card(cuda, name, m, k, mode,
+                                                  KV):
+    words, _ = _case(m, k, KV, 1, torch.float32, cuda, seed=m + k + KV + 7,
+                     mode=mode)
+    fn = (arith_dequant.tcq2_dequant if mode in ("sum2", "dualmad")
+          else arith_dequant.tcq1_dequant)
+    before = fn.launches
+    w = arith_dequant.dequant(mode, words, KV, m, k)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = arith_dequant.arith_dequant_plain(words, mode, KV, m, k)
+    assert torch.equal(w.view(torch.int16), ref.view(torch.int16)), name
+
+
+@pytest.mark.parametrize("kind,mode,KV", [("tcq2", "dualmad", 7),
+                                          ("tcq1", "1mad", 3)])
+def test_qlinear_large_rows_on_card(cuda, kind, mode, KV):
+    """300 rows: exact through one dequant launch and a product, a8 through
+    two 256-row GEMV chunks; both against the CPU plain path."""
+    m, k = 256, 512
+    words, x = _case(m, k, KV, 300, torch.bfloat16, cuda, seed=KV,
+                     mode=mode)
+    p = {"trellis": words, "wscale": torch.full((m,), 0.02, device=cuda)}
+    p_cpu = {n: t.cpu() for n, t in p.items()}
+    deq = (arith_dequant.tcq2_dequant if kind == "tcq2"
+           else arith_dequant.tcq1_dequant)
+    for impl, fn, launches in (("exact", deq, 1), ("a8", _counted(mode), 2)):
+        spec = LinearSpec(kind, k, m, KV=(KV,), mode=mode, impl=impl)
+        before = fn.launches
+        y = qlinear_apply(spec, p, x, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert fn.launches == before + launches, impl
+        ref = qlinear_apply(spec, p_cpu, x.cpu(), out_dtype=torch.float32)
+        rel = ((y.cpu() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= (1e-3 if impl == "a8" else 1e-5), (impl, rel)
 
 
 def _lut_case(m, k, KV, device, seed):

@@ -21,7 +21,7 @@ from qpalette_tpu.runtime import decode as jdecode
 from qpalette_tpu.runtime.loader import build_quantized_model as jbuild
 
 from qpalette_tpu_torch.convert import params_from_jax
-from qpalette_tpu_torch.kernels.tcq2s import tcq2s_decode_gemv
+from qpalette_tpu_torch.kernels.arith import tcq2s_decode_gemv
 from qpalette_tpu_torch.models import llama
 from qpalette_tpu_torch.models.llama import LlamaConfig
 from qpalette_tpu_torch.runtime import decode
@@ -90,8 +90,8 @@ def ref():
 def _port(ref, impl):
     spec, _ = build_quantized_model(LlamaConfig(**CFG), QDICT,
                                     merge_info=MERGE, dummy=True, impl=impl,
-                                    lm_head_bits=4)
-    return spec, params_from_jax(ref[4], spec)
+                                    lm_head_bits=4, device="cpu")
+    return spec, params_from_jax(ref[4], spec, device="cpu")
 
 
 def _ref_prefill_and_step(spec, params, T):

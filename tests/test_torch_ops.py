@@ -142,6 +142,6 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
-    for mod in ("kernels.tcq2s", "runtime.loader", "runtime.decode",
+    for mod in ("kernels.arith", "kernels.arith_dequant", "runtime.loader", "runtime.decode",
                 "models.llama", "convert", "measure_latency"):
         assert f"qpalette_tpu_torch.{mod}" in names, mod

@@ -12,8 +12,9 @@ from qpalette_tpu.kernels import fused
 from qpalette_tpu.runtime import qlinear as jqlinear
 
 from qpalette_tpu_torch.kernels.formats import tcq2_planar_to_canonical
-from qpalette_tpu_torch.kernels.tcq2s import (tcq2s_decode_gemv,
-                                              tcq2s_decode_gemv_plain)
+from qpalette_tpu_torch.kernels.arith import (arith_gemv_plain,
+                                              tcq2s_decode_gemv)
+from qpalette_tpu_torch.kernels.arith_dequant import arith_dequant_plain
 from qpalette_tpu_torch.ops.hadamard import hadamard_transform_t
 from qpalette_tpu_torch.ops.packing import words_to_torch
 from qpalette_tpu_torch.runtime.qlinear import LinearSpec, qlinear_apply
@@ -89,9 +90,18 @@ def test_planar_inverse_is_exact(KV):
 
 
 def test_planar_inverse_rejects_odd_kv():
+    """Odd KV inverts from the reference's dense double-tile layout (even
+    k/16) but not from its aligned fallback (odd k/16)."""
     words, _, tr_pl = _case(5, 405)
+    back = tcq2_planar_to_canonical(np.asarray(tr_pl), M, K, 5)
+    assert np.array_equal(back, words)
+    k_odd = 208  # k/16 = 13
+    rng = np.random.default_rng(406)
+    w_odd = rng.integers(0, 1 << 32, ((M // 16) * (k_odd // 16), 20),
+                         dtype=np.uint32)
+    pl_odd = kf.tcq2_planar_weights(jnp.asarray(w_odd), M, k_odd, 5)
     with pytest.raises(ValueError):
-        tcq2_planar_to_canonical(np.asarray(tr_pl), M, K, 5)
+        tcq2_planar_to_canonical(np.asarray(pl_odd), M, k_odd, 5)
 
 
 @pytest.mark.parametrize("bad", ["kv", "m", "dtype", "rows", "shape"])
@@ -100,8 +110,8 @@ def test_wrapper_rejects_unsupported_input(bad):
     tw, xt = words_to_torch(words), torch.from_numpy(x)
     args = dict(x=xt, trellis=tw, KV=6, m=M, k=K, a8=False)
     if bad == "kv":
-        args.update(KV=5, trellis=torch.zeros((tw.shape[0], 20),
-                                              dtype=torch.int32))
+        args.update(KV=11, trellis=torch.zeros((tw.shape[0], 44),
+                                               dtype=torch.int32))
     elif bad == "m":
         args.update(m=M + 8)
     elif bad == "dtype":
@@ -116,7 +126,7 @@ def test_wrapper_rejects_unsupported_input(bad):
 
 def test_qlinear_row_cutoffs():
     """a8 above 256 rows runs 256-row chunks through the same kernel;
-    exact above 256 rows needs the unported dequant kernel and raises."""
+    exact above 256 rows dequantizes (K2) and takes an f32 product."""
     words, _, _ = _case(6, 600)
     rng = np.random.default_rng(601)
     z = torch.from_numpy(rng.standard_normal((300, K)).astype(np.float32)
@@ -125,13 +135,14 @@ def test_qlinear_row_cutoffs():
          "wscale": torch.from_numpy(rng.random(M).astype(np.float32))}
     spec = LinearSpec("tcq2", K, M, KV=(6,), mode="sum2", impl="a8")
     y = qlinear_apply(spec, p, z, out_dtype=torch.float32)
-    parts = [tcq2s_decode_gemv_plain(z[r:r + 256], p["trellis"], 6, M, K,
-                                     True) for r in (0, 256)]
+    parts = [arith_gemv_plain(z[r:r + 256], p["trellis"], "sum2", 6, M, K,
+                              True) for r in (0, 256)]
     want = torch.cat(parts) * p["wscale"][None, :]
     assert torch.equal(y, want)
-    with pytest.raises(NotImplementedError):
-        qlinear_apply(LinearSpec("tcq2", K, M, KV=(6,), mode="sum2",
-                                 impl="exact"), p, z)
+    y = qlinear_apply(LinearSpec("tcq2", K, M, KV=(6,), mode="sum2",
+                                 impl="exact"), p, z, out_dtype=torch.float32)
+    w = arith_dequant_plain(p["trellis"], "sum2", 6, M, K)
+    assert torch.equal(y, (z.float() @ w.float().T) * p["wscale"][None, :])
 
 
 @pytest.mark.parametrize("kind", ["dense", "dense_rot"])

@@ -242,7 +242,8 @@ def test_flagship_qdict_builds_unmerged_with_shared_tables():
     layer, tables held once per S, the analytic size the reference's."""
     cfg = LlamaConfig(**CFG)
     spec, params = build_quantized_model(cfg, FLAGSHIP, dummy=True,
-                                         impl="exact", lm_head_bits=16)
+                                         impl="exact", lm_head_bits=16,
+                                         device="cpu")
     assert sorted(params["luts"]) == ["tcq10", "tcq11", "tcq9"]
     for S in (9, 10, 11):
         assert params["luts"][f"tcq{S}"].shape == (1 << S, 2)
@@ -275,9 +276,10 @@ def ref():
 
 def _port(ref, impl="exact", np_params=None):
     spec, _ = build_quantized_model(LlamaConfig(**CFG), FLAGSHIP,
-                                    dummy=True, impl=impl, lm_head_bits=16)
+                                    dummy=True, impl=impl, lm_head_bits=16,
+                                    device="cpu")
     return spec, params_from_jax(ref[2] if np_params is None else np_params,
-                                 spec)
+                                 spec, device="cpu")
 
 
 def test_params_from_jax_takes_kernel_layouts(ref):
