@@ -15,8 +15,17 @@ Phases (each raises on failure):
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
-     shape of the 3.25-bit flagship: GEMV (N in {1,4,8}, within 1e-4 of
-     max|y|), dequant (bit-equal), the dequant + product at N=16; times
+     shape of the 3.25-bit flagship and, at KV 3 (tcq_3, tcomb_3_4), at o
+     and down: GEMV (N in {1,4,8}, within 1e-4 of max|y|), dequant
+     (bit-equal), the dequant + product at N=16; times at the flagship's
+     shapes
+  5b. the SQ/VQ row-pack kernels (K8 vq_gemv, K9 vq_dequant) against their
+     plain versions: ldlq_2_6 (bits 6, vec 2) at the four 8B shapes and
+     every ldlq (bits, vec) at o and down; K8 at N in {1,8} within 1e-4 of
+     max|y|, K9 bit-equal; times (kernel at every shape, plain at Path C's)
+  5c. the int8 lm_head GEMVs (K10 int8_gemv_a8 bit-equal, K11 int8_gemv
+     within 1e-5) at the 129024x4096 head, N in {1,8}; times with
+     torch._int_mm on the same int8 operands as K10's yardstick
   6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
      cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
@@ -34,9 +43,17 @@ Phases (each raises on failure):
   9. Path B: a 512-token prefill at impl exact on tcq2mix (64 K2 + 64 K3,
      the head as 2 chunked sum2 K1 launches) and on the 215 config (128 K2
      sum2 + 2); prefill time and peak memory
+ 9b. Path C: the 8B ldlq_2_6 model (3-bit 2-D VQ, merged qkv/ug) with the
+     rotated int8 lm_head, impl a8; the 16-token prefill launches 128 K9
+     (the head a plain product), each of 64 decode forwards 128 K8 + 1 K10;
+     tokens/s and peak memory
+ 9c. Path D: 8 layers of ldlq_1_4 (4-bit scalar, unmerged) with the int8
+     head built here without the rotation: 56 K9 in the prefill, 56 K8 + 1
+     K11 a decode forward
  10. 2-layer models with each path's scheme mix on the CPU (plain
      versions) against the same weights on the card (kernels); the tcq2mix
-     one with a 300-token exact prompt (K2/K3) and one decode step
+     one with a 300-token exact prompt (K2/K3) and one decode step; the
+     Path C one with a 12-token prompt (K9) and one decode step (K8, K10)
  11. a JSON line of kernels, the nvidia-smi name/power line, and the final
      JSON status line
 """
@@ -102,11 +119,32 @@ LUT_TOL = 1e-4  # LUT GEMV kernel vs plain, of max|y|
 # dequant + product at N=16: the kernel's W is bit-equal to the plain one,
 # so the two products see the same operands
 PRODUCT_TOL = 1e-6
+# Path C: ldlq_2_6 everywhere, merged qkv / ug, the rotated int8 head
+PATH_C_QSTR = "ldlq_2_6_none_1.0"
+SHAPES_8B = [("qkv", 6144, 4096), ("o", 4096, 4096), ("ug", 28672, 4096),
+             ("down", 4096, 14336)]
+PATH_C_PREFILL = {"vq_dequant": 128}
+PATH_C_STEP = {"vq_gemv": 128, "int8_gemv_a8": 1}
+# Path D: 8 layers of ldlq_1_4, unmerged, the int8 head without rotation
+PATH_D_QSTR, PATH_D_LAYERS = "ldlq_1_4_none_1.0", 8
+PATH_D_PREFILL = {"vq_dequant": 7 * PATH_D_LAYERS}
+PATH_D_STEP = {"vq_gemv": 7 * PATH_D_LAYERS, "int8_gemv": 1}
+HEAD = (129024, 4096)  # the int8 head: 128256 padded to 2048s
+VQ_TOL = 1e-4  # K8 vs plain, of max|y|
+I8_TOL = 1e-5  # K11 vs plain, of max|y|
+# what sets the bound of the K8-K11 calls timed, name -> "bytes" or
+# "operations", filled as they are timed (the trellis kernels' bounds are
+# bytes at every shape timed)
+BOUND_BY = {}
 L2_BYTES = 50_000_000
 # the least time for a call: bytes over the H100's 3.35 TB/s, operations
 # over its dense peak for their type (NVIDIA's data sheet, SXM, 700 W)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "float32": 67e12}
+# KV 3 of the LUT kernels (tcq_3, tcomb_3_4 of the memory palette) at o and
+# down: checked, on no path, (m, k, KV) -> 0 calls a forward
+LUT_KV3 = {(4096, 4096, (3,)): 0, (4096, 14336, (3,)): 0,
+           (4096, 4096, (3, 4)): 0, (4096, 14336, (3, 4)): 0}
 
 
 def check(cond, msg):
@@ -149,8 +187,10 @@ def card():
 
 
 def all_kernels():
-    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
-    return arith.KERNELS + arith_dequant.KERNELS + tcq_lut.KERNELS
+    from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
+                                            tcq_lut, vq)
+    return (arith.KERNELS + arith_dequant.KERNELS + tcq_lut.KERNELS
+            + vq.KERNELS + int8_gemv.KERNELS)
 
 
 def counts():
@@ -164,17 +204,31 @@ def _words(m, k, W, device, seed):
                          generator=gen, dtype=torch.int32, device=device)
 
 
-def _time_ms(fn, reps):
+def _time_ms(fn, reps, graph=False):
     """ms per call: the better of two windows of reps calls each (a window
-    can catch the card in another state)."""
+    can catch the card in another state).  graph: the reps calls are
+    captured once in a CUDA graph and the window replays it, so the time
+    is the device's alone; launched one by one from Python, a kernel
+    shorter than its wrapper's ~20-30 us of host work would time the
+    host."""
     fn()
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(reps):
+                fn(i)
+        g.replay()
+        torch.cuda.synchronize()
     best = float("inf")
     for _ in range(2):
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
-        for i in range(reps):
-            fn(i)
+        if graph:
+            g.replay()
+        else:
+            for i in range(reps):
+                fn(i)
         t1.record()
         torch.cuda.synchronize()
         best = min(best, t0.elapsed_time(t1) / reps)
@@ -233,7 +287,7 @@ def sum2_checks(arith, device):
             arith.arith_gemv_plain(x, copies[i % len(copies)], "sum2", KV, m,
                                    k, True)
 
-        ms = _time_ms(kern, 200)
+        ms = _time_ms(kern, 200, graph=True)
         pms = _time_ms(plain, 5)
         bms, _ = gemv_bound(nbytes, 1, m, k, 4, True)
         times[(name, KV)] = (ms, pms, bms)
@@ -334,7 +388,8 @@ def arith_checks(arith, arith_dequant, device):
                   else []) + [(kern_deq, 50), (plain_deq, 5)]
         res = {}
         for route, reps in routes:
-            res[route.__name__] = ms = _time_ms(route, reps)
+            res[route.__name__] = ms = _time_ms(
+                route, reps, graph=route in (kern, kern_exact, kern_deq))
             gb = (f" ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of packed "
                   f"trellis)" if route in (kern, kern_exact, kern_deq) else "")
             print(f"[time] {label} {route.__name__}: {ms:.4f} ms{gb}",
@@ -360,9 +415,10 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from qpalette_tpu_torch.kernels import (_build, arith, arith_dequant,
-                                            tcq_lut)
+                                            int8_gemv, tcq_lut, vq)
 
-    names = [*arith.SOURCES, arith_dequant.SOURCE, tcq_lut.SOURCE]
+    names = [*arith.SOURCES, arith_dequant.SOURCE, tcq_lut.SOURCE, vq.SOURCE,
+             int8_gemv.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         logs = list(ex.map(_build.build, names))
@@ -587,6 +643,8 @@ def lut_kernel_checks(tcq_lut, shapes, device):
                   f"{PRODUCT_TOL:.0e})", flush=True)
             check(same, f"{deq.__name__} {label}: not bit-equal")
             check(rel <= PRODUCT_TOL, f"{deq.__name__} {label}: rel {rel}")
+        if not count:
+            continue  # checked, not on a path: no times
 
         # cycle through copies of the weights so that repeated launches
         # stream from device memory, as a forward does, not from L2
@@ -628,7 +686,7 @@ def lut_kernel_checks(tcq_lut, shapes, device):
                 (gemv, kern, 200, False), (gemv, plain, 5, True),
                 (deq, kern_deq, 50, False), (deq, plain_deq, 5, True),
                 (None, kern16, 50, False), (None, plain16, 5, True)):
-            ms = _time_ms(route, reps)
+            ms = _time_ms(route, reps, graph=not plain_route)
             if fn is not None:
                 times[fn.__name__][plain_route] += count * ms
                 if not plain_route:
@@ -656,6 +714,209 @@ def flagship_path(device, card_label):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _vq_words(m, k, bits, vec, device, seed):
+    from qpalette_tpu_torch.kernels.vq import row_words
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randint(-(1 << 31), 1 << 31, (m, row_words(k, bits, vec)),
+                         generator=gen, dtype=torch.int32, device=device)
+
+
+def vq_kernel_checks(vq, device):
+    """K8 / K9 against their plain versions: ldlq_2_6 at the four 8B
+    shapes, every other ldlq (bits, vec) at o and down.  Returns
+    ({kernel: max_abs_err}, {kernel: [ms, plain ms, bound ms summed over a
+    Path C decode forward's K8 calls (N=1) or its prefill's K9 calls]},
+    {(bits, vec, name): (K8 ms, K9 ms)} at every shape)."""
+    from qpalette_tpu_torch.ops.codebooks import vq_lut
+
+    err = {f.__name__: 0.0 for f in vq.KERNELS}
+    times = {f.__name__: [0.0, 0.0, 0.0] for f in vq.KERNELS}
+    per_scheme = {}
+    cases = [(6, 2, name, m, k, 32) for name, m, k in SHAPES_8B] + [
+        (b, v, name, m, k, 0) for b, v in vq.SUPPORTED if (b, v) != (6, 2)
+        for name, m, k in SHAPES_8B[1::2]]
+    for bits, vec, name, m, k, calls in cases:
+        lut = torch.tensor(vq_lut(bits, vec), device=device)
+        words = _vq_words(m, k, bits, vec, device, seed=m + k + bits)
+        label = f"vq bits={bits} vec={vec} {name} {m}x{k}"
+        for N in (1, 8):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(N)
+            x = torch.randn((N, k), generator=gen, device=device).bfloat16()
+            y = vq.vq_gemv(x, words, lut, bits, vec, m, k)
+            torch.cuda.synchronize()
+            ref = vq.vq_gemv_plain(x, words, lut, bits, vec, m, k)
+            err["vq_gemv"] = max(err["vq_gemv"], _rel_check(
+                f"vq_gemv {label} N={N}", y, ref, VQ_TOL))
+        w = vq.vq_dequant(words, lut, bits, vec, m, k)
+        torch.cuda.synchronize()
+        w_ref = vq.vq_dequant_plain(words, lut, bits, vec, m, k)
+        same = torch.equal(w.view(torch.int16), w_ref.view(torch.int16))
+        print(f"[kernel] vq_dequant {label}: bit-equal={same}", flush=True)
+        check(same, f"vq_dequant {label}: not bit-equal")
+        del w, w_ref, words
+
+        nbytes = m * vq.row_words(k, bits, vec) * 4 + lut.numel() * 4
+        copies = [_vq_words(m, k, bits, vec, device, seed=100 + i)
+                  for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
+        x1 = torch.randn((1, k), device=device).bfloat16()
+        out = torch.empty((1, m), device=device)
+        wout = torch.empty((m, k), dtype=torch.bfloat16, device=device)
+
+        def kern(i=0):
+            vq.vq_gemv(x1, copies[i % len(copies)], lut, bits, vec, m, k,
+                       out=out)
+
+        def kern_deq(i=0):
+            vq.vq_dequant(copies[i % len(copies)], lut, bits, vec, m, k,
+                          out=wout)
+
+        def plain(i=0):
+            vq.vq_gemv_plain(x1, copies[i % len(copies)], lut, bits, vec, m,
+                             k)
+
+        def plain_deq(i=0):
+            vq.vq_dequant_plain(copies[i % len(copies)], lut, bits, vec, m,
+                                k)
+
+        ms = _time_ms(kern, 200, graph=True)
+        dms = _time_ms(kern_deq, 50, graph=True)
+        per_scheme[bits, vec, name] = (ms, dms)
+        gb, gby = gemv_bound(nbytes, 1, m, k, 2, False)
+        db, dby = dequant_bound(nbytes, m, k)
+        print(f"[time] {label}: vq_gemv N=1 {ms:.4f} ms "
+              f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of row-pack, bound "
+              f"{gb:.4f} ms), vq_dequant {dms:.4f} ms (bound {db:.4f} ms)",
+              flush=True)
+        if calls:
+            pms, pdms = _time_ms(plain, 5), _time_ms(plain_deq, 5)
+            print(f"[time] {label}: plain vq_gemv {pms:.4f} ms, plain "
+                  f"vq_dequant {pdms:.4f} ms", flush=True)
+            for kname, trio, by in (("vq_gemv", (ms, pms, gb), gby),
+                                    ("vq_dequant", (dms, pdms, db), dby)):
+                for j, v in enumerate(trio):
+                    times[kname][j] += calls * v
+                if by == "operations":
+                    BOUND_BY[kname] = by
+        del copies, wout
+    return err, times, per_scheme
+
+
+def int8_head_checks(ig, device):
+    """K10 (bit-equal) and K11 (within 1e-5) against their plain versions
+    at the 8B head, N in {1, 8}; times at N=1 beside the plain versions,
+    the bound and torch._int_mm on K10's int8 operands (x padded to the 32
+    rows it takes).  Returns ({kernel: max_abs_err}, {kernel: [ms, plain
+    ms, bound ms]}, {kernel: library ms or None})."""
+    m, k = HEAD
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    wq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8,
+                       device=device)
+    scales = torch.rand(m, generator=gen, device=device) * 1e-3
+    err, times = {}, {}
+    pairs = ((ig.int8_gemv_a8, ig.int8_gemv_a8_plain, "int8"),
+             (ig.int8_gemv, ig.int8_gemv_plain, "float32"))
+    for N in (1, 8):
+        x = torch.randn((N, k), generator=gen, device=device).bfloat16()
+        for fn, plain, _ in pairs:
+            y = fn(x, wq, scales)
+            torch.cuda.synchronize()
+            ref = plain(x, wq, scales)
+            e = (y - ref).abs().max().item()
+            err[fn.__name__] = max(err.get(fn.__name__, 0.0), e)
+            if fn is ig.int8_gemv_a8:
+                same = torch.equal(y, ref)
+                print(f"[kernel] int8_gemv_a8 {m}x{k} N={N}: bit-equal="
+                      f"{same}", flush=True)
+                check(same, f"int8_gemv_a8 N={N}: not bit-equal ({e})")
+            else:
+                _rel_check(f"int8_gemv {m}x{k} N={N}", y, ref, I8_TOL)
+    x1 = torch.randn((1, k), generator=gen, device=device).bfloat16()
+    out = torch.empty((1, m), device=device)
+    nbytes = m * k + m * 4  # weights and scales; the head is 528 MB > L2
+    for fn, plain, kind in pairs:
+        ms = _time_ms(lambda i=0: fn(x1, wq, scales, out=out), 50,
+                      graph=True)
+        pms = _time_ms(lambda i=0: plain(x1, wq, scales), 3)
+        bms, by = bound_ms(nbytes + 2 * k + 4 * m, 2 * m * k, kind)
+        BOUND_BY[fn.__name__] = by
+        times[fn.__name__] = [ms, pms, bms]
+        print(f"[time] {fn.__name__} {m}x{k} N=1: kernel {ms:.4f} ms "
+              f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of weights), plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    xq = torch.zeros((32, k), dtype=torch.int8, device=device)
+    xq[0] = torch.randint(-127, 128, (k,), generator=gen, dtype=torch.int8,
+                          device=device)
+    acc = torch._int_mm(xq, wq.t())
+    check(torch.equal(acc[0].double(), wq.double() @ xq[0].double()),
+          "torch._int_mm disagrees with the exact integer dot")
+    lib = _time_ms(lambda i=0: torch._int_mm(xq, wq.t()), 50)
+    print(f"[time] torch._int_mm (32x{k}) x ({k}x{m}) int8 -> int32: "
+          f"{lib:.4f} ms (K10's yardstick; the port never calls it)",
+          flush=True)
+    return err, times, {"int8_gemv_a8": lib, "int8_gemv": None}
+
+
+def path_c(device, card_label):
+    """Path C: the 8B ldlq_2_6 model, merged qkv / ug, the rotated int8
+    head, impl a8; 128 K9 in the 16-token prefill, 128 K8 + 1 K10 each
+    decode forward.  Returns (launch counts, tokens/s)."""
+    spec, params = _build("pathC", PATH_C_QSTR, [["merge_qkv", "merge_ug"]]
+                          * 32, "a8", 8, device)
+    kinds = {(ls.kind, ls.bits, ls.vec) for a, m in spec.layers
+             for _, ls in a.projs + m.projs}
+    check(kinds == {("vq", 6, 2)} and spec.lm_head_spec is None
+          and tuple(params["lm_head_q"].shape) == HEAD
+          and "lm_head_su" in params, f"pathC model {kinds}")
+    launches = drive("pathC", spec, params, device, PROMPT_LEN, NEW_TOKENS,
+                     PATH_C_PREFILL, PATH_C_STEP)
+    tps = throughput("pathC", spec, params, device, card_label)
+    del params
+    torch.cuda.empty_cache()
+    return launches, tps
+
+
+def unrotated_int8_head(w):
+    """The per-row int8 head without the rotation (the reference's forward
+    branch for an int8 head with no lm_head_su): s = max|W|/127 + 1e-12 a
+    row, q = round(W / s), the vocab padded to 2048s with scale 1."""
+    V, h = w.shape
+    VP = -(-V // 2048) * 2048
+    q = torch.zeros((VP, h), dtype=torch.int8, device=w.device)
+    s = torch.ones(VP, dtype=torch.float32, device=w.device)
+    for r0 in range(0, V, 8192):
+        wf = w[r0:r0 + 8192].float()
+        sr = wf.abs().amax(dim=1) / 127.0 + 1e-12
+        q[r0:r0 + wf.shape[0]] = torch.round(wf / sr[:, None]).to(torch.int8)
+        s[r0:r0 + wf.shape[0]] = sr
+    return q, s
+
+
+def path_d(device, card_label):
+    """Path D: 8 layers of ldlq_1_4 (vec 1), unmerged, with the unrotated
+    int8 head; 56 K9 in the prefill, 56 K8 + 1 K11 each decode forward."""
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+
+    t0 = time.perf_counter()
+    spec, params = build_quantized_model(
+        LlamaConfig.llama31_8b(), PATH_D_QSTR, dummy=True, impl="a8",
+        num_layers=PATH_D_LAYERS, lm_head_bits=16, seed=0, device=device)
+    params["lm_head_q"], params["lm_head_s"] = unrotated_int8_head(
+        params.pop("lm_head"))
+    torch.cuda.synchronize()
+    print(f"[pathD] 8B ({PATH_D_LAYERS} layers) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = drive("pathD", spec, params, device, PROMPT_LEN, NEW_TOKENS,
+                     PATH_D_PREFILL, PATH_D_STEP)
+    tps = throughput("pathD", spec, params, device, card_label)
+    del params
+    torch.cuda.empty_cache()
+    return launches, tps
 
 
 def tcq2mix_qdict(num_layers=32):
@@ -781,6 +1042,11 @@ def small_model_checks(device):
                       "exact)", tcq2mix_qdict(2),
                       [["merge_qkv", "merge_ug"]] * 2, "exact", 4, 300,
                       seed=6)
+    # Path C's mix: 12 prompt tokens take K9 and the head's plain product,
+    # the decode step K8 and K10
+    small_model_check(device, "Path C (ldlq_2_6, merged, rotated int8 head, "
+                      "a8)", PATH_C_QSTR, [["merge_qkv", "merge_ug"]] * 2,
+                      "a8", 8, 12, seed=7)
 
 
 REPLACES = "qpalette_tpu/kernels/fused.py:"
@@ -794,12 +1060,17 @@ KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
     "tcomb_lut_gemv": ("tcq_lut.cu", REPLACES + "314"),
     "tcq_lut_dequant": ("tcq_lut.cu", REPLACES + "1083"),
     "tcomb_lut_dequant": ("tcq_lut.cu", REPLACES + "1089"),
+    "vq_gemv": ("vq.cu", REPLACES + "133"),
+    "vq_dequant": ("vq.cu", REPLACES + "1179"),
+    "int8_gemv_a8": ("int8_gemv.cu", REPLACES + "1401"),
+    "int8_gemv": ("int8_gemv.cu", REPLACES + "1394"),
 }
 
 
 def main():
     name, count, smi = card()
-    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
+    from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
+                                            tcq_lut, vq)
     from qpalette_tpu_torch.models.llama import LlamaConfig
 
     build_all()
@@ -814,9 +1085,15 @@ def main():
           == FLAGSHIP_TCQ and sum(n for (_, _, KV), n in shapes.items()
                                   if len(KV) == 2) == FLAGSHIP_TCOMB,
           f"flagship shapes {shapes}")
-    lut_err, lut_times = lut_kernel_checks(tcq_lut, shapes, device)
+    lut_err, lut_times = lut_kernel_checks(tcq_lut, {**shapes, **LUT_KV3},
+                                           device)
     err.update(lut_err)
     times.update(lut_times)
+    vq_err, vq_times, vq_schemes = vq_kernel_checks(vq, device)
+    i8_err, i8_times, library = int8_head_checks(int8_gemv, device)
+    for d, new in ((err, vq_err), (err, i8_err), (times, vq_times),
+                   (times, i8_times)):
+        d.update(new)
     print(f"[time] kernel checks {time.perf_counter() - t0:.1f} s",
           flush=True)
     launches, qdict = main_path(device, smi)
@@ -825,6 +1102,10 @@ def main():
     ab, tps, pre = path_a_b(device, smi)
     for k, v in ab.items():
         launches[k] += v
+    pc, tps["pathC"] = path_c(device, smi)
+    pd, tps["pathD"] = path_d(device, smi)
+    for k in launches:
+        launches[k] += pc[k] + pd[k]
     small_model_checks(device)
     times["tcq2s_decode_gemv"] = step_ms(sum2_times, qdict)
     ms, pms, bms = times["tcq2s_decode_gemv"]
@@ -851,6 +1132,18 @@ def main():
         print(f"[time] flagship forward's calls of {kname}: kernel "
               f"{kms:.3f} ms, plain {kpms:.3f} ms, bound {kbms:.3f} ms "
               f"({smi})", flush=True)
+    print(f"[time] Path C decode forward's 128 vq_gemv calls (N=1): kernel "
+          f"{times['vq_gemv'][0]:.3f} ms, plain {times['vq_gemv'][1]:.3f} ms,"
+          f" bound {times['vq_gemv'][2]:.3f} ms; its prefill's 128 vq_dequant"
+          f" calls: kernel {times['vq_dequant'][0]:.3f} ms, plain "
+          f"{times['vq_dequant'][1]:.3f} ms, bound "
+          f"{times['vq_dequant'][2]:.3f} ms ({smi})", flush=True)
+    print("[time] vq per scheme, ms per call (vq_gemv N=1, vq_dequant): "
+          + json.dumps({f"{b}/{v} {n}": [round(a, 5), round(d, 5)]
+                        for (b, v, n), (a, d) in vq_schemes.items()}),
+          flush=True)
+    print(f"[pathC] tokens/s {tps['pathC']:.2f}; [pathD] tokens/s "
+          f"{tps['pathD']:.2f} ({smi})", flush=True)
     print(f"[pathA] tokens/s a8 {tps['a8']:.2f}, exact {tps['exact']:.2f}; "
           f"[pathB] 512-token exact prefill tcq2mix {pre['tcq2mix'] * 1e3:.1f}"
           f" ms, 215 {pre['215'] * 1e3:.1f} ms ({smi})", flush=True)
@@ -865,7 +1158,8 @@ def main():
             "source": f"qpalette_tpu_torch/csrc/{src}", "replaces": where,
             "launches": launches[kname], "max_abs_err": err[kname],
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": BOUND_BY.get(kname, "bytes"),
+            "library_ms": library.get(kname)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

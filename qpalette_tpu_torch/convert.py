@@ -13,7 +13,14 @@ canonical ``trellis`` / ``trellis1`` + ``trellis2`` (the reference's
 impl ``xla``) or as the kernel layouts ``trellis_kt`` / ``trellisc_kt``
 plus ``clut`` (its ``pallas`` impls), inverted to canonical words; their
 tables must be the committed ones (``luts`` entries ``tcq{S}``,
-``clut``), which the port holds once per S.  Any other layout raises.
+``clut``), which the port holds once per S.  vq projections come as the
+canonical row-pack ``qweight`` + ``lut`` (impl ``xla``) or as the kernel
+layout ``qweight_t`` + ``clut`` (its pallas impls), inverted to the
+row-pack with a zero pad word; the codebook is kept per projection, in
+float32.  The int8 lm_head (``lm_head_q`` (hidden, vocab padded) int8,
+``lm_head_s`` (1, vocab padded), and ``lm_head_su`` when it is rotated)
+is transposed to the port's (vocab padded, hidden) rows.  Any other
+layout raises.
 """
 
 from __future__ import annotations
@@ -24,10 +31,11 @@ import torch
 from qpalette_tpu_torch.kernels.formats import (tcomb_kernel_to_canonical,
                                                 tcq1_planar_to_canonical,
                                                 tcq2_planar_to_canonical,
-                                                tcq_kernel_to_canonical)
+                                                tcq_kernel_to_canonical,
+                                                vq_kernel_to_canonical)
 from qpalette_tpu_torch.ops.codebooks import trellis_lut, trellis_tlut
 from qpalette_tpu_torch.ops.packing import words_to_torch
-from qpalette_tpu_torch.runtime.loader import tlut_tensors, trellis_shapes
+from qpalette_tpu_torch.runtime.loader import tlut_tensors, word_shapes
 from qpalette_tpu_torch.runtime.qlinear import LinearSpec
 
 _LAYER_TENSORS = ("su_qkv", "su_o", "su_ug", "su_dp", "ln_attn", "ln_mlp")
@@ -52,15 +60,19 @@ def _canonical_words(p: dict, ls: LinearSpec) -> dict:
     layouts = {"tcq1": ({"trellis"}, {"trellis_pl"}),
                "tcq2": ({"trellis"}, {"trellis_pl"}),
                "tcq": ({"trellis"}, {"trellis_kt", "clut"}),
-               "tcomb": ({"trellis1", "trellis2"}, {"trellisc_kt", "clut"})}
+               "tcomb": ({"trellis1", "trellis2"}, {"trellisc_kt", "clut"}),
+               "vq": ({"qweight", "lut"}, {"qweight_t", "clut"})}
     if ls.kind not in layouts:
         raise NotImplementedError(f"kind {ls.kind!r}")
     keys = set(p) - {"wscale"}
     canonical, kernel = layouts[ls.kind]
     if keys == canonical:
-        return {name: _u32(p[name]) for name in canonical}
+        return {name: _u32(p[name]) for name in canonical - {"lut"}}
     if keys != kernel:
         raise ValueError(f"unsupported projection layout {sorted(p)}")
+    if ls.kind == "vq":
+        return {"qweight": vq_kernel_to_canonical(
+            _u32(p["qweight_t"]), ls.bits, ls.vec, m, k)}
     if ls.kind in ("tcq1", "tcq2"):
         inverse = (tcq1_planar_to_canonical if ls.kind == "tcq1"
                    else tcq2_planar_to_canonical)
@@ -79,12 +91,17 @@ def _canonical_words(p: dict, ls: LinearSpec) -> dict:
 
 def _proj(p: dict, ls: LinearSpec, device) -> dict:
     m = ls.out_features
-    shapes = trellis_shapes(ls)
+    shapes = word_shapes(ls)
     out = {}
     for name, words in _canonical_words(p, ls).items():
         if words.shape != shapes[name]:
             raise ValueError(f"{name} {words.shape} does not fit {ls}")
         out[name] = words_to_torch(words, device)
+    if ls.kind == "vq":
+        out["lut"] = _f32(p["lut"] if "lut" in p else p["clut"], device)
+        if out["lut"].shape != (1 << ls.bits, ls.vec):
+            raise ValueError(f"lut {tuple(out['lut'].shape)} does not fit "
+                             f"{ls}")
     out["wscale"] = _f32(p["wscale"], device)
     if out["wscale"].shape != (m,):
         raise ValueError(f"wscale {tuple(out['wscale'].shape)} != ({m},)")
@@ -112,7 +129,8 @@ def params_from_jax(np_params: dict, spec, device="cuda") -> dict:
     params with identical weights."""
     device = torch.device(device)
     top = set(np_params) - {"layers", "luts", "embed", "ln_f", "lm_head",
-                            "lm_head_q4", "lm_head_su"}
+                            "lm_head_q4", "lm_head_su", "lm_head_q",
+                            "lm_head_s"}
     if top:
         raise ValueError(f"unsupported params {sorted(top)}")
     _check_luts(np_params.get("luts", {}))
@@ -134,6 +152,16 @@ def params_from_jax(np_params: dict, spec, device="cuda") -> dict:
         params["lm_head_q4"] = _proj(np_params["lm_head_q4"],
                                      spec.lm_head_spec, device)
         params["lm_head_su"] = _f32(np_params["lm_head_su"], device)
+    elif "lm_head_q" in np_params:
+        q = np.asarray(np_params["lm_head_q"])
+        if q.dtype != np.int8 or q.shape[0] != spec.config.hidden_size:
+            raise ValueError(f"lm_head_q {q.dtype} {q.shape}")
+        params["lm_head_q"] = torch.as_tensor(np.ascontiguousarray(q.T),
+                                              device=device)
+        params["lm_head_s"] = _f32(np.asarray(np_params["lm_head_s"])
+                                   .reshape(-1), device)
+        if "lm_head_su" in np_params:
+            params["lm_head_su"] = _f32(np_params["lm_head_su"], device)
     else:
         if "lm_head_q4" in np_params or "lm_head_su" in np_params:
             raise ValueError("quantized lm_head params for a bf16-head spec")

@@ -300,6 +300,7 @@ bool bad_args(int m, int k, int S) {
 
 #define QPT_TCQ_CASES(FN, ...)                            \
   switch (KV) {                                           \
+    case 3: return FN<3, 3>(__VA_ARGS__);                 \
     case 4: return FN<4, 4>(__VA_ARGS__);                 \
     case 5: return FN<5, 5>(__VA_ARGS__);                 \
     case 6: return FN<6, 6>(__VA_ARGS__);                 \
@@ -313,6 +314,7 @@ bool bad_args(int m, int k, int S) {
 #define QPT_TCOMB_CASES(FN, ...)                          \
   if (KV2 != KV1 + 1) return (int)cudaErrorInvalidValue;  \
   switch (KV1) {                                          \
+    case 3: return FN<3, 4>(__VA_ARGS__);                 \
     case 4: return FN<4, 5>(__VA_ARGS__);                 \
     case 5: return FN<5, 6>(__VA_ARGS__);                 \
     case 6: return FN<6, 7>(__VA_ARGS__);                 \

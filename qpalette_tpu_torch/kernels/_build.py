@@ -1,5 +1,5 @@
 """Build and load the port's CUDA sources: nvcc -> shared library with a
-plain C interface -> ctypes.
+plain C interface -> ctypes, and the launch of one of its C functions.
 
 Each ``csrc/<name>.cu`` compiles into ``qpalette_tpu_torch/_build/
 lib<name>.so`` at first use, and again whenever the source or a shared
@@ -13,6 +13,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -64,3 +66,16 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args):
+    """Call ``fn_name`` of ``lib`` with ``args`` and the current stream of
+    ``device`` (a CUDA device) as its last argument; raise if it returns a
+    CUDA error (a launch the card refused never runs)."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")

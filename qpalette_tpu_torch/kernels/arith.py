@@ -149,21 +149,13 @@ def _gemv(wrapper, mode, x, trellis, KV, m, k, a8, out) -> torch.Tensor:
             out.copy_(y)
             return out
         return y
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if out is None:
         out = torch.empty((x.shape[0], m), dtype=torch.float32,
                           device=x.device)
     source, cmode = _C_MODE[mode]
-    fn = getattr(_lib(source), source)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                trellis.data_ptr(), out.data_ptr(), x.shape[0], m, k, KV,
-                cmode, int(a8), stream)
-    if rc != 0:
-        raise RuntimeError(f"{source} ({mode}) launch failed: CUDA error "
-                           f"{rc}")
+    _build.launch(_lib(source), source, x.device, x.data_ptr(),
+                  int(x.dtype == torch.bfloat16), trellis.data_ptr(),
+                  out.data_ptr(), x.shape[0], m, k, KV, cmode, int(a8))
     wrapper.launches += 1
     return out
 

@@ -69,17 +69,10 @@ def _dequant(wrapper, fn_name, trellis, mode, KV, m, k, out):
             return w
         out.copy_(w)
         return out
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if out is None:
         out = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_lib(), fn_name)(trellis.data_ptr(), out.data_ptr(), m,
-                                      k, KV, _C_MODE[mode], stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} ({mode}) launch failed: CUDA error "
-                           f"{rc}")
+    _build.launch(_lib(), fn_name, dev, trellis.data_ptr(), out.data_ptr(), m,
+                  k, KV, _C_MODE[mode])
     wrapper.launches += 1
     return out
 

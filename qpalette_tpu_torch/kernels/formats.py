@@ -17,6 +17,13 @@ and ``tcq1_planar_weights``), with ``sub`` = 8 sublanes a plane for V=2 and
 
 Both are pure permutations.  The aligned fallback (odd KV with odd k/16,
 tiny shapes only) packs shifted windows and is not inverted here.
+
+The SQ/VQ kernel layout (``formats.py::vq_kernel_weights``) is the row-pack
+without its pad word, transposed and grouped by sublane:
+(8, nch*g, m), word ``s*g + j`` of k-chunk ``c`` at ``[s, c*g + j]``.  Its
+inverse is ``vq_kernel_to_canonical``.  The reference's activation
+permutation for that layout (``vq_x_perm``) has no counterpart: the port's
+kernels read the canonical row-pack in natural order.
 """
 
 from __future__ import annotations
@@ -88,3 +95,28 @@ def tcomb_kernel_to_canonical(trc: np.ndarray, m: int, n1: int, n2: int,
         raise ValueError("non-zero pad words in the KV1 half")
     return (tcq_kernel_to_canonical(a[:, :4 * KV1], m, n1, KV1),
             tcq_kernel_to_canonical(b, m, n2, KV2))
+
+
+def _vq_pick_kb(P: int, bits: int) -> int:
+    # the reference's k-chunk: (kb/8)*bits words a sublane must be whole
+    for kb in (512, 256, 128):
+        if P % kb == 0 and (kb // 8) * bits % 32 == 0:
+            return kb
+    raise ValueError(f"no k-chunk for P={P}, bits={bits}")
+
+
+def vq_kernel_to_canonical(qw_t: np.ndarray, bits: int, vec: int, m: int,
+                           k: int) -> np.ndarray:
+    """Inverse of ``formats.vq_kernel_weights``: (8, W/8, m) -> the
+    canonical row-pack (m, W + 1) with a zero pad word, W = P*bits/32."""
+    P = k // vec
+    arr = np.asarray(qw_t)
+    W = P * bits // 32
+    if P * vec != k or P * bits % 32 or arr.shape != (8, W // 8, m):
+        raise ValueError(f"vq kernel shape {arr.shape} does not fit bits="
+                         f"{bits}, vec={vec}, m={m}, k={k}")
+    g = _vq_pick_kb(P, bits) * bits // 256
+    words = arr.reshape(8, W // (8 * g), g, m).transpose(1, 0, 2, 3)
+    out = np.zeros((m, W + 1), dtype=arr.dtype)
+    out[:, :W] = words.reshape(W, m).T
+    return out

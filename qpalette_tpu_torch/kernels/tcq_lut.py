@@ -32,8 +32,8 @@ from qpalette_tpu_torch.ops.packing import TD, dequant_tcq
 
 SOURCE = "tcq_lut"  # csrc/tcq_lut.cu
 MAX_ROWS = 8  # GEMV rows; more rows take the dequant + product path
-SUPPORTED_KV = (4, 5, 6, 7, 8, 9, 10)
-SUPPORTED_TCOMB = tuple((kv, kv + 1) for kv in range(4, 10))
+SUPPORTED_KV = (3, 4, 5, 6, 7, 8, 9, 10)
+SUPPORTED_TCOMB = tuple((kv, kv + 1) for kv in range(3, 10))
 SUPPORTED_S = (9, 10, 11)
 
 _P = ctypes.c_void_p
@@ -132,17 +132,6 @@ def tcomb_lut_gemv_plain(x, trellis1, trellis2, tlut, KV1, KV2, m,
 
 # --- wrappers ---------------------------------------------------------------
 
-def _launch(fn_name, device, *args):
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
-
-
 def _result(y, out):
     if out is None:
         return y
@@ -161,8 +150,9 @@ def tcq_lut_gemv(x, trellis, tlut, KV, m, k, out=None) -> torch.Tensor:
         return _result(tcq_lut_gemv_plain(x, trellis, tlut, KV, m, k), out)
     if out is None:
         out = torch.empty((N, m), dtype=torch.float32, device=x.device)
-    _launch("tcq_lut_gemv", x.device, x.data_ptr(), trellis.data_ptr(),
-            tlut.data_ptr(), S, out.data_ptr(), N, m, k, KV)
+    _build.launch(_lib(), "tcq_lut_gemv", x.device, x.data_ptr(),
+                  trellis.data_ptr(), tlut.data_ptr(), S, out.data_ptr(), N, m,
+                  k, KV)
     tcq_lut_gemv.launches += 1
     return out
 
@@ -182,9 +172,9 @@ def tcomb_lut_gemv(x, trellis1, trellis2, tlut, KV1, KV2, m, k,
                                             KV2, m, k), out)
     if out is None:
         out = torch.empty((N, m), dtype=torch.float32, device=x.device)
-    _launch("tcomb_lut_gemv", x.device, x.data_ptr(), trellis1.data_ptr(),
-            trellis2.data_ptr(), tlut.data_ptr(), S, out.data_ptr(), N, m, k,
-            KV1, KV2)
+    _build.launch(_lib(), "tcomb_lut_gemv", x.device, x.data_ptr(),
+                  trellis1.data_ptr(), trellis2.data_ptr(), tlut.data_ptr(), S,
+                  out.data_ptr(), N, m, k, KV1, KV2)
     tcomb_lut_gemv.launches += 1
     return out
 
@@ -200,8 +190,8 @@ def tcq_lut_dequant(trellis, tlut, KV, m, k, out=None) -> torch.Tensor:
         return _result(tcq_lut_dequant_plain(trellis, tlut, KV, m, k), out)
     if out is None:
         out = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
-    _launch("tcq_lut_dequant", dev, trellis.data_ptr(), tlut.data_ptr(), S,
-            out.data_ptr(), m, k, KV)
+    _build.launch(_lib(), "tcq_lut_dequant", dev, trellis.data_ptr(),
+                  tlut.data_ptr(), S, out.data_ptr(), m, k, KV)
     tcq_lut_dequant.launches += 1
     return out
 
@@ -220,9 +210,9 @@ def tcomb_lut_dequant(trellis1, trellis2, tlut, KV1, KV2, m, k,
                                                KV2, m, k), out)
     if out is None:
         out = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
-    _launch("tcomb_lut_dequant", dev, trellis1.data_ptr(),
-            trellis2.data_ptr(), tlut.data_ptr(), S, out.data_ptr(), m, k,
-            KV1, KV2)
+    _build.launch(_lib(), "tcomb_lut_dequant", dev, trellis1.data_ptr(),
+                  trellis2.data_ptr(), tlut.data_ptr(), S, out.data_ptr(), m,
+                  k, KV1, KV2)
     tcomb_lut_dequant.launches += 1
     return out
 

@@ -12,10 +12,16 @@ unmerged, bf16 lm_head):
       --merge_info_path "" --lm_head_bits 16
 
 One scheme for every projection (unmerged unless --merge_info_path is
-given; merges take tcq1 / tcq2 only):
+given; merges take tcq1 / tcq2 / vq only):
 
   python -m qpalette_tpu_torch.measure_latency --dummy \
       --quantizer_str tcq2_7_none_0.9
+
+A 3-bit 2-D VQ model with the rotated int8 lm_head (K8 and K10 per decode
+forward):
+
+  python -m qpalette_tpu_torch.measure_latency --dummy \
+      --quantizer_str ldlq_2_6_none_1.0 --lm_head_bits 8
 
 Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
 with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Reports
@@ -30,6 +36,10 @@ import os
 _QDIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "msq_results", "3_8b", "lat_constrained", "v5e",
                      "default_err")
+
+
+HEADS = {4: "tcq2s_8 (4-bit trellis, sum2 K1)",
+         8: "rotated int8 (int8_gemv_a8)", 16: "bf16 (f32 product)"}
 
 
 def main():
@@ -48,7 +58,10 @@ def main():
     ap.add_argument("--dummy", action="store_true")
     ap.add_argument("--impl", default="a8", choices=["exact", "a8"])
     ap.add_argument("--num_hidden_layers", type=int, default=-1)
-    ap.add_argument("--lm_head_bits", type=int, default=4, choices=[4, 16])
+    ap.add_argument("--lm_head_bits", type=int, default=4,
+                    choices=[4, 8, 16],
+                    help="4: tcq2s_8 trellis head, 8: rotated per-row int8 "
+                    "head, 16: bf16 head")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -93,10 +106,11 @@ def main():
     mbytes = model_bytes(params)
     streamed = mbytes - model_bytes(params["embed"])
     bits = calc_avg_bits(cfg, qdict, num_layers=nl)
+    head = HEADS[args.lm_head_bits]
     print(f"device: {dev_name}")
     print(f"model size: {mbytes / 1e9:.3f} GB, streamed per token: "
           f"{streamed / 1e9:.3f} GB, {bits:.2f} bits/weight avg, "
-          f"{nl} layers, impl {args.impl}")
+          f"{nl} layers, impl {args.impl}, lm_head {head}")
 
     prompt = np.ones((1, 1), dtype=np.int64)
     all_tps = []
@@ -115,7 +129,7 @@ def main():
                       "streamed_gb_per_token": streamed / 1e9,
                       "avg_bits": bits, "impl": args.impl, "num_layers": nl,
                       "quantizer_str": args.quantizer_str,
-                      "lm_head_bits": args.lm_head_bits}))
+                      "lm_head_bits": args.lm_head_bits, "lm_head": head}))
 
 
 if __name__ == "__main__":

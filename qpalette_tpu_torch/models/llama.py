@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from qpalette_tpu_torch.kernels.int8_gemv import int8_gemv, int8_gemv_a8
 from qpalette_tpu_torch.ops.hadamard import hadamard_transform_t
 from qpalette_tpu_torch.runtime.qlinear import qlinear_apply
 
@@ -78,7 +79,9 @@ class MLPSpec:
 class ModelSpec:
     config: LlamaConfig
     layers: tuple  # ((AttnSpec, MLPSpec), ...)
-    # non-None: quantized lm_head (params "lm_head_q4" + "lm_head_su")
+    # non-None: quantized lm_head (params "lm_head_q4" + "lm_head_su");
+    # None: the bf16 "lm_head", or the int8 head ("lm_head_q" (vocab
+    # padded, hidden) int8, "lm_head_s" scales, "lm_head_su" if rotated)
     lm_head_spec: Optional[object] = None
 
 
@@ -226,11 +229,40 @@ def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
                                pre_rot=params["lm_head_su"],
                                out_dtype=torch.float32)
         logits = logits[:, :cfg.vocab_size].reshape(B, S, cfg.vocab_size)
+    elif "lm_head_q" in params:
+        logits = int8_head(params, x.reshape(-1, cfg.hidden_size))
+        logits = logits[:, :cfg.vocab_size].reshape(B, S, cfg.vocab_size)
     else:
         logits = x.float() @ params["lm_head"].float().T
     if kv_caches is not None:
         return logits, new_caches
     return logits
+
+
+HEAD_ROWS = 16384  # vocab rows of the int8 head's prefill product a step
+
+
+def int8_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The int8 lm_head: x (rows, hidden) -> f32 logits over the padded
+    vocab.  With ``lm_head_su`` x is rotated first and up to 8 rows take
+    K10 (int8 activations), else K11; more rows take a plain product of
+    the f32 weights q * s, as the reference's XLA does."""
+    su = params.get("lm_head_su")
+    if su is not None:
+        x = _rotate_in(x, su.to(x.dtype))
+    q, s = params["lm_head_q"], params["lm_head_s"]
+    if x.shape[0] <= 8:
+        gemv = int8_gemv_a8 if su is not None else int8_gemv
+        return gemv(x.contiguous(), q, s)
+    # f32 weights a block of vocab rows at a time: the whole f32 head would
+    # be 2.1 GB for Llama-3.1-8B
+    xf = x.float()
+    out = torch.empty((x.shape[0], q.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for r0 in range(0, q.shape[0], HEAD_ROWS):
+        w = q[r0:r0 + HEAD_ROWS].float() * s[r0:r0 + HEAD_ROWS, None]
+        out[:, r0:r0 + HEAD_ROWS] = xf @ w.T
+    return out
 
 
 def init_kv_caches(spec: ModelSpec, batch: int, max_seq: int, device):

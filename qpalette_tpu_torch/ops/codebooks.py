@@ -3,7 +3,8 @@
 Counterpart of ``qpalette_tpu/ops/codebooks.py`` (the MAD constants, the
 arithmetic decoders ``decode_1mad`` / ``decode_2mad`` / ``decode_dualmad`` /
 ``decode_sum2`` and ``trellis_lut_arith``, ``tlut_bits_for_kv``,
-``trellis_tlut`` from the committed tables and ``trellis_lut``).  The
+``trellis_tlut`` from the committed tables and ``trellis_lut``, and the
+SQ/VQ codebook ``vq_lut``).  The
 32-bit modular arithmetic runs in int64 and is masked with
 ``& 0xFFFFFFFF``: torch's uint32 support is partial.
 """
@@ -164,3 +165,23 @@ def trellis_lut(tlut_bits: int) -> torch.Tensor:
     """The full (2^16, 2) float32 quantlut_sym table of the committed
     tlut."""
     return expand_tlut(torch.from_numpy(trellis_tlut(tlut_bits).copy()))
+
+
+# ---------------------------------------------------------------------------
+# SQ / VQ codebooks (ldlq, sq, vq2): a (2^bits, vec) k-means table
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def vq_lut(bits: int, vec: int) -> np.ndarray:
+    """The committed (2^bits, vec) float32 k-means codebook
+    ``assets/lut_cache/vq_kmeans_{bits}_{vec}.npy``.  The port runs no
+    k-means: a table that is not committed (vec 4, for one) raises."""
+    path = _ASSET_DIR / f"vq_kmeans_{bits}_{vec}.npy"
+    if not path.exists():
+        raise NotImplementedError(f"{path}: the VQ codebook bits={bits}, "
+                                  f"vec={vec} is not committed")
+    lut = np.load(path).astype(np.float32)
+    if lut.shape != (1 << bits, vec):
+        raise ValueError(f"{path}: shape {lut.shape}")
+    lut.setflags(write=False)
+    return lut

@@ -15,7 +15,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["get_had_factors", "hadamard_matrix", "hadamard_transform_t"]
+__all__ = ["get_had_factors", "hadamard_matrix", "hadamard_transform",
+           "hadamard_transform_t"]
 
 
 def _is_prime(q: int) -> bool:
@@ -169,15 +170,26 @@ def _apply(x: torch.Tensor, n: int, transpose: bool) -> torch.Tensor:
     return (y * (float(n) ** -0.5)).reshape(shp)
 
 
+def _transform(x: torch.Tensor, blocks: int, transpose: bool) -> torch.Tensor:
+    n = x.shape[-1]
+    if n % blocks:
+        raise ValueError((n, blocks))
+    if blocks == 1:
+        return _apply(x, n, transpose)
+    xb = x.reshape(x.shape[:-1] + (blocks, n // blocks))
+    return _apply(xb, n // blocks, transpose).reshape(x.shape)
+
+
+def hadamard_transform(x: torch.Tensor, blocks: int = 1) -> torch.Tensor:
+    """Forward transform along the last axis, y = x @ H, float32 out (the
+    rotation the int8 lm_head is built with).  ``blocks`` as in
+    hadamard_transform_t."""
+    return _transform(x, blocks, transpose=False)
+
+
 def hadamard_transform_t(x: torch.Tensor, blocks: int = 1) -> torch.Tensor:
     """Transpose transform along the last axis, y = x @ H^T, float32 out.
 
     ``blocks > 1`` applies the block-diagonal I_blocks (x) H^T of size
     n/blocks (the tensor-parallel rotation)."""
-    n = x.shape[-1]
-    if n % blocks:
-        raise ValueError((n, blocks))
-    if blocks == 1:
-        return _apply(x, n, transpose=True)
-    xb = x.reshape(x.shape[:-1] + (blocks, n // blocks))
-    return _apply(xb, n // blocks, transpose=True).reshape(x.shape)
+    return _transform(x, blocks, transpose=True)

@@ -1,12 +1,18 @@
-"""Canonical trellis format and its executable-spec decoder.
+"""Canonical packed formats and their executable-spec decoders.
 
 Counterpart of ``qpalette_tpu/ops/packing.py`` (``unpack_trellis``,
-``tiles_to_mat``, ``dequant_tcq`` for V=2 and V=1, ``dequant_tcq2``).  The
+``tiles_to_mat``, ``dequant_tcq`` for V=2 and V=1, ``dequant_tcq2``, and
+the SQ/VQ row-pack ``pack_rows``, ``unpack_rows``, ``dequant_lut``).  The
 canonical ``trellis`` is (T, 8*KV/V) 32-bit words, T = (m/16)*(k/16) tiles
 in tile-row-major order.  Each tile is one tail-biting trellis of 256/V
 states (V weights per state); state i is the 16-bit window at bit KV*i of
 the tile's *circular* 256*KV/V-bit stream (word indices wrap modulo the
 tile's word count).
+
+The canonical row-pack of an SQ/VQ projection is (m, ceil(P*bits/32) + 1)
+words, P = k/vec indices a row: index p is the ``bits``-bit window at bit
+p*bits of its row, packed LSB-first, and one trailing pad word keeps the
+last window's second word in bounds.
 
 The port keeps the words in int32 tensors holding the uint32 bit
 pattern (torch's uint32 support is partial); arithmetic on them widens
@@ -74,3 +80,43 @@ def dequant_tcq(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
     if v == 1:
         tiles = tiles.transpose(1, 2)  # (T, col, row) -> (T, row, col)
     return tiles_to_mat(tiles, m, k)
+
+
+# ---------------------------------------------------------------------------
+# SQ / VQ row-pack
+# ---------------------------------------------------------------------------
+
+def _as_int32(u: torch.Tensor) -> torch.Tensor:
+    """int64 values < 2^32 -> int32 tensor with the same 32 bits."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def pack_rows(indices: torch.Tensor, bits: int) -> torch.Tensor:
+    """indices (m, P) < 2^bits -> the canonical row-pack (m, W + 1) int32
+    words, W = ceil(P*bits/32), the last word zero."""
+    m, P = indices.shape
+    idx = indices.to(torch.int64)
+    shifts = torch.arange(bits, dtype=torch.int64, device=idx.device)
+    bitmat = ((idx[:, :, None] >> shifts) & 1).reshape(m, P * bits)
+    nwords = -(-(P * bits) // 32)
+    bitmat = torch.nn.functional.pad(bitmat, (0, nwords * 32 - P * bits + 32))
+    w32 = torch.arange(32, dtype=torch.int64, device=idx.device)
+    words = (bitmat.reshape(m, nwords + 1, 32) << w32).sum(-1)
+    return _as_int32(words)
+
+
+def unpack_rows(packed: torch.Tensor, bits: int, n_idx: int) -> torch.Tensor:
+    """Row-pack words (m, W + 1) -> indices (m, n_idx) int64."""
+    o = torch.arange(n_idx, dtype=torch.int64, device=packed.device) * bits
+    w0, sh = o >> 5, o & 31
+    u = packed.to(torch.int64) & _M32
+    lo, hi = u[..., w0], u[..., w0 + 1]
+    return ((lo >> sh) | (hi << (32 - sh))) & ((1 << bits) - 1)
+
+
+def dequant_lut(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,
+                bits: int, vec: int) -> torch.Tensor:
+    """SQ/VQ dequant: row-pack indices into lut (2^bits, vec) -> weights
+    (m, k) in lut's dtype; column p*vec + c is component c of index p."""
+    idx = unpack_rows(packed, bits, k // vec)  # (m, P)
+    return lut[idx].reshape(m, k)

@@ -1,15 +1,18 @@
 """Model assembly: qdict + merge_info -> (ModelSpec, params).
 
 Counterpart of ``qpalette_tpu/runtime/loader.py`` for the arithmetic
-trellis kinds (tcq1 1mad/2mad, tcq2 dualmad/sum2) and the LUT trellis kinds
-(tcq, tcomb), keeping its seeds (``su_for``, the lm_head SU ``seed*7+99``
+trellis kinds (tcq1 1mad/2mad, tcq2 dualmad/sum2), the LUT trellis kinds
+(tcq, tcomb) and the SQ/VQ row-pack kind (vq: the ldlq, sq and vq2
+families), keeping its seeds (``su_for``, the lm_head SU ``seed*7+99``
 and dummy artifact ``seed*11+5``), its merge semantics (qkv / ug merges
-of tcq1 / tcq2 with one KV and decode mode) and the 4096-multiple vocab
-pad of the quantized lm_head.  Projections keep the canonical ``trellis``
-(tcomb: ``trellis1`` / ``trellis2``) words; the port defines no
-kernel-side layout yet.  The (2^S, 2) tables of tcq / tcomb are held once
-per S in ``params["luts"]``.  Dummy packed words come from a
-``torch.Generator`` on the target device.
+of tcq1 / tcq2 with one KV and decode mode, of vq with one bits, vec and
+codebook), the 4096-multiple vocab pad of the 4-bit lm_head and the
+2048-multiple pad of the rotated int8 one.  Projections keep the canonical
+``trellis`` (tcomb: ``trellis1`` / ``trellis2``; vq: ``qweight``) words;
+the port defines no kernel-side layout yet.  The (2^S, 2) tables of tcq /
+tcomb are held once per S in ``params["luts"]``; a vq projection holds its
+own (2^bits, vec) float32 codebook ``lut``.  Dummy packed words come from
+a ``torch.Generator`` on the target device.
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from qpalette_tpu_torch.kernels import vq
 from qpalette_tpu_torch.kernels.arith import SUPPORTED_KV
 from qpalette_tpu_torch.models.llama import (AttnSpec, LlamaConfig, MLPSpec,
                                              ModelSpec)
-from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv, trellis_tlut,
+                                              vq_lut)
+from qpalette_tpu_torch.ops.hadamard import hadamard_transform
 from qpalette_tpu_torch.ops.packing import TD, words_to_torch
 from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
 from qpalette_tpu_torch.runtime.qlinear import IMPLS, LinearSpec
@@ -47,6 +53,9 @@ CONFIGS = {
 }
 
 LM_HEAD_QSTR = "tcq2s_8_none_0.9"
+LM_HEAD_BITS = (4, 8, 16)
+I8_VOCAB_ALIGN = 2048  # the int8 head's vocab pad
+I8_HEAD_ROWS = 8192  # head rows rotated and quantized a step
 # the reference's solver emits these names for an explicit per-layer impl
 _IMPL_NAMES = {"pallas": "exact", "pallas_a8": "a8"}
 
@@ -92,6 +101,11 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
         return LinearSpec("tcomb", KV=(meta["KV1"], meta["KV2"]),
                           tlut_bits=meta["tlut_bits"],
                           split=tuple(meta["in_part"]), **common)
+    if kind == "vq":
+        if (meta["bits"], meta["vec"]) not in vq.SUPPORTED:
+            raise NotImplementedError(f"vq bits={meta['bits']} vec="
+                                      f"{meta['vec']} is not ported")
+        return LinearSpec("vq", bits=meta["bits"], vec=meta["vec"], **common)
     raise NotImplementedError(f"scheme kind {kind!r} is not ported")
 
 
@@ -117,6 +131,8 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
         meta = {"kind": "tcomb", "KV1": KV1, "KV2": KV2,
                 "tlut_bits": tlut_bits_for_kv(max(KV1, KV2)),
                 "in_part": (n // 2, n // 2), **dims}
+    elif spec.family in ("ldlq", "sq", "vq2"):
+        meta = {"kind": "vq", "bits": spec.bits, "vec": spec.vec, **dims}
     else:
         raise NotImplementedError(f"dummy {spec.family!r} is not ported")
     rng = np.random.default_rng(seed)
@@ -125,39 +141,52 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
             "__device_dummy__": seed, "meta": meta}
 
 
+_MERGE_KEYS = {"tcq1": ("KV", "decode_mode"), "tcq2": ("KV", "decode_mode"),
+               "vq": ("bits", "vec")}
+
+
 def merge_artifacts(arts: list) -> dict:
-    """Row-concat merge of same-scheme tcq1 / tcq2 artifacts (fused qkv /
-    ug): tiles are tile-row-major with a shared in_features, so stacking
-    artifacts stacks output rows.  KV and decode mode must agree, and SU
+    """Row-concat merge of same-scheme tcq1 / tcq2 / vq artifacts (fused
+    qkv / ug): trellis tiles are tile-row-major and row-packs row-major
+    with a shared in_features, so stacking artifacts stacks output rows.
+    KV and decode mode (vq: bits, vec and the codebook) must agree, and SU
     must already be shared."""
     m0 = arts[0]["meta"]
-    if m0["kind"] not in ("tcq1", "tcq2"):
+    if m0["kind"] not in _MERGE_KEYS:
         raise NotImplementedError(f"merge of {m0['kind']!r} is not ported")
+    same = ("kind", "in_features") + _MERGE_KEYS[m0["kind"]]
     for a in arts[1:]:
-        if (a["meta"]["kind"] != m0["kind"]
-                or a["meta"]["in_features"] != m0["in_features"]
-                or a["meta"]["KV"] != m0["KV"]
-                or a["meta"]["decode_mode"] != m0["decode_mode"]):
+        if any(a["meta"][key] != m0[key] for key in same):
             raise ValueError("can only merge the same scheme and in_features")
         if not np.array_equal(a["SU"], arts[0]["SU"]):
             raise ValueError("merge needs a shared SU")
+        lut, lut0 = a.get("lut"), arts[0].get("lut")
+        if (lut is None) != (lut0 is None) or (
+                lut is not None and not np.array_equal(lut, lut0)):
+            raise ValueError("VQ merge needs identical codebooks")
     out = {
         "meta": dict(m0, out_features=sum(a["meta"]["out_features"]
                                           for a in arts)),
         "SU": arts[0]["SU"],
         "Wscale": np.concatenate([a["Wscale"] for a in arts]),
     }
+    if arts[0].get("lut") is not None:
+        out["lut"] = arts[0]["lut"]
     if all(a.get("__device_dummy__") is not None for a in arts):
         out["__device_dummy__"] = arts[0]["__device_dummy__"]
     else:
-        out["trellis"] = np.concatenate([a["trellis"] for a in arts], axis=0)
+        name = "qweight" if m0["kind"] == "vq" else "trellis"
+        out[name] = np.concatenate([a[name] for a in arts], axis=0)
     return out
 
 
-def trellis_shapes(ls: LinearSpec) -> dict:
-    """Canonical word arrays of a tcq1 / tcq2 / tcq / tcomb projection:
-    name -> ((m/16)*(n_i/16), 4*KV_i), or 8*KV words a tile for tcq1."""
+def word_shapes(ls: LinearSpec) -> dict:
+    """Canonical word arrays of a tcq1 / tcq2 / tcq / tcomb / vq
+    projection: name -> ((m/16)*(n_i/16), 4*KV_i), 8*KV words a tile for
+    tcq1, and the row-pack (m, P*bits/32 + 1) for vq."""
     m, n = ls.out_features, ls.in_features
+    if ls.kind == "vq":
+        return {"qweight": (m, vq.row_words(n, ls.bits, ls.vec))}
     if ls.kind == "tcomb":
         n1, n2 = ls.split
         return {"trellis1": ((m // TD) * (n1 // TD), 4 * ls.KV[0]),
@@ -169,7 +198,14 @@ def trellis_shapes(ls: LinearSpec) -> dict:
 def _params_from_artifact(art: dict, device) -> dict:
     p = {"wscale": torch.as_tensor(art["Wscale"], dtype=torch.float32,
                                    device=device)}
-    shapes = trellis_shapes(_spec_from_meta(art["meta"], "exact"))
+    meta = art["meta"]
+    shapes = word_shapes(_spec_from_meta(meta, "exact"))
+    if meta["kind"] == "vq":
+        # real sq_ / vq2_ artifacts carry their own codebook
+        lut = art.get("lut")
+        if lut is None:
+            lut = vq_lut(meta["bits"], meta["vec"])
+        p["lut"] = torch.tensor(np.asarray(lut, np.float32), device=device)
     if art.get("__device_dummy__") is not None:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(art["__device_dummy__"]))
@@ -195,6 +231,24 @@ def tlut_tensors(spec, device) -> dict:
             for S in sorted(bits)}
 
 
+def int8_head_weights(w: torch.Tensor, su: torch.Tensor):
+    """The rotated per-row symmetric int8 head of w (vocab, hidden), built
+    as the reference builds it: W <- H(W * su) in float32, s = max|W|/127
+    + 1e-12 a row, q = round(W / s); the vocab is padded to a multiple of
+    2048 with zero rows of scale 1.  Returns (q (vocab_pad, hidden) int8,
+    s (vocab_pad,) float32), on w's device, a block of rows at a time."""
+    V, h = w.shape
+    VP = -(-V // I8_VOCAB_ALIGN) * I8_VOCAB_ALIGN
+    q = torch.zeros((VP, h), dtype=torch.int8, device=w.device)
+    s = torch.ones(VP, dtype=torch.float32, device=w.device)
+    for r0 in range(0, V, I8_HEAD_ROWS):
+        wf = hadamard_transform(w[r0:r0 + I8_HEAD_ROWS].float() * su.float())
+        sr = wf.abs().amax(dim=1) / 127.0 + 1e-12
+        q[r0:r0 + wf.shape[0]] = torch.round(wf / sr[:, None]).to(torch.int8)
+        s[r0:r0 + wf.shape[0]] = sr
+    return q, s
+
+
 def _get_dummy_artifact(cfg, layer, key, qstr, seed):
     # crc32, not hash(): stable across processes
     dseed = zlib.crc32(f"{layer}_{key}".encode()) % (1 << 31)
@@ -213,15 +267,16 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
     qdict: quantizer_str, or {f"{i}_{key}": qstr | (qstr, impl_choice)}
     where impl_choice "0" is the default ``impl`` and "pallas"/"pallas_a8"
     name an impl explicitly.  merge_info: per-layer lists such as
-    ["merge_qkv", "merge_ug"].  lm_head_bits: 16 (bf16) or 4 (tcq2s_8,
-    always impl a8 as in the reference).  device: the card unless the
-    caller asks for the CPU (``device="cpu"`` runs the plain versions)."""
+    ["merge_qkv", "merge_ug"].  lm_head_bits: 16 (bf16), 8 (the rotated
+    per-row int8 head) or 4 (tcq2s_8, always impl a8 as in the
+    reference).  device: the card unless the caller asks for the CPU
+    (``device="cpu"`` runs the plain versions)."""
     if not dummy:
         raise NotImplementedError("loading quantized artifacts is not "
                                   "ported; use dummy=True")
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
-    if lm_head_bits not in (4, 16):
+    if lm_head_bits not in LM_HEAD_BITS:
         raise NotImplementedError(f"lm_head_bits={lm_head_bits}")
     device = torch.device(device)
     nl = num_layers if num_layers is not None else cfg.num_layers
@@ -312,11 +367,19 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         rng.standard_normal((cfg.vocab_size, cfg.hidden_size)) * scale)
     params["ln_f"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
     lm_spec = None
-    if lm_head_bits == 16:
+    if lm_head_bits in (8, 16):
         params["lm_head"] = (params["embed"] if cfg.tie_embeddings else
                              bf16(rng.standard_normal(
                                  (cfg.vocab_size, cfg.hidden_size)) * scale))
-    else:
+    if lm_head_bits == 8:
+        su = ((np.random.default_rng(seed * 7 + 99)
+               .standard_normal(cfg.hidden_size) > 0) * 2.0 - 1.0)
+        params["lm_head_su"] = torch.as_tensor(su.astype(np.float32),
+                                               device=device)
+        q, s = int8_head_weights(params.pop("lm_head"),
+                                 params["lm_head_su"])
+        params["lm_head_q"], params["lm_head_s"] = q, s
+    elif lm_head_bits == 4:
         h = cfg.hidden_size
         VP = -(-cfg.vocab_size // 4096) * 4096  # 128256 -> 131072
         su = ((np.random.default_rng(seed * 7 + 99).standard_normal(h) > 0)

@@ -3,12 +3,14 @@
 Counterpart of ``qpalette_tpu/runtime/qlinear.py`` for the kinds the port
 runs: ``dense``, ``dense_rot``, the arithmetic trellis kinds ``tcq2``
 (modes ``sum2`` and ``dualmad``) and ``tcq1`` (modes ``1mad`` and
-``2mad``), and the LUT trellis kinds ``tcq`` and input-split ``tcomb``.
+``2mad``), the LUT trellis kinds ``tcq`` and input-split ``tcomb``, and
+the SQ/VQ row-pack kind ``vq``.
 Impl names: ``exact`` (the reference's ``pallas``: bf16 activations,
 exact decode) and ``a8`` (``pallas_a8``: int8 activations quantized
-inside the kernel; for tcq/tcomb the reference runs the same bf16
+inside the kernel; for tcq/tcomb/vq the reference runs the same bf16
 kernels, and so does the port).  The LUT kinds read their (2^S, 2) table
-from the model's shared ``luts`` dict, one entry per ``tlut_bits``.
+from the model's shared ``luts`` dict, one entry per ``tlut_bits``; a vq
+projection holds its own (2^bits, vec) codebook, ``lut``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from qpalette_tpu_torch.kernels import arith_dequant, tcq_lut
+from qpalette_tpu_torch.kernels import arith_dequant, tcq_lut, vq
 from qpalette_tpu_torch.kernels.arith import MAX_ROWS, decode_gemv
 from qpalette_tpu_torch.ops.hadamard import get_had_factors, hadamard_transform_t
 
@@ -28,10 +30,13 @@ FUSE_ROT_ROWS = 8  # rows up to which the rotation output stays float32
 @dataclass(frozen=True)
 class LinearSpec:
     kind: str                 # dense | dense_rot | tcq1 | tcq2 | tcq | tcomb
+                              # | vq
     in_features: int
     out_features: int
     KV: tuple = ()            # (KV,) or (KV1, KV2)
     tlut_bits: int = 0        # tcq / tcomb table bits S
+    bits: int = 0             # vq index bits
+    vec: int = 0              # vq values an index
     split: tuple = ()         # tcomb in_part (n1, n2)
     mode: str = ""            # tcq2: sum2 | dualmad; tcq1: 1mad | 2mad
     impl: str = "exact"       # exact | a8
@@ -88,6 +93,17 @@ def _lut_matmul(spec: LinearSpec, p: dict, x: torch.Tensor,
     return x.float() @ w.float().T
 
 
+def _vq_matmul(spec: LinearSpec, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """vq: x (rows, n) bf16 -> (rows, m) float32 without Wscale.  Up to 8
+    rows through K8, more through K9 and a product, as _lut_matmul."""
+    m, n, bits, vec = (spec.out_features, spec.in_features, spec.bits,
+                       spec.vec)
+    if x.shape[0] <= vq.MAX_ROWS:
+        return vq.vq_gemv(x, p["qweight"], p["lut"], bits, vec, m, n)
+    w = vq.vq_dequant(p["qweight"], p["lut"], bits, vec, m, n)
+    return x.float() @ w.float().T
+
+
 def _arith_matmul(spec: LinearSpec, p: dict,
                   x: torch.Tensor) -> torch.Tensor:
     """tcq1 / tcq2: x (rows, n) -> (rows, m) float32 without Wscale.  Up
@@ -135,6 +151,9 @@ def qlinear_apply(spec: LinearSpec, p: dict, z: torch.Tensor, pre_rot=None,
     if spec.kind in ("tcq", "tcomb"):
         y = _lut_matmul(spec, p, z.to(torch.bfloat16).contiguous(),
                         luts[spec.tcq_lut_key()])
+        return (y * p["wscale"].float()[None, :]).to(odt)
+    if spec.kind == "vq":
+        y = _vq_matmul(spec, p, z.to(torch.bfloat16).contiguous())
         return (y * p["wscale"].float()[None, :]).to(odt)
     if spec.kind not in ("tcq1", "tcq2"):
         raise NotImplementedError(f"kind {spec.kind!r}")

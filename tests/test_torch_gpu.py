@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 arithmetic trellis GEMV (K1) in all four modes at the Llama-3.1-8B shapes
 of the 215.0thp_cc path and of bench.py's tcq2mix scheme, the arithmetic
-dequants (K2, K3) at the same shapes, and the LUT trellis kernels (tcq /
-tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship.  Marked
-``gpu``; each test skips itself when no CUDA device is present.
+dequants (K2, K3) at the same shapes, the LUT trellis kernels (tcq /
+tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship and at KV 3,
+the SQ/VQ row-pack kernels (K8, K9) at the shapes of the ldlq_2_6 path and
+at every ldlq (bits, vec), and the int8 lm_head GEMVs (K10, K11) at the
+8B head's shape.  Marked ``gpu``; each test skips itself when no CUDA
+device is present.
 
   python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -11,10 +14,12 @@ tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship.  Marked
 import pytest
 import torch
 
-from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
+from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
+                                        tcq_lut, vq)
 from qpalette_tpu_torch.kernels.arith import (arith_gemv_plain,
                                               tcq2s_decode_gemv)
-from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv, trellis_tlut,
+                                              vq_lut)
 from qpalette_tpu_torch.runtime.qlinear import LinearSpec, qlinear_apply
 
 pytestmark = pytest.mark.gpu
@@ -39,7 +44,19 @@ SHAPES_DEQUANT = SHAPES_ARITH + [
 # (projection, m, k, KV) of the 3.25-bit flagship (unmerged)
 SHAPES_FLAGSHIP = [("q/o", 4096, 4096, (8,)), ("q/o", 4096, 4096, (8, 9)),
                    ("k/v", 1024, 4096, (10,)), ("gate/up", 14336, 4096, (6,)),
-                   ("down", 4096, 14336, (6,))]
+                   ("down", 4096, 14336, (6,)),
+                   ("o kv3", 4096, 4096, (3,)), ("o kv3", 4096, 4096, (3, 4)),
+                   ("down kv3", 4096, 14336, (3,)),
+                   ("down kv3", 4096, 14336, (3, 4))]
+# (projection, m, k) of Llama-3.1-8B with merged qkv / ug
+SHAPES_8B = [("qkv", 6144, 4096), ("o", 4096, 4096), ("ug", 28672, 4096),
+             ("down", 4096, 14336)]
+# (bits, vec, m, k): ldlq_2_6 at every 8B shape, every ldlq pair at o and
+# down
+SHAPES_VQ = ([(6, 2, m, k) for _, m, k in SHAPES_8B]
+             + [(b, v, m, k) for b, v in vq.SUPPORTED
+                for _, m, k in SHAPES_8B[1::2] if (b, v) != (6, 2)])
+HEAD = (129024, 4096)  # the int8 head: vocab 128256 padded to 2048s
 
 
 @pytest.fixture
@@ -205,3 +222,79 @@ def test_lut_kernels_reject_cpu_trellis_with_cuda_x(cuda):
         tcq_lut.tcq_lut_gemv(x, words[0].cpu(), tlut, 6, 64, 256)
     with pytest.raises(ValueError):
         tcq_lut.tcq_lut_gemv(x, words[0], tlut.cpu(), 6, 64, 256)
+
+
+def _vq_case(bits, vec, m, k, device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    words = torch.randint(-(1 << 31), 1 << 31,
+                          (m, vq.row_words(k, bits, vec)), generator=gen,
+                          dtype=torch.int32, device=device)
+    return words, torch.tensor(vq_lut(bits, vec), device=device)
+
+
+@pytest.mark.parametrize("bits,vec,m,k", SHAPES_VQ)
+def test_vq_kernels_match_plain_on_card(cuda, bits, vec, m, k):
+    """K8 within 1e-4 of max|y| at N in {1, 8}; K9 bit-equal."""
+    words, lut = _vq_case(bits, vec, m, k, cuda, seed=m + k + bits)
+    for N in (1, 8):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(N)
+        x = torch.randn((N, k), generator=gen, device=cuda).bfloat16()
+        before = vq.vq_gemv.launches
+        y = vq.vq_gemv(x, words, lut, bits, vec, m, k)
+        torch.cuda.synchronize()
+        assert vq.vq_gemv.launches == before + 1
+        ref = vq.vq_gemv_plain(x, words, lut, bits, vec, m, k)
+        rel = ((y - ref).abs().max() / ref.abs().max()).item()
+        # the same bf16 operands; f32 sums over up to 14336 terms in
+        # another order
+        assert rel <= 1e-4, (bits, vec, m, k, N, rel)
+    before = vq.vq_dequant.launches
+    w = vq.vq_dequant(words, lut, bits, vec, m, k)
+    torch.cuda.synchronize()
+    assert vq.vq_dequant.launches == before + 1
+    ref = vq.vq_dequant_plain(words, lut, bits, vec, m, k)
+    assert torch.equal(w.view(torch.int16), ref.view(torch.int16))
+
+
+def _head_case(device, N, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    m, k = HEAD
+    wq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8,
+                       device=device)
+    scales = torch.rand(m, generator=gen, device=device) * 1e-3
+    x = torch.randn((N, k), generator=gen, device=device).bfloat16()
+    return x, wq, scales
+
+
+@pytest.mark.parametrize("N", [1, 8])
+def test_int8_head_kernels_match_plain_on_card(cuda, N):
+    """K10 bit-equal to its plain version (float64 integer dot), K11
+    within 1e-5 of max|y|."""
+    x, wq, scales = _head_case(cuda, N, seed=N)
+    for fn, plain in ((int8_gemv.int8_gemv_a8, int8_gemv.int8_gemv_a8_plain),
+                      (int8_gemv.int8_gemv, int8_gemv.int8_gemv_plain)):
+        before = fn.launches
+        y = fn(x, wq, scales)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = plain(x, wq, scales)
+        if fn is int8_gemv.int8_gemv_a8:
+            assert torch.equal(y, ref), (y - ref).abs().max().item()
+        else:
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= 1e-5, rel
+
+
+def test_vq_and_int8_kernels_reject_cpu_operands(cuda):
+    words, lut = _vq_case(6, 2, 64, 256, cuda, seed=3)
+    x = torch.zeros((1, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        vq.vq_gemv(x, words.cpu(), lut, 6, 2, 64, 256)
+    with pytest.raises(ValueError):
+        vq.vq_dequant(words, lut.cpu(), 6, 2, 64, 256)
+    with pytest.raises(ValueError):
+        int8_gemv.int8_gemv_a8(x, torch.zeros((64, 256), dtype=torch.int8),
+                               torch.ones(64, device=cuda))

@@ -84,8 +84,10 @@ def _jluts(*bits):
 
 
 # (kind, KV) cases: every KV of the flagship plus KV 9 (tcomb's second half
-# alone: odd, 36 words per tile, windows wrap at other places)
-CASES = [("tcq", (6,)), ("tcq", (9,)), ("tcq", (10,)), ("tcomb", (8, 9))]
+# alone: odd, 36 words per tile, windows wrap at other places), and KV 3
+# (tcq_3 and tcomb_3_4 of the memory palette: 12-word tiles)
+CASES = [("tcq", (6,)), ("tcq", (9,)), ("tcq", (10,)), ("tcomb", (8, 9)),
+         ("tcq", (3,)), ("tcomb", (3, 4))]
 
 
 def _case(kind, KV, seed, m=M, k=K):
