@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
   python chip_smoke.py
+  python chip_smoke.py --parent OLD_TCQ_LUT_CU
+
+With --parent it runs only parent_ab (see there): the LUT GEMVs and the
+flagship decode with csrc/tcq_lut.cu against an older version of the file.
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -16,9 +20,10 @@ Phases (each raises on failure):
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
      shape of the 3.25-bit flagship and, at KV 3 (tcq_3, tcomb_3_4), at o
-     and down: GEMV (N in {1,4,8}, within 1e-4 of max|y|), dequant
-     (bit-equal), the dequant + product at N=16; times at the flagship's
-     shapes
+     and down: GEMV (N = 1..8, within 1e-4 of max|y|; two launches
+     bit-equal), dequant (bit-equal), the dequant + product at N=16; times
+     at the flagship's shapes (the GEMV's: ms a call, GB/s of packed
+     trellis, share of the bound, the table layout in use)
   5b. the SQ/VQ row-pack kernels (K8 vq_gemv, K9 vq_dequant) against their
      plain versions: ldlq_2_6 (bits 6, vec 2) at the four 8B shapes and
      every ldlq (bits, vec) at o and down; K8 at N in {1,8} within 1e-4 of
@@ -58,6 +63,7 @@ Phases (each raises on failure):
      JSON status line
 """
 
+import argparse
 import dataclasses
 import json
 import os
@@ -618,7 +624,7 @@ def lut_kernel_checks(tcq_lut, shapes, device):
                             device=device)
         words = _lut_words(m, k, KV, device, seed=m + k + sum(KV))
         label = f"{m}x{k} KV={'/'.join(map(str, KV))}"
-        for N in (1, 4, 8, 16):
+        for N in (*range(1, 9), 16):
             gen = torch.Generator(device=device)
             gen.manual_seed(N)
             x = torch.randn((N, k), generator=gen, device=device).bfloat16()
@@ -628,6 +634,13 @@ def lut_kernel_checks(tcq_lut, shapes, device):
                 ref = gemv_plain(x, *words, tlut, *KV, m, k)
                 err[gemv.__name__] = max(err[gemv.__name__], _rel_check(
                     f"{gemv.__name__} {label} N={N}", y, ref, LUT_TOL))
+                if N == 8:  # the split-k sums are added in a fixed order
+                    y2 = gemv(x, *words, tlut, *KV, m, k)
+                    same = torch.equal(y.view(torch.int32),
+                                       y2.view(torch.int32))
+                    print(f"[lut] {gemv.__name__} {label} N=8: two launches "
+                          f"bit-equal={same}", flush=True)
+                    check(same, f"{gemv.__name__} {label}: launches differ")
                 continue
             w = deq(*words, tlut, *KV, m, k)
             torch.cuda.synchronize()
@@ -679,7 +692,12 @@ def lut_kernel_checks(tcq_lut, shapes, device):
         # the kernels' entries in the JSON line: the kernel alone (GEMV at
         # N=1, dequant) against its plain version alone, summed over a
         # forward's calls; the dequant + product at N=16 is printed beside
-        tbytes = nbytes + 2 * 4 * (1 << tlut_bits_for_kv(max(KV)))
+        S = tlut_bits_for_kv(max(KV))
+        tbytes = nbytes + 2 * 4 * (1 << S)
+        tab_bits = tcq_lut.GEMV_TABLE_BITS
+        ncopy = 1 << (tab_bits - 2 - S)
+        layout = (f"table {(1 << tab_bits) // 1024} KB: {ncopy} copies of "
+                  f"each of the 2^{S} entries, lane l reads copy l % {ncopy}")
         bounds = {gemv: gemv_bound(tbytes, 1, m, k, 2, False)[0],
                   deq: dequant_bound(tbytes, m, k)[0]}
         for fn, route, reps, plain_route in (
@@ -692,12 +710,85 @@ def lut_kernel_checks(tcq_lut, shapes, device):
                 if not plain_route:
                     times[fn.__name__][2] += count * bounds[fn]
             gbps = nbytes / (ms * 1e-3) / 1e9
-            print(f"[time] {label} {route.__name__}: {ms:.4f} ms"
+            print(f"[time] {label} {route.__name__}: {ms:.4f} ms a call"
                   + (f" ({gbps:.0f} GB/s of packed trellis, bound "
-                     f"{bounds[fn]:.4f} ms)"
-                     if route in (kern, kern_deq) else ""), flush=True)
+                     f"{bounds[fn]:.4f} ms, {bounds[fn] / ms:.1%} of it)"
+                     if route in (kern, kern_deq) else "")
+                  + (f"; {layout}" if route is kern else ""), flush=True)
         del copies, wout
     return err, times
+
+
+def parent_ab(parent_src):
+    """K4/K5 of csrc/tcq_lut.cu against an older version of the file
+    (parent_src, the same C interface) on one card, in turns: parent, new,
+    new, parent.  Both are first checked against the plain versions at
+    N = 1 and 8.  Each turn puts its library behind the wrappers, times a
+    flagship decode forward's K4 and K5 calls (CUDA-graph replays at N=1,
+    weights cycled past L2) and then the flagship's 64-token decode
+    through generate() (tokens/s)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from qpalette_tpu_torch.kernels import _build as kb
+    from qpalette_tpu_torch.kernels import tcq_lut
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+
+    _, _, smi = card()
+    parent_so = kb.BUILD / "libtcq_lut_parent.so"
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(kb.build, tcq_lut.SOURCE),
+                  ex.submit(kb.compile_cu, Path(parent_src), parent_so)]
+        for b in builds:
+            b.result()
+    libs = {"parent": kb.bind(parent_so, tcq_lut.SIGNATURES),
+            "new": tcq_lut._lib()}
+    lib_of = tcq_lut._lib
+    device = torch.device("cuda:0")
+    with open(FLAGSHIP_QDICT) as f:
+        qdict = json.load(f)
+    cases = []
+    for (m, k, KV), calls in sorted(flagship_shapes(
+            LlamaConfig.llama31_8b(), qdict).items()):
+        gemv, plain = ((tcq_lut.tcomb_lut_gemv, tcq_lut.tcomb_lut_gemv_plain)
+                       if len(KV) == 2 else
+                       (tcq_lut.tcq_lut_gemv, tcq_lut.tcq_lut_gemv_plain))
+        tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
+                            device=device)
+        nbytes = m * k * sum(KV) // (16 * len(KV))
+        copies = [_lut_words(m, k, KV, device, seed=100 * i)
+                  for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
+        for label, lib in libs.items():
+            tcq_lut._lib = lambda lib=lib: lib
+            for N in (1, 8):
+                x = torch.randn((N, k), device=device).bfloat16()
+                _rel_check(f"{label} {gemv.__name__} {m}x{k} KV={KV} N={N}",
+                           gemv(x, *copies[0], tlut, *KV, m, k),
+                           plain(x, *copies[0], tlut, *KV, m, k), LUT_TOL)
+        cases.append((m, k, KV, calls, gemv, tlut, copies))
+    spec, params = _build("flagship", qdict, None, "exact", 16, device)
+    turns = []
+    for label in ("parent", "new", "new", "parent"):
+        tcq_lut._lib = lambda lib=libs[label]: lib
+        ms = {"tcq_lut_gemv": 0.0, "tcomb_lut_gemv": 0.0}
+        for m, k, KV, calls, gemv, tlut, copies in cases:
+            x = torch.randn((1, k), device=device).bfloat16()
+            out = torch.empty((1, m), device=device)
+            t = _time_ms(lambda i=0: gemv(x, *copies[i % len(copies)], tlut,
+                                          *KV, m, k, out=out), 200, graph=True)
+            ms[gemv.__name__] += calls * t
+            print(f"[ab] {label} {m}x{k} KV={KV}: {t * 1e3:.3f} us a call",
+                  flush=True)
+        tps = throughput(f"flagship, {label} tcq_lut.cu", spec, params,
+                         device, smi)
+        turns.append({"lib": label, "tokens_per_s": tps,
+                      **{f"{n}_ms_a_forward": v for n, v in ms.items()}})
+        print(f"[ab] {label}: K4 {ms['tcq_lut_gemv']:.4f} ms, K5 "
+              f"{ms['tcomb_lut_gemv']:.4f} ms a forward, {tps:.2f} tokens/s "
+              f"({smi})", flush=True)
+    tcq_lut._lib = lib_of
+    print(json.dumps({"card": smi, "turns": turns}))
 
 
 def flagship_path(device, card_label):
@@ -1131,7 +1222,7 @@ def main():
         kms, kpms, kbms = times[kname]
         print(f"[time] flagship forward's calls of {kname}: kernel "
               f"{kms:.3f} ms, plain {kpms:.3f} ms, bound {kbms:.3f} ms "
-              f"({smi})", flush=True)
+              f"({kbms / kms:.1%} of it; {smi})", flush=True)
     print(f"[time] Path C decode forward's 128 vq_gemv calls (N=1): kernel "
           f"{times['vq_gemv'][0]:.3f} ms, plain {times['vq_gemv'][1]:.3f} ms,"
           f" bound {times['vq_gemv'][2]:.3f} ms; its prefill's 128 vq_dequant"
@@ -1167,4 +1258,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="an older csrc/tcq_lut.cu: run parent_ab only")
+    args = ap.parse_args()
+    if args.parent:
+        parent_ab(args.parent)
+    else:
+        main()

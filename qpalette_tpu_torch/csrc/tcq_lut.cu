@@ -20,19 +20,51 @@
 // 15.
 //
 // GEMV (N <= 8 rows of bf16 x): y = x @ W_hat^T in float32, no Wscale.
-// What bounds it: at bs=1 each weight is read once as KV/2 bits of packed
-// trellis, and decoding costs one shared-memory table gather plus ~8
-// integer ops per weight pair, so the kernel is bound by the trellis bytes
-// streamed from device memory and, at small m, by latency.  Design (as the
-// tcq2s kernel): one block per 16-row m-tile, whose k-tiles are contiguous;
-// the block walks k in 512-column chunks, copies each chunk's words to
-// shared memory with 16-byte loads (the next chunk's words are loaded into
-// registers while the current chunk is decoded), and its 8 warps stride
-// over the chunk's tiles.  Lane l decodes states 8*(l%16) + 4*(l/16) + q,
-// q < 4, all of output row l%16, so row sums stay in registers and are
-// reduced once through shared memory.  tcomb runs both halves in one
-// launch: KV1 tiles on columns [0, k/2), then KV2 tiles on [k/2, k), each
-// read from its own canonical array (no pad words).
+// What bounds it: each weight is read once as KV/2 bits of packed trellis,
+// so the least time is the trellis bytes over device memory rate.  What
+// holds it from that on an H100 is the SM's shared-memory pipe and each
+// launch's fixed cost, not memory: a tile (128 states) needs 128 table
+// gathers and 128 windows cut from its words whatever the layout.  The
+// earlier design paid ~5 shared-memory reads a decoded pair (two words, a
+// gather that lands ~3 lanes on one bank, two x values) plus 2*N FMAs, and
+// kept one 512-column chunk a block in flight behind two barriers.  Design:
+//  - Tensor cores.  A 16x16 tile is the A operand of one
+//    mma.m16n8k16.bf16 (f32 accumulate); N <= 8 rows of x are its B
+//    operand, so N = 1..8 cost the same.  Lane l (g = l/4, c = l%4)
+//    decodes states s0 = 8g + 2c, s0+1, s0+64, s0+65: a decoded state is
+//    a bf16x2 word of columns (2t, 2t+1) of one row, already an A register
+//    (a0 = s0, a2 = s0+1 on row g; a1, a3 on row g+8).  Fragment column
+//    2c+j is tile column 4c+j and 8+2c+j is 4c+2+j, so the B registers are
+//    the four contiguous bf16 x[g][4c..4c+3]: one 8-byte load.
+//  - Fewer shared-memory accesses.  s0 and s0+1 lie within KV+16 <= 26
+//    bits, so one funnel shift of two words yields both windows; s0+64
+//    sits exactly 2*KV words further at the same shift.  A tile costs a
+//    lane 4 word reads, 4 table gathers and one x load, and the warp one
+//    MMA (~37 instructions a tile).  The table (32 KB, static shared
+//    memory) holds 2^(13-S) copies of each bf16x2 entry, copy j at word
+//    i*copies + j, and lane l reads copy l % copies: at S = 9 a gather puts
+//    at most 2 lanes on a bank, and the byte offset of an entry is bits
+//    [15-S, 15) of h under one mask.  (On an H100, 64 KB with 32 copies was
+//    no faster: it halves the blocks an SM holds and doubles the staging;
+//    16 KB, with more lanes on a bank, was slower.)
+//  - A pipelined trellis stream.  A warp owns a contiguous range of one
+//    m-tile's k-tiles (contiguous bytes) and streams it through its own
+//    double buffer: two slots of 8 tiles, each slot one 1-D TMA bulk copy
+//    (cp.async.bulk) completing on the slot's mbarrier.  The warp decodes
+//    one slot while the next streams; no block barrier inside the loop.
+//    The small ring fits 4 blocks (32 warps) an SM.  (On an H100, rings of
+//    4 slots were slower: every warp's 4 copies at launch queue behind each
+//    other, and a warp whose first slot comes last ends the call late.)
+//  - Work for 132 SMs.  A block is one m-tile; its 8 warps split k; where
+//    m/16 blocks cannot fill the card (k/v: 64 m-tiles), a cluster of up
+//    to 8 blocks splits k further.  The partial 16x8 sums are added in a
+//    fixed order through (distributed) shared memory: one launch, no
+//    atomics, bit-equal results run to run.  Where k needs no split, the
+//    launch has no cluster attribute and ends on a block barrier, which
+//    is cheaper than a cluster barrier's release fence.
+// tcomb runs both halves in one launch: the first half of a cluster's
+// warps take the KV1 tiles (columns [0, k/2)), the rest the KV2 tiles, each
+// warp's range inside one half and read from that half's canonical array.
 //
 // Dequant: the trellis -> bf16 W_hat (m, k), natural order.  What bounds
 // it: 2 bytes written per weight against KV/16 bytes read, so the bf16
@@ -42,32 +74,42 @@
 // of a row write that row's 128 contiguous bytes as 16-byte stores.  (On an
 // H100, one tile per warp writing 32-byte row pieces took 3-4x as long.)
 //
-// wgmma, TMA, a bank-conflict-free table layout and a Hopper weight layout
-// are later work.
+// The dequant's table is one copy (its reads are not its bound); a
+// Hopper weight layout is later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 512;               // columns per chunk
-constexpr int kChunkTiles = kChunk / 16;  // k-tiles per chunk
 constexpr int kMaxRows = 8;               // GEMV activation rows
 constexpr int kMaxTlutBits = 11;
 constexpr int kDequantBlocks = 2112;      // two waves of 8 per SM
+constexpr int kTabBits = 15;     // the GEMV's table: 32 KB static shared
+constexpr int kStageTiles = 8;   // k-tiles a ring slot (one bulk copy)
+constexpr int kSlots = 2;        // a warp decodes one slot, the other streams
+constexpr int kRingBytes = kSlots * kStageTiles * 16 * 10;  // KV <= 10
+constexpr int kGemvBlocksPerSM = 4;
+constexpr int kMaxCluster = 8;
+constexpr int kMinWarpTiles = 16;  // a cluster split keeps 2 slots a warp
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float2 v) {
+  const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v.x));
+  const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v.y));
+  return lo | (hi << 16);
+}
 
 // (2^S, 2) float32 table -> 2^S bf16x2 words in shared memory
 __device__ __forceinline__ void load_table(const float2* __restrict__ tlut,
                                            int S, uint32_t* tab) {
-  for (int i = threadIdx.x; i < (1 << S); i += blockDim.x) {
-    const float2 v = tlut[i];
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v.x));
-    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v.y));
-    tab[i] = lo | (hi << 16);
-  }
+  for (int i = threadIdx.x; i < (1 << S); i += blockDim.x)
+    tab[i] = pack_bf16x2(tlut[i]);
 }
 
 // state s of the tile whose 4*KV words are wt -> its bf16x2 weight pair
@@ -84,118 +126,273 @@ __device__ __forceinline__ uint32_t decode_state(const uint32_t* wt, int s,
   return e ^ (h & 0x8000u);  // bit 15 of h: sign of component 0
 }
 
-// Accumulate nkt k-tiles of one m-tile (words from tr_row, KV int4 per
-// tile) against x columns [col0, col0 + 16*nkt) into acc.
-template <int KV, int NG>
-__device__ __forceinline__ void gemv_part(
-    const __nv_bfloat16* __restrict__ x, int N, int k, int col0,
-    const int4* __restrict__ tr_row, int nkt, const uint32_t* tab, int S,
-    uint32_t* ws, float* xs, float (&acc)[NG]) {
+// --- GEMV -------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// lane 0 of a warp: arm the slot's barrier for `bytes` and start the copy
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n\t"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%2], [%3], %1, [%0];" ::"r"(smem_addr(bar)),
+      "r"(bytes), "r"(smem_addr(dst)), "l"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
+}
+
+// The decoded pair of the state whose 16-bit window is bits [0, 16) of f:
+// bits < 16 of h = f*(f+1) depend on those bits only.  tmask keeps the
+// table index, bits [15-S, 15) of h: with 2^(15-S) bytes of copies an
+// entry, they are the entry's byte offset as they stand.  lcb is this
+// lane's copy (bytes).
+__device__ __forceinline__ uint32_t lut_pair(uint32_t f, const uint8_t* tab,
+                                             uint32_t tmask, uint32_t lcb) {
+  const uint32_t h = f * (f + 1u);
+  const uint32_t off = (h & tmask) | lcb;
+  return *reinterpret_cast<const uint32_t*>(tab + off) ^ (h & 0x8000u);
+}
+
+// This lane's view of a tile: byte offsets of its four words and the shift
+// of its windows (see the note at the top).
+struct LaneMap {
+  uint32_t o0, o1, o2, o3;
+  int sh;
+};
+
+template <int KV>
+__device__ __forceinline__ LaneMap lane_map(int lane) {
   constexpr int W = 4 * KV;
-  constexpr int kLoads = (kChunkTiles * KV + kThreads - 1) / kThreads;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row = lane & 15, tbase = (lane >> 4) * 4;
-  const int nch = (nkt + kChunkTiles - 1) / kChunkTiles;
+  const int off = KV * (8 * (lane >> 2) + 2 * (lane & 3));
+  const int w0 = off >> 5, w2 = w0 + 2 * KV;
+  const int w3 = (w2 + 1 == W) ? 0 : w2 + 1;  // the stream is circular
+  return {4u * w0, 4u * (w0 + 1), 4u * w2, 4u * w3, off & 31};
+}
 
-  int4 wreg[kLoads];
-  auto fetch = [&](int c) {
-    const int nvec = min(kChunkTiles, nkt - c * kChunkTiles) * KV;
-    const int4* src = tr_row + (size_t)c * kChunkTiles * KV;
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int i = tid + l * kThreads;
-      if (i < nvec) wreg[l] = src[i];
-    }
+// One 16x16 tile (words at wt in shared memory) against x columns at b.
+template <int KV>
+__device__ __forceinline__ void tile_mma(const uint8_t* wt, const LaneMap& lm,
+                                         const uint8_t* tab, uint32_t tmask,
+                                         uint32_t lcb, uint2 b,
+                                         float (&d)[4]) {
+  const auto word = [&](uint32_t o) {
+    return *reinterpret_cast<const uint32_t*>(wt + o);
   };
-  fetch(0);
+  const uint32_t f0 = __funnelshift_r(word(lm.o0), word(lm.o1), lm.sh);
+  const uint32_t f1 = __funnelshift_r(word(lm.o2), word(lm.o3), lm.sh);
+  mma_bf16(d, lut_pair(f0, tab, tmask, lcb), lut_pair(f1, tab, tmask, lcb),
+           lut_pair(f0 >> KV, tab, tmask, lcb),
+           lut_pair(f1 >> KV, tab, tmask, lcb), b);
+}
 
-  for (int c = 0; c < nch; ++c) {
-    const int ntile = min(kChunkTiles, nkt - c * kChunkTiles);
-    const int cw = ntile * 16;
+// A warp's share of the work: nt k-tiles of one m-tile starting at src
+// (bytes in device memory) and at x column col0.
+struct WarpJob {
+  const uint8_t* src;
+  int nt, col0;
+};
+
+// A warp's ring for KV: kSlots slots of kStageTiles tiles
+template <int KV>
+struct Ring {
+  static constexpr int kTileBytes = 16 * KV;
+  static constexpr int kSlotBytes = kStageTiles * kTileBytes;
+};
+
+template <int KV>
+__device__ __forceinline__ void issue_slot(const WarpJob& job, uint8_t* ring,
+                                           uint64_t* bars, int it) {
+  using R = Ring<KV>;
+  const int slot = it % kSlots;
+  const int n = min(kStageTiles, job.nt - it * kStageTiles);
+  bulk_load(ring + slot * R::kSlotBytes,
+            job.src + (size_t)it * R::kSlotBytes, n * R::kTileBytes,
+            bars + slot);
+}
+
+template <int KV>
+__device__ __forceinline__ void issue_first(const WarpJob& job, uint8_t* ring,
+                                            uint64_t* bars) {
+  const int nslot = (job.nt + kStageTiles - 1) / kStageTiles;
+  for (int it = 0; it < min(kSlots, nslot); ++it)
+    issue_slot<KV>(job, ring, bars, it);
+}
+
+// The warp streams its tiles through its ring and accumulates the 16x8 C
+// fragment d.  The first kSlots slots were issued before the table was
+// staged; a slot is refilled with the one kSlots further once decoded.
+template <int KV>
+__device__ __forceinline__ void warp_gemv(
+    const WarpJob& job, uint8_t* ring, uint64_t* bars, const uint8_t* tab,
+    uint32_t tmask, uint32_t lcb, const __nv_bfloat16* __restrict__ x, int N,
+    int k, float (&d)[4]) {
+  using R = Ring<KV>;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const LaneMap lm = lane_map<KV>(lane);
+  const bool xrow = g < N;  // B columns n >= N stay 0
+  const __nv_bfloat16* xp =
+      x + (size_t)(xrow ? g : 0) * k + job.col0 + 4 * (lane & 3);
+  const auto xload = [&](int col) {
+    return xrow ? __ldg(reinterpret_cast<const uint2*>(xp + col))
+                : make_uint2(0u, 0u);
+  };
+  const int nslot = (job.nt + kStageTiles - 1) / kStageTiles;
+  for (int it = 0; it < nslot; ++it) {
+    const int slot = it % kSlots;
+    const uint32_t parity = (it / kSlots) & 1;
+    const uint8_t* st = ring + slot * R::kSlotBytes;
+    const int c0 = it * kStageTiles * 16;
+    const int n = min(kStageTiles, job.nt - it * kStageTiles);
+    if (n == kStageTiles) {
+      uint2 b[kStageTiles];  // x does not wait for the slot
 #pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int i = tid + l * kThreads;
-      if (i < ntile * KV) reinterpret_cast<int4*>(ws)[i] = wreg[l];
+      for (int j = 0; j < kStageTiles; ++j) b[j] = xload(c0 + 16 * j);
+      mbar_wait(bars + slot, parity);
+#pragma unroll
+      for (int j = 0; j < kStageTiles; ++j)
+        tile_mma<KV>(st + j * R::kTileBytes, lm, tab, tmask, lcb, b[j], d);
+    } else {
+      mbar_wait(bars + slot, parity);
+      for (int j = 0; j < n; ++j)
+        tile_mma<KV>(st + j * R::kTileBytes, lm, tab, tmask, lcb,
+                     xload(c0 + 16 * j), d);
     }
-    const __nv_bfloat16* xc = x + col0 + c * kChunk;
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-      for (int col = tid; col < cw; col += kThreads)
-        xs[n * kChunk + col] =
-            n < N ? __bfloat162float(xc[(size_t)n * k + col]) : 0.f;
-    __syncthreads();
-
-    if (c + 1 < nch) fetch(c + 1);  // in flight during the decode
-
-    for (int j = warp; j < ntile; j += kWarps) {
-      const uint32_t* wt = ws + j * W;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int t = tbase + q;
-        const uint32_t e = decode_state<KV>(wt, 8 * row + t, tab, S);
-        const float w0 = __uint_as_float(e << 16);
-        const float w1 = __uint_as_float(e & 0xffff0000u);
-        const float* xr = xs + j * 16 + 2 * t;
-#pragma unroll
-        for (int n = 0; n < NG; ++n) {
-          acc[n] = fmaf(xr[n * kChunk], w0, acc[n]);
-          acc[n] = fmaf(xr[n * kChunk + 1], w1, acc[n]);
-        }
-      }
-    }
-    __syncthreads();  // ws / xs are overwritten by the next chunk
+    __syncwarp();  // every lane has read the slot before it is refilled
+    if (lane == 0 && it + kSlots < nslot)
+      issue_slot<KV>(job, ring, bars, it + kSlots);
   }
 }
 
-// lanes l and l^16 hold the same row; then sum the warps' partials
-template <int NG>
-__device__ __forceinline__ void reduce_store(float (&acc)[NG],
-                                             float (*red)[NG][16],
-                                             float* __restrict__ out, int N,
-                                             int m, int mt) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int n = 0; n < NG; ++n)
-    acc[n] += __shfl_xor_sync(0xffffffffu, acc[n], 16);
-  if (lane < 16) {
-#pragma unroll
-    for (int n = 0; n < NG; ++n) red[warp][n][lane] = acc[n];
-  }
-  __syncthreads();
-  for (int i = tid; i < N * 16; i += kThreads) {
-    const int n = i >> 4, r = i & 15;
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[w][n][r];
-    out[(size_t)n * m + mt * 16 + r] = v;
-  }
-}
+// dynamic shared memory: the warps' rings, then their slots' barriers
+constexpr size_t kGemvSmem =
+    (size_t)kWarps * kRingBytes + kWarps * kSlots * sizeof(uint64_t);
 
 // tcq: KV1 == KV2 and kt2 == 0; tcomb: KV1 tiles on columns [0, 16*kt1),
-// KV2 tiles on [16*kt1, k).
-template <int KV1, int KV2, int NG>
-__global__ void __launch_bounds__(kThreads)
+// KV2 tiles on [16*kt1, k).  Grid: a cluster of cs blocks an m-tile (cs =
+// 1: one block); block rank r takes warps r*kWarps.. of the k split.
+template <int KV1, int KV2>
+__global__ void __launch_bounds__(kThreads, kGemvBlocksPerSM)
 lut_gemv_kernel(const __nv_bfloat16* __restrict__ x,
-                const int4* __restrict__ tr1, const int4* __restrict__ tr2,
+                const uint8_t* __restrict__ tr1,
+                const uint8_t* __restrict__ tr2,
                 const float2* __restrict__ tlut, int S,
                 float* __restrict__ out, int N, int m, int k, int kt1,
                 int kt2) {
-  constexpr int KVM = KV1 > KV2 ? KV1 : KV2;
-  __shared__ uint32_t tab[1 << kMaxTlutBits];
-  __shared__ __align__(16) uint32_t ws[kChunkTiles * 4 * KVM];
-  __shared__ float xs[NG * kChunk];
-  __shared__ float red[kWarps][NG][16];
-  load_table(tlut, S, tab);  // visible after the first chunk's barrier
-  const int mt = blockIdx.x;
-  float acc[NG];
+  __shared__ __align__(128) uint8_t tab[1 << kTabBits];
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint8_t* ring = smem + warp * kRingBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + kWarps * kRingBytes) +
+      warp * kSlots;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int mt = blockIdx.x / cs;
+  const int gw = rank * kWarps + warp, wc = cs * kWarps;
+  // this warp's k-tiles: tcq splits k over all wc warps; tcomb gives the
+  // first wc/2 warps the KV1 half and the rest the KV2 half
+  const bool second = kt2 > 0 && gw >= wc / 2;
+  const int nw = kt2 > 0 ? wc / 2 : wc, i = second ? gw - wc / 2 : gw;
+  const int kth = second ? kt2 : kt1;
+  // whole slots a warp, so only a half's last warp decodes a partial slot
+  const int nsl = (kth + kStageTiles - 1) / kStageTiles;
+  const int ta = min(kth, nsl * i / nw * kStageTiles);
+  const int tb = min(kth, nsl * (i + 1) / nw * kStageTiles);
+  const WarpJob job =
+      second ? WarpJob{tr2 + ((size_t)mt * kt2 + ta) * 16 * KV2, tb - ta,
+                       16 * (kt1 + ta)}
+             : WarpJob{tr1 + ((size_t)mt * kt1 + ta) * 16 * KV1, tb - ta,
+                       16 * ta};
+
+  if (lane == 0) {  // the first slots stream while the table is staged
+    for (int s = 0; s < kSlots; ++s) mbar_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (second)
+      issue_first<KV2>(job, ring, bars);
+    else
+      issue_first<KV1>(job, ring, bars);
+  }
+
+  // 2^rb copies of each entry, copy j of entry e at word e*2^rb + j; S <=
+  // 11, so rb >= 2 and a thread stores whole 16-byte groups of copies.  A
+  // thread's loads of the table are all in flight before its stores.
+  const int rb = kTabBits - 2 - S;
+  constexpr int kPer = (1 << (kTabBits - 4)) / kThreads;
+  float2 v[kPer];
 #pragma unroll
-  for (int n = 0; n < NG; ++n) acc[n] = 0.f;
-  gemv_part<KV1, NG>(x, N, k, 0, tr1 + (size_t)mt * kt1 * KV1, kt1, tab, S,
-                     ws, xs, acc);
-  if (kt2)
-    gemv_part<KV2, NG>(x, N, k, 16 * kt1, tr2 + (size_t)mt * kt2 * KV2, kt2,
-                       tab, S, ws, xs, acc);
-  reduce_store<NG>(acc, red, out, N, m, mt);
+  for (int r = 0; r < kPer; ++r) v[r] = tlut[(tid + r * kThreads) >> (rb - 2)];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const uint32_t p = pack_bf16x2(v[r]);
+    reinterpret_cast<uint4*>(tab)[tid + r * kThreads] = make_uint4(p, p, p, p);
+  }
+  __syncthreads();
+
+  const uint32_t tmask = ((1u << S) - 1u) << (kTabBits - S);
+  const uint32_t lcb = (uint32_t)(lane & ((1 << rb) - 1)) << 2;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (KV1 == KV2) {
+    warp_gemv<KV1>(job, ring, bars, tab, tmask, lcb, x, N, k, d);
+  } else {
+    if (second)
+      warp_gemv<KV2>(job, ring, bars, tab, tmask, lcb, x, N, k, d);
+    else
+      warp_gemv<KV1>(job, ring, bars, tab, tmask, lcb, x, N, k, d);
+  }
+
+  // the cluster's wc fragments, summed in warp order by rank 0: C element
+  // (row, n) sits in lane 4*(row%8) + n/2, register 2*(row/8) + n%2.  A
+  // warp's ring is free once its loop is done, and holds its fragment.
+  reinterpret_cast<float4*>(ring)[lane] =
+      make_float4(d[0], d[1], d[2], d[3]);
+  if (cs > 1)
+    cluster.sync();
+  else
+    __syncthreads();  // no cluster-wide release fence
+
+  if (rank == 0 && tid < 16 * N) {
+    const int row = tid & 15, n = tid >> 4;
+    const int src = 4 * (row & 7) + (n >> 1), comp = 2 * (row >> 3) + (n & 1);
+    float v = 0.f;
+    for (int b = 0; b < cs; ++b) {
+      const float* rr =
+          reinterpret_cast<const float*>(cluster.map_shared_rank(smem, b));
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        v += rr[(w * kRingBytes) / 4 + src * 4 + comp];
+    }
+    out[(size_t)n * m + mt * 16 + row] = v;
+  }
+  if (cs > 1) cluster.sync();  // every block's sums live until rank 0 read them
 }
 
 // Up to 4 adjacent k-tiles of one m-tile (a 16 x 64 block of W_hat): lane
@@ -259,22 +456,62 @@ lut_dequant_kernel(const uint32_t* __restrict__ tr1,
   }
 }
 
+// SMs of the current device, read once per device
+int sm_count(int dev) {
+  static int count[64] = {};
+  if (dev < 64 && count[dev]) return count[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) count[dev] = n;
+  return n;
+}
+
 template <int KV1, int KV2>
 int gemv(const void* x, const void* tr1, const void* tr2, const void* tlut,
          int S, void* out, int N, int m, int k, int kt1, int kt2,
          cudaStream_t st) {
-  const dim3 grid(m / 16);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* t1 = static_cast<const int4*>(tr1);
-  const auto* t2 = static_cast<const int4*>(tr2);
-  const auto* tl = static_cast<const float2*>(tlut);
-  float* o = static_cast<float*>(out);
-  if (N == 1)
-    lut_gemv_kernel<KV1, KV2, 1><<<grid, kThreads, 0, st>>>(
-        xp, t1, t2, tl, S, o, N, m, k, kt1, kt2);
-  else
-    lut_gemv_kernel<KV1, KV2, kMaxRows><<<grid, kThreads, 0, st>>>(
-        xp, t1, t2, tl, S, o, N, m, k, kt1, kt2);
+  constexpr size_t smem = kGemvSmem;
+  if (reinterpret_cast<uintptr_t>(x) % 8)  // x is read 8 bytes at a time
+    return (int)cudaErrorMisalignedAddress;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  static unsigned long long ready = 0;  // devices that allow `smem` bytes
+  if (dev >= 64 || !((ready >> dev) & 1)) {
+    e = cudaFuncSetAttribute(lut_gemv_kernel<KV1, KV2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  // split k over a cluster until the m-tiles' clusters cover the SMs, as
+  // long as every warp keeps at least a slot of tiles
+  const int mtiles = m / 16, kt = kt1 + kt2, nsm = sm_count(dev);
+  int cs = 1;
+  while (cs < kMaxCluster && mtiles * cs < nsm &&
+         kt >= 2 * cs * kWarps * kMinWarpTiles)
+    cs *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(mtiles * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 1 : 0;  // a launch of single blocks is cheaper
+  e = cudaLaunchKernelEx(&cfg, lut_gemv_kernel<KV1, KV2>,
+                         static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const uint8_t*>(tr1),
+                         static_cast<const uint8_t*>(tr2),
+                         static_cast<const float2*>(tlut), S,
+                         static_cast<float*>(out), N, m, k, kt1, kt2);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

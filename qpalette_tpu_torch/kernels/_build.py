@@ -35,21 +35,26 @@ def lib_path(name: str) -> Path:
     return BUILD / f"lib{name}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` for sm_90a and return nvcc's output
-    (``-Xptxas -v``: registers, shared memory, spills)."""
-    BUILD.mkdir(exist_ok=True)
-    lib = lib_path(name)
-    tmp = BUILD / f".{lib.name}.{os.getpid()}"
+def compile_cu(src: Path, lib: Path) -> str:
+    """nvcc ``src`` for sm_90a into the shared library ``lib`` and return
+    nvcc's output (``-Xptxas -v``: registers, shared memory, spills)."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f".{lib.name}.{os.getpid()}"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+           "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu ({res.returncode}):\n"
+        raise RuntimeError(f"nvcc failed on {src} ({res.returncode}):\n"
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, lib)
     return res.stdout + res.stderr
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so`` and return
+    nvcc's output."""
+    return compile_cu(CSRC / f"{name}.cu", lib_path(name))
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
@@ -61,6 +66,12 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                  [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
     if not lib_file.exists() or lib_file.stat().st_mtime < newest:
         build(name)
+    return bind(lib_file, signatures)
+
+
+def bind(lib_file: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the built library ``lib_file`` and set its C functions'
+    argtypes and int result, as ``load`` does."""
     lib = ctypes.CDLL(str(lib_file))
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes

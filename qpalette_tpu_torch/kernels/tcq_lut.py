@@ -35,19 +35,23 @@ MAX_ROWS = 8  # GEMV rows; more rows take the dequant + product path
 SUPPORTED_KV = (3, 4, 5, 6, 7, 8, 9, 10)
 SUPPORTED_TCOMB = tuple((kv, kv + 1) for kv in range(3, 10))
 SUPPORTED_S = (9, 10, 11)
+# the GEMV's shared-memory table (kTabBits of csrc/tcq_lut.cu): 2^15 bytes,
+# 2^(13-S) bf16x2 copies of each of the 2^S entries
+GEMV_TABLE_BITS = 15
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+SIGNATURES = {  # the C interface of csrc/tcq_lut.cu
+    "tcq_lut_gemv": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "tcomb_lut_gemv": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "tcq_lut_dequant": [_P, _P, _I, _P, _I, _I, _I, _P],
+    "tcomb_lut_dequant": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return _build.load(SOURCE, {
-        "tcq_lut_gemv": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-        "tcomb_lut_gemv": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-        "tcq_lut_dequant": [_P, _P, _I, _P, _I, _I, _I, _P],
-        "tcomb_lut_dequant": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-    })
+    return _build.load(SOURCE, SIGNATURES)
 
 
 def _tlut_bits(tlut: torch.Tensor) -> int:

@@ -179,13 +179,29 @@ def _lut_case(m, k, KV, device, seed):
     return words, tlut
 
 
-@pytest.mark.parametrize("name,m,k,KV", SHAPES_FLAGSHIP)
+def _lut_gemv(KV):
+    return ((tcq_lut.tcq_lut_gemv, tcq_lut.tcq_lut_gemv_plain)
+            if len(KV) == 1 else
+            (tcq_lut.tcomb_lut_gemv, tcq_lut.tcomb_lut_gemv_plain))
+
+
+# ragged GEMV shapes: one m-tile; k/16 = 17 tiles (no whole ring slot for
+# most warps), k = 4128 (258 tiles: a cluster split whose warps end on a
+# partial slot; tcomb halves of 129); KV 3 and 10, whose last state's
+# window wraps the tile's stream at the most and the fewest bits
+SHAPES_LUT_RAGGED = [("m16 k272", 16, 272, (3,)),
+                     ("m16 k272", 16, 272, (10,)),
+                     ("m16 k4128", 16, 4128, (10,)),
+                     ("m16 k4128", 16, 4128, (3, 4)),
+                     ("m16 k4128", 16, 4128, (9, 10)),
+                     ("m48 k4128", 48, 4128, (6,))]
+
+
+@pytest.mark.parametrize("name,m,k,KV", SHAPES_FLAGSHIP + SHAPES_LUT_RAGGED)
 def test_lut_gemv_matches_plain_on_card(cuda, name, m, k, KV):
     words, tlut = _lut_case(m, k, KV, cuda, seed=m + k + sum(KV))
-    gemv, plain = ((tcq_lut.tcq_lut_gemv, tcq_lut.tcq_lut_gemv_plain)
-                   if len(KV) == 1 else
-                   (tcq_lut.tcomb_lut_gemv, tcq_lut.tcomb_lut_gemv_plain))
-    for N in (1, 4, 8):
+    gemv, plain = _lut_gemv(KV)
+    for N in range(1, 9):
         gen = torch.Generator(device=cuda)
         gen.manual_seed(N)
         x = torch.randn((N, k), generator=gen, device=cuda).bfloat16()
@@ -195,9 +211,29 @@ def test_lut_gemv_matches_plain_on_card(cuda, name, m, k, KV):
         assert gemv.launches == before + 1
         ref = plain(x, *words, tlut, *KV, m, k)
         rel = ((y - ref).abs().max() / ref.abs().max()).item()
-        # the same bf16 weights and activations; f32 sums over up to
-        # 14336 terms in another order
+        # the same bf16 weights and activations, and each bf16 product is
+        # exact in f32: only the order of the f32 sums over up to 14336
+        # terms differs (tensor-core fragments, then warps and blocks)
         assert rel <= 1e-4, (name, KV, N, rel)
+
+
+@pytest.mark.parametrize("name,m,k,KV", [SHAPES_FLAGSHIP[2],
+                                         SHAPES_FLAGSHIP[1],
+                                         SHAPES_LUT_RAGGED[3]])
+def test_lut_gemv_launches_are_bit_equal(cuda, name, m, k, KV):
+    """Two launches on the same inputs give the same bits (the split-k
+    partial sums are added in a fixed order, without atomics), and each
+    call adds exactly 1 to the wrapper's count."""
+    words, tlut = _lut_case(m, k, KV, cuda, seed=3 * m + k)
+    gemv, _ = _lut_gemv(KV)
+    x = torch.randn((8, k), device=cuda).bfloat16()
+    ys = []
+    for _ in range(2):
+        before = gemv.launches
+        ys.append(gemv(x, *words, tlut, *KV, m, k))
+        torch.cuda.synchronize()
+        assert gemv.launches == before + 1
+    assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 
 
 @pytest.mark.parametrize("name,m,k,KV", SHAPES_FLAGSHIP)

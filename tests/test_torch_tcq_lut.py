@@ -198,6 +198,93 @@ def test_plain_gemv_matches_reference_kernel_interpret():
     assert _rel(got.numpy(), want) < 1e-5
 
 
+# --- the CUDA GEMV's fragment algebra, rehearsed on the CPU -----------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _bf16_bits_to_float(bits):
+    b = bits & 0xFFFF
+    return torch.where(b >= 1 << 15, b - (1 << 16), b).to(
+        torch.int16).view(torch.bfloat16).float()
+
+
+def _fragment_gemv_half(x, words, tlut, KV, m, k):
+    """y (N, m) of one canonical array as lut_gemv_kernel computes it,
+    written from the lane's point of view: the table with 2^(13-S) copies
+    of each bf16x2 entry, lane (g, c)'s four words and one funnel
+    shift per pair of states, the A fragment a0..a3 = states s0, s0+64,
+    s0+1, s0+65, the B fragment x[g][4c..4c+3], one m16n8k16 product a
+    tile."""
+    N = x.shape[0]
+    S = tlut.shape[0].bit_length() - 1
+    tab_bits = tcq_lut.GEMV_TABLE_BITS
+    rb = tab_bits - 2 - S
+    bits = tlut.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    table = (bits[:, 0] | (bits[:, 1] << 16)).repeat_interleave(1 << rb)
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+    off = KV * (8 * g + 2 * c)
+    w0, sh = off >> 5, off & 31
+    w2 = w0 + 2 * KV
+    w3 = torch.where(w2 + 1 == 4 * KV, 0, w2 + 1)
+    assert bool((w3 == 0).any())  # state 127's window wraps the stream
+    u = words.to(torch.int64) & _M32  # (T, 4*KV)
+
+    def funnel(lo, hi):  # __funnelshift_r(lo, hi, sh)
+        return ((lo >> sh) | (hi << (32 - sh))) & _M32
+
+    f0, f1 = funnel(u[:, w0], u[:, w0 + 1]), funnel(u[:, w2], u[:, w3])
+    tmask = ((1 << S) - 1) << (tab_bits - S)
+    lcb = (lane & ((1 << rb) - 1)) << 2
+
+    def pair(f):  # bits [15-S, 15) of h are the entry's byte offset
+        h = (f * (f + 1)) & _M32
+        return table[((h & tmask) | lcb) >> 2] ^ (h & 0x8000)
+
+    T = words.shape[0]
+    A = torch.zeros((T, 16, 16))
+    for reg, f, row, col in ((0, f0, g, 2 * c), (1, f1, g + 8, 2 * c),
+                             (2, f0 >> KV, g, 8 + 2 * c),
+                             (3, f1 >> KV, g + 8, 8 + 2 * c)):
+        e = pair(f)
+        A[:, row, col] = _bf16_bits_to_float(e)
+        A[:, row, col + 1] = _bf16_bits_to_float(e >> 16)
+    # B[kf][n] in lane (n, c): kf 2c+j is tile column 4c+j, 8+2c+j is 4c+2+j
+    xt = x.to(torch.bfloat16).float().reshape(N, k // 16, 16)
+    xt = torch.cat([xt, torch.zeros((8 - N, k // 16, 16))])  # n >= N: 0
+    B = torch.zeros((k // 16, 16, 8))
+    for j in (0, 1):
+        B[:, 2 * c + j, g] = xt[g, :, 4 * c + j].T
+        B[:, 8 + 2 * c + j, g] = xt[g, :, 4 * c + 2 + j].T
+    D = A.reshape(m // 16, k // 16, 16, 16) @ B  # (mt, kt, row, n)
+    return D.sum(1).permute(2, 0, 1).reshape(8, m)[:N]
+
+
+@pytest.mark.parametrize("KV", [(3,), (4,), (5,), (6,), (7,), (8,), (9,),
+                                (10,), (3, 4), (8, 9), (9, 10)])
+def test_gemv_fragment_map_matches_plain(KV):
+    """The lane -> (states, x columns) map of csrc/tcq_lut.cu's GEMV,
+    emulated on the plain words and table, gives tcq_lut_gemv_plain's y
+    (tcomb: both halves) within f32 sum order, at every KV, across the
+    circular wrap of state 127."""
+    m, k, N = 32, 64 * len(KV), 3
+    rng = np.random.default_rng(90 + sum(KV))
+    S = codebooks.tlut_bits_for_kv(max(KV))
+    tl = _tlut(S)
+    x = torch.from_numpy(rng.standard_normal((N, k)).astype(np.float32))
+    halves = [words_to_torch(_words(rng, m, k // len(KV), kv)) for kv in KV]
+    kh = k // len(KV)
+    got = sum(_fragment_gemv_half(x[:, i * kh:(i + 1) * kh], w, tl, kv, m,
+                                  kh)
+              for i, (w, kv) in enumerate(zip(halves, KV)))
+    want = (tcq_lut.tcq_lut_gemv_plain(x, halves[0], tl, KV[0], m, k)
+            if len(KV) == 1 else
+            tcq_lut.tcomb_lut_gemv_plain(x, *halves, tl, *KV, m, k))
+    # the same bf16 products; only the order of the f32 sums differs
+    assert _rel(got.numpy(), want.numpy()) < 1e-6
+
+
 @pytest.mark.parametrize("kind,KV", [("tcq", (10,)), ("tcomb", (8, 9))])
 def test_kernel_layouts_invert(kind, KV):
     """formats' inverses undo kf.tcq_kernel_weights /
