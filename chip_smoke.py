@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
   python chip_smoke.py
-  python chip_smoke.py --parent OLD_TCQ_LUT_CU
+  python chip_smoke.py --parent OLD_CSRC_DIR [--ab tcq2_gemv|tcq_lut]
 
-With --parent it runs only parent_ab (see there): the LUT GEMVs and the
-flagship decode with csrc/tcq_lut.cu against an older version of the file.
+With --parent it runs only parent_ab (see there): K1 sum2 and the 215
+decode (--ab tcq2_gemv, the default) or the LUT GEMVs and the flagship
+decode (--ab tcq_lut), with the source against the same source of an older
+tree's qpalette_tpu_torch/csrc (e.g. unpacked with `git archive`).
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -13,7 +15,8 @@ Phases (each raises on failure):
      all started together (ptxas -v: registers, shared memory, spills)
   3. the arithmetic trellis GEMV (K1) against its plain PyTorch version:
      sum2 at every Llama-3.1-8B shape of the 215.0thp_cc path (N in
-     {1,4,16}); dualmad, 1mad, 2mad and odd-KV sum2 at every shape of
+     {1,4,16}: the tensor-core kernel at N <= 8, two launches bit-equal at
+     N=4; the 8-row template at 16); dualmad, 1mad, 2mad and odd-KV sum2 at every shape of
      bench.py's tcq2mix scheme plus 4096x4096 and odd k/16 shapes (N in
      {1,8,256}); exact and a8; kernel and plain times at N=1
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
@@ -67,6 +70,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -276,9 +280,14 @@ def sum2_checks(arith, device):
                 y = arith.tcq2s_decode_gemv(x, words, KV, m, k, a8)
                 torch.cuda.synchronize()
                 ref = arith.arith_gemv_plain(x, words, "sum2", KV, m, k, a8)
-                max_abs = max(max_abs, _rel_check(
-                    f"sum2 {name} {m}x{k} KV={KV} N={N} "
-                    f"{'a8' if a8 else 'exact'}", y, ref, TOL[a8]))
+                label = (f"sum2 {name} {m}x{k} KV={KV} N={N} "
+                         f"{'a8' if a8 else 'exact'}")
+                max_abs = max(max_abs, _rel_check(label, y, ref, TOL[a8]))
+                if N == 4:  # the warps' fragments add in a fixed order
+                    y2 = arith.tcq2s_decode_gemv(x, words, KV, m, k, a8)
+                    check(torch.equal(y.view(torch.int32),
+                                      y2.view(torch.int32)),
+                          f"{label}: two launches differ")
     times = {}
     for name, m, k, KV in SHAPES_215:
         copies, nbytes = _copies(m, k, 4 * KV, device)
@@ -431,11 +440,31 @@ def build_all():
     print(f"[build] {len(names)} libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in zip(names, logs):
-        lines = log.strip().splitlines()
-        spills = [ln for ln in lines if "spill" in ln and " 0 bytes" not in ln]
-        print(f"[build] {name}.cu: {len(lines)} lines of ptxas output, "
-              f"{len(spills)} with spills; first lines:", flush=True)
-        print("\n".join(lines[:6] + spills[:6]), flush=True)
+        entries = ptxas_entries(log)
+        spills = [e for e in entries if SPILL.search(e[2])]
+        print(f"[build] {name}.cu: {len(entries)} kernels, {len(spills)} "
+              f"with spills", flush=True)
+        for fn, used, spill in spills + [
+                e for e in entries if "sum2_gemv_kernel" in e[0]]:
+            print(f"[build]   {fn}: {used}; {spill}", flush=True)
+
+
+SPILL = re.compile(r"[1-9]\d* bytes spill")
+
+
+def ptxas_entries(log):
+    """[(kernel, its "Used ..." text, its spill line)] of ptxas -v output."""
+    out, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and fn:
+            out.append((fn, ln.split("Used", 1)[1].strip(), spill))
+            fn = None
+    return out
 
 
 def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
@@ -719,76 +748,149 @@ def lut_kernel_checks(tcq_lut, shapes, device):
     return err, times
 
 
-def parent_ab(parent_src):
-    """K4/K5 of csrc/tcq_lut.cu against an older version of the file
-    (parent_src, the same C interface) on one card, in turns: parent, new,
-    new, parent.  Both are first checked against the plain versions at
-    N = 1 and 8.  Each turn puts its library behind the wrappers, times a
-    flagship decode forward's K4 and K5 calls (CUDA-graph replays at N=1,
-    weights cycled past L2) and then the flagship's 64-token decode
-    through generate() (tokens/s)."""
-    from concurrent.futures import ThreadPoolExecutor
-    from pathlib import Path
+def _ab_sum2(device, smi):
+    """parent_ab's K1 sum2 cases: the 215 shapes at a8, N=1, each with its
+    calls in a 215 decode step (ug by the qdict's KV mix)."""
+    from qpalette_tpu_torch.kernels import arith
 
-    from qpalette_tpu_torch.kernels import _build as kb
+    qdict, merge_info = _load_215()
+    ug_kv = [int(qdict[f"{i}_mlp.up_proj"][0].split("_")[1])
+             for i in range(32)]
+    cases = []
+    for name, m, k, KV in SHAPES_215:
+        calls = (sum(kv == KV for kv in ug_kv) if name == "ug"
+                 else CALLS_PER_STEP[name])
+        copies, nbytes = _copies(m, k, 4 * KV, device)
+
+        def run(x, w, out=None, m=m, k=k, KV=KV, a8=True):
+            return arith.tcq2s_decode_gemv(x, w, KV, m, k, a8, out=out)
+
+        def plain(x, w, m=m, k=k, KV=KV, a8=True):
+            return arith.arith_gemv_plain(x, w, "sum2", KV, m, k, a8)
+
+        cases.append({"label": f"sum2 {name} {m}x{k} KV={KV}", "m": m,
+                      "k": k, "calls": calls, "kernel": "tcq2s_decode_gemv",
+                      "copies": copies, "run": run, "plain": plain,
+                      "x_dtype": torch.float32, "tol": TOL[True],
+                      "bound": gemv_bound(nbytes, 1, m, k, 4, True)[0]})
+    spec, params = _build("main", qdict, merge_info, "a8", 4, device)
+    return arith, "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"], cases, (
+        "215", spec, params)
+
+
+def _ab_lut(device, smi):
+    """parent_ab's K4/K5 cases: the flagship shapes at N=1, each with its
+    calls in a flagship decode forward."""
     from qpalette_tpu_torch.kernels import tcq_lut
     from qpalette_tpu_torch.models.llama import LlamaConfig
     from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
 
-    _, _, smi = card()
-    parent_so = kb.BUILD / "libtcq_lut_parent.so"
-    with ThreadPoolExecutor(2) as ex:
-        builds = [ex.submit(kb.build, tcq_lut.SOURCE),
-                  ex.submit(kb.compile_cu, Path(parent_src), parent_so)]
-        for b in builds:
-            b.result()
-    libs = {"parent": kb.bind(parent_so, tcq_lut.SIGNATURES),
-            "new": tcq_lut._lib()}
-    lib_of = tcq_lut._lib
-    device = torch.device("cuda:0")
     with open(FLAGSHIP_QDICT) as f:
         qdict = json.load(f)
     cases = []
     for (m, k, KV), calls in sorted(flagship_shapes(
             LlamaConfig.llama31_8b(), qdict).items()):
-        gemv, plain = ((tcq_lut.tcomb_lut_gemv, tcq_lut.tcomb_lut_gemv_plain)
-                       if len(KV) == 2 else
-                       (tcq_lut.tcq_lut_gemv, tcq_lut.tcq_lut_gemv_plain))
-        tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
-                            device=device)
+        gemv, plain_fn = (
+            (tcq_lut.tcomb_lut_gemv, tcq_lut.tcomb_lut_gemv_plain)
+            if len(KV) == 2 else
+            (tcq_lut.tcq_lut_gemv, tcq_lut.tcq_lut_gemv_plain))
+        S = tlut_bits_for_kv(max(KV))
+        tlut = torch.tensor(trellis_tlut(S), device=device)
         nbytes = m * k * sum(KV) // (16 * len(KV))
         copies = [_lut_words(m, k, KV, device, seed=100 * i)
                   for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
-        for label, lib in libs.items():
-            tcq_lut._lib = lambda lib=lib: lib
-            for N in (1, 8):
-                x = torch.randn((N, k), device=device).bfloat16()
-                _rel_check(f"{label} {gemv.__name__} {m}x{k} KV={KV} N={N}",
-                           gemv(x, *copies[0], tlut, *KV, m, k),
-                           plain(x, *copies[0], tlut, *KV, m, k), LUT_TOL)
-        cases.append((m, k, KV, calls, gemv, tlut, copies))
+
+        def run(x, w, out=None, m=m, k=k, KV=KV, gemv=gemv, tlut=tlut):
+            return gemv(x, *w, tlut, *KV, m, k, out=out)
+
+        def plain(x, w, m=m, k=k, KV=KV, plain_fn=plain_fn, tlut=tlut):
+            return plain_fn(x, *w, tlut, *KV, m, k)
+
+        cases.append({"label": f"{gemv.__name__} {m}x{k} KV={KV}", "m": m,
+                      "k": k, "calls": calls, "kernel": gemv.__name__,
+                      "copies": copies, "run": run, "plain": plain,
+                      "x_dtype": torch.bfloat16, "tol": LUT_TOL,
+                      "bound": gemv_bound(nbytes + 2 * 4 * (1 << S), 1, m,
+                                          k, 2, False)[0]})
     spec, params = _build("flagship", qdict, None, "exact", 16, device)
+    return tcq_lut, tcq_lut.SOURCE, tcq_lut.SIGNATURES, cases, (
+        "flagship", spec, params)
+
+
+AB = {"tcq2_gemv": _ab_sum2, "tcq_lut": _ab_lut}
+
+
+def parent_ab(parent_csrc, which):
+    """One CUDA source of the port against the same source of an older
+    tree (parent_csrc: that tree's qpalette_tpu_torch/csrc, e.g. unpacked
+    from `git archive`, so that the source builds with its own headers),
+    on one card, in turns: parent, new, new, parent.  which: "tcq2_gemv"
+    (K1 sum2 on the 215 path) or "tcq_lut" (K4/K5 on the flagship).  Both
+    libraries are first checked against the plain versions at N = 1 and 8.
+    Each turn puts its library behind the wrappers, times every shape's
+    calls (CUDA-graph replays at N=1, weights cycled past L2), sums them
+    over a decode step of the path, and then runs the path's 64-token
+    decode through generate() (tokens/s)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from qpalette_tpu_torch.kernels import _build as kb
+
+    _, _, smi = card()
+    device = torch.device("cuda:0")
+    mod, source, sigs, cases, (path, spec, params) = AB[which](device, smi)
+    parent_so = kb.BUILD / f"lib{source}_parent.so"
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(kb.build, source),
+                  ex.submit(kb.compile_cu, Path(parent_csrc) / f"{source}.cu",
+                            parent_so)]
+        for label, b in zip(("new", "parent"), builds):
+            entries = ptxas_entries(b.result())
+            print(f"[ab] {label} {source}.cu: {len(entries)} kernels, "
+                  f"{sum(bool(SPILL.search(e[2])) for e in entries)} with "
+                  f"spills", flush=True)
+    libs = {"parent": kb.bind(parent_so, sigs), "new": kb.bind(
+        kb.lib_path(source), sigs)}
+    lib_of = mod._lib
+    for label, lib in libs.items():
+        mod._lib = lambda *_, lib=lib: lib
+        for case in cases:
+            for N in (1, 8):
+                x = torch.randn((N, case["k"]), device=device).to(
+                    case["x_dtype"])
+                w = case["copies"][0]
+                _rel_check(f"{label} {case['label']} N={N}",
+                           case["run"](x, w), case["plain"](x, w),
+                           case["tol"])
     turns = []
     for label in ("parent", "new", "new", "parent"):
-        tcq_lut._lib = lambda lib=libs[label]: lib
-        ms = {"tcq_lut_gemv": 0.0, "tcomb_lut_gemv": 0.0}
-        for m, k, KV, calls, gemv, tlut, copies in cases:
-            x = torch.randn((1, k), device=device).bfloat16()
-            out = torch.empty((1, m), device=device)
-            t = _time_ms(lambda i=0: gemv(x, *copies[i % len(copies)], tlut,
-                                          *KV, m, k, out=out), 200, graph=True)
-            ms[gemv.__name__] += calls * t
-            print(f"[ab] {label} {m}x{k} KV={KV}: {t * 1e3:.3f} us a call",
-                  flush=True)
-        tps = throughput(f"flagship, {label} tcq_lut.cu", spec, params,
-                         device, smi)
+        mod._lib = lambda *_, lib=libs[label]: lib
+        ms = {}
+        for case in cases:
+            x = torch.randn((1, case["k"]), device=device).to(case["x_dtype"])
+            out = torch.empty((1, case["m"]), device=device)
+            copies = case["copies"]
+            t = _time_ms(lambda i=0: case["run"](x, copies[i % len(copies)],
+                                                 out), 200, graph=True)
+            ms[case["kernel"]] = ms.get(case["kernel"], 0.0) + case["calls"] * t
+            print(f"[ab] {label} {case['label']}: {t * 1e3:.3f} us a call "
+                  f"(bound {case['bound'] * 1e3:.3f} us, {case['calls']} a "
+                  f"step)", flush=True)
+        tps = throughput(f"{path}, {label} {source}.cu", spec, params, device,
+                         smi)
         turns.append({"lib": label, "tokens_per_s": tps,
-                      **{f"{n}_ms_a_forward": v for n, v in ms.items()}})
-        print(f"[ab] {label}: K4 {ms['tcq_lut_gemv']:.4f} ms, K5 "
-              f"{ms['tcomb_lut_gemv']:.4f} ms a forward, {tps:.2f} tokens/s "
-              f"({smi})", flush=True)
-    tcq_lut._lib = lib_of
-    print(json.dumps({"card": smi, "turns": turns}))
+                      **{f"{n}_ms_a_step": v for n, v in ms.items()}})
+        print(f"[ab] {label}: " + ", ".join(
+            f"{n} {v:.4f} ms" for n, v in ms.items())
+            + f" a {path} decode step, {tps:.2f} tokens/s ({smi})",
+            flush=True)
+    mod._lib = lib_of
+    bound = {}
+    for case in cases:
+        bound[case["kernel"]] = (bound.get(case["kernel"], 0.0)
+                                 + case["calls"] * case["bound"])
+    print(json.dumps({"card": smi, "source": source, "path": path,
+                      "bound_ms_a_step": bound, "turns": turns}))
 
 
 def flagship_path(device, card_label):
@@ -1260,9 +1362,12 @@ def main():
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="an older csrc/tcq_lut.cu: run parent_ab only")
+                    help="an older tree's qpalette_tpu_torch/csrc: run "
+                    "parent_ab only")
+    ap.add_argument("--ab", default="tcq2_gemv", choices=sorted(AB),
+                    help="the source parent_ab compares (default tcq2_gemv)")
     args = ap.parse_args()
     if args.parent:
-        parent_ab(args.parent)
+        parent_ab(args.parent, args.ab)
     else:
         main()

@@ -82,7 +82,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
+using namespace qpt;
 
 namespace {
 
@@ -92,8 +95,6 @@ constexpr int kMaxRows = 8;               // GEMV activation rows
 constexpr int kMaxTlutBits = 11;
 constexpr int kDequantBlocks = 2112;      // two waves of 8 per SM
 constexpr int kTabBits = 15;     // the GEMV's table: 32 KB static shared
-constexpr int kStageTiles = 8;   // k-tiles a ring slot (one bulk copy)
-constexpr int kSlots = 2;        // a warp decodes one slot, the other streams
 constexpr int kRingBytes = kSlots * kStageTiles * 16 * 10;  // KV <= 10
 constexpr int kGemvBlocksPerSM = 4;
 constexpr int kMaxCluster = 8;
@@ -128,47 +129,6 @@ __device__ __forceinline__ uint32_t decode_state(const uint32_t* wt, int s,
 
 // --- GEMV -------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// lane 0 of a warp: arm the slot's barrier for `bytes` and start the copy
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n\t"
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%2], [%3], %1, [%0];" ::"r"(smem_addr(bar)),
-      "r"(bytes), "r"(smem_addr(dst)), "l"(src)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
-}
-
 // The decoded pair of the state whose 16-bit window is bits [0, 16) of f:
 // bits < 16 of h = f*(f+1) depend on those bits only.  tmask keeps the
 // table index, bits [15-S, 15) of h: with 2^(15-S) bytes of copies an
@@ -181,69 +141,17 @@ __device__ __forceinline__ uint32_t lut_pair(uint32_t f, const uint8_t* tab,
   return *reinterpret_cast<const uint32_t*>(tab + off) ^ (h & 0x8000u);
 }
 
-// This lane's view of a tile: byte offsets of its four words and the shift
-// of its windows (see the note at the top).
-struct LaneMap {
-  uint32_t o0, o1, o2, o3;
-  int sh;
-};
-
-template <int KV>
-__device__ __forceinline__ LaneMap lane_map(int lane) {
-  constexpr int W = 4 * KV;
-  const int off = KV * (8 * (lane >> 2) + 2 * (lane & 3));
-  const int w0 = off >> 5, w2 = w0 + 2 * KV;
-  const int w3 = (w2 + 1 == W) ? 0 : w2 + 1;  // the stream is circular
-  return {4u * w0, 4u * (w0 + 1), 4u * w2, 4u * w3, off & 31};
-}
-
 // One 16x16 tile (words at wt in shared memory) against x columns at b.
 template <int KV>
 __device__ __forceinline__ void tile_mma(const uint8_t* wt, const LaneMap& lm,
                                          const uint8_t* tab, uint32_t tmask,
                                          uint32_t lcb, uint2 b,
                                          float (&d)[4]) {
-  const auto word = [&](uint32_t o) {
-    return *reinterpret_cast<const uint32_t*>(wt + o);
-  };
-  const uint32_t f0 = __funnelshift_r(word(lm.o0), word(lm.o1), lm.sh);
-  const uint32_t f1 = __funnelshift_r(word(lm.o2), word(lm.o3), lm.sh);
+  uint32_t f0, f1;
+  lane_windows(wt, lm, f0, f1);
   mma_bf16(d, lut_pair(f0, tab, tmask, lcb), lut_pair(f1, tab, tmask, lcb),
            lut_pair(f0 >> KV, tab, tmask, lcb),
            lut_pair(f1 >> KV, tab, tmask, lcb), b);
-}
-
-// A warp's share of the work: nt k-tiles of one m-tile starting at src
-// (bytes in device memory) and at x column col0.
-struct WarpJob {
-  const uint8_t* src;
-  int nt, col0;
-};
-
-// A warp's ring for KV: kSlots slots of kStageTiles tiles
-template <int KV>
-struct Ring {
-  static constexpr int kTileBytes = 16 * KV;
-  static constexpr int kSlotBytes = kStageTiles * kTileBytes;
-};
-
-template <int KV>
-__device__ __forceinline__ void issue_slot(const WarpJob& job, uint8_t* ring,
-                                           uint64_t* bars, int it) {
-  using R = Ring<KV>;
-  const int slot = it % kSlots;
-  const int n = min(kStageTiles, job.nt - it * kStageTiles);
-  bulk_load(ring + slot * R::kSlotBytes,
-            job.src + (size_t)it * R::kSlotBytes, n * R::kTileBytes,
-            bars + slot);
-}
-
-template <int KV>
-__device__ __forceinline__ void issue_first(const WarpJob& job, uint8_t* ring,
-                                            uint64_t* bars) {
-  const int nslot = (job.nt + kStageTiles - 1) / kStageTiles;
-  for (int it = 0; it < min(kSlots, nslot); ++it)
-    issue_slot<KV>(job, ring, bars, it);
 }
 
 // The warp streams its tiles through its ring and accumulates the 16x8 C
@@ -256,7 +164,7 @@ __device__ __forceinline__ void warp_gemv(
     int k, float (&d)[4]) {
   using R = Ring<KV>;
   const int lane = threadIdx.x & 31, g = lane >> 2;
-  const LaneMap lm = lane_map<KV>(lane);
+  const LaneMap lm = lane_map<KV>(8 * g + 2 * (lane & 3));
   const bool xrow = g < N;  // B columns n >= N stay 0
   const __nv_bfloat16* xp =
       x + (size_t)(xrow ? g : 0) * k + job.col0 + 4 * (lane & 3);

@@ -44,12 +44,14 @@ SOURCES = ("tcq2_gemv", "tcq1_gemv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the C interface of each source: one function of the source's name
+SIGNATURES = {s: {s: [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
+              for s in SOURCES}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
-    return _build.load(source, {source: [_P, _I, _P, _P, _I, _I, _I, _I, _I,
-                                         _I, _P]})
+    return _build.load(source, SIGNATURES[source])
 
 
 def words_per_tile(mode: str, KV: int) -> int:
@@ -131,7 +133,11 @@ def arith_gemv_plain(x: torch.Tensor, trellis: torch.Tensor, mode: str,
         y = torch.zeros((N, r1 - r0), dtype=torch.float32, device=x.device)
         for c0 in range(0, k, CHUNK):
             xc = xf[:, c0:c0 + CHUNK]
-            sx = xc.abs().amax() / 127.0 + 1e-30  # one scale for all rows
+            # one scale for all rows, by a true division as in the kernel
+            # and the reference (on the card PyTorch divides by a Python
+            # float through its reciprocal, one ulp off, which flips the
+            # rounding of x = max|x|/2)
+            sx = xc.abs().amax() / torch.tensor(127.0, device=x.device) + 1e-30
             q = torch.round(xc * (1.0 / sx))
             dot = q.to(torch.float64) @ wd[:, c0:c0 + CHUNK].T
             y = y + dot.to(torch.float32) * sx

@@ -276,3 +276,165 @@ def test_wrappers_reject_unsupported_input():
     with pytest.raises(ValueError):  # more than 256 rows
         arith.tcq1_decode_gemv(torch.zeros((257, K)), tw, 3, "1mad", M, K,
                                False)
+
+
+# --- the sum2 decode GEMV's fragment algebra, rehearsed on the CPU ----------
+
+_M32 = 0xFFFFFFFF
+_SLOT_TILES, _WARPS, _CHUNK_TILES = 16, 8, arith.CHUNK // 16
+
+
+def _prmt(w, sel):
+    """__byte_perm(w, 0, sel): byte i of the result is byte sel[4i..4i+3]
+    of w (selectors < 4 here)."""
+    return sum(((w >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def _sbytes(w):
+    """(...) 32-bit words -> (..., 4) signed bytes, byte 0 first."""
+    b = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], -1)
+    return torch.where(b >= 128, b - 256, b)
+
+
+def _sum2_lane_hashes(words, KV):
+    """(T, 32 lanes, 4 registers) hashes of sum2_gemv_kernel's A fragment:
+    lane (g, c) cuts states s0 = 16c + 2g and s0+1 from one funnel shift
+    of words w0, w0+1, and s0+64, s0+65 from words w0 + 2*KV and the next
+    (wrapping the tile's circular stream), then h = u*A + B."""
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+    off = KV * (16 * c + 2 * g)
+    w0, sh = off >> 5, off & 31
+    w2 = w0 + 2 * KV
+    w3 = torch.where(w2 + 1 == 4 * KV, 0, w2 + 1)
+    assert bool((w3 == 0).any())  # state 127's window wraps the stream
+    u = words.to(torch.int64) & _M32
+
+    def funnel(lo, hi):  # __funnelshift_r(lo, hi, sh)
+        return ((lo >> sh) | (hi << (32 - sh))) & _M32
+
+    def h(f):
+        return ((f & 0xFFFF) * codebooks.MAD1_A + codebooks.MAD1_B) & _M32
+
+    f0, f1 = funnel(u[:, w0], u[:, w0 + 1]), funnel(u[:, w2], u[:, w3])
+    return torch.stack([h(f0), h(f0 >> KV), h(f1), h(f1 >> KV)], -1)
+
+
+def _unpermute(frag):
+    """(..., 32 lanes, 4 registers) C fragment -> (..., 16 tile rows, 8):
+    the kernel's epilogue, element (row, n) from lane 4*(row/2) + n/2,
+    register 2*(row%2) + n%2."""
+    row = torch.arange(16)[:, None]
+    n = torch.arange(8)[None, :]
+    return frag[..., 4 * (row >> 1) + (n >> 1), 2 * (row & 1) + (n & 1)]
+
+
+@pytest.mark.parametrize("KV", range(4, 11))
+def test_sum2_fragment_map_matches_plain(KV):
+    """csrc/tcq2_gemv.cu's sum2 GEMV (N <= 8) from the lane's point of
+    view, on the plain words: the lane -> states map with its word offsets
+    and wrap, the hash bytes as the s8 A registers, the quantized x word
+    under two byte permutes as the B registers, the int32 m16n8k32 product,
+    the un-permuted C rows, and the per-chunk descale over the kernel's
+    warp split (k = 2576: 11 slots of 16 tiles, the last warp's range
+    straddles a chunk boundary into a partial chunk and slot).  a8: each chunk's int32 sums equal
+    the plain integer dot, and y matches arith_gemv_plain within f32 sum
+    order; exact: the bf16 A fragments give arith_weights_mat's integers,
+    and y matches within f32 sum order."""
+    m, k, N = 32, 2576, 3
+    mt, kt = m // 16, k // 16
+    rng = np.random.default_rng(110 + KV)
+    words = words_to_torch(_words(rng, "sum2", KV, m, k))
+    x = torch.from_numpy(rng.standard_normal((N, k)).astype(np.float32))
+    hs = _sum2_lane_hashes(words, KV).reshape(mt, kt, 32, 4)
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+
+    # A: register r of lane (g, c) is fragment row g + 8*(r%2); s8 at
+    # columns 4c + 16*(r/2) + byte, bf16 pairs at 2c + 8*(r/2) + (0, 1)
+    a8 = torch.zeros((mt, kt, 16, 32), dtype=torch.int64)
+    abf = torch.zeros((mt, kt, 16, 16), dtype=torch.int64)
+    for r in range(4):
+        sb = _sbytes(hs[..., r])  # (mt, kt, 32, 4)
+        fr = g + 8 * (r & 1)
+        for b in range(4):
+            a8[:, :, fr, 4 * c + 16 * (r >> 1) + b] = sb[..., b]
+        abf[:, :, fr, 2 * c + 8 * (r >> 1)] = sb[..., 0] + sb[..., 1]
+        abf[:, :, fr, 2 * c + 8 * (r >> 1) + 1] = sb[..., 2] + sb[..., 3]
+    tile_row = 2 * (torch.arange(16) % 8) + torch.arange(16) // 8
+    w_frag = torch.zeros((m, k), dtype=torch.int64)
+    w_frag.view(mt, 16, kt, 16)[:, tile_row] = abf.permute(0, 2, 1, 3)
+    w_ref = arith.arith_weights_mat(words, "sum2", KV, m, k)
+    assert torch.equal(w_frag, w_ref)
+
+    # the kernel's split: whole slots a warp, chunk scales over all rows
+    nsl = -(-kt // _SLOT_TILES)
+    scales = [(x[:, c0:c0 + arith.CHUNK].abs().amax() / 127.0 + 1e-30)
+              .to(torch.float32) for c0 in range(0, k, arith.CHUNK)]
+    qs = torch.cat([torch.round(x[:, c0:c0 + arith.CHUNK] * (1.0 / s))
+                    for c0, s in zip(range(0, k, arith.CHUNK), scales)],
+                   1).to(torch.int64)
+    qp = torch.cat([qs, torch.zeros((8 - N, k), dtype=torch.int64)])
+    chunk_sums = torch.zeros((len(scales), mt, 16, 8), dtype=torch.int64)
+    y8 = torch.zeros((mt, 16, 8))
+    yx = torch.zeros((mt, 16, 8))
+    xb = torch.cat([x.to(torch.bfloat16).float(), torch.zeros((8 - N, k))])
+    straddles = 0
+    for w in range(_WARPS):
+        ta = min(kt, nsl * w // _WARPS * _SLOT_TILES)
+        tb = min(kt, nsl * (w + 1) // _WARPS * _SLOT_TILES)
+        straddles += ta < tb and ta // _CHUNK_TILES != (tb - 1) // _CHUNK_TILES
+        acc = torch.zeros((mt, 32, 4))
+        accx = torch.zeros((mt, 32, 4))
+        di = torch.zeros((mt, 32, 4), dtype=torch.int64)
+        ch = -1
+        for t in range(ta, tb):
+            if t // _CHUNK_TILES != ch:
+                if ch >= 0:
+                    acc = acc + di.to(torch.float32) * scales[ch]
+                ch, di = t // _CHUNK_TILES, torch.zeros_like(di)
+            # the x buffer word of lane (g, c): row g, columns 2c, 2c+1,
+            # 8+2c, 9+2c of the tile; B registers under two byte permutes
+            q = qp[g][:, 16 * t:16 * t + 16] & 0xFF  # (32, 16)
+            cols = torch.stack([2 * c, 2 * c + 1, 8 + 2 * c, 9 + 2 * c], 1)
+            word = sum(q.gather(1, cols)[:, i] << (8 * i) for i in range(4))
+            B = torch.zeros((32, 8), dtype=torch.int64)
+            for reg, sel in ((0, 0x1100), (1, 0x3322)):
+                sb = _sbytes(_prmt(word, sel))  # (32 lanes, 4)
+                for b in range(4):
+                    B[4 * c + 16 * reg + b, g] = sb[:, b]
+            C = a8[:, t] @ B  # (mt, fragment row, n), int32 in the kernel
+            assert int(C.abs().max()) < 1 << 31
+            # C fragment registers: c0, c1 row g cols 2c, 2c+1; c2, c3 g+8
+            frag = torch.stack([C[:, g, 2 * c], C[:, g, 2 * c + 1],
+                                C[:, g + 8, 2 * c], C[:, g + 8, 2 * c + 1]],
+                               -1)
+            di = di + frag
+            chunk_sums[ch] += _unpermute(frag)
+            # exact: B registers bf16 x row g at columns (2c, 2c+1) and
+            # (8+2c, 9+2c); the f32 C fragment accumulates over the tiles
+            Bx = torch.zeros((16, 8))
+            for j in (0, 1):
+                Bx[2 * c + j, g] = xb[g, 16 * t + 2 * c + j]
+                Bx[8 + 2 * c + j, g] = xb[g, 16 * t + 8 + 2 * c + j]
+            Cx = abf[:, t].float() @ Bx
+            accx = accx + torch.stack(
+                [Cx[:, g, 2 * c], Cx[:, g, 2 * c + 1], Cx[:, g + 8, 2 * c],
+                 Cx[:, g + 8, 2 * c + 1]], -1)
+        if ch >= 0:
+            acc = acc + di.to(torch.float32) * scales[ch]
+        y8 = y8 + _unpermute(acc)
+        yx = yx + _unpermute(accx)
+    assert straddles >= 1
+    for ci, c0 in enumerate(range(0, k, arith.CHUNK)):
+        want = qs[:, c0:c0 + arith.CHUNK] @ w_ref[:, c0:c0 + arith.CHUNK].T
+        got = chunk_sums[ci].permute(2, 0, 1).reshape(8, m)[:N]
+        assert torch.equal(got, want)
+    got8 = y8.permute(2, 0, 1).reshape(8, m)[:N] * arith.MAD_INV
+    gotx = yx.permute(2, 0, 1).reshape(8, m)[:N] * arith.MAD_INV
+    for got, a8_ in ((got8, True), (gotx, False)):
+        want = arith.arith_gemv_plain(x, words, "sum2", KV, m, k, a8_)
+        # the same integer chunk sums (a8) or exact products (bf16 x
+        # integer weights); only the order of the f32 sums differs
+        assert _rel(got.numpy(), want.numpy()) < 1e-5, a8_
