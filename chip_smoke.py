@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
   python chip_smoke.py
-  python chip_smoke.py --parent OLD_CSRC_DIR [--ab tcq2_gemv|tcq_lut]
+  python chip_smoke.py --parent OLD_CSRC_DIR [--ab tcq2_gemv|tcq2mix|tcq_lut]
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
-decode (--ab tcq2_gemv, the default) or the LUT GEMVs and the flagship
-decode (--ab tcq_lut), with the source against the same source of an older
-tree's qpalette_tpu_torch/csrc (e.g. unpacked with `git archive`).
+decode (--ab tcq2_gemv, the default), K1 dualmad at Path A's shapes with
+K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), or the
+LUT GEMVs and the flagship decode (--ab tcq_lut), with the source against
+the same source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked
+with `git archive`).
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -16,9 +18,11 @@ Phases (each raises on failure):
   3. the arithmetic trellis GEMV (K1) against its plain PyTorch version:
      sum2 at every Llama-3.1-8B shape of the 215.0thp_cc path (N in
      {1,4,16}: the tensor-core kernel at N <= 8, two launches bit-equal at
-     N=4; the 8-row template at 16); dualmad, 1mad, 2mad and odd-KV sum2 at every shape of
-     bench.py's tcq2mix scheme plus 4096x4096 and odd k/16 shapes (N in
-     {1,8,256}); exact and a8; kernel and plain times at N=1
+     N=4; the 8-row template at 16); dualmad, 1mad, 2mad and odd-KV sum2
+     at every shape of bench.py's tcq2mix scheme plus 4096x4096 and odd
+     k/16 shapes (N in {1,8,256}; V=2 modes on the tensor-core kernel at
+     N <= 8, dualmad's two launches bit-equal at N=8); exact and a8;
+     kernel and plain times at N=1
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
@@ -363,6 +367,11 @@ def arith_checks(arith, arith_dequant, device):
                 err[gemv.__name__] = max(err[gemv.__name__], _rel_check(
                     f"{label} N={N} {'a8' if a8 else 'exact'}", y, ref,
                     TOL[a8]))
+                if mode == "dualmad" and N == 8:  # fixed-order warp sums
+                    y2 = arith.decode_gemv(mode, x, words, KV, m, k, a8)
+                    check(torch.equal(y.view(torch.int32),
+                                      y2.view(torch.int32)),
+                          f"{label} N=8: two launches differ")
         w = arith_dequant.dequant(mode, words, KV, m, k)
         torch.cuda.synchronize()
         w_ref = arith_dequant.arith_dequant_plain(words, mode, KV, m, k)
@@ -444,9 +453,11 @@ def build_all():
         spills = [e for e in entries if SPILL.search(e[2])]
         print(f"[build] {name}.cu: {len(entries)} kernels, {len(spills)} "
               f"with spills", flush=True)
-        for fn, used, spill in spills + [
-                e for e in entries if "sum2_gemv_kernel" in e[0]]:
+        v2 = [e for e in entries if "v2_gemv_kernel" in e[0]]
+        for fn, used, spill in spills + v2:
             print(f"[build]   {fn}: {used}; {spill}", flush=True)
+        check(not any(SPILL.search(e[2]) for e in v2),
+              f"{name}.cu: the V=2 tensor-core GEMV spills")
 
 
 SPILL = re.compile(r"[1-9]\d* bytes spill")
@@ -748,34 +759,62 @@ def lut_kernel_checks(tcq_lut, shapes, device):
     return err, times
 
 
+def _k1_case(arith, mode, name, m, k, KV, calls, step, device):
+    """A parent_ab case of K1 at a8, N=1: its calls in a decode step of
+    the path `step`."""
+    copies, nbytes = _copies(m, k, arith.words_per_tile(mode, KV), device)
+
+    def run(x, w, out=None):
+        return arith.decode_gemv(mode, x, w, KV, m, k, True, out=out)
+
+    def plain(x, w):
+        return arith.arith_gemv_plain(x, w, mode, KV, m, k, True)
+
+    return {"label": f"{mode} {name} {m}x{k} KV={KV}", "m": m, "k": k,
+            "calls": calls, "step": step,
+            "kernel": {"sum2": "tcq2s_decode_gemv",
+                       "dualmad": "tcq2_decode_gemv"}[mode],
+            "copies": copies, "run": run, "plain": plain,
+            "x_dtype": torch.float32, "tol": TOL[True],
+            "bound": gemv_bound(nbytes, 1, m, k, 4, True)[0]}
+
+
+def _sum2_cases(arith, qdict, device):
+    """K1 sum2 at the 215 shapes, each with its calls in a 215 decode
+    step (ug by the qdict's KV mix)."""
+    ug_kv = [int(qdict[f"{i}_mlp.up_proj"][0].split("_")[1])
+             for i in range(32)]
+    return [_k1_case(arith, "sum2", name, m, k, KV,
+                     sum(kv == KV for kv in ug_kv) if name == "ug"
+                     else CALLS_PER_STEP[name], "215", device)
+            for name, m, k, KV in SHAPES_215]
+
+
 def _ab_sum2(device, smi):
-    """parent_ab's K1 sum2 cases: the 215 shapes at a8, N=1, each with its
-    calls in a 215 decode step (ug by the qdict's KV mix)."""
+    """parent_ab's K1 sum2 cases (the 215 shapes) and the 215 decode."""
     from qpalette_tpu_torch.kernels import arith
 
     qdict, merge_info = _load_215()
-    ug_kv = [int(qdict[f"{i}_mlp.up_proj"][0].split("_")[1])
-             for i in range(32)]
-    cases = []
-    for name, m, k, KV in SHAPES_215:
-        calls = (sum(kv == KV for kv in ug_kv) if name == "ug"
-                 else CALLS_PER_STEP[name])
-        copies, nbytes = _copies(m, k, 4 * KV, device)
-
-        def run(x, w, out=None, m=m, k=k, KV=KV, a8=True):
-            return arith.tcq2s_decode_gemv(x, w, KV, m, k, a8, out=out)
-
-        def plain(x, w, m=m, k=k, KV=KV, a8=True):
-            return arith.arith_gemv_plain(x, w, "sum2", KV, m, k, a8)
-
-        cases.append({"label": f"sum2 {name} {m}x{k} KV={KV}", "m": m,
-                      "k": k, "calls": calls, "kernel": "tcq2s_decode_gemv",
-                      "copies": copies, "run": run, "plain": plain,
-                      "x_dtype": torch.float32, "tol": TOL[True],
-                      "bound": gemv_bound(nbytes, 1, m, k, 4, True)[0]})
+    cases = _sum2_cases(arith, qdict, device)
     spec, params = _build("main", qdict, merge_info, "a8", 4, device)
     return arith, "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"], cases, (
         "215", spec, params)
+
+
+def _ab_tcq2mix(device, smi):
+    """parent_ab's K1 dualmad cases (Path A's qkv and ug, 32 calls a
+    step each), the 215 sum2 cases beside them (the same source), and
+    Path A's a8 decode."""
+    from qpalette_tpu_torch.kernels import arith
+
+    cases = [_k1_case(arith, mode, name, m, k, KV, calls, "Path A", device)
+             for name, m, k, mode, KV, calls in SHAPES_ARITH
+             if mode == "dualmad" and calls]
+    cases += _sum2_cases(arith, _load_215()[0], device)
+    spec, params = _build("pathA", tcq2mix_qdict(),
+                          [["merge_qkv", "merge_ug"]] * 32, "a8", 4, device)
+    return arith, "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"], cases, (
+        "Path A a8", spec, params)
 
 
 def _ab_lut(device, smi):
@@ -807,7 +846,8 @@ def _ab_lut(device, smi):
             return plain_fn(x, *w, tlut, *KV, m, k)
 
         cases.append({"label": f"{gemv.__name__} {m}x{k} KV={KV}", "m": m,
-                      "k": k, "calls": calls, "kernel": gemv.__name__,
+                      "k": k, "calls": calls, "step": "flagship",
+                      "kernel": gemv.__name__,
                       "copies": copies, "run": run, "plain": plain,
                       "x_dtype": torch.bfloat16, "tol": LUT_TOL,
                       "bound": gemv_bound(nbytes + 2 * 4 * (1 << S), 1, m,
@@ -817,7 +857,7 @@ def _ab_lut(device, smi):
         "flagship", spec, params)
 
 
-AB = {"tcq2_gemv": _ab_sum2, "tcq_lut": _ab_lut}
+AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq_lut": _ab_lut}
 
 
 def parent_ab(parent_csrc, which):
@@ -825,12 +865,13 @@ def parent_ab(parent_csrc, which):
     tree (parent_csrc: that tree's qpalette_tpu_torch/csrc, e.g. unpacked
     from `git archive`, so that the source builds with its own headers),
     on one card, in turns: parent, new, new, parent.  which: "tcq2_gemv"
-    (K1 sum2 on the 215 path) or "tcq_lut" (K4/K5 on the flagship).  Both
+    (K1 sum2 on the 215 path), "tcq2mix" (K1 dualmad on Path A, with K1
+    sum2 at the 215 shapes) or "tcq_lut" (K4/K5 on the flagship).  Both
     libraries are first checked against the plain versions at N = 1 and 8.
     Each turn puts its library behind the wrappers, times every shape's
-    calls (CUDA-graph replays at N=1, weights cycled past L2), sums them
-    over a decode step of the path, and then runs the path's 64-token
-    decode through generate() (tokens/s)."""
+    calls (CUDA-graph replays at N=1, weights cycled past L2), sums each
+    kernel's over a decode step of its path, and then runs the path's
+    64-token decode through generate() (tokens/s)."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
@@ -852,8 +893,12 @@ def parent_ab(parent_csrc, which):
     libs = {"parent": kb.bind(parent_so, sigs), "new": kb.bind(
         kb.lib_path(source), sigs)}
     lib_of = mod._lib
+
+    def use(lib):  # arith's loader also serves tcq1_gemv.cu on Path A
+        mod._lib = lambda *a: lib if not a or a[0] == source else lib_of(*a)
+
     for label, lib in libs.items():
-        mod._lib = lambda *_, lib=lib: lib
+        use(lib)
         for case in cases:
             for N in (1, 8):
                 x = torch.randn((N, case["k"]), device=device).to(
@@ -864,8 +909,8 @@ def parent_ab(parent_csrc, which):
                            case["tol"])
     turns = []
     for label in ("parent", "new", "new", "parent"):
-        mod._lib = lambda *_, lib=libs[label]: lib
-        ms = {}
+        use(libs[label])
+        ms, step = {}, {}
         for case in cases:
             x = torch.randn((1, case["k"]), device=device).to(case["x_dtype"])
             out = torch.empty((1, case["m"]), device=device)
@@ -873,17 +918,17 @@ def parent_ab(parent_csrc, which):
             t = _time_ms(lambda i=0: case["run"](x, copies[i % len(copies)],
                                                  out), 200, graph=True)
             ms[case["kernel"]] = ms.get(case["kernel"], 0.0) + case["calls"] * t
+            step[case["kernel"]] = case["step"]
             print(f"[ab] {label} {case['label']}: {t * 1e3:.3f} us a call "
                   f"(bound {case['bound'] * 1e3:.3f} us, {case['calls']} a "
-                  f"step)", flush=True)
+                  f"{case['step']} step)", flush=True)
         tps = throughput(f"{path}, {label} {source}.cu", spec, params, device,
                          smi)
         turns.append({"lib": label, "tokens_per_s": tps,
                       **{f"{n}_ms_a_step": v for n, v in ms.items()}})
         print(f"[ab] {label}: " + ", ".join(
-            f"{n} {v:.4f} ms" for n, v in ms.items())
-            + f" a {path} decode step, {tps:.2f} tokens/s ({smi})",
-            flush=True)
+            f"{n} {v:.4f} ms a {step[n]} decode step" for n, v in ms.items())
+            + f"; {path} {tps:.2f} tokens/s ({smi})", flush=True)
     mod._lib = lib_of
     bound = {}
     for case in cases:
@@ -1365,7 +1410,8 @@ if __name__ == "__main__":
                     help="an older tree's qpalette_tpu_torch/csrc: run "
                     "parent_ab only")
     ap.add_argument("--ab", default="tcq2_gemv", choices=sorted(AB),
-                    help="the source parent_ab compares (default tcq2_gemv)")
+                    help="the kernels and path parent_ab compares (default "
+                    "tcq2_gemv)")
     args = ap.parse_args()
     if args.parent:
         parent_ab(args.parent, args.ab)

@@ -82,10 +82,12 @@ __device__ __forceinline__ void state_weights(uint32_t u, int (&w)[2]) {
 // _arith_decode_matmul from tcq2_decode_matmul / tcq1_decode_matmul), on
 // the canonical trellis instead of the TPU's planar layouts.  Which kernel
 // serves which case:
-//   sum2 at N <= 8          tcq2_gemv.cu's sum2_gemv_kernel (tensor cores,
-//                           per-warp TMA rings; its note is there)
-//   sum2 at 8 < N <= 256    this template, 8 rows a pass
-//   dualmad, 1mad, 2mad     this template at any N (N = 1: one row a pass)
+//   sum2, dualmad at N <= 8        tcq2_gemv.cu's v2_gemv_kernel (tensor
+//                                  cores, per-warp TMA rings; its note is
+//                                  there)
+//   sum2, dualmad at 8 < N <= 256  this template, 8 rows a pass
+//   1mad, 2mad                     this template at any N (N = 1: one row
+//                                  a pass)
 //
 // Variants: exact (x rounded to bf16, f32 accumulation of x * w) and a8 (x
 // quantized to int8 inside the kernel per 512-column chunk, one absmax
@@ -302,8 +304,8 @@ arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
   }
 }
 
-// sum2 reaches this template only at N > 8 (tcq2_gemv.cu), so its N = 1
-// instance is not built
+// the V=2 modes reach this template only at N > 8 (tcq2_gemv.cu), so
+// their N = 1 instances are not built
 template <typename XT, int MODE, int KV, bool A8>
 int launch_gemv(const void* x, const void* tr, void* out, int N, int m,
                 int k, cudaStream_t st) {
@@ -311,7 +313,7 @@ int launch_gemv(const void* x, const void* tr, void* out, int N, int m,
   const XT* xp = static_cast<const XT*>(x);
   const int4* tp = static_cast<const int4*>(tr);
   float* o = static_cast<float*>(out);
-  if constexpr (MODE != kSum2) {
+  if constexpr (mode_v(MODE) == 1) {
     if (N == 1) {
       arith_gemv_kernel<XT, MODE, KV, A8, 1>
           <<<grid, kThreads, 0, st>>>(xp, tp, o, N, m, k);

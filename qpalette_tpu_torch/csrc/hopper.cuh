@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core decode GEMVs
-// (tcq_lut.cu's lut_gemv_kernel, tcq2_gemv.cu's sum2_gemv_kernel): the
+// (tcq_lut.cu's lut_gemv_kernel, tcq2_gemv.cu's v2_gemv_kernel): the
 // per-warp trellis stream and the warp-level MMAs.
 //
 // The stream: a warp owns a contiguous range of one m-tile's k-tiles
@@ -66,6 +66,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
+}
+
+// tf32 operands are f32 bit patterns whose low 13 bits the MMA ignores:
+// every integer up to 2^11 and every bf16 value passes exactly
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // int8 x int8 -> int32; wraps on overflow, which the callers' chunking

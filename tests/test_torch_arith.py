@@ -278,10 +278,18 @@ def test_wrappers_reject_unsupported_input():
                                False)
 
 
-# --- the sum2 decode GEMV's fragment algebra, rehearsed on the CPU ----------
+# --- the V=2 decode GEMV's fragment algebra, rehearsed on the CPU ----------
 
 _M32 = 0xFFFFFFFF
 _SLOT_TILES, _WARPS, _CHUNK_TILES = 16, 8, arith.CHUNK // 16
+# a8: per mode, the MMAs of a tile as (the hash of a window u, the byte
+# permutes of the x word that give B registers b0 and b1)
+_S8_MMAS = {
+    "sum2": [(lambda u: (u * codebooks.MAD1_A + codebooks.MAD1_B) & _M32,
+              (0x1100, 0x3322))],
+    "dualmad": [(lambda u: (u * codebooks.MAD1_A) & _M32, (0x0000, 0x2222)),
+                (lambda u: (u * codebooks.MAD2_A) & _M32, (0x1111, 0x3333))],
+}
 
 
 def _prmt(w, sel):
@@ -297,11 +305,11 @@ def _sbytes(w):
     return torch.where(b >= 128, b - 256, b)
 
 
-def _sum2_lane_hashes(words, KV):
-    """(T, 32 lanes, 4 registers) hashes of sum2_gemv_kernel's A fragment:
-    lane (g, c) cuts states s0 = 16c + 2g and s0+1 from one funnel shift
-    of words w0, w0+1, and s0+64, s0+65 from words w0 + 2*KV and the next
-    (wrapping the tile's circular stream), then h = u*A + B."""
+def _lane_windows(words, KV):
+    """(T, 32 lanes, 4 registers) 16-bit windows of v2_gemv_kernel's lane
+    states: lane (g, c) cuts states s0 = 16c + 2g and s0+1 from one funnel
+    shift of words w0, w0+1, and s0+64, s0+65 from words w0 + 2*KV and the
+    next (wrapping the tile's circular stream)."""
     lane = torch.arange(32)
     g, c = lane >> 2, lane & 3
     off = KV * (16 * c + 2 * g)
@@ -314,11 +322,29 @@ def _sum2_lane_hashes(words, KV):
     def funnel(lo, hi):  # __funnelshift_r(lo, hi, sh)
         return ((lo >> sh) | (hi << (32 - sh))) & _M32
 
-    def h(f):
-        return ((f & 0xFFFF) * codebooks.MAD1_A + codebooks.MAD1_B) & _M32
-
     f0, f1 = funnel(u[:, w0], u[:, w0 + 1]), funnel(u[:, w2], u[:, w3])
-    return torch.stack([h(f0), h(f0 >> KV), h(f1), h(f1 >> KV)], -1)
+    return torch.stack([f0, f0 >> KV, f1, f1 >> KV], -1) & 0xFFFF
+
+
+def _lane_weights(u, mode):
+    """(..., 2) integer weights (w0, w1) of each window, as the exact tile
+    function decodes them."""
+    if mode == "sum2":
+        sb = _sbytes(_S8_MMAS["sum2"][0][0](u))
+        return torch.stack([sb[..., 0] + sb[..., 1],
+                            sb[..., 2] + sb[..., 3]], -1)
+    # dualmad: each signed byte sum through the f32 bits of 1.5*2^23 + w
+    # minus 1.5*2^23, as dual_weight computes it; tf32 (the low 13 bits
+    # ignored) holds it
+    ws = []
+    for hash_fn, _ in _S8_MMAS["dualmad"]:
+        w = _sbytes(hash_fn(u)).sum(-1)
+        bits = (0x4B400000 + w).to(torch.int32)
+        f = bits.view(torch.float32) - torch.tensor(12582912.0)
+        tf32 = (f.view(torch.int32) & ~0x1FFF).view(torch.float32)
+        assert torch.equal(tf32, w.to(torch.float32))
+        ws.append(tf32.to(torch.int64))
+    return torch.stack(ws, -1)
 
 
 def _unpermute(frag):
@@ -330,42 +356,65 @@ def _unpermute(frag):
     return frag[..., 4 * (row >> 1) + (n >> 1), 2 * (row & 1) + (n & 1)]
 
 
-@pytest.mark.parametrize("KV", range(4, 11))
-def test_sum2_fragment_map_matches_plain(KV):
-    """csrc/tcq2_gemv.cu's sum2 GEMV (N <= 8) from the lane's point of
-    view, on the plain words: the lane -> states map with its word offsets
-    and wrap, the hash bytes as the s8 A registers, the quantized x word
-    under two byte permutes as the B registers, the int32 m16n8k32 product,
-    the un-permuted C rows, and the per-chunk descale over the kernel's
-    warp split (k = 2576: 11 slots of 16 tiles, the last warp's range
-    straddles a chunk boundary into a partial chunk and slot).  a8: each chunk's int32 sums equal
-    the plain integer dot, and y matches arith_gemv_plain within f32 sum
-    order; exact: the bf16 A fragments give arith_weights_mat's integers,
-    and y matches within f32 sum order."""
+def _c_frag(C, g, c):
+    """(mt, 16, 8) C -> (mt, 32 lanes, 4) fragment registers: c0, c1 row
+    g, columns 2c, 2c+1; c2, c3 row g+8."""
+    return torch.stack([C[:, g, 2 * c], C[:, g, 2 * c + 1],
+                        C[:, g + 8, 2 * c], C[:, g + 8, 2 * c + 1]], -1)
+
+
+@pytest.mark.parametrize("mode,KV", [
+    pytest.param("sum2", kv, id=str(kv)) for kv in range(4, 11)] + [
+    pytest.param("dualmad", kv, id=f"dualmad{kv}") for kv in range(4, 11)])
+def test_sum2_fragment_map_matches_plain(mode, KV):
+    """csrc/tcq2_gemv.cu's V=2 GEMV (N <= 8, sum2 and dualmad) from the
+    lane's point of view, on the plain words: the lane -> states map with
+    its word offsets and wrap, the hash bytes as the s8 A registers (one
+    MMA for sum2, one per hash for dualmad), the quantized x word under
+    the mode's byte permutes as the B registers, the int32 m16n8k32
+    products, the un-permuted C rows, and the per-chunk descale over the
+    kernel's warp split (k = 2576: 11 slots of 16 tiles, the last warp's
+    range straddles a chunk boundary into a partial chunk and slot).
+    exact: sum2's bf16 pairs (one m16n8k16), dualmad's tf32 weights (two
+    m16n8k8, one per column parity, with x from the bf16x2 words) give
+    arith_weights_mat's integers.  a8: each chunk's int32 sums equal the
+    plain integer dot; both variants' y match arith_gemv_plain within f32
+    sum order."""
     m, k, N = 32, 2576, 3
     mt, kt = m // 16, k // 16
-    rng = np.random.default_rng(110 + KV)
-    words = words_to_torch(_words(rng, "sum2", KV, m, k))
+    rng = np.random.default_rng(110 + KV + 100 * (mode == "dualmad"))
+    words = words_to_torch(_words(rng, mode, KV, m, k))
     x = torch.from_numpy(rng.standard_normal((N, k)).astype(np.float32))
-    hs = _sum2_lane_hashes(words, KV).reshape(mt, kt, 32, 4)
+    u = _lane_windows(words, KV).reshape(mt, kt, 32, 4)
     lane = torch.arange(32)
     g, c = lane >> 2, lane & 3
 
-    # A: register r of lane (g, c) is fragment row g + 8*(r%2); s8 at
-    # columns 4c + 16*(r/2) + byte, bf16 pairs at 2c + 8*(r/2) + (0, 1)
-    a8 = torch.zeros((mt, kt, 16, 32), dtype=torch.int64)
-    abf = torch.zeros((mt, kt, 16, 16), dtype=torch.int64)
+    # a8 A: register r of lane (g, c) is fragment row g + 8*(r%2), its s8
+    # bytes at columns 4c + 16*(r/2) + byte; one (mt, kt, 16, 32) a MMA
+    a8 = []
+    for hash_fn, _ in _S8_MMAS[mode]:
+        a = torch.zeros((mt, kt, 16, 32), dtype=torch.int64)
+        for r in range(4):
+            sb = _sbytes(hash_fn(u[..., r]))  # (mt, kt, 32, 4)
+            for b in range(4):
+                col = 4 * c + 16 * (r >> 1) + b
+                a[:, :, g + 8 * (r & 1), col] = sb[..., b]
+        a8.append(a)
+    # exact A: register r holds the state's (w0, w1) at tile columns
+    # 2c + 8*(r/2) + (0, 1): sum2 as one bf16x2 register at k = 2c +
+    # 8*(r/2) of the m16n8k16, dualmad w0 (MMA 1) and w1 (MMA 2) at k = c
+    # + 4*(r/2) of an m16n8k8
+    wl = _lane_weights(u, mode)  # (mt, kt, 32, 4 registers, 2)
+    if mode == "dualmad":
+        assert int(wl.abs().max()) > 256  # beyond what bf16 holds
+    aw = torch.zeros((mt, kt, 16, 16), dtype=torch.int64)
     for r in range(4):
-        sb = _sbytes(hs[..., r])  # (mt, kt, 32, 4)
-        fr = g + 8 * (r & 1)
-        for b in range(4):
-            a8[:, :, fr, 4 * c + 16 * (r >> 1) + b] = sb[..., b]
-        abf[:, :, fr, 2 * c + 8 * (r >> 1)] = sb[..., 0] + sb[..., 1]
-        abf[:, :, fr, 2 * c + 8 * (r >> 1) + 1] = sb[..., 2] + sb[..., 3]
+        for p in (0, 1):
+            aw[:, :, g + 8 * (r & 1), 2 * c + 8 * (r >> 1) + p] = wl[..., r, p]
     tile_row = 2 * (torch.arange(16) % 8) + torch.arange(16) // 8
     w_frag = torch.zeros((m, k), dtype=torch.int64)
-    w_frag.view(mt, 16, kt, 16)[:, tile_row] = abf.permute(0, 2, 1, 3)
-    w_ref = arith.arith_weights_mat(words, "sum2", KV, m, k)
+    w_frag.view(mt, 16, kt, 16)[:, tile_row] = aw.permute(0, 2, 1, 3)
+    w_ref = arith.arith_weights_mat(words, mode, KV, m, k)
     assert torch.equal(w_frag, w_ref)
 
     # the kernel's split: whole slots a warp, chunk scales over all rows
@@ -379,7 +428,9 @@ def test_sum2_fragment_map_matches_plain(KV):
     chunk_sums = torch.zeros((len(scales), mt, 16, 8), dtype=torch.int64)
     y8 = torch.zeros((mt, 16, 8))
     yx = torch.zeros((mt, 16, 8))
-    xb = torch.cat([x.to(torch.bfloat16).float(), torch.zeros((8 - N, k))])
+    xb = torch.cat([x.to(torch.bfloat16), torch.zeros((8 - N, k),
+                                                      dtype=torch.bfloat16)])
+    xbits = xb.view(torch.int16).to(torch.int64) & 0xFFFF
     straddles = 0
     for w in range(_WARPS):
         ta = min(kt, nsl * w // _WARPS * _SLOT_TILES)
@@ -395,33 +446,50 @@ def test_sum2_fragment_map_matches_plain(KV):
                     acc = acc + di.to(torch.float32) * scales[ch]
                 ch, di = t // _CHUNK_TILES, torch.zeros_like(di)
             # the x buffer word of lane (g, c): row g, columns 2c, 2c+1,
-            # 8+2c, 9+2c of the tile; B registers under two byte permutes
+            # 8+2c, 9+2c of the tile; B registers under byte permutes
             q = qp[g][:, 16 * t:16 * t + 16] & 0xFF  # (32, 16)
             cols = torch.stack([2 * c, 2 * c + 1, 8 + 2 * c, 9 + 2 * c], 1)
             word = sum(q.gather(1, cols)[:, i] << (8 * i) for i in range(4))
-            B = torch.zeros((32, 8), dtype=torch.int64)
-            for reg, sel in ((0, 0x1100), (1, 0x3322)):
-                sb = _sbytes(_prmt(word, sel))  # (32 lanes, 4)
-                for b in range(4):
-                    B[4 * c + 16 * reg + b, g] = sb[:, b]
-            C = a8[:, t] @ B  # (mt, fragment row, n), int32 in the kernel
-            assert int(C.abs().max()) < 1 << 31
-            # C fragment registers: c0, c1 row g cols 2c, 2c+1; c2, c3 g+8
-            frag = torch.stack([C[:, g, 2 * c], C[:, g, 2 * c + 1],
-                                C[:, g + 8, 2 * c], C[:, g + 8, 2 * c + 1]],
-                               -1)
+            C = torch.zeros((mt, 16, 8), dtype=torch.int64)
+            for a, (_, sels) in zip(a8, _S8_MMAS[mode]):
+                B = torch.zeros((32, 8), dtype=torch.int64)
+                for reg, sel in enumerate(sels):
+                    sb = _sbytes(_prmt(word, sel))  # (32 lanes, 4)
+                    for b in range(4):
+                        B[4 * c + 16 * reg + b, g] = sb[:, b]
+                C = C + a[:, t] @ B  # int32 in the kernel
+            frag = _c_frag(C, g, c)
             di = di + frag
+            assert int(di.abs().max()) < 1 << 25  # a chunk's partial
             chunk_sums[ch] += _unpermute(frag)
-            # exact: B registers bf16 x row g at columns (2c, 2c+1) and
-            # (8+2c, 9+2c); the f32 C fragment accumulates over the tiles
-            Bx = torch.zeros((16, 8))
-            for j in (0, 1):
-                Bx[2 * c + j, g] = xb[g, 16 * t + 2 * c + j]
-                Bx[8 + 2 * c + j, g] = xb[g, 16 * t + 8 + 2 * c + j]
-            Cx = abf[:, t].float() @ Bx
-            accx = accx + torch.stack(
-                [Cx[:, g, 2 * c], Cx[:, g, 2 * c + 1], Cx[:, g + 8, 2 * c],
-                 Cx[:, g + 8, 2 * c + 1]], -1)
+            # exact: lane (g, c)'s bf16x2 words of x row g at columns
+            # (2c, 2c+1) and (8+2c, 9+2c), the lower column in the low half
+            xr = xbits[g][:, 16 * t:16 * t + 16]  # (32, 16)
+            bw = [xr.gather(1, (2 * c + 8 * i)[:, None])[:, 0]
+                  | xr.gather(1, (2 * c + 8 * i + 1)[:, None])[:, 0] << 16
+                  for i in (0, 1)]
+            if mode == "sum2":  # one m16n8k16.bf16 in natural column order
+                Bx = torch.zeros((16, 8))
+                for i, wd in enumerate(bw):
+                    for p in (0, 1):
+                        Bx[2 * c + 8 * i + p, g] = (
+                            ((wd >> (16 * p)) & 0xFFFF) << 16
+                        ).to(torch.int32).view(torch.float32)
+                Cx = aw[:, t].float() @ Bx
+            else:  # two m16n8k8.tf32, column parity p: A k = c + 4*(r/2)
+                Cx = torch.zeros((mt, 16, 8))
+                for p in (0, 1):
+                    A = torch.zeros((mt, 16, 8))
+                    for r in range(4):
+                        A[:, g + 8 * (r & 1), c + 4 * (r >> 1)] = (
+                            wl[:, t, :, r, p].float())
+                    Bx = torch.zeros((8, 8))
+                    for i, wd in enumerate(bw):  # b.x / b.y << 16 or masked
+                        bits = (wd << 16) if p == 0 else (wd & 0xFFFF0000)
+                        Bx[c + 4 * i, g] = (bits & _M32).to(
+                            torch.int32).view(torch.float32)
+                    Cx = Cx + A @ Bx
+            accx = accx + _c_frag(Cx, g, c)
         if ch >= 0:
             acc = acc + di.to(torch.float32) * scales[ch]
         y8 = y8 + _unpermute(acc)
@@ -434,7 +502,7 @@ def test_sum2_fragment_map_matches_plain(KV):
     got8 = y8.permute(2, 0, 1).reshape(8, m)[:N] * arith.MAD_INV
     gotx = yx.permute(2, 0, 1).reshape(8, m)[:N] * arith.MAD_INV
     for got, a8_ in ((got8, True), (gotx, False)):
-        want = arith.arith_gemv_plain(x, words, "sum2", KV, m, k, a8_)
+        want = arith.arith_gemv_plain(x, words, mode, KV, m, k, a8_)
         # the same integer chunk sums (a8) or exact products (bf16 x
         # integer weights); only the order of the f32 sums differs
         assert _rel(got.numpy(), want.numpy()) < 1e-5, a8_

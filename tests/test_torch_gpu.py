@@ -78,31 +78,47 @@ def _case(m, k, KV, N, x_dtype, device, seed, mode="sum2"):
     return words, x
 
 
-# sum2 beyond the 215 shapes: 4096x4096 at the other KVs, and ragged
-# shapes for the tensor-core kernel (N <= 8, 16-tile slots): one m-tile
-# with k/16 = 17 (a partial slot, most warps idle); k = 1040 (a partial
-# last slot and chunk); k = 4112 and k = 2576, where the last warp's range
-# straddles a chunk boundary into a partial chunk
+def _counted(mode):
+    return {"sum2": arith.tcq2s_decode_gemv, "dualmad": arith.tcq2_decode_gemv,
+            "1mad": arith.tcq1_decode_gemv,
+            "2mad": arith.tcq1_decode_gemv}[mode]
+
+
+# The V=2 modes beyond their paths' shapes: 4096x4096 at the other KVs,
+# and ragged shapes for the tensor-core kernel (N <= 8, 16-tile slots):
+# one m-tile with k/16 = 17 (a partial slot, most warps idle); k = 1040 (a
+# partial last slot and chunk); k = 4112 and k = 2576, where the last
+# warp's range straddles a chunk boundary into a partial chunk
 SHAPES_SUM2 = SHAPES_215 + [
     (f"kv{kv}", 4096, 4096, kv) for kv in (4, 5, 7, 8, 9, 10)] + [
     ("m16 k272", 16, 272, 10), ("m32 k4112", 32, 4112, 5),
     ("m16 k1040", 16, 1040, 7), ("m16 k2576", 16, 2576, 9)]
+# dualmad: Path A's merged qkv (tcq2_6) and ug (tcq2_7)
+SHAPES_DUALMAD = [("qkv", 6144, 4096, 6), ("ug", 28672, 4096, 7)] + [
+    (f"kv{kv}", 4096, 4096, kv) for kv in range(4, 11)] + [
+    ("m16 k272", 16, 272, 4), ("m32 k4112", 32, 4112, 10),
+    ("m16 k1040", 16, 1040, 6), ("m16 k2576", 16, 2576, 8)]
+SHAPES_V2 = ([(name, m, k, "sum2", KV) for name, m, k, KV in SHAPES_SUM2]
+             + [(name, m, k, "dualmad", KV)
+                for name, m, k, KV in SHAPES_DUALMAD])
 
 
 @pytest.mark.parametrize("a8", [False, True])
-@pytest.mark.parametrize("name,m,k,KV", SHAPES_SUM2)
-def test_kernel_matches_plain_on_card(cuda, name, m, k, KV, a8):
+@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_V2)
+def test_kernel_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
     """N = 1..8 (the tensor-core kernel) with f32 and bf16 x, and N = 16
     (the 8-row template), each call counted once."""
     cases = [(N, dt) for N in range(1, 9)
              for dt in (torch.float32, torch.bfloat16)]
+    fn = _counted(mode)
     for N, x_dtype in cases + [(16, torch.bfloat16)]:
-        words, x = _case(m, k, KV, N, x_dtype, cuda, seed=m + k + KV + N)
-        before = tcq2s_decode_gemv.launches
-        y = tcq2s_decode_gemv(x, words, KV, m, k, a8)
+        words, x = _case(m, k, KV, N, x_dtype, cuda, seed=m + k + KV + N,
+                         mode=mode)
+        before = fn.launches
+        y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
         torch.cuda.synchronize()
-        assert tcq2s_decode_gemv.launches == before + 1
-        ref = arith_gemv_plain(x, words, "sum2", KV, m, k, a8)
+        assert fn.launches == before + 1
+        ref = arith_gemv_plain(x, words, mode, KV, m, k, a8)
         rel = ((y - ref).abs().max() / ref.abs().max()).item()
         # exact: bf16 x times integer weights is exact in f32, only the
         # order of the f32 sums over up to 14336 terms differs; a8: the
@@ -112,20 +128,23 @@ def test_kernel_matches_plain_on_card(cuda, name, m, k, KV, a8):
         assert rel <= (1e-3 if a8 else 1e-4), (name, N, x_dtype, rel)
 
 
+@pytest.mark.parametrize("mode", ["sum2", "dualmad"])
 @pytest.mark.parametrize("a8", [False, True])
-def test_sum2_launches_are_bit_equal(cuda, a8):
-    """Two launches of the tensor-core sum2 kernel on the same inputs give
-    the same bits (the warps' fragments are added in a fixed order, no
-    atomics), and each call adds exactly 1 to the wrapper's count."""
+def test_sum2_launches_are_bit_equal(cuda, a8, mode):
+    """Two launches of the tensor-core V=2 kernel (sum2, dualmad) on the
+    same inputs give the same bits (the warps' fragments are added in a
+    fixed order, no atomics), and each call adds exactly 1 to the
+    wrapper's count."""
     m, k, KV = 4096, 14336, 6
+    fn = _counted(mode)
     for N, x_dtype in ((8, torch.float32), (3, torch.bfloat16)):
-        words, x = _case(m, k, KV, N, x_dtype, cuda, seed=N)
+        words, x = _case(m, k, KV, N, x_dtype, cuda, seed=N, mode=mode)
         ys = []
         for _ in range(2):
-            before = tcq2s_decode_gemv.launches
-            ys.append(tcq2s_decode_gemv(x, words, KV, m, k, a8))
+            before = fn.launches
+            ys.append(arith.decode_gemv(mode, x, words, KV, m, k, a8))
             torch.cuda.synchronize()
-            assert tcq2s_decode_gemv.launches == before + 1
+            assert fn.launches == before + 1
         assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 
 
@@ -138,17 +157,12 @@ def test_kernel_rejects_cpu_trellis_with_cuda_x(cuda):
                                    out=torch.empty((64, 256)))
 
 
-def _counted(mode):
-    return {"sum2": arith.tcq2s_decode_gemv, "dualmad": arith.tcq2_decode_gemv,
-            "1mad": arith.tcq1_decode_gemv,
-            "2mad": arith.tcq1_decode_gemv}[mode]
-
-
 @pytest.mark.parametrize("a8", [False, True])
 @pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_ARITH)
 def test_arith_gemv_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
-    for N, x_dtype in ((1, torch.float32), (8, torch.float32),
-                       (256, torch.bfloat16)):
+    # the V=2 modes at N <= 8: test_kernel_matches_plain_on_card
+    cases = ((1, torch.float32), (8, torch.float32), (256, torch.bfloat16))
+    for N, x_dtype in cases[2 if mode in ("sum2", "dualmad") else 0:]:
         words, x = _case(m, k, KV, N, x_dtype, cuda, seed=m + k + KV + N,
                          mode=mode)
         fn = _counted(mode)
