@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
   python chip_smoke.py
-  python chip_smoke.py --parent OLD_CSRC_DIR [--ab tcq2_gemv|tcq2mix|tcq_lut]
+  python chip_smoke.py --parent OLD_CSRC_DIR
+      [--ab tcq2_gemv|tcq2mix|tcq1_gemv|tcq_lut]
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
 decode (--ab tcq2_gemv, the default), K1 dualmad at Path A's shapes with
-K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), or the
-LUT GEMVs and the flagship decode (--ab tcq_lut), with the source against
-the same source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked
-with `git archive`).
+K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
+1mad at Path A's shapes with 2mad at 4096x4096 and the Path A a8 decode
+(--ab tcq1_gemv), or the LUT GEMVs and the flagship decode (--ab
+tcq_lut), with the source against the same source of an older tree's
+qpalette_tpu_torch/csrc (e.g. unpacked with `git archive`).
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -20,9 +22,10 @@ Phases (each raises on failure):
      {1,4,16}: the tensor-core kernel at N <= 8, two launches bit-equal at
      N=4; the 8-row template at 16); dualmad, 1mad, 2mad and odd-KV sum2
      at every shape of bench.py's tcq2mix scheme plus 4096x4096 and odd
-     k/16 shapes (N in {1,8,256}; V=2 modes on the tensor-core kernel at
-     N <= 8, dualmad's two launches bit-equal at N=8); exact and a8;
-     kernel and plain times at N=1
+     k/16 shapes (N in {1,8,256}; every mode on its tensor-core kernel at
+     N <= 8, two launches bit-equal at N=8); exact and a8; kernel and
+     plain times at N=1 on Path A's shapes, kernel times of 2mad (on no
+     path) at 4096x4096
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
@@ -367,7 +370,7 @@ def arith_checks(arith, arith_dequant, device):
                 err[gemv.__name__] = max(err[gemv.__name__], _rel_check(
                     f"{label} N={N} {'a8' if a8 else 'exact'}", y, ref,
                     TOL[a8]))
-                if mode == "dualmad" and N == 8:  # fixed-order warp sums
+                if N == 8:  # the warps' fragments add in a fixed order
                     y2 = arith.decode_gemv(mode, x, words, KV, m, k, a8)
                     check(torch.equal(y.view(torch.int32),
                                       y2.view(torch.int32)),
@@ -380,8 +383,9 @@ def arith_checks(arith, arith_dequant, device):
               flush=True)
         check(same, f"{deq.__name__} {label}: not bit-equal")
         del w, w_ref
-        if k1 and not calls:
-            continue  # checked, not on a path: no times
+        on_path = calls or not k1
+        if not on_path and mode != "2mad":
+            continue  # checked, on no path: no times
 
         copies, nbytes = _copies(m, k, W, device)
         x1 = torch.randn((1, k), device=device)
@@ -408,8 +412,10 @@ def arith_checks(arith, arith_dequant, device):
             arith_dequant.arith_dequant_plain(copies[i % len(copies)], mode,
                                               KV, m, k)
 
-        routes = ([(kern, 200), (kern_exact, 200), (plain, 5)] if k1
-                  else []) + [(kern_deq, 50), (plain_deq, 5)]
+        routes = [(kern, 200), (kern_exact, 200)] if k1 else []
+        if on_path:  # 2mad on no path: its GEMV's times alone
+            routes += ([(plain, 5)] if k1 else []) + [(kern_deq, 50),
+                                                      (plain_deq, 5)]
         res = {}
         for route, reps in routes:
             res[route.__name__] = ms = _time_ms(
@@ -422,13 +428,13 @@ def arith_checks(arith, arith_dequant, device):
         db_ms, _ = dequant_bound(nbytes, m, k)
         print(f"[time] {label} bounds: GEMV a8 N=1 {gb_ms:.4f} ms, dequant "
               f"{db_ms:.4f} ms", flush=True)
-        if k1:
+        if k1 and calls:
             for fn, trio in ((gemv, (res["kern"], res["plain"], gb_ms)),
                              (deq, (res["kern_deq"], res["plain_deq"],
                                     db_ms))):
                 for j, v in enumerate(trio):
                     times[fn.__name__][j] += calls * v
-        else:
+        elif not k1:
             deq215[(name, KV)] = (res["kern_deq"], res["plain_deq"], db_ms)
         del copies, wout
     return err, times, deq215
@@ -453,14 +459,15 @@ def build_all():
         spills = [e for e in entries if SPILL.search(e[2])]
         print(f"[build] {name}.cu: {len(entries)} kernels, {len(spills)} "
               f"with spills", flush=True)
-        v2 = [e for e in entries if "v2_gemv_kernel" in e[0]]
-        for fn, used, spill in spills + v2:
+        tc = [e for e in entries if TC_GEMV.search(e[0])]
+        for fn, used, spill in spills + tc:
             print(f"[build]   {fn}: {used}; {spill}", flush=True)
-        check(not any(SPILL.search(e[2]) for e in v2),
-              f"{name}.cu: the V=2 tensor-core GEMV spills")
+        check(not any(SPILL.search(e[2]) for e in tc),
+              f"{name}.cu: a tensor-core K1 GEMV spills")
 
 
 SPILL = re.compile(r"[1-9]\d* bytes spill")
+TC_GEMV = re.compile(r"v[12]_gemv_kernel")  # K1's tensor-core instances
 
 
 def ptxas_entries(log):
@@ -773,7 +780,9 @@ def _k1_case(arith, mode, name, m, k, KV, calls, step, device):
     return {"label": f"{mode} {name} {m}x{k} KV={KV}", "m": m, "k": k,
             "calls": calls, "step": step,
             "kernel": {"sum2": "tcq2s_decode_gemv",
-                       "dualmad": "tcq2_decode_gemv"}[mode],
+                       "dualmad": "tcq2_decode_gemv",
+                       "1mad": "tcq1_decode_gemv",
+                       "2mad": "tcq1_decode_gemv"}[mode],
             "copies": copies, "run": run, "plain": plain,
             "x_dtype": torch.float32, "tol": TOL[True],
             "bound": gemv_bound(nbytes, 1, m, k, 4, True)[0]}
@@ -817,6 +826,21 @@ def _ab_tcq2mix(device, smi):
         "Path A a8", spec, params)
 
 
+def _ab_tcq1(device, smi):
+    """parent_ab's K1 1mad cases (Path A's o and down, 32 calls a step
+    each), 2mad at 4096x4096 KV 3 and 4 (on no path: timed, 0 calls), and
+    Path A's a8 decode."""
+    from qpalette_tpu_torch.kernels import arith
+
+    cases = [_k1_case(arith, mode, name, m, k, KV, calls, "Path A", device)
+             for name, m, k, mode, KV, calls in SHAPES_ARITH
+             if mode in ("1mad", "2mad") and name != "odd_kt"]
+    spec, params = _build("pathA", tcq2mix_qdict(),
+                          [["merge_qkv", "merge_ug"]] * 32, "a8", 4, device)
+    return arith, "tcq1_gemv", arith.SIGNATURES["tcq1_gemv"], cases, (
+        "Path A a8", spec, params)
+
+
 def _ab_lut(device, smi):
     """parent_ab's K4/K5 cases: the flagship shapes at N=1, each with its
     calls in a flagship decode forward."""
@@ -857,7 +881,8 @@ def _ab_lut(device, smi):
         "flagship", spec, params)
 
 
-AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq_lut": _ab_lut}
+AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
+      "tcq_lut": _ab_lut}
 
 
 def parent_ab(parent_csrc, which):
@@ -866,7 +891,8 @@ def parent_ab(parent_csrc, which):
     from `git archive`, so that the source builds with its own headers),
     on one card, in turns: parent, new, new, parent.  which: "tcq2_gemv"
     (K1 sum2 on the 215 path), "tcq2mix" (K1 dualmad on Path A, with K1
-    sum2 at the 215 shapes) or "tcq_lut" (K4/K5 on the flagship).  Both
+    sum2 at the 215 shapes), "tcq1_gemv" (K1 1mad on Path A, with 2mad at
+    4096x4096) or "tcq_lut" (K4/K5 on the flagship).  Both
     libraries are first checked against the plain versions at N = 1 and 8.
     Each turn puts its library behind the wrappers, times every shape's
     calls (CUDA-graph replays at N=1, weights cycled past L2), sums each
@@ -894,7 +920,7 @@ def parent_ab(parent_csrc, which):
         kb.lib_path(source), sigs)}
     lib_of = mod._lib
 
-    def use(lib):  # arith's loader also serves tcq1_gemv.cu on Path A
+    def use(lib):  # arith's loader serves both K1 sources on Path A
         mod._lib = lambda *a: lib if not a or a[0] == source else lib_of(*a)
 
     for label, lib in libs.items():

@@ -17,7 +17,8 @@ tables must be the committed ones (``luts`` entries ``tcq{S}``,
 canonical row-pack ``qweight`` + ``lut`` (impl ``xla``) or as the kernel
 layout ``qweight_t`` + ``clut`` (its pallas impls), inverted to the
 row-pack with a zero pad word; the codebook is kept per projection, in
-float32.  The int8 lm_head (``lm_head_q`` (hidden, vocab padded) int8,
+float32.  A ``dense`` projection (the bf16 baseline) is its weight ``w``.
+The int8 lm_head (``lm_head_q`` (hidden, vocab padded) int8,
 ``lm_head_s`` (1, vocab padded), and ``lm_head_su`` when it is rotated)
 is transposed to the port's (vocab padded, hidden) rows.  Any other
 layout raises.
@@ -91,6 +92,13 @@ def _canonical_words(p: dict, ls: LinearSpec) -> dict:
 
 def _proj(p: dict, ls: LinearSpec, device) -> dict:
     m = ls.out_features
+    if ls.kind == "dense":  # the bf16 baseline's unquantized weight
+        if set(p) != {"w"}:
+            raise ValueError(f"unsupported dense layout {sorted(p)}")
+        w = _bf16(p["w"], device)
+        if tuple(w.shape) != (m, ls.in_features):
+            raise ValueError(f"w {tuple(w.shape)} does not fit {ls}")
+        return {"w": w}
     shapes = word_shapes(ls)
     out = {}
     for name, words in _canonical_words(p, ls).items():

@@ -1,6 +1,7 @@
 // Arithmetic trellis decode for Hopper (sm_90a): the shared decoder and the
-// decode-GEMV kernel template (K1), included by tcq2_gemv.cu (V=2 modes),
-// tcq1_gemv.cu (V=1 modes) and arith_dequant.cu (K2, K3).
+// decode-GEMV kernel template (K1 above 8 rows), included by tcq2_gemv.cu
+// (V=2 modes) and tcq1_gemv.cu (V=1 modes), both through arith_tc.cuh, and
+// by arith_dequant.cu (K2, K3).
 //
 // The port's canonical trellis: (T, W) 32-bit words, T = (m/16)*(k/16)
 // tiles in tile-row-major order, W = 8*KV/V words a tile (V weights per
@@ -84,10 +85,10 @@ __device__ __forceinline__ void state_weights(uint32_t u, int (&w)[2]) {
 // serves which case:
 //   sum2, dualmad at N <= 8        tcq2_gemv.cu's v2_gemv_kernel (tensor
 //                                  cores, per-warp TMA rings; its note is
-//                                  there)
-//   sum2, dualmad at 8 < N <= 256  this template, 8 rows a pass
-//   1mad, 2mad                     this template at any N (N = 1: one row
-//                                  a pass)
+//                                  there, the body in arith_tc.cuh)
+//   1mad, 2mad at N <= 8           tcq1_gemv.cu's v1_gemv_kernel (the same
+//                                  body, its own lane map)
+//   all modes at 8 < N <= 256      this template, 8 rows a pass
 //
 // Variants: exact (x rounded to bf16, f32 accumulation of x * w) and a8 (x
 // quantized to int8 inside the kernel per 512-column chunk, one absmax
@@ -126,10 +127,11 @@ __device__ __forceinline__ uint32_t quant8(float v, float inv) {
   return (uint32_t)__float2int_rn(__fmul_rn(v, inv)) & 0xffu;
 }
 
-template <typename XT, int MODE, int KV, bool A8, int NG>
+template <typename XT, int MODE, int KV, bool A8>
 __global__ void __launch_bounds__(kThreads)
 arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
                   float* __restrict__ out, int N, int m, int k) {
+  constexpr int NG = kGroup;
   constexpr int V = mode_v(MODE);
   constexpr int W = 8 * KV / V;  // 32-bit words per tile
   constexpr int WV = W / 4;      // int4 per tile
@@ -304,24 +306,14 @@ arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
   }
 }
 
-// the V=2 modes reach this template only at N > 8 (tcq2_gemv.cu), so
-// their N = 1 instances are not built
+// every mode reaches this template only at N > 8 (the tensor-core kernels
+// take N <= 8), so only its 8-row instances are built
 template <typename XT, int MODE, int KV, bool A8>
 int launch_gemv(const void* x, const void* tr, void* out, int N, int m,
                 int k, cudaStream_t st) {
-  const dim3 grid(m / 16);
-  const XT* xp = static_cast<const XT*>(x);
-  const int4* tp = static_cast<const int4*>(tr);
-  float* o = static_cast<float*>(out);
-  if constexpr (mode_v(MODE) == 1) {
-    if (N == 1) {
-      arith_gemv_kernel<XT, MODE, KV, A8, 1>
-          <<<grid, kThreads, 0, st>>>(xp, tp, o, N, m, k);
-      return (int)cudaGetLastError();
-    }
-  }
-  arith_gemv_kernel<XT, MODE, KV, A8, kGroup>
-      <<<grid, kThreads, 0, st>>>(xp, tp, o, N, m, k);
+  arith_gemv_kernel<XT, MODE, KV, A8><<<m / 16, kThreads, 0, st>>>(
+      static_cast<const XT*>(x), static_cast<const int4*>(tr),
+      static_cast<float*>(out), N, m, k);
   return (int)cudaGetLastError();
 }
 

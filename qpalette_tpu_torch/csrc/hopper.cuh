@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core decode GEMVs
-// (tcq_lut.cu's lut_gemv_kernel, tcq2_gemv.cu's v2_gemv_kernel): the
-// per-warp trellis stream and the warp-level MMAs.
+// (tcq_lut.cu's lut_gemv_kernel; arith_tc.cuh's body of tcq2_gemv.cu's
+// v2_gemv_kernel and tcq1_gemv.cu's v1_gemv_kernel): the per-warp trellis
+// stream and the warp-level MMAs.
 //
 // The stream: a warp owns a contiguous range of one m-tile's k-tiles
 // (contiguous bytes of the canonical trellis) and streams it through its
@@ -10,12 +11,13 @@
 // next streams; a slot is refilled with the one kSlots further once every
 // lane has read it.  No block barrier.
 //
-// A lane's view of a tile: the four words of its four states and the
-// shift of their windows.  Where a lane's states are s0, s0+1, s0+64 and
-// s0+65 of a tile of 4*KV words, s0 and s0+1 lie within KV+16 <= 26 bits,
-// so one funnel shift of two words yields both windows; s0+64 sits
-// exactly 2*KV words further at the same shift, its second word wrapping
-// the tile's circular stream for the last states.
+// A lane's view of a V=2 (or LUT) tile: the four words of its four states
+// and the shift of their windows (tcq1_gemv.cu has the V=1 view).  Where a
+// lane's states are s0, s0+1, s0+64 and s0+65 of a tile of 4*KV words, s0
+// and s0+1 lie within KV+16 <= 26 bits, so one funnel shift of two words
+// yields both windows; s0+64 sits exactly 2*KV words further at the same
+// shift, its second word wrapping the tile's circular stream for the last
+// states.
 
 #pragma once
 
@@ -91,6 +93,17 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// unsigned int8 A x signed int8 B -> int32, as mma_s8
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 // This lane's view of a tile of 4*KV words whose first state is s0 (see
 // the note at the top): byte offsets of its four words and the shift.
 struct LaneMap {
@@ -127,17 +140,18 @@ struct WarpJob {
   int nt, col0;
 };
 
-// A warp's ring for KV: kSlots slots of T tiles of 4*KV words
-template <int KV, int T = kStageTiles>
+// A warp's ring for KV: kSlots slots of T tiles of W words (4*KV for the
+// V=2 and LUT tiles, 8*KV for the V=1 tiles)
+template <int KV, int T = kStageTiles, int W = 4 * KV>
 struct Ring {
-  static constexpr int kTileBytes = 16 * KV;
+  static constexpr int kTileBytes = 4 * W;
   static constexpr int kSlotBytes = T * kTileBytes;
 };
 
-template <int KV, int T = kStageTiles>
+template <int KV, int T = kStageTiles, int W = 4 * KV>
 __device__ __forceinline__ void issue_slot(const WarpJob& job, uint8_t* ring,
                                            uint64_t* bars, int it) {
-  using R = Ring<KV, T>;
+  using R = Ring<KV, T, W>;
   const int slot = it % kSlots;
   const int n = min(T, job.nt - it * T);
   bulk_load(ring + slot * R::kSlotBytes,
@@ -145,12 +159,12 @@ __device__ __forceinline__ void issue_slot(const WarpJob& job, uint8_t* ring,
             bars + slot);
 }
 
-template <int KV, int T = kStageTiles>
+template <int KV, int T = kStageTiles, int W = 4 * KV>
 __device__ __forceinline__ void issue_first(const WarpJob& job, uint8_t* ring,
                                             uint64_t* bars) {
   const int nslot = (job.nt + T - 1) / T;
   for (int it = 0; it < min(kSlots, nslot); ++it)
-    issue_slot<KV, T>(job, ring, bars, it);
+    issue_slot<KV, T, W>(job, ring, bars, it);
 }
 
 }  // namespace qpt

@@ -48,20 +48,10 @@
 //    (g, c) is fragment row g + 8*(r&1) at k = c + 4*(r>>1), w0 of the
 //    four states (MMA 1) or w1 (MMA 2), against x columns 2c and 2c+8
 //    (MMA 1) or 2c+1 and 2c+9 (MMA 2); each product is exact in f32.
-//  - x for a8: each warp computes the scales of the chunks its k-range
-//    touches (over the whole chunk and all rows) while its first slots
-//    stream; per slot it quantizes the slot's 256 columns x N rows into a
-//    2 KB per-warp buffer, one word [q(2c), q(2c+1), q(8+2c), q(9+2c)] a
-//    (tile, row, c) at 32*tile + 4*row + c, so that lane (g, c) reads its
-//    word of a tile at a fixed offset (the stores hit 4 banks, once a
-//    slot); a lane's B words are that one word under byte permutes (two
-//    for sum2, four for dualmad).  No block barrier before the epilogue.
-//  - The stream of hopper.cuh, in slots of 16 tiles: a warp owns whole
-//    slots of one m-tile's k range and streams them through its own
-//    double buffer of cp.async.bulk copies.  A block is one m-tile (every
-//    Llama-3.1-8B shape has >= 256, so no cluster); its 8 warps'
-//    fragments are summed in a fixed order through shared memory: no
-//    atomics, and two launches give the same bits.
+//  - The stream, the x buffer, the descale and the epilogue are
+//    arith_tc.cuh's body, shared with the V=1 modes (tcq1_gemv.cu): 8 warps
+//    a block, 4 blocks an SM (every Llama-3.1-8B V=2 shape has >= 256
+//    m-tiles, so the block is not split further).
 //
 // What holds it on an H100 (a 215 decode step's sum2 calls at 25-55% of
 // their bound): ~14 SM cycles a tile at full occupancy, set by the
@@ -73,40 +63,11 @@
 // 4 warps a block (fewer warps for the small-m shapes); 3, 5 or 6 blocks
 // an SM.
 
-#include "arith.cuh"
-#include "hopper.cuh"
+#include "arith_tc.cuh"
 
 using namespace qpt;
 
 namespace {
-
-constexpr int kV2MaxRows = 8;
-constexpr int kV2BlocksPerSM = 4;
-constexpr int kV2Tiles = 16;  // k-tiles a ring slot (one bulk copy)
-constexpr int kSlotCols = kV2Tiles * 16;  // a slot never straddles a chunk
-static_assert(kChunk % kSlotCols == 0, "slots tile the chunks");
-// chunks a warp's range touches at most: it holds at most
-// ceil(nslots / kWarps) slots of a k <= kChunk * kMaxChunks
-constexpr int kWarpChunks = kMaxChunks / kWarps + 1;
-
-__device__ __forceinline__ float2 load_x2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 load_x2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(
-      __ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
-// two adjacent x values as a bf16x2 word (the lower column in the low half)
-__device__ __forceinline__ uint32_t x_bf16x2(const float* p) {
-  const float2 v = load_x2(p);
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(v.y), "f"(v.x));
-  return r;
-}
-__device__ __forceinline__ uint32_t x_bf16x2(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
 
 __device__ __forceinline__ uint32_t sum2_hash(uint32_t f) {
   return (f & 0xffffu) * kMad1A + kMad1B;
@@ -131,259 +92,86 @@ __device__ __forceinline__ uint32_t dual_weight(uint32_t h) {
   return __float_as_uint(__fsub_rn(__int_as_float(v), 12582912.0f));
 }
 
-// a8: one tile against the quantized x word xw of this lane's row and c
+// The V=2 tile policy of arith_tc.cuh: lane (g, c) decodes states 16c+2g,
+// +1, +64, +65 and reads x columns (2c, 2c+1) and (8+2c, 9+2c)
 template <int MODE, int KV>
-__device__ __forceinline__ void tile_s8(const uint8_t* wt, const LaneMap& lm,
-                                        uint32_t xw, int (&d)[4]) {
-  uint32_t f0, f1;
-  lane_windows(wt, lm, f0, f1);
-  if constexpr (MODE == kSum2) {
-    mma_s8(d, sum2_hash(f0), sum2_hash(f0 >> KV), sum2_hash(f1),
-           sum2_hash(f1 >> KV), __byte_perm(xw, 0, 0x1100),
-           __byte_perm(xw, 0, 0x3322));
-  } else {
-    const uint32_t u0 = f0 & 0xffffu, u1 = (f0 >> KV) & 0xffffu;
-    const uint32_t u2 = f1 & 0xffffu, u3 = (f1 >> KV) & 0xffffu;
-    mma_s8(d, u0 * kMad1A, u1 * kMad1A, u2 * kMad1A, u3 * kMad1A,
-           __byte_perm(xw, 0, 0x0000), __byte_perm(xw, 0, 0x2222));
-    mma_s8(d, u0 * kMad2A, u1 * kMad2A, u2 * kMad2A, u3 * kMad2A,
-           __byte_perm(xw, 0, 0x1111), __byte_perm(xw, 0, 0x3333));
+struct V2Tile {
+  static constexpr int kKV = KV, kWords = 4 * KV, kXStep = 8, kBias = 0;
+  static constexpr int kWarps = 8, kBlocks = 4, kXAhead = 8;
+  static __device__ __forceinline__ LaneMap map(int g, int c) {
+    return lane_map<KV>(16 * c + 2 * g);
   }
-}
+  static __device__ __forceinline__ int xcol(int c) { return 2 * c; }
 
-// exact: one tile against bf16 x columns (2c, 2c+1) and (8+2c, 9+2c), each
-// pair a bf16x2 word with the lower column in the low half
-template <int MODE, int KV>
-__device__ __forceinline__ void tile_exact(const uint8_t* wt,
-                                           const LaneMap& lm, uint2 b,
-                                           float (&d)[4]) {
-  uint32_t f0, f1;
-  lane_windows(wt, lm, f0, f1);
-  if constexpr (MODE == kSum2) {
-    mma_bf16(d, sum2_bf16x2(f0), sum2_bf16x2(f0 >> KV), sum2_bf16x2(f1),
-             sum2_bf16x2(f1 >> KV), b);
-  } else {
-    const uint32_t u0 = f0 & 0xffffu, u1 = (f0 >> KV) & 0xffffu;
-    const uint32_t u2 = f1 & 0xffffu, u3 = (f1 >> KV) & 0xffffu;
-    // a bf16 value as tf32 is its bits in the high half of the word
-    mma_tf32(d, dual_weight(u0 * kMad1A), dual_weight(u1 * kMad1A),
-             dual_weight(u2 * kMad1A), dual_weight(u3 * kMad1A), b.x << 16,
-             b.y << 16);
-    mma_tf32(d, dual_weight(u0 * kMad2A), dual_weight(u1 * kMad2A),
-             dual_weight(u2 * kMad2A), dual_weight(u3 * kMad2A),
-             b.x & 0xffff0000u, b.y & 0xffff0000u);
+  // a8: one tile against the quantized x word xw of this lane's row and c
+  static __device__ __forceinline__ void a8(const uint8_t* wt,
+                                            const LaneMap& lm, uint32_t xw,
+                                            int (&d)[4]) {
+    uint32_t f0, f1;
+    lane_windows(wt, lm, f0, f1);
+    if constexpr (MODE == kSum2) {
+      mma_s8(d, sum2_hash(f0), sum2_hash(f0 >> KV), sum2_hash(f1),
+             sum2_hash(f1 >> KV), __byte_perm(xw, 0, 0x1100),
+             __byte_perm(xw, 0, 0x3322));
+    } else {
+      const uint32_t u0 = f0 & 0xffffu, u1 = (f0 >> KV) & 0xffffu;
+      const uint32_t u2 = f1 & 0xffffu, u3 = (f1 >> KV) & 0xffffu;
+      mma_s8(d, u0 * kMad1A, u1 * kMad1A, u2 * kMad1A, u3 * kMad1A,
+             __byte_perm(xw, 0, 0x0000), __byte_perm(xw, 0, 0x2222));
+      mma_s8(d, u0 * kMad2A, u1 * kMad2A, u2 * kMad2A, u3 * kMad2A,
+             __byte_perm(xw, 0, 0x1111), __byte_perm(xw, 0, 0x3333));
+    }
   }
-}
 
-// Dynamic shared memory of a block: the warps' rings, their a8 x words (a
-// slot's tiles x 8 rows x 4 words), chunk scales and slot barriers
-template <int KV, bool A8>
-struct V2Smem {
-  static constexpr int kRing = kSlots * Ring<KV, kV2Tiles>::kSlotBytes;
-  static constexpr int kXq = A8 ? kV2Tiles * 32 * 4 : 0;
-  static constexpr int kXq0 = kWarps * kRing;
-  static constexpr int kSx0 = kXq0 + kWarps * kXq;
-  static constexpr int kBars0 = kSx0 + kWarps * kWarpChunks * 8;
-  static constexpr int kBytes = kBars0 + kWarps * kSlots * 8;
+  // exact: one tile against bf16 x columns (2c, 2c+1) and (8+2c, 9+2c),
+  // each pair a bf16x2 word with the lower column in the low half
+  static __device__ __forceinline__ void exact(const uint8_t* wt,
+                                               const LaneMap& lm, uint2 b,
+                                               float (&d)[4]) {
+    uint32_t f0, f1;
+    lane_windows(wt, lm, f0, f1);
+    if constexpr (MODE == kSum2) {
+      mma_bf16(d, sum2_bf16x2(f0), sum2_bf16x2(f0 >> KV), sum2_bf16x2(f1),
+               sum2_bf16x2(f1 >> KV), b);
+    } else {
+      const uint32_t u0 = f0 & 0xffffu, u1 = (f0 >> KV) & 0xffffu;
+      const uint32_t u2 = f1 & 0xffffu, u3 = (f1 >> KV) & 0xffffu;
+      // a bf16 value as tf32 is its bits in the high half of the word
+      mma_tf32(d, dual_weight(u0 * kMad1A), dual_weight(u1 * kMad1A),
+               dual_weight(u2 * kMad1A), dual_weight(u3 * kMad1A), b.x << 16,
+               b.y << 16);
+      mma_tf32(d, dual_weight(u0 * kMad2A), dual_weight(u1 * kMad2A),
+               dual_weight(u2 * kMad2A), dual_weight(u3 * kMad2A),
+               b.x & 0xffff0000u, b.y & 0xffff0000u);
+    }
+  }
 };
 
 template <typename XT, int MODE, int KV, bool A8>
-__global__ void __launch_bounds__(kThreads, kV2BlocksPerSM)
+__global__ void __launch_bounds__(32 * V2Tile<MODE, KV>::kWarps,
+                                  V2Tile<MODE, KV>::kBlocks)
 v2_gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ tr,
-                 float* __restrict__ out, int N, int m, int k) {
-  using R = Ring<KV, kV2Tiles>;
-  using L = V2Smem<KV, A8>;
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  uint8_t* ring = smem + warp * L::kRing;
-  uint32_t* xq = reinterpret_cast<uint32_t*>(smem + L::kXq0 + warp * L::kXq);
-  float2* sx = reinterpret_cast<float2*>(smem + L::kSx0) + warp * kWarpChunks;
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(smem + L::kBars0) + warp * kSlots;
-
-  // this warp's k-tiles of m-tile blockIdx.x, in whole slots
-  const int kt = k >> 4;
-  const int nsl = (kt + kV2Tiles - 1) / kV2Tiles;
-  const int ta = min(kt, nsl * warp / kWarps * kV2Tiles);
-  const int tb = min(kt, nsl * (warp + 1) / kWarps * kV2Tiles);
-  const WarpJob job{tr + ((size_t)blockIdx.x * kt + ta) * R::kTileBytes,
-                    tb - ta, 16 * ta};
-  if (lane == 0) {
-    for (int s = 0; s < kSlots; ++s) mbar_init(bars + s);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    issue_first<KV, kV2Tiles>(job, ring, bars);
-  }
-
-  // a8, while the first slots stream: the scale of each chunk the range
-  // touches, and rows N..7 of the x buffer set to 0 once
-  const int ch0 = job.col0 / kChunk;
-  if constexpr (A8) if (job.nt > 0) {
-    const int ch1 = (job.col0 + 16 * job.nt - 1) / kChunk;
-    for (int ch = ch0; ch <= ch1; ++ch) {
-      const int c0 = ch * kChunk, np = min(kChunk, k - c0) >> 1;
-      float amax = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const XT* xp = x + (size_t)n * k + c0;
-        for (int p = lane; p < np; p += 32) {
-          const float2 v = load_x2(xp + 2 * p);
-          amax = fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y)));
-        }
-      }
-      for (int o = 16; o; o >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      const float s = __fadd_rn(__fdiv_rn(amax, 127.0f), 1e-30f);
-      if (lane == 0) sx[ch - ch0] = make_float2(s, __fdiv_rn(1.0f, s));
-    }
-    for (int i = lane; i < kV2Tiles * 32; i += 32) xq[i] = 0u;
-  }
-  __syncwarp();
-
-  const LaneMap lm = lane_map<KV>(16 * c + 2 * g);
-  const bool xrow = g < N;  // B columns n >= N stay 0
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int di[4] = {0, 0, 0, 0};  // a8: the current chunk's int32 fragment
-  int ch = -1;
-  float2 sc = make_float2(0.f, 0.f);  // a8: the current chunk's scale, 1/scale
-  const auto descale = [&]() {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      acc[r] = __fadd_rn(acc[r], __fmul_rn((float)di[r], sc.x));
-      di[r] = 0;
-    }
-  };
-  // two slots an iteration, so that each slot's shared-memory addresses
-  // are fixed offsets from the ring
-  const int nslot = (job.nt + kV2Tiles - 1) / kV2Tiles;
-  for (int it0 = 0; it0 < nslot; it0 += kSlots) {
-    const uint32_t parity = (it0 / kSlots) & 1;
-#pragma unroll
-    for (int slot = 0; slot < kSlots; ++slot) {
-      const int it = it0 + slot;
-      if (it >= nslot) break;
-      const uint8_t* st = ring + slot * R::kSlotBytes;
-      const int col = job.col0 + it * kSlotCols;
-      const int n = min(kV2Tiles, job.nt - it * kV2Tiles);
-      if constexpr (A8) {
-        if ((unsigned)col / kChunk != (unsigned)ch) {
-          if (ch >= 0) descale();
-          ch = (unsigned)col / kChunk;
-          sc = sx[ch - ch0];
-        }
-        // lane (g, c) quantizes columns 2c, 2c+1, 8+2c, 9+2c of tiles t =
-        // g and g+8, each row r into word t*32 + (r << 2) + c: the word
-        // that lane 4r + c reads as xq[t*32 + lane]
-#pragma unroll
-        for (int h = 0; h < kV2Tiles / 8; ++h) {
-          const int t = g + 8 * h;
-          if (t < n) {
-            const XT* xp = x + col + 16 * t + 2 * c;
-#pragma unroll 1
-            for (int r = 0; r < N; ++r, xp += k) {
-              const float2 v0 = load_x2(xp), v1 = load_x2(xp + 8);
-              xq[t * 32 + (r << 2) + c] =
-                  quant8(v0.x, sc.y) | quant8(v0.y, sc.y) << 8 |
-                  quant8(v1.x, sc.y) << 16 | quant8(v1.y, sc.y) << 24;
-            }
-          }
-        }
-        __syncwarp();
-        mbar_wait(bars + slot, parity);
-        if (n == kV2Tiles) {
-#pragma unroll
-          for (int j = 0; j < kV2Tiles; ++j)
-            tile_s8<MODE, KV>(st + j * R::kTileBytes, lm,
-                              xq[j * 32 + lane], di);
-        } else {
-#pragma unroll 1
-          for (int j = 0; j < n; ++j)
-            tile_s8<MODE, KV>(st + j * R::kTileBytes, lm,
-                              xq[j * 32 + lane], di);
-        }
-      } else {
-        const XT* xp = x + (size_t)(xrow ? g : 0) * k + col + 2 * c;
-        const auto xload = [&](int j) {
-          return xrow ? make_uint2(x_bf16x2(xp + 16 * j),
-                                   x_bf16x2(xp + 16 * j + 8))
-                      : make_uint2(0u, 0u);
-        };
-        if (n == kV2Tiles) {
-#pragma unroll
-          for (int h = 0; h < kV2Tiles / 8; ++h) {
-            uint2 b[8];  // the first 8 do not wait for the slot
-#pragma unroll
-            for (int j = 0; j < 8; ++j) b[j] = xload(8 * h + j);
-            if (h == 0) mbar_wait(bars + slot, parity);
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              tile_exact<MODE, KV>(st + (8 * h + j) * R::kTileBytes, lm,
-                                   b[j], acc);
-          }
-        } else {
-          mbar_wait(bars + slot, parity);
-#pragma unroll 1
-          for (int j = 0; j < n; ++j)
-            tile_exact<MODE, KV>(st + j * R::kTileBytes, lm, xload(j), acc);
-        }
-      }
-      __syncwarp();  // every lane has read the slot and the x words
-      if (lane == 0 && it + kSlots < nslot)
-        issue_slot<KV, kV2Tiles>(job, ring, bars, it + kSlots);
-    }
-  }
-  if (A8 && ch >= 0) descale();
-
-  // the 8 warps' fragments, summed in warp order: C element (fragment row
-  // fr, n) sits in lane 4*(fr%8) + n/2, register 2*(fr/8) + n%2, and
-  // fragment row fr is tile row 2*(fr%8) + fr/8.  A warp's ring is free
-  // once its loop is done, and holds its fragment.
-  reinterpret_cast<float4*>(ring)[lane] =
-      make_float4(acc[0], acc[1], acc[2], acc[3]);
-  __syncthreads();
-  if (tid < 16 * N) {
-    const int row = tid & 15, nn = tid >> 4;
-    const int src = 4 * (row >> 1) + (nn >> 1), comp = 2 * (row & 1) + (nn & 1);
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      v += reinterpret_cast<const float*>(smem + w * L::kRing)[src * 4 + comp];
-    out[(size_t)nn * m + blockIdx.x * 16 + row] = v * kMadInv;
-  }
-}
-
-template <typename XT, int MODE, int KV, bool A8>
-int launch_v2(const void* x, const void* tr, void* out, int N, int m, int k,
-              cudaStream_t st) {
-  constexpr int smem = V2Smem<KV, A8>::kBytes;
-  if (reinterpret_cast<uintptr_t>(x) % 8)  // x is read 4-8 bytes at a time
-    return (int)cudaErrorMisalignedAddress;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  static unsigned long long ready = 0;  // devices that allow `smem` bytes
-  if (dev >= 64 || !((ready >> dev) & 1)) {
-    e = cudaFuncSetAttribute(v2_gemv_kernel<XT, MODE, KV, A8>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) ready |= 1ull << dev;
-  }
-  v2_gemv_kernel<XT, MODE, KV, A8><<<m / 16, kThreads, smem, st>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(tr),
-      static_cast<float*>(out), N, m, k);
-  return (int)cudaGetLastError();
+               float* __restrict__ out, int N, int m, int k) {
+  tc_gemv<V2Tile<MODE, KV>, XT, A8>(x, tr, out, N, m, k);
 }
 
 template <int MODE, int KV>
 int v2_variants(const void* x, int x_bf16, const void* tr, void* out, int N,
                 int m, int k, int a8, cudaStream_t st) {
+  using T = V2Tile<MODE, KV>;
+  static unsigned long long ready[4];  // per instance, as launch_tc asks
   if (x_bf16)
-    return a8 ? launch_v2<__nv_bfloat16, MODE, KV, true>(x, tr, out, N, m,
-                                                         k, st)
-              : launch_v2<__nv_bfloat16, MODE, KV, false>(x, tr, out, N, m,
-                                                          k, st);
-  return a8 ? launch_v2<float, MODE, KV, true>(x, tr, out, N, m, k, st)
-            : launch_v2<float, MODE, KV, false>(x, tr, out, N, m, k, st);
+    return a8 ? launch_tc<T, __nv_bfloat16, true>(
+                    v2_gemv_kernel<__nv_bfloat16, MODE, KV, true>, ready[0],
+                    x, tr, out, N, m, k, st)
+              : launch_tc<T, __nv_bfloat16, false>(
+                    v2_gemv_kernel<__nv_bfloat16, MODE, KV, false>, ready[1],
+                    x, tr, out, N, m, k, st);
+  return a8 ? launch_tc<T, float, true>(v2_gemv_kernel<float, MODE, KV, true>,
+                                        ready[2], x, tr, out, N, m, k, st)
+            : launch_tc<T, float, false>(
+                  v2_gemv_kernel<float, MODE, KV, false>, ready[3], x, tr,
+                  out, N, m, k, st);
 }
 
 }  // namespace
@@ -418,7 +206,7 @@ extern "C" int tcq2_gemv(const void* x, int x_bf16, const void* tr,
                          int a8, void* stream) {
   if (bad_gemv_args(N, m, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool narrow = N <= kV2MaxRows;
+  const bool narrow = N <= kTcRows;
   if (mode == 0 && narrow) QPT_KV_CASES(QPT_SUM2)
   if (mode == 1 && narrow) QPT_KV_CASES(QPT_DUALMAD)
   if (mode == 0) QPT_KV_CASES(QPT_SUM2_WIDE)

@@ -15,8 +15,11 @@ for V=1, and returns y = x @ W_hat^T in float32 without Wscale, for
 N <= 256 rows of x.  exact rounds x to bf16; a8 quantizes x to int8 per
 512-column chunk with one absmax scale over all rows.  On a CPU tensor a
 wrapper runs the plain version; on a CUDA tensor it launches its kernel or
-raises.  The kernels (``csrc/arith.cuh``) are compiled with nvcc into
-``qpalette_tpu_torch/_build/`` at first use (``kernels/_build.py``).
+raises.  Up to 8 rows every mode runs on tensor cores (``csrc/
+arith_tc.cuh``, one body: ``v2_gemv_kernel`` for V=2, ``v1_gemv_kernel``
+for V=1), above that the template of ``csrc/arith.cuh``; both sources
+are compiled with nvcc into ``qpalette_tpu_torch/_build/`` at first use
+(``kernels/_build.py``).
 """
 
 from __future__ import annotations

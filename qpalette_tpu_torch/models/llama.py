@@ -140,19 +140,23 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
                  cos, sin, kv_cache=None, cache_pos: int = 0, luts=None):
     """x (B, S, hidden) -> (out, (k, v)).  With kv_cache, k/v are written
     into the caches in place at cache_pos (the reference's
-    dynamic_update_slice) and attention runs over the whole cache."""
+    dynamic_update_slice) and attention runs over the whole cache.  The
+    group's activations are rotated unless its first projection is
+    ``dense`` (the bf16 baseline, whose weights are not rotated)."""
     B, S, N = x.shape
     xs = x.reshape(-1, N)
+    rotated = spec.projs[0][1].kind != "dense"
     non_o = [(nm, ls) for nm, ls in spec.projs if nm != "o"]
     hs = cfg.num_heads * cfg.head_dim
     kv = cfg.kv_out
     if spec.merge == "qkv":
         (name, lspec), = non_o
-        y = qlinear_apply(lspec, p[name], xs, pre_rot=p["su_qkv"],
+        y = qlinear_apply(lspec, p[name], xs,
+                          pre_rot=p["su_qkv"] if rotated else None,
                           luts=luts)
         q, k, v = torch.split(y, [hs, kv, kv], dim=-1)
     elif spec.merge is None:
-        z = _rotate_in(xs, p["su_qkv"])
+        z = _rotate_in(xs, p["su_qkv"]) if rotated else xs
         q, k, v = (qlinear_apply(ls, p[nm], z, luts=luts)
                    for nm, ls in non_o)
     else:
@@ -172,28 +176,31 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     if oname != "o":
         raise ValueError(f"last attention projection is {oname!r}")
     out = qlinear_apply(ospec, p["o"], att.reshape(B * S, -1),
-                        pre_rot=p["su_o"], luts=luts)
+                        pre_rot=p["su_o"] if rotated else None, luts=luts)
     return out.reshape(B, S, N), new_kv
 
 
 def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
                 luts=None):
+    """x (B, S, hidden) -> out; rotated as in attn_forward."""
     B, S, N = x.shape
     I = cfg.intermediate_size
     xs = x.reshape(-1, N)
+    rotated = spec.projs[0][1].kind != "dense"
     if spec.merge_ug:
         (ug_name, ug_spec), (_, d_spec) = spec.projs
-        y = qlinear_apply(ug_spec, p[ug_name], xs, pre_rot=p["su_ug"],
+        y = qlinear_apply(ug_spec, p[ug_name], xs,
+                          pre_rot=p["su_ug"] if rotated else None,
                           luts=luts)
         up, gate = y[:, :I], y[:, I:]
     else:
-        z = _rotate_in(xs, p["su_ug"])
+        z = _rotate_in(xs, p["su_ug"]) if rotated else xs
         (_, u_spec), (_, g_spec), (_, d_spec) = spec.projs
         up = qlinear_apply(u_spec, p["up"], z, luts=luts)
         gate = qlinear_apply(g_spec, p["gate"], z, luts=luts)
     h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
-    out = qlinear_apply(d_spec, p["down"], h, pre_rot=p["su_dp"],
-                        luts=luts)
+    out = qlinear_apply(d_spec, p["down"], h,
+                        pre_rot=p["su_dp"] if rotated else None, luts=luts)
     return out.reshape(B, S, N)
 
 

@@ -12,7 +12,8 @@ codebook), the 4096-multiple vocab pad of the 4-bit lm_head and the
 the port defines no kernel-side layout yet.  The (2^S, 2) tables of tcq /
 tcomb are held once per S in ``params["luts"]``; a vq projection holds its
 own (2^bits, vec) float32 codebook ``lut``.  Dummy packed words come from
-a ``torch.Generator`` on the target device.
+a ``torch.Generator`` on the target device.  ``random_dense_params`` and
+``build_dense_model`` give the unquantized bf16 baseline.
 """
 
 from __future__ import annotations
@@ -390,3 +391,66 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         params["lm_head_q4"] = _params_from_artifact(art, device)
         params["lm_head_su"] = torch.as_tensor(su, device=device)
     return dataclasses.replace(spec, lm_head_spec=lm_spec), params
+
+
+def random_dense_params(cfg: LlamaConfig, seed: int = 0,
+                        scale: float = 0.02) -> dict:
+    """Random dense Llama params as numpy float32: the reference's
+    random_dense_params, the same numbers from the same seed."""
+    rng = np.random.default_rng(seed)
+
+    def w(shape):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        lp = {k: w(proj_shape(cfg, k)) for k in LAYER_KEYS}
+        lp["ln_attn"] = np.ones((cfg.hidden_size,), np.float32)
+        lp["ln_mlp"] = np.ones((cfg.hidden_size,), np.float32)
+        layers.append(lp)
+    emb = w((cfg.vocab_size, cfg.hidden_size))
+    return {"layers": layers, "embed": emb,
+            "lm_head": emb if cfg.tie_embeddings
+            else w((cfg.vocab_size, cfg.hidden_size)),
+            "ln_f": np.ones((cfg.hidden_size,), np.float32)}
+
+
+def build_dense_model(cfg: LlamaConfig, dense_params: dict, device="cuda"):
+    """The unquantized bf16 baseline (the reference's build_dense_model):
+    every projection ``dense`` and unmerged, so the forward rotates no
+    group; the identity ``su_*`` are kept as the reference keeps them."""
+    device = torch.device(device)
+
+    def bf16(a):
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device=device).to(torch.bfloat16)
+
+    groups = ((("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+               ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj")),
+              (("up", "mlp.up_proj"), ("gate", "mlp.gate_proj"),
+               ("down", "mlp.down_proj")))
+    layer_specs, layers = [], []
+    for dp in dense_params["layers"][:cfg.num_layers]:
+        lp, specs = {}, []
+        for group in groups:
+            projs = []
+            for nm, key in group:
+                m, n = proj_shape(cfg, key)
+                projs.append((nm, LinearSpec("dense", n, m)))
+                lp[nm] = {"w": bf16(dp[key])}
+            specs.append(tuple(projs))
+        for name, width in (("su_qkv", cfg.hidden_size),
+                            ("su_o", cfg.hidden_size),
+                            ("su_ug", cfg.hidden_size),
+                            ("su_dp", cfg.intermediate_size)):
+            lp[name] = torch.ones(width, dtype=torch.bfloat16, device=device)
+        lp["ln_attn"] = bf16(dp["ln_attn"])
+        lp["ln_mlp"] = bf16(dp["ln_mlp"])
+        layers.append(lp)
+        layer_specs.append((AttnSpec(None, specs[0]),
+                            MLPSpec(False, specs[1])))
+    params = {"layers": layers, "luts": {},
+              "embed": bf16(dense_params["embed"]),
+              "lm_head": bf16(dense_params["lm_head"]),
+              "ln_f": bf16(dense_params["ln_f"])}
+    return ModelSpec(cfg, tuple(layer_specs)), params

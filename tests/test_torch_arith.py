@@ -506,3 +506,214 @@ def test_sum2_fragment_map_matches_plain(mode, KV):
         # the same integer chunk sums (a8) or exact products (bf16 x
         # integer weights); only the order of the f32 sums differs
         assert _rel(got.numpy(), want.numpy()) < 1e-5, a8_
+
+
+# --- the V=1 decode GEMV's fragment algebra, rehearsed on the CPU ----------
+
+_V1_WARPS = 16  # v1_gemv_kernel's warps a block (csrc/tcq1_gemv.cu)
+_V1_BIAS = 510  # the V=1 weight is its hash's unsigned byte sum - 510
+# a8: the byte permutes of the lane's x word that give the B registers b0,
+# b1 of MMA 1 (columns 4c, 4c+1) and MMA 2 (4c+2, 4c+3)
+_V1_PERMS = ((0x0000, 0x1111), (0x2222, 0x3333))
+
+
+def _v1_hash(u, mode):
+    if mode == "1mad":
+        return (u * codebooks.MAD1_A + codebooks.MAD1_B) & _M32
+    h0 = (u * codebooks.MAD2_A + codebooks.MAD2_B) & _M32
+    return (h0 + ((h0 * codebooks.MAD2_C) >> 32)) & _M32
+
+
+def _v1_lane_windows(words, KV):
+    """(T, 32 lanes, 4 pairs, 2) 16-bit windows of v1_gemv_kernel's lane
+    states: lane (g, c) decodes s0 = 64c + 2g plus 16p + i (pair p, state
+    i), pair p from one funnel shift of two words.  lane_map1's offsets:
+    pairs 0 and 2 at words w0 and w0 + KV, shift sh0; pairs 1 and 3 at o1
+    and o1 + KV, shift sh1 (even KV: o1 = w0 + KV/2, sh1 = sh0); only pair
+    3's second word is a separate offset, which wraps the stream."""
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+    W = 8 * KV
+    b0 = KV * (64 * c + 2 * g)
+    b1 = b0 + 16 * KV
+    w0, sh0 = b0 >> 5, b0 & 31
+    w1, sh1 = ((b1 >> 5, b1 & 31) if KV % 2 else (w0 + KV // 2, sh0))
+    w3 = (b1 >> 5) + KV + 1
+    w3 = torch.where(w3 == W, 0, w3)
+    lo, hi = [w0, w1, w0 + KV, w1 + KV], [w0 + 1, w1 + 1, w0 + KV + 1, w3]
+    sh = [sh0, sh1, sh0, sh1]
+    for p in range(4):  # each pair's words and shift are its first state's
+        bits = KV * (64 * c + 2 * g + 16 * p)
+        nxt = (bits >> 5) + 1
+        assert torch.equal(lo[p], bits >> 5) and torch.equal(sh[p], bits & 31)
+        assert torch.equal(hi[p], torch.where(nxt == W, 0, nxt))
+        assert p == 3 or bool((nxt < W).all())
+        assert bool(((bits & 31) + KV + 16 <= 32 + 31).all())
+    assert bool((w3 == 0).any())  # state 254's pair wraps the stream
+    u = words.to(torch.int64) & _M32
+
+    def funnel(a, b, s):  # __funnelshift_r(word a, word b, s)
+        return ((u[:, a] >> s) | (u[:, b] << (32 - s))) & _M32
+
+    f = torch.stack([funnel(lo[p], hi[p], sh[p]) for p in range(4)], -1)
+    return torch.stack([f & 0xFFFF, (f >> KV) & 0xFFFF], -1)
+
+
+def _v1_warp_split(kt):
+    """[(first tile, end tile)] of each warp of an m-tile: whole 16-tile
+    slots, as arith_tc.cuh's tc_gemv splits them."""
+    nsl = -(-kt // _SLOT_TILES)
+    return [(min(kt, nsl * w // _V1_WARPS * _SLOT_TILES),
+             min(kt, nsl * (w + 1) // _V1_WARPS * _SLOT_TILES))
+            for w in range(_V1_WARPS)]
+
+
+@pytest.mark.parametrize("mode,KV", [
+    pytest.param(mode, kv, id=f"{mode}{kv}") for mode in ("1mad", "2mad")
+    for kv in (2, 3, 4, 5)])
+def test_v1_fragment_map_matches_plain(mode, KV):
+    """csrc/tcq1_gemv.cu's V=1 GEMV (N <= 8, 1mad and 2mad) from the lane's
+    point of view, on the plain words: the lane -> states map with its
+    word offsets, shifts and the circular wrap; the hashes' unsigned bytes
+    as the u8 A registers of two m16n8k32 MMAs a tile; the lane's x word
+    under byte permutes as the s8 B registers; the int32 products; the
+    sum of each lane's q bytes (a __dp4a a tile), shuffled to the lanes of
+    its rows' C columns at the chunk's end, and -510 times it added to
+    the chunk's fragment once; the per-chunk descale over the
+    kernel's 16-warp split (k = 4112: 17 slots, the last warp's range
+    straddles a chunk boundary into a partial chunk and slot); exact's
+    tf32 weights (unsigned __dp4a onto 1.5*2^23, minus 1.5*2^23 + 510) in
+    two m16n8k8 MMAs against bf16 x; the un-permuted C rows.  Both
+    variants at N = 1 and 8 match arith_gemv_plain within f32 sum order,
+    and a8's chunk sums equal the plain integer dot exactly."""
+    m, k = 32, 4112
+    mt, kt = m // 16, k // 16
+    rng = np.random.default_rng(210 + KV + 10 * (mode == "2mad"))
+    words = words_to_torch(_words(rng, mode, KV, m, k))
+    u = _v1_lane_windows(words, KV).reshape(mt, kt, 32, 4, 2)
+    h = _v1_hash(u, mode)
+    ub = torch.stack([(h >> (8 * b)) & 0xFF for b in range(4)], -1)
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+
+    # A of MMA q: register r of lane (g, c) is the hash of pair 2q + r/2,
+    # state r%2: fragment row g + 8*(r%2), its u8 bytes at k = 4c +
+    # 16*(r/2) + byte; pair p of the lane is tile column 4c + p
+    a8 = []
+    for q in (0, 1):
+        a = torch.zeros((mt, kt, 16, 32), dtype=torch.int64)
+        for r in range(4):
+            for b in range(4):
+                a[:, :, g + 8 * (r & 1), 4 * c + 16 * (r >> 1) + b] = (
+                    ub[:, :, :, 2 * q + (r >> 1), r & 1, b])
+        a8.append(a)
+    # the weights they stand for, and exact's tf32 A registers of MMA q:
+    # register r at k = c + 4*(r/2), the same states
+    wsum = ub.sum(-1) - _V1_BIAS  # (mt, kt, 32, 4 pairs, 2)
+    bits = (0x4B400000 + ub.sum(-1)).to(torch.int32)
+    wf = bits.view(torch.float32) - torch.tensor(12583422.0)
+    tf32 = (wf.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    assert torch.equal(tf32, wsum.to(torch.float32))
+    ax = []
+    for q in (0, 1):
+        a = torch.zeros((mt, kt, 16, 8))
+        for r in range(4):
+            a[:, :, g + 8 * (r & 1), c + 4 * (r >> 1)] = (
+                tf32[:, :, :, 2 * q + (r >> 1), r & 1])
+        ax.append(a)
+    tile_row = 2 * (torch.arange(16) % 8) + torch.arange(16) // 8
+    w_frag = torch.zeros((mt, 16, kt, 16), dtype=torch.int64)
+    for q in (0, 1):
+        for hh in (0, 1):  # k-block hh of MMA q is tile column 4c + 2q + hh
+            blk = a8[q][..., 16 * hh:16 * hh + 16].reshape(mt, kt, 16, 4, 4)
+            w_frag[:, tile_row, :, 2 * q + hh::4] = (
+                blk.sum(-1) - _V1_BIAS).permute(0, 2, 1, 3)
+            kx = ax[q][..., 4 * hh:4 * hh + 4].to(torch.int64)
+            assert torch.equal(kx, blk.sum(-1) - _V1_BIAS)
+    w_ref = arith.arith_weights_mat(words, mode, KV, m, k)
+    assert torch.equal(w_frag.reshape(m, k), w_ref)
+
+    split = _v1_warp_split(kt)
+    assert sum(ta < tb and ta // _CHUNK_TILES != (tb - 1) // _CHUNK_TILES
+               and tb - ta < _SLOT_TILES * 2 and tb % _SLOT_TILES
+               for ta, tb in split) >= 1  # a straddle into a partial slot
+    for N in (1, 8):
+        x = torch.from_numpy(rng.standard_normal((N, k)).astype(np.float32))
+        scales = [(x[:, c0:c0 + arith.CHUNK].abs().amax() / 127.0 + 1e-30)
+                  .to(torch.float32) for c0 in range(0, k, arith.CHUNK)]
+        qs = torch.cat([torch.round(x[:, c0:c0 + arith.CHUNK] * (1.0 / s))
+                        for c0, s in zip(range(0, k, arith.CHUNK), scales)],
+                       1).to(torch.int64)
+        qp = torch.cat([qs, torch.zeros((8 - N, k), dtype=torch.int64)])
+        # the lane's x word of tile t: row g, columns 4c..4c+3, byte i =
+        # q(16t + 4c + i); B of MMA q under its two permutes
+        col = 16 * torch.arange(kt)[:, None] + 4 * c[None, :]  # (kt, 32)
+        xw = sum((qp[g[None, :], col + i] & 0xFF) << (8 * i)
+                 for i in range(4))
+        C = torch.zeros((mt, kt, 16, 8), dtype=torch.int64)
+        for q in (0, 1):
+            B = torch.zeros((kt, 32, 8), dtype=torch.int64)
+            for reg, sel in enumerate(_V1_PERMS[q]):
+                sb = _sbytes(_prmt(xw, sel))  # (kt, 32 lanes, 4)
+                for b in range(4):
+                    B[:, 4 * c + 16 * reg + b, g] = sb[..., b]
+            C = C + torch.einsum("mtik,tkn->mtin", a8[q], B)
+        # exact: lane (g, c)'s bf16x2 words of x row g at columns (4c,
+        # 4c+1) and (4c+2, 4c+3); MMA q's b0 is word q << 16, b1 word q
+        # masked (the lower column is the low half)
+        xb = torch.cat([x.to(torch.bfloat16), torch.zeros(
+            (8 - N, k), dtype=torch.bfloat16)]).view(torch.int16)
+        xbits = xb.to(torch.int64) & 0xFFFF
+        Cx = torch.zeros((mt, kt, 16, 8))
+        for q in (0, 1):
+            wd = (xbits[g[None, :], col + 2 * q]
+                  | xbits[g[None, :], col + 2 * q + 1] << 16)  # (kt, 32)
+            B = torch.zeros((kt, 8, 8))
+            for reg, bb in enumerate(((wd << 16) & _M32,
+                                      wd & 0xFFFF0000)):
+                B[:, c + 4 * reg, g] = bb.to(torch.int32).view(
+                    torch.float32)
+            Cx = Cx + torch.einsum("mtik,tkn->mtin", ax[q], B)
+
+        chunk_sums = torch.zeros((len(scales), mt, 16, 8), dtype=torch.int64)
+        y8 = torch.zeros((mt, 16, 8))
+        yx = torch.zeros((mt, 16, 8))
+        for ta, tb in split:
+            acc = torch.zeros((mt, 32, 4))
+            for ch in range(ta // _CHUNK_TILES, -(-tb // _CHUNK_TILES)):
+                t0, t1 = max(ta, ch * _CHUNK_TILES), min(tb, (ch + 1)
+                                                         * _CHUNK_TILES)
+                if t0 >= t1:
+                    continue
+                # each lane adds up its x words' q bytes (a __dp4a a
+                # tile); at the chunk's end row g's sum over lanes 4g..4g+3
+                # (two xor shuffles), rows 2c and 2c+1 from lanes 8c and
+                # 8c+4 for C columns n = 2c, 2c+1 (registers r%2 = 0, 1)
+                qsum = _sbytes(xw[t0:t1]).sum((0, 2))  # (32 lanes)
+                srow = qsum.view(8, 4).sum(1)[g]  # lane's row g
+                s0, s1 = srow[8 * c], srow[8 * c + 4]
+                assert torch.equal(s0, qp[2 * c, 16 * t0:16 * t1].sum(1))
+                part = C[:, t0:t1].sum(1)  # the MMAs' int32 sums
+                assert int(part.abs().max()) < 1 << 27
+                di = _c_frag(part, g, c) - _V1_BIAS * torch.stack(
+                    [s0, s1, s0, s1], -1)
+                assert int(di.abs().max()) < 1 << 31
+                chunk_sums[ch] += _unpermute(di)
+                acc = acc + di.to(torch.float32) * scales[ch]
+            y8 = y8 + _unpermute(acc)
+            if ta < tb:
+                yx = yx + _unpermute(_c_frag(Cx[:, ta:tb].double().sum(1),
+                                             g, c).float())
+        for ci, c0 in enumerate(range(0, k, arith.CHUNK)):
+            want = (qs[:, c0:c0 + arith.CHUNK]
+                    @ w_ref[:, c0:c0 + arith.CHUNK].T)
+            got = chunk_sums[ci].permute(2, 0, 1).reshape(8, m)
+            assert torch.equal(got[:N], want)
+            assert not got[N:].any()
+        for y, a8_ in ((y8, True), (yx, False)):
+            got = y.permute(2, 0, 1).reshape(8, m) * arith.MAD_INV
+            want = arith.arith_gemv_plain(x, words, mode, KV, m, k, a8_)
+            assert not got[N:].any()
+            # the same integer chunk sums (a8) or exact products (bf16 x
+            # integer weights); only the order of the f32 sums differs
+            assert _rel(got[:N].numpy(), want.numpy()) < 1e-5, (N, a8_)

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 arithmetic trellis GEMV (K1) in all four modes at the Llama-3.1-8B shapes
-of the 215.0thp_cc path and of bench.py's tcq2mix scheme, the arithmetic
+of the 215.0thp_cc path and of bench.py's tcq2mix scheme and at ragged
+shapes, the arithmetic
 dequants (K2, K3) at the same shapes, the LUT trellis kernels (tcq /
 tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship and at KV 3,
 the SQ/VQ row-pack kernels (K8, K9) at the shapes of the ldlq_2_6 path and
@@ -101,12 +102,24 @@ SHAPES_DUALMAD = [("qkv", 6144, 4096, 6), ("ug", 28672, 4096, 7)] + [
 SHAPES_V2 = ([(name, m, k, "sum2", KV) for name, m, k, KV in SHAPES_SUM2]
              + [(name, m, k, "dualmad", KV)
                 for name, m, k, KV in SHAPES_DUALMAD])
+# The V=1 modes on their tensor-core kernel (N <= 8, 16-tile slots, 16
+# warps a block): Path A's o and down (tcq1_3, 1mad), 4096x4096 at KV 2-5,
+# and ragged shapes: one m-tile with k/16 = 17; k = 4112, where the last
+# warp's range straddles a chunk boundary into a partial chunk and slot;
+# k = 2576, 11 slots over 16 warps (some warps idle)
+SHAPES_V1 = [
+    ("o", 4096, 4096, "1mad", 3), ("down", 4096, 14336, "1mad", 3)] + [
+    (f"kv{kv}", 4096, 4096, mode, kv) for mode in ("1mad", "2mad")
+    for kv in range(2, 6)] + [
+    ("m16 k272", 16, 272, "1mad", 2), ("m16 k272", 16, 272, "2mad", 5),
+    ("m32 k4112", 32, 4112, "1mad", 5), ("m32 k4112", 32, 4112, "2mad", 3),
+    ("m16 k2576", 16, 2576, "1mad", 3), ("m16 k2576", 16, 2576, "2mad", 4)]
 
 
 @pytest.mark.parametrize("a8", [False, True])
-@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_V2)
+@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_V2 + SHAPES_V1)
 def test_kernel_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
-    """N = 1..8 (the tensor-core kernel) with f32 and bf16 x, and N = 16
+    """N = 1..8 (the tensor-core kernels) with f32 and bf16 x, and N = 16
     (the 8-row template), each call counted once."""
     cases = [(N, dt) for N in range(1, 9)
              for dt in (torch.float32, torch.bfloat16)]
@@ -128,14 +141,14 @@ def test_kernel_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
         assert rel <= (1e-3 if a8 else 1e-4), (name, N, x_dtype, rel)
 
 
-@pytest.mark.parametrize("mode", ["sum2", "dualmad"])
+@pytest.mark.parametrize("mode", ["sum2", "dualmad", "1mad", "2mad"])
 @pytest.mark.parametrize("a8", [False, True])
 def test_sum2_launches_are_bit_equal(cuda, a8, mode):
-    """Two launches of the tensor-core V=2 kernel (sum2, dualmad) on the
-    same inputs give the same bits (the warps' fragments are added in a
-    fixed order, no atomics), and each call adds exactly 1 to the
-    wrapper's count."""
-    m, k, KV = 4096, 14336, 6
+    """Two launches of the tensor-core kernels (V=2: sum2, dualmad; V=1:
+    1mad, 2mad) on the same inputs give the same bits (the warps'
+    fragments are added in a fixed order, no atomics), and each call adds
+    exactly 1 to the wrapper's count."""
+    m, k, KV = 4096, 14336, (6 if mode in ("sum2", "dualmad") else 3)
     fn = _counted(mode)
     for N, x_dtype in ((8, torch.float32), (3, torch.bfloat16)):
         words, x = _case(m, k, KV, N, x_dtype, cuda, seed=N, mode=mode)
