@@ -3,15 +3,17 @@
 
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
-      [--ab tcq2_gemv|tcq2mix|tcq1_gemv|tcq_lut]
+      [--ab tcq2_gemv|tcq2mix|tcq1_gemv|tcq_lut|vq]
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
 decode (--ab tcq2_gemv, the default), K1 dualmad at Path A's shapes with
 K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
 1mad at Path A's shapes with 2mad at 4096x4096 and the Path A a8 decode
-(--ab tcq1_gemv), or the LUT GEMVs and the flagship decode (--ab
-tcq_lut), with the source against the same source of an older tree's
-qpalette_tpu_torch/csrc (e.g. unpacked with `git archive`).
+(--ab tcq1_gemv), the LUT GEMVs and the flagship decode (--ab tcq_lut),
+or K8 at Path C's and Path D's shapes, every other ldlq scheme at o and
+down, and the Path C decode (--ab vq), with the source against the same
+source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
+`git archive`).
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -36,8 +38,10 @@ Phases (each raises on failure):
      trellis, share of the bound, the table layout in use)
   5b. the SQ/VQ row-pack kernels (K8 vq_gemv, K9 vq_dequant) against their
      plain versions: ldlq_2_6 (bits 6, vec 2) at the four 8B shapes and
-     every ldlq (bits, vec) at o and down; K8 at N in {1,8} within 1e-4 of
-     max|y|, K9 bit-equal; times (kernel at every shape, plain at Path C's)
+     every ldlq (bits, vec) at o and down; K8 at N = 1..8 within 1e-4 of
+     max|y| (and at m = 4100, not a multiple of 16), two launches bit-equal
+     at N = 8, K9 bit-equal; times (kernel at every shape, plain at Path
+     C's)
   5c. the int8 lm_head GEMVs (K10 int8_gemv_a8 bit-equal, K11 int8_gemv
      within 1e-5) at the 129024x4096 head, N in {1,8}; times with
      torch._int_mm on the same int8 operands as K10's yardstick
@@ -146,6 +150,11 @@ PATH_C_STEP = {"vq_gemv": 128, "int8_gemv_a8": 1}
 PATH_D_QSTR, PATH_D_LAYERS = "ldlq_1_4_none_1.0", 8
 PATH_D_PREFILL = {"vq_dequant": 7 * PATH_D_LAYERS}
 PATH_D_STEP = {"vq_gemv": 7 * PATH_D_LAYERS, "int8_gemv": 1}
+# (projection, m, k, calls a Path D forward): q/o, k/v, gate/up, down
+PATH_D_SHAPES = [("q/o", 4096, 4096, 2 * PATH_D_LAYERS),
+                 ("k/v", 1024, 4096, 2 * PATH_D_LAYERS),
+                 ("gate/up", 14336, 4096, 2 * PATH_D_LAYERS),
+                 ("down", 4096, 14336, PATH_D_LAYERS)]
 HEAD = (129024, 4096)  # the int8 head: 128256 padded to 2048s
 VQ_TOL = 1e-4  # K8 vs plain, of max|y|
 I8_TOL = 1e-5  # K11 vs plain, of max|y|
@@ -463,11 +472,12 @@ def build_all():
         for fn, used, spill in spills + tc:
             print(f"[build]   {fn}: {used}; {spill}", flush=True)
         check(not any(SPILL.search(e[2]) for e in tc),
-              f"{name}.cu: a tensor-core K1 GEMV spills")
+              f"{name}.cu: a tensor-core GEMV spills")
 
 
 SPILL = re.compile(r"[1-9]\d* bytes spill")
-TC_GEMV = re.compile(r"v[12]_gemv_kernel")  # K1's tensor-core instances
+# the tensor-core GEMVs' instances: K1's and K8's
+TC_GEMV = re.compile(r"v[12q]_gemv_kernel")
 
 
 def ptxas_entries(log):
@@ -881,8 +891,52 @@ def _ab_lut(device, smi):
         "flagship", spec, params)
 
 
+def _vq_case(vq, name, m, k, bits, vec, calls, step, kernel, device):
+    """A parent_ab case of K8 at N=1: its calls in a decode forward of the
+    path `step`."""
+    from qpalette_tpu_torch.ops.codebooks import vq_lut
+
+    lut = torch.tensor(vq_lut(bits, vec), device=device)
+    nbytes = m * vq.row_words(k, bits, vec) * 4 + lut.numel() * 4
+    copies = [_vq_words(m, k, bits, vec, device, seed=100 + i)
+              for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
+
+    def run(x, w, out=None):
+        return vq.vq_gemv(x, w, lut, bits, vec, m, k, out=out)
+
+    def plain(x, w):
+        return vq.vq_gemv_plain(x, w, lut, bits, vec, m, k)
+
+    return {"label": f"vq bits={bits} vec={vec} {name} {m}x{k}", "m": m,
+            "k": k, "calls": calls, "step": step, "kernel": kernel,
+            "copies": copies, "run": run, "plain": plain,
+            "x_dtype": torch.bfloat16, "tol": VQ_TOL,
+            "bound": gemv_bound(nbytes, 1, m, k, 2, False)[0]}
+
+
+def _ab_vq(device, smi):
+    """parent_ab's K8 cases: ldlq_2_6 at Path C's four shapes (32 calls a
+    forward each), ldlq_1_4 at Path D's (8 layers, unmerged), every other
+    ldlq (bits, vec) at o and down (on no path: timed, 0 calls), and Path
+    C's a8 decode."""
+    from qpalette_tpu_torch.kernels import vq
+
+    cases = [_vq_case(vq, name, m, k, 6, 2, 32, "Path C", "vq_gemv", device)
+             for name, m, k in SHAPES_8B]
+    cases += [_vq_case(vq, name, m, k, 4, 1, calls, "Path D",
+                       "vq_gemv_pathD", device)
+              for name, m, k, calls in PATH_D_SHAPES]
+    cases += [_vq_case(vq, name, m, k, b, v, 0, "no path", "vq_gemv_other",
+                       device)
+              for b, v in vq.SUPPORTED if (b, v) not in ((6, 2), (4, 1))
+              for name, m, k in SHAPES_8B[1::2]]
+    spec, params = _build("pathC", PATH_C_QSTR, [["merge_qkv", "merge_ug"]]
+                          * 32, "a8", 8, device)
+    return vq, vq.SOURCE, vq.SIGNATURES, cases, ("Path C", spec, params)
+
+
 AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
-      "tcq_lut": _ab_lut}
+      "tcq_lut": _ab_lut, "vq": _ab_vq}
 
 
 def parent_ab(parent_csrc, which):
@@ -892,7 +946,8 @@ def parent_ab(parent_csrc, which):
     on one card, in turns: parent, new, new, parent.  which: "tcq2_gemv"
     (K1 sum2 on the 215 path), "tcq2mix" (K1 dualmad on Path A, with K1
     sum2 at the 215 shapes), "tcq1_gemv" (K1 1mad on Path A, with 2mad at
-    4096x4096) or "tcq_lut" (K4/K5 on the flagship).  Both
+    4096x4096), "tcq_lut" (K4/K5 on the flagship) or "vq" (K8 on Paths C
+    and D, every other ldlq scheme at o and down).  Both
     libraries are first checked against the plain versions at N = 1 and 8.
     Each turn puts its library behind the wrappers, times every shape's
     calls (CUDA-graph replays at N=1, weights cycled past L2), sums each
@@ -943,8 +998,10 @@ def parent_ab(parent_csrc, which):
             copies = case["copies"]
             t = _time_ms(lambda i=0: case["run"](x, copies[i % len(copies)],
                                                  out), 200, graph=True)
-            ms[case["kernel"]] = ms.get(case["kernel"], 0.0) + case["calls"] * t
-            step[case["kernel"]] = case["step"]
+            if case["calls"]:
+                ms[case["kernel"]] = (ms.get(case["kernel"], 0.0)
+                                      + case["calls"] * t)
+                step[case["kernel"]] = case["step"]
             print(f"[ab] {label} {case['label']}: {t * 1e3:.3f} us a call "
                   f"(bound {case['bound'] * 1e3:.3f} us, {case['calls']} a "
                   f"{case['step']} step)", flush=True)
@@ -958,8 +1015,9 @@ def parent_ab(parent_csrc, which):
     mod._lib = lib_of
     bound = {}
     for case in cases:
-        bound[case["kernel"]] = (bound.get(case["kernel"], 0.0)
-                                 + case["calls"] * case["bound"])
+        if case["calls"]:
+            bound[case["kernel"]] = (bound.get(case["kernel"], 0.0)
+                                     + case["calls"] * case["bound"])
     print(json.dumps({"card": smi, "source": source, "path": path,
                       "bound_ms_a_step": bound, "turns": turns}))
 
@@ -1006,7 +1064,7 @@ def vq_kernel_checks(vq, device):
         lut = torch.tensor(vq_lut(bits, vec), device=device)
         words = _vq_words(m, k, bits, vec, device, seed=m + k + bits)
         label = f"vq bits={bits} vec={vec} {name} {m}x{k}"
-        for N in (1, 8):
+        for N in range(1, 9):
             gen = torch.Generator(device=device)
             gen.manual_seed(N)
             x = torch.randn((N, k), generator=gen, device=device).bfloat16()
@@ -1015,6 +1073,20 @@ def vq_kernel_checks(vq, device):
             ref = vq.vq_gemv_plain(x, words, lut, bits, vec, m, k)
             err["vq_gemv"] = max(err["vq_gemv"], _rel_check(
                 f"vq_gemv {label} N={N}", y, ref, VQ_TOL))
+            if N == 8:  # the warps' fragments add in a fixed order
+                y2 = vq.vq_gemv(x, words, lut, bits, vec, m, k)
+                same = torch.equal(y.view(torch.int32), y2.view(torch.int32))
+                print(f"[kernel] vq_gemv {label} N=8: two launches "
+                      f"bit-equal={same}", flush=True)
+                check(same, f"vq_gemv {label}: two launches differ")
+        if name == "o":  # m = 4100: the last m-tile has 4 rows
+            rw = _vq_words(4100, k, bits, vec, device, seed=k + bits)
+            x = torch.randn((8, k), device=device).bfloat16()
+            err["vq_gemv"] = max(err["vq_gemv"], _rel_check(
+                f"vq_gemv vq bits={bits} vec={vec} 4100x{k} N=8",
+                vq.vq_gemv(x, rw, lut, bits, vec, 4100, k),
+                vq.vq_gemv_plain(x, rw, lut, bits, vec, 4100, k), VQ_TOL))
+            del rw
         w = vq.vq_dequant(words, lut, bits, vec, m, k)
         torch.cuda.synchronize()
         w_ref = vq.vq_dequant_plain(words, lut, bits, vec, m, k)

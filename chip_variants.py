@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Compare versions of K1's V=1 CUDA source on one card, and read the SASS
-of the K1 kernels.
+"""Compare versions of a CUDA source of the port on one card, and read the
+SASS of its kernels.
 
   python chip_variants.py time DIR [DIR ...]
       DIR: a copy of qpalette_tpu_torch/csrc (a variant of tcq1_gemv.cu or
@@ -12,13 +12,28 @@ of the K1 kernels.
       (CUDA-graph replays, weights cycled past L2), at Path A's o and
       down and at 4096x4096, in turns A B .. B A: us a call, SM cycles a
       tile at 132 SMs and 1.755 GHz, and ms a Path A step.
+  python chip_variants.py time vq DIR [DIR ...]
+      the same for each DIR's vq.cu (K8, vq_gemv_kernel): ldlq_2_6 at
+      Path C's four shapes and ldlq_1_4 at Path D's down, N = 1; us a call
+      and ms a Path C forward.
   python chip_variants.py sass NEW.cu PARENT.cu KERNEL
       the SASS of every instance of the kernel template KERNEL in two
       builds, instruction by instruction (cuobjdump -sass of nvcc -cubin).
-  python chip_variants.py opcodes SRC PATTERN
+  python chip_variants.py sass NEW_CSRC PARENT_CSRC
+      the same for every kernel of every .cu file of two csrc directories,
+      counted by kernel template.
+  python chip_variants.py opcodes SRC PATTERN [MMAS]
       the opcodes of the instance of SRC whose name matches PATTERN: the
       whole function, and a tile's share in its first unrolled slot
-      (between its 3rd and 31st MMA: 14 tiles of 2 MMAs).
+      (between its 3rd and 31st MMA: 14 tiles of 2 MMAs); with MMAS, the
+      share of one unit of MMAS MMAs (vq_gemv_kernel: a chunk, 16 MMAs at
+      vec 2, 8 at vec 1) in the smallest loop that holds an MMA (branches
+      taken once a tile included), and the instructions an MMA between
+      that loop's first and last MMA.
+  python chip_variants.py conflicts
+      no card: the shared-memory wavefronts a warp's table read of
+      vq_gemv_kernel takes, on uniform random indices, for every ldlq
+      (bits, vec) (vec 2 at bits 9-12 keeps fewer than 32 copies).
 
 Needs the CUDA toolkit (nvcc, cuobjdump); `time` needs a CUDA device.
 """
@@ -38,32 +53,44 @@ CASES = [("o", 4096, 4096, "1mad", 3, 32),
          ("2mad3", 4096, 4096, "2mad", 3, 0),
          ("2mad4", 4096, 4096, "2mad", 4, 0),
          ("kv5", 4096, 4096, "1mad", 5, 0)]
+# (name, m, k, bits, vec, calls a Path C forward)
+VQ_CASES = [("qkv", 6144, 4096, 6, 2, 32), ("o", 4096, 4096, 6, 2, 32),
+            ("ug", 28672, 4096, 6, 2, 32), ("down", 4096, 14336, 6, 2, 32),
+            ("D down", 4096, 14336, 4, 1, 0)]
 SM_HZ, SMS = 1.755e9, 132
+
+
+def _variants(dirs, source, sigs, kernel):
+    """Build each DIR's source beside the others; {DIR: bound library}."""
+    import chip_smoke as cs
+    from qpalette_tpu_torch.kernels import _build as kb
+
+    libs = {}
+    with ThreadPoolExecutor(len(dirs)) as ex:
+        futs = [ex.submit(kb.compile_cu, Path(d) / f"{source}.cu",
+                          kb.BUILD / f"lib{source}_variant{i}.so")
+                for i, d in enumerate(dirs)]
+        for i, (d, fut) in enumerate(zip(dirs, futs)):
+            ents = [e for e in cs.ptxas_entries(fut.result())
+                    if kernel in e[0]]
+            spills = [e[0] for e in ents if cs.SPILL.search(e[2])]
+            regs = sorted({e[1].split(" registers")[0] for e in ents})
+            print(f"[ptxas] {d}: {len(ents)} {kernel} instances, registers "
+                  f"{regs}, spills in {spills}", flush=True)
+            libs[d] = kb.bind(kb.BUILD / f"lib{source}_variant{i}.so", sigs)
+    return libs
 
 
 def time_variants(dirs):
     import torch
 
     import chip_smoke as cs
-    from qpalette_tpu_torch.kernels import _build as kb
     from qpalette_tpu_torch.kernels import arith
 
     _, _, smi = cs.card()
     dev = torch.device("cuda:0")
-    libs = {}
-    with ThreadPoolExecutor(len(dirs)) as ex:
-        futs = [ex.submit(kb.compile_cu, Path(d) / "tcq1_gemv.cu",
-                          kb.BUILD / f"libtcq1_gemv_variant{i}.so")
-                for i, d in enumerate(dirs)]
-        for i, (d, fut) in enumerate(zip(dirs, futs)):
-            ents = [e for e in cs.ptxas_entries(fut.result())
-                    if "v1_gemv" in e[0]]
-            spills = [e[0] for e in ents if cs.SPILL.search(e[2])]
-            regs = sorted({e[1].split(" registers")[0] for e in ents})
-            print(f"[ptxas] {d}: {len(ents)} v1 instances, registers {regs}, "
-                  f"spills in {spills}", flush=True)
-            libs[d] = kb.bind(kb.BUILD / f"libtcq1_gemv_variant{i}.so",
-                              arith.SIGNATURES["tcq1_gemv"])
+    libs = _variants(dirs, "tcq1_gemv", arith.SIGNATURES["tcq1_gemv"],
+                     "v1_gemv")
     copies = {c: cs._copies(c[1], c[2], 8 * c[4], dev)[0] for c in CASES}
     orig = arith._lib
 
@@ -107,6 +134,54 @@ def time_variants(dirs):
         arith._lib = orig
 
 
+def time_vq(dirs):
+    import torch
+
+    import chip_smoke as cs
+    from qpalette_tpu_torch.kernels import vq
+    from qpalette_tpu_torch.ops.codebooks import vq_lut
+
+    _, _, smi = cs.card()
+    dev = torch.device("cuda:0")
+    libs = _variants(dirs, "vq", vq.SIGNATURES, "vq_gemv_kernel")
+    cases = {}
+    for name, m, k, bits, vec, calls in VQ_CASES:
+        nbytes = m * vq.row_words(k, bits, vec) * 4
+        cases[name] = (m, k, bits, vec, calls, torch.tensor(
+            vq_lut(bits, vec), device=dev), [
+            cs._vq_words(m, k, bits, vec, dev, seed=100 + i)
+            for i in range(min(64, -(-3 * cs.L2_BYTES // nbytes)))])
+    orig = vq._lib
+    try:
+        for d, lib in libs.items():
+            if Path(d).name.startswith("probe"):
+                continue
+            vq._lib = lambda lib=lib: lib
+            for name, (m, k, bits, vec, _, lut, cp) in cases.items():
+                for N in (1, 8):
+                    x = torch.randn((N, k), device=dev).bfloat16()
+                    cs._rel_check(
+                        f"{d} {name} bits={bits} vec={vec} N={N}",
+                        vq.vq_gemv(x, cp[0], lut, bits, vec, m, k),
+                        vq.vq_gemv_plain(x, cp[0], lut, bits, vec, m, k),
+                        cs.VQ_TOL)
+        for d in list(libs) + list(libs)[::-1]:
+            vq._lib = lambda lib=libs[d]: lib
+            fwd, per = 0.0, []
+            for name, (m, k, bits, vec, calls, lut, cp) in cases.items():
+                x = torch.randn((1, k), device=dev).bfloat16()
+                out = torch.empty((1, m), device=dev)
+                t = cs._time_ms(lambda i=0: vq.vq_gemv(
+                    x, cp[i % len(cp)], lut, bits, vec, m, k, out=out), 200,
+                    graph=True)
+                fwd += calls * t
+                per.append(f"{name} {t * 1e3:.3f}us")
+            print(f"[time] {d}: vq_gemv {fwd:.4f} ms a Path C forward; "
+                  + ", ".join(per) + f" ({smi})", flush=True)
+    finally:
+        vq._lib = orig
+
+
 def _sass(src, cubin):
     from qpalette_tpu_torch.kernels._build import _nvcc
 
@@ -123,6 +198,43 @@ def _sass(src, cubin):
 def _instructions(func):
     return [re.sub(r"\s+", " ", x).strip() for x in
             re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*;)", func)]
+
+
+def _drop_anon(name):
+    """A mangled name without its anonymous namespace (a length-prefixed
+    _GLOBAL__N__... whose hash differs from build to build)."""
+    m = re.search(r"(\d+)_GLOBAL__N__", name)
+    if not m:
+        return name
+    return name[:m.start()] + name[m.start(1) + len(m.group(1))
+                                    + int(m.group(1)):]
+
+
+def sass_dirs(new_dir, parent_dir):
+    """Every kernel of every .cu file of two csrc directories, by name (the
+    anonymous namespace's hash dropped), counted by kernel template."""
+    for src in sorted(Path(parent_dir).glob("*.cu")):
+        with tempfile.TemporaryDirectory() as tmp:
+            with ThreadPoolExecutor(2) as ex:
+                new, par = ex.map(_sass, [str(Path(new_dir) / src.name),
+                                          str(src)],
+                                  [f"{tmp}/new.cubin", f"{tmp}/parent.cubin"])
+
+        def by_name(funcs):
+            return {_drop_anon(f.split("\n", 1)[0].strip()):
+                    _instructions(f) for f in funcs}
+
+        new, par = by_name(new), by_name(par)
+        count = collections.defaultdict(lambda: [0, 0, 0])
+        for name in set(new) | set(par):
+            base = re.search(r"\d+(\w+?_kernel)I", name)
+            n = count[base.group(1) if base else name]
+            n[0] += name in par and par[name] == new.get(name)
+            n[1] += name in par
+            n[2] += name in new
+        for base, (same, np_, nn) in sorted(count.items()):
+            print(f"[sass] {src.name} {base}: {same} of {np_} parent "
+                  f"instances the same (new has {nn})", flush=True)
 
 
 def sass_diff(new_src, parent_src, kernel):
@@ -151,17 +263,56 @@ def sass_diff(new_src, parent_src, kernel):
           f"{len(par)} (new has {len(new)})")
 
 
-def opcodes(src, pattern):
+def _opcode(ins):
+    return re.match(r"(?:@!?U?P\w+ )?([A-Z0-9_]+)", ins).group(1)
+
+
+def _loop(func):
+    """The smallest loop (a backward branch and its target) that holds an
+    MMA: its instructions."""
+    lines = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*;)", func)
+    addr = [int(a, 16) for a, _ in lines]
+    ins = [re.sub(r"\s+", " ", t).strip() for _, t in lines]
+    best = None
+    for i, t in enumerate(ins):
+        br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)
+        if not br or int(br.group(1), 16) >= addr[i]:
+            continue
+        j = addr.index(int(br.group(1), 16))
+        body = ins[j:i + 1]
+        if (any(_opcode(b) in ("IMMA", "HMMA") for b in body)
+                and (best is None or len(body) < len(best))):
+            best = body
+    return best
+
+
+def opcodes(src, pattern, mmas=None):
     with tempfile.TemporaryDirectory() as tmp:
         funcs = _sass(src, f"{tmp}/op.cubin")
     for f in funcs:
         head = f.split("\n", 1)[0]
         if not re.search(pattern, head):
             continue
-        ops = [re.match(r"(?:@!?U?P\w+ )?([A-Z0-9_]+)", i).group(1)
-               for i in _instructions(f)]
+        ops = [_opcode(i) for i in _instructions(f)]
         top = collections.Counter(ops).most_common(30)
         print(f"{head}: {len(ops)} instructions; {top}")
+        if mmas:
+            loop = [_opcode(i) for i in _loop(f)]
+            body = collections.Counter(loop)
+            units = (body["HMMA"] + body["IMMA"]) / int(mmas)
+            print(f"  loop of {sum(body.values())} instructions, {units:g} "
+                  f"units of {mmas} MMAs: {sum(body.values()) / units:.1f} "
+                  f"instructions a unit; " + ", ".join(
+                      f"{op} {n / units:.2f}" for op, n in
+                      body.most_common()), flush=True)
+            at = [i for i, op in enumerate(loop) if op in ("IMMA", "HMMA")]
+            win = collections.Counter(loop[at[0] + 1:at[-1] + 1])
+            n = len(at) - 1  # an MMA and the work that feeds the next one
+            print(f"  from its first MMA to its last: "
+                  f"{sum(win.values()) / n:.1f} instructions an MMA; "
+                  + ", ".join(f"{op} {c / n:.2f}"
+                              for op, c in win.most_common()), flush=True)
+            continue
         mma = [i for i, op in enumerate(ops) if op in ("IMMA", "HMMA")]
         win = collections.Counter(ops[mma[2]:mma[30]])
         print(f"  first unrolled slot: {sum(win.values()) / 14:.1f} "
@@ -169,8 +320,37 @@ def opcodes(src, pattern):
                   f"{op} {n / 14:.2f}" for op, n in win.most_common()))
 
 
+def conflicts(samples=20000, seed=0):
+    """Mean and largest wavefronts of a warp's table read (uniform random
+    windows): lane l reads copy l mod C of its entry, entry e's copies at
+    words e*C .. e*C + C - 1, bank = word mod 32."""
+    import numpy as np
+
+    from qpalette_tpu_torch.kernels import vq
+
+    rng = np.random.default_rng(seed)
+    lane = np.arange(32)
+    for bits, vec in vq.SUPPORTED:
+        win = 2 * bits if vec == 1 and bits <= 4 else bits
+        cb = min(5, vq.GEMV_TABLE_BITS - 2 - win)
+        e = rng.integers(0, 1 << win, (samples, 32))
+        word = (e << cb) | (lane & ((1 << cb) - 1))
+        waves = np.zeros(samples, np.int64)
+        for b in range(32):  # distinct words a bank serves
+            w = np.where(word % 32 == b, word, -1)
+            w.sort(axis=1)
+            distinct = ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1)
+            waves = np.maximum(waves, distinct + (w[:, 0] >= 0))
+        print(f"[conflicts] bits={bits} vec={vec}: {1 << win} entries x "
+              f"{1 << cb} copies ({(4 << win << cb) // 1024} KB), "
+              f"wavefronts a read: mean {waves.mean():.3f}, max "
+              f"{waves.max()}", flush=True)
+
+
 if __name__ == "__main__":
     cmd, args = sys.argv[1], sys.argv[2:]
-    {"time": lambda: time_variants(args),
-     "sass": lambda: sass_diff(*args),
-     "opcodes": lambda: opcodes(*args)}[cmd]()
+    {"time": lambda: (time_vq(args[1:]) if args[0] == "vq"
+                      else time_variants(args)),
+     "sass": lambda: sass_diff(*args) if len(args) == 3 else sass_dirs(*args),
+     "opcodes": lambda: opcodes(*args),
+     "conflicts": conflicts}[cmd]()

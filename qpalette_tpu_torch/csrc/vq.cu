@@ -11,42 +11,61 @@
 // LSB-first; it straddles two words whenever (p*bits mod 32) + bits > 32,
 // and the trailing pad word keeps the last window's second word inside
 // the row.  Index p selects row idx of the (2^bits, vec) float32 codebook,
-// whose vec values land on columns p*vec .. p*vec + vec - 1 of W_hat.  The
-// codebook is rounded to bf16 once per block, into shared memory (bf16 for
-// vec 1, packed bf16x2 words for vec 2, component 0 in the low half), as the
-// TPU kernel rounds every decoded value to bf16.  Lane l of a warp decodes
-// positions l, l + 32, ... of a row, so the 32 windows a warp reads at once
-// lie in bits*4 contiguous bytes (one or two sectors through L1) and its
-// table reads go to 32 entries at random (bank conflicts at most; broadcast
-// for small tables).
+// whose vec values land on columns p*vec .. p*vec + vec - 1 of W_hat.  Both
+// kernels round the codebook to bf16 once per block, into shared memory, as
+// the TPU kernels round every decoded value to bf16.  Since P is a multiple
+// of 128 and W = 4*bits*(P/128), the row stride W + 1 is 1 mod 4 words.
 //
 // GEMV (N <= 8 rows of bf16 x): y = x @ W_hat^T in float32, no Wscale.
-// What bounds it: each weight is read once as bits/vec bits of row-pack and
-// costs one table read and vec FMAs a row of x, so at bs=1 the row-pack
-// bytes streamed from device memory, and at small m the latency.  Design:
-// a warp owns one output row at a time (a capped grid, rows taken in a
-// grid-stride loop, so the table is loaded once per block) and walks the
-// whole row with no block barrier.  Lane l takes groups l, l + 32, ... of
-// G = 32/gcd(bits, 32) positions, which fill bits*G/32 whole words: it
-// loads those words once (__ldg) and cuts the G indices out with shifts
-// that are compile-time constants, then reads x (all N rows, so each
-// decoded weight is reused N times) through L1 as 8- or 16-byte pieces.
-// Row sums stay in registers and are reduced once by warp shuffles.  (On
-// an H100 a first design, x staged in shared memory per 512-column chunk
-// with two barriers a chunk, ran at ~6% of the HBM rate; a second, one
-// window and two 4-byte loads a position, was bound by the instructions
-// it issued a weight.)
+// What bounds it: each weight is read once as bits/vec bits of row-pack, so
+// at bs=1 the row-pack bytes streamed from device memory; on the SMs, the
+// instructions that cut an index out of its words and the shared-memory
+// table reads (one a 32-bit entry).  Design: a tensor-core GEMV.  A warp
+// computes a 16-row m-tile against up to 8 rows of x with
+// mma.m16n8k16.bf16: the decoded weights are the A operand, x the B operand
+// (B columns n >= N are zero and their C columns are never stored).
+//  - A chunk is 128 positions of a row, 4*bits words.  Lane (g, c) takes
+//    the contiguous run of positions 32c .. 32c+31 of rows g and g+8 of the
+//    m-tile: exactly `bits` whole words of each row.  The k order inside an
+//    MMA is free as long as A and B agree: MMA j of a chunk takes, at k slots
+//    (2c, 2c+1) and (2c+8, 2c+9), run positions 2j and 2j+1 (vec 2: one
+//    bf16x2 entry each) or 4j, 4j+1 and 4j+2, 4j+3 (vec 1), so its B is x
+//    row g at the run's columns 4j .. 4j+3: 8 bytes, two MMAs a 16-byte
+//    load.  Every window's word and shift is a compile-time constant; a
+//    window across two words is one funnel shift; the pad word is never read.
+//  - The stream: the rows are only 4-byte aligned, so a warp copies the
+//    16-byte pieces that hold its 16 rows' next two chunks (cp.async, 16
+//    bytes a lane, coalesced) into one of the two stages of its ring in
+//    shared memory while it multiplies the other stage; lanes read their
+//    runs from there.  Only the pack's last rows take a copy size that
+//    stops at the pack's end.
+//  - The table holds 32-bit entries in 32 copies, entry e's copy r at word
+//    32e + r: lane l reads copy l, its own bank, so the reads never
+//    conflict, and an index costs a shift, a LOP3 (mask, OR the lane's byte
+//    offset) and one LDS.  vec 2: the bf16x2 of a codebook row.  vec 1 at
+//    bits <= 4: a pair table of 2^(2 bits) entries, indexed by the window of
+//    two adjacent positions, each the bf16x2 of two weights.  vec 1 at bits
+//    5-8: bf16 entries, two reads and a PRMT an A register.  The table is at
+//    most 32 KB (8 KB at bits 6, vec 2), so vec 2 at bits 9-12 keeps 16, 8,
+//    4 and 2 copies (lane l reads copy l mod copies) and lanes that share a
+//    copy can conflict.
+//  - Work split: a capped grid of blocks of 8 warps walks the m-tiles (the
+//    table is built once a block, while the first stage streams); in an
+//    m-tile the warps split its chunks into 8 contiguous ranges, and their C
+//    fragments are summed in warp order through shared memory: no atomics,
+//    so two launches give the same bits.  Rows past m read row m - 1 and are
+//    never stored.
 //
 // Dequant: the row-pack -> bf16 W_hat (m, k), natural order.  What bounds
 // it: 2 bytes written per weight against bits/(8*vec) read, so the bf16
-// writes.  Design: a capped grid of blocks (the table is loaded once per
-// block); each warp takes 256 columns of one row at a time, lane l the 8
-// columns l*8 .. l*8 + 7, written as one 16-byte store: 512 contiguous
-// bytes a warp.
+// writes.  Design: a capped grid of blocks (the table, one bf16 or bf16x2
+// entry a codebook row, is loaded once per block); each warp takes 256
+// columns of one row at a time, lane l the 8 columns l*8 .. l*8 + 7,
+// written as one 16-byte store: 512 contiguous bytes a warp.
 //
-// Staging the row-pack through shared memory with cp.async or TMA, several
-// rows per lane at small m, and a tensor-core product fused with the
-// dequant are later work.
+// A row stride padded to 16 bytes, which would let TMA or 16-byte loads
+// stream the row-pack, and a tensor-core product fused with the dequant are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,13 +73,14 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;    // GEMV activation rows
 constexpr int kAlignPos = 128; // P must be a multiple of this
-constexpr int kGemvBlocks = 1056;     // one wave of 8 per SM
 constexpr int kDequantBlocks = 2112;  // two waves of 8 per SM
 
 template <int VEC>
@@ -92,93 +112,334 @@ __device__ __forceinline__ uint32_t index_at(const uint32_t* __restrict__ rw,
   return __funnelshift_r(lo, hi, sh) & ((1u << BITS) - 1u);
 }
 
-__host__ __device__ constexpr int gcd(int a, int b) {
-  return b ? gcd(b, a % b) : a;
+// --- the tensor-core GEMV --------------------------------------------------
+
+constexpr int kTabBytes = 1 << 15;  // the GEMV's largest table
+constexpr int kGemvWarps = 8;       // warps a block: they split a tile's k
+constexpr int kGemvThreads = 32 * kGemvWarps;
+
+// vq_gemv_kernel's view of a (bits, vec) pair
+template <int BITS, int VEC>
+struct VqGemv {
+  static constexpr bool kPair = VEC == 1 && BITS <= 4;  // a read, two weights
+  static constexpr int kWin = kPair ? 2 * BITS : BITS;  // bits a read's window
+  static constexpr int kEntries = 1 << kWin;
+  // copies of an entry: 32, or as many as fit in kTabBytes
+  static constexpr int kCopyBits = 13 - kWin < 5 ? 13 - kWin : 5;
+  static constexpr int kShift = 2 + kCopyBits;  // entry e at byte e << kShift
+  static constexpr int kCols = kAlignPos * VEC;  // x columns a chunk
+  static constexpr int kMmas = kCols / 16;       // MMAs a chunk
+  static constexpr int kLaneCols = kCols / 4;    // a lane's x columns of it
+  static_assert((kEntries << kCopyBits) * 4 <= kTabBytes, "table size");
+};
+
+// entry e of the table: the codebook rounded to bf16 (vec 2: row e as
+// bf16x2; the pair table: rows e % 2^BITS and e >> BITS; else row e in the
+// low half)
+template <int BITS, int VEC>
+__device__ __forceinline__ uint32_t table_entry(const float* __restrict__ lut,
+                                                int e) {
+  const auto bf = [](float v) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+  };
+  if constexpr (VEC == 2) {
+    const float2 v = reinterpret_cast<const float2*>(lut)[e];
+    return bf(v.x) | bf(v.y) << 16;
+  } else if constexpr (VqGemv<BITS, VEC>::kPair) {
+    return bf(lut[e & ((1 << BITS) - 1)]) | bf(lut[e >> BITS]) << 16;
+  } else {
+    return bf(lut[e]);
+  }
 }
 
-// index q of a group whose words are w (q, and so every shift, is a
-// compile-time constant once the caller's loops are unrolled)
-template <int BITS, int WG>
-__device__ __forceinline__ uint32_t group_index(const uint32_t (&w)[WG],
-                                                int q) {
-  const int o = q * BITS, j = o >> 5, sh = o & 31;
-  uint32_t v = w[j] >> sh;
-  if (sh + BITS > 32) v |= w[j + 1 < WG ? j + 1 : j] << (32 - sh);
-  return v & ((1u << BITS) - 1u);
+// The table entry of the window at bit o of a lane's run w, read from the
+// lane's copy (tab: the table's shared-memory address, the same in every
+// lane; lo: the copy's byte offset).  o, and so the word and the shifts,
+// is a compile-time constant once the caller's loops are unrolled.
+template <class T, int NW>
+__device__ __forceinline__ uint32_t lookup(const uint32_t (&w)[NW], int o,
+                                           uint32_t tab, uint32_t lo) {
+  constexpr int kW = T::kWin, kS = T::kShift;
+  const int i = o >> 5, sh = o & 31;
+  uint32_t v;  // the window at bits [kS, kS + kW)
+  if (sh + kW > 32)  // then sh > 32 - kW >= 20 > kS
+    v = __funnelshift_r(w[i], w[i + 1 < NW ? i + 1 : i], sh - kS);
+  else if (sh >= kS)
+    v = w[i] >> (sh - kS);
+  else
+    v = w[i] << (kS - sh);
+  uint32_t e;
+  asm volatile("ld.shared.u32 %0, [%1];"
+               : "=r"(e)
+               : "r"(((v & (((1u << kW) - 1u) << kS)) | lo) + tab));
+  return e;
 }
 
-template <int BITS, int VEC, int NG>
-__global__ void __launch_bounds__(kThreads)
+// A register of MMA j from the run w of one row: k slots (2c, 2c+1) for
+// hi = 0, (2c+8, 2c+9) for hi = 1
+template <class T, int BITS, int VEC>
+__device__ __forceinline__ uint32_t a_reg(const uint32_t (&w)[BITS], int j,
+                                          int hi, uint32_t tab, uint32_t lo) {
+  if constexpr (VEC == 2) {
+    return lookup<T>(w, (2 * j + hi) * BITS, tab, lo);
+  } else {
+    const int q = 4 * j + 2 * hi;
+    if constexpr (T::kPair) return lookup<T>(w, q * BITS, tab, lo);
+    return __byte_perm(lookup<T>(w, q * BITS, tab, lo),
+                       lookup<T>(w, (q + 1) * BITS, tab, lo), 0x5410);
+  }
+}
+
+// Build the table: a thread loads its entries (all in flight at once) and
+// stores each entry's copies, 16 bytes at a time from a lane-rotated
+// start so that a warp's stores spread over the banks.
+template <int BITS, int VEC>
+__device__ __forceinline__ void build_table(const float* __restrict__ lut,
+                                            uint32_t* tab) {
+  using T = VqGemv<BITS, VEC>;
+  constexpr int kCopies = 1 << T::kCopyBits;
+  constexpr int kPer = (T::kEntries + kGemvThreads - 1) / kGemvThreads;
+  const int tid = threadIdx.x;
+  uint32_t ent[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r)
+    if (tid + r * kGemvThreads < T::kEntries)
+      ent[r] = table_entry<BITS, VEC>(lut, tid + r * kGemvThreads);
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int e = tid + r * kGemvThreads;
+    if (e >= T::kEntries) break;
+    if constexpr (kCopies == 2) {
+      reinterpret_cast<uint2*>(tab)[e] = make_uint2(ent[r], ent[r]);
+    } else {
+      uint4* dst = reinterpret_cast<uint4*>(tab) + e * (kCopies / 4);
+#pragma unroll
+      for (int q = 0; q < kCopies / 4; ++q)
+        dst[(q + tid) & (kCopies / 4 - 1)] =
+            make_uint4(ent[r], ent[r], ent[r], ent[r]);
+    }
+  }
+}
+
+// A warp's ring in shared memory: two stages of CHUNKS chunks.  A row's
+// 16*CHUNKS*BITS bytes of a stage start 4*(row & 3) bytes past a 16-byte
+// boundary of the row-pack (the row stride is 1 mod 4 words, the pack
+// 16-byte aligned): the CHUNKS*BITS + 1 pieces of 16 bytes from that
+// boundary hold them, and are copied whole (cp.async, 16 bytes a lane) to
+// the row's place in the stage, a stride of ring_row_words apart.
+constexpr int run_conflicts(int bits, int s) {  // of the lanes' run reads
+  int worst = 0;
+  for (int i = 0; i < bits; ++i)
+    for (int b = 0; b < 32; ++b) {
+      int n = 0;
+      for (int g = 0; g < 8; ++g)
+        for (int c = 0; c < 4; ++c)
+          n += (s * g + (g & 3) + bits * c + i) % 32 == b;
+      worst = n > worst ? n : worst;
+    }
+  return worst;
+}
+
+constexpr int ring_row_words(int bits, int pieces) {  // least conflicted
+  int best = 4 * pieces;
+  for (int s = best + 4; s <= best + 28; s += 4)
+    if (run_conflicts(bits, s) < run_conflicts(bits, best)) best = s;
+  return best;
+}
+
+constexpr int ring_stage_bytes(int bits, int chunks) {  // 16 rows
+  return 64 * ring_row_words(bits, chunks * bits + 1);
+}
+
+template <int BITS, int CHUNKS>
+struct VqRing {
+  static constexpr int kChunks = CHUNKS;             // chunks a stage
+  static constexpr int kPieces = CHUNKS * BITS + 1;  // 16-byte pieces a row
+  static constexpr int kRowBytes = 4 * ring_row_words(BITS, kPieces);
+  static constexpr int kStageBytes = ring_stage_bytes(BITS, CHUNKS);
+  static constexpr int kStages = 2;  // one multiplied, one streaming
+  static constexpr int kCopies = (16 * kPieces + 31) / 32;  // a lane's
+  static constexpr int kBytes = kStages * kStageBytes;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+// bytes < 16: the rest of the 16 is zero-filled, nothing past src + bytes
+// is read
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Dynamic shared memory of a block: the table, the warps' C fragments
+// (two buffers), the warps' rings: of two-chunk stages where two blocks
+// still fit an SM, else of one-chunk stages (vec 2 at bits 9-12)
+template <int BITS, int VEC>
+struct VqSmem {
+  static constexpr int kTab = (VqGemv<BITS, VEC>::kEntries
+                               << VqGemv<BITS, VEC>::kCopyBits) * 4;
+  static constexpr int kRed = kTab;
+  static constexpr int kRing0 = kRed + 2 * kGemvWarps * 32 * 16;
+  static constexpr int kChunks =
+      kRing0 + kGemvWarps * 2 * ring_stage_bytes(BITS, 2) <= 113 * 1024 ? 2
+                                                                     : 1;
+  using Ring = VqRing<BITS, kChunks>;
+  static constexpr int kBytes = kRing0 + kGemvWarps * Ring::kBytes;
+};
+
+template <int BITS, int VEC>
+__global__ void __launch_bounds__(kGemvThreads, 2)
 vq_gemv_kernel(const __nv_bfloat16* __restrict__ x,
                const uint32_t* __restrict__ qw, const float* __restrict__ lut,
                float* __restrict__ out, int N, int m, int k, int ldw) {
-  // a lane's group: G positions filling WG whole words
-  constexpr int G = 32 / gcd(BITS, 32), WG = G * BITS / 32;
-  static_assert(G % 4 == 0, "x is read 4 positions at a time");
-  __shared__ Entry<VEC> tab[1 << BITS];
-  load_table<BITS, VEC>(lut, tab);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ngroups = k / VEC / G;  // P is a multiple of 128, so of G
-  const auto* xh = reinterpret_cast<const uint16_t*>(x);
-  for (int row = blockIdx.x * kWarps + warp; row < m;
-       row += gridDim.x * kWarps) {
-    const uint32_t* rw = qw + (size_t)row * ldw;
-    float acc[NG];
+  using T = VqGemv<BITS, VEC>;
+  using L = VqSmem<BITS, VEC>;
+  using R = typename L::Ring;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float4* red = reinterpret_cast<float4*>(smem + L::kRed);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int mtiles = (m + 15) >> 4, nc = k / T::kCols;
+  const int c0 = nc * warp / kGemvWarps, c1 = nc * (warp + 1) / kGemvWarps;
+  const uint32_t ring = qpt::smem_addr(smem + L::kRing0 + warp * R::kBytes);
+  const auto* pack = reinterpret_cast<const uint8_t*>(qw);
+  const long long pack_bytes = 4ll * m * ldw;
+
+  // this lane's pieces of a stage: piece u = 32t + lane is piece u %
+  // kPieces of row u / kPieces; for the m-tile being issued, its byte
+  // offset from the tile's first row
+  const auto ok = [&](int t) { return 32 * t + lane < 16 * R::kPieces; };
+  uint32_t dst[R::kCopies], src[R::kCopies];
 #pragma unroll
-    for (int n = 0; n < NG; ++n) acc[n] = 0.f;
-    for (int gi = lane; gi < ngroups; gi += 32) {
-      uint32_t w[WG];
+  for (int t = 0; t < R::kCopies; ++t) {
+    const int u = 32 * t + lane;
+    dst[t] = u / R::kPieces * R::kRowBytes + 16 * (u % R::kPieces);
+  }
+  const uint8_t* tile = pack;  // the first row of the m-tile being issued
+  const auto issue_tile = [&](int mt) {
+    tile = pack + 64ll * mt * ldw;
 #pragma unroll
-      for (int j = 0; j < WG; ++j) w[j] = __ldg(rw + (size_t)gi * WG + j);
-      const int p0 = gi * G;
+    for (int t = 0; t < R::kCopies; ++t) {
+      const int u = 32 * t + lane;
+      const int row = min(16 * mt + u / R::kPieces, m - 1);
+      src[t] = 4 * (row - 16 * mt) * ldw - 4 * (row & 3) +
+               16 * (u % R::kPieces);
+    }
+  };
+  int imt = blockIdx.x, ich = c0;  // the next stage to issue: its first chunk
+  if (c0 < c1) issue_tile(imt);
+  const auto issue = [&](int slot) {  // one commit group a call
+    if (c0 < c1 && imt < mtiles) {
+      const uint32_t st = ring + slot * R::kStageBytes;
+      const int off = ich * 16 * BITS;
+      if (imt < mtiles - 1 || ich + R::kChunks < nc) {
 #pragma unroll
-      for (int b = 0; b < G / 4; ++b) {
-        uint32_t e[4];
+        for (int t = 0; t < R::kCopies; ++t)
+          if (ok(t)) cp_async16(st + dst[t], tile + (src[t] + off));
+      } else {  // the pack's last rows: read nothing past its end
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          e[t] = tab[group_index<BITS, WG>(w, 4 * b + t)];
-#pragma unroll
-        for (int n = 0; n < NG; ++n) {
-          // rows of x past N are read from row 0 and never stored
-          const size_t xo = (size_t)(n < N ? n : 0) * k;
-          if constexpr (VEC == 1) {
-            // 4 bf16 of x, one a position
-            const uint2 xv =
-                __ldg(reinterpret_cast<const uint2*>(xh + xo + p0) + b);
-            const uint32_t xs[2] = {xv.x, xv.y};
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              const uint32_t xw = xs[t >> 1];
-              const float xf = __uint_as_float((t & 1) ? xw & 0xffff0000u
-                                                       : xw << 16);
-              acc[n] = fmaf(xf, __uint_as_float(e[t] << 16), acc[n]);
-            }
-          } else {
-            // 8 bf16 of x, a pair a position
-            const uint4 xv =
-                __ldg(reinterpret_cast<const uint4*>(xh + xo + 2 * p0) + b);
-            const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              acc[n] = fmaf(__uint_as_float(xs[t] << 16),
-                            __uint_as_float(e[t] << 16), acc[n]);
-              acc[n] = fmaf(__uint_as_float(xs[t] & 0xffff0000u),
-                            __uint_as_float(e[t] & 0xffff0000u), acc[n]);
-            }
-          }
+        for (int t = 0; t < R::kCopies; ++t) {
+          const uint8_t* p = tile + (src[t] + off);
+          const long long left = pack + pack_bytes - p;
+          if (ok(t))
+            cp_async16(st + dst[t], p,
+                       left < 0 ? 0u : left < 16 ? (uint32_t)left : 16u);
         }
       }
+      ich += R::kChunks;
+      if (ich >= c1) {
+        ich = c0;
+        imt += gridDim.x;
+        if (imt < mtiles) issue_tile(imt);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);  // the first stage streams while the table is built
+  build_table<BITS, VEC>(lut, reinterpret_cast<uint32_t*>(smem));
+  __syncthreads();
+  const uint32_t ta = qpt::smem_addr(smem);
+  const uint32_t lo = (lane & ((1 << T::kCopyBits) - 1)) << 2;
+  const bool xrow = g < N;  // B columns n >= N stay 0
+  const __nv_bfloat16* xp = x + (size_t)(xrow ? g : 0) * k + c * T::kLaneCols;
+  uint4 xv[T::kMmas / 2] = {};
+  float acc[4];
+  // one chunk: its runs from the stage at st (rows g and g+8, words
+  // c*BITS ..), multiplied against x's columns of chunk ch
+  const auto chunk = [&](uint32_t st, const uint32_t (&run)[2], int ch) {
+    uint32_t w[2][BITS];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < BITS; ++i)
+        asm volatile("ld.shared.u32 %0, [%1];"
+                     : "=r"(w[h][i])
+                     : "r"(st + run[h] + 4 * i));
+    if (xrow) {
+#pragma unroll
+      for (int j = 0; j < T::kMmas / 2; ++j)
+        xv[j] = __ldg(reinterpret_cast<const uint4*>(xp + ch * T::kCols) + j);
     }
 #pragma unroll
-    for (int n = 0; n < NG; ++n) {
-      float v = acc[n];
+    for (int j = 0; j < T::kMmas; ++j)
+      qpt::mma_bf16(acc, a_reg<T, BITS, VEC>(w[0], j, 0, ta, lo),
+                    a_reg<T, BITS, VEC>(w[1], j, 0, ta, lo),
+                    a_reg<T, BITS, VEC>(w[0], j, 1, ta, lo),
+                    a_reg<T, BITS, VEC>(w[1], j, 1, ta, lo),
+                    j & 1 ? make_uint2(xv[j / 2].z, xv[j / 2].w)
+                          : make_uint2(xv[j / 2].x, xv[j / 2].y));
+  };
+  int slot = 0;
+  for (int mt = blockIdx.x, buf = 0; mt < mtiles;
+       mt += gridDim.x, buf ^= 1) {
+    uint32_t run[2];  // lane (g, c)'s run of a stage's first chunk
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && n < N) out[(size_t)n * m + row] = v;
+    for (int h = 0; h < 2; ++h) {
+      const int row = min(16 * mt + g + 8 * h, m - 1);
+      run[h] = (g + 8 * h) * R::kRowBytes + 4 * (row & 3) + 4 * c * BITS;
+    }
+    const uint32_t run1[2] = {run[0] + 16 * BITS, run[1] + 16 * BITS};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] = 0.f;
+    for (int ch = c0; ch < c1; ch += R::kChunks) {
+      cp_async_wait_all();  // this lane's copies of the stage
+      __syncwarp();         // and every lane's have landed
+      const uint32_t st = ring + slot * R::kStageBytes;
+      slot ^= 1;
+      issue(slot);  // into the slot the previous stage was read from
+      chunk(st, run, ch);
+      if (R::kChunks == 2 && ch + 1 < c1) chunk(st, run1, ch + 1);
+    }
+    // C element (row, n) sits in lane 4*(row%8) + n/2, register
+    // 2*(row/8) + n%2; the two buffers let the next m-tile's fragments be
+    // written while this one's are read
+    red[(buf * kGemvWarps + warp) * 32 + lane] =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    __syncthreads();
+    if (tid < 16 * N) {
+      const int row = tid & 15, n = tid >> 4;
+      const int src_lane = 4 * (row & 7) + (n >> 1);
+      const int comp = 2 * (row >> 3) + (n & 1);
+      float v = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kGemvWarps; ++wi)
+        v += reinterpret_cast<const float*>(
+            &red[(buf * kGemvWarps + wi) * 32 + src_lane])[comp];
+      if (16 * mt + row < m) out[(size_t)n * m + 16 * mt + row] = v;
     }
   }
+  cp_async_wait_all();
 }
 
 template <int BITS, int VEC>
@@ -221,18 +482,28 @@ vq_dequant_kernel(const uint32_t* __restrict__ qw,
 template <int BITS, int VEC>
 int gemv(const void* x, const void* qw, const void* lut, void* out, int N,
          int m, int k, int ldw, cudaStream_t st) {
-  const int need = (m + kWarps - 1) / kWarps;
-  const dim3 grid(need < kGemvBlocks ? need : kGemvBlocks);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* q = static_cast<const uint32_t*>(qw);
-  const auto* l = static_cast<const float*>(lut);
-  float* o = static_cast<float*>(out);
-  if (N == 1)
-    vq_gemv_kernel<BITS, VEC, 1><<<grid, kThreads, 0, st>>>(xp, q, l, o, N,
-                                                            m, k, ldw);
-  else
-    vq_gemv_kernel<BITS, VEC, kMaxRows><<<grid, kThreads, 0, st>>>(
-        xp, q, l, o, N, m, k, ldw);
+  constexpr int smem = VqSmem<BITS, VEC>::kBytes;
+  static unsigned long long ready = 0;  // devices it may take smem on
+  static int per_sm = 0;  // blocks of this instance an SM holds
+  const auto kernel = vq_gemv_kernel<BITS, VEC>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev >= 64 || !((ready >> dev) & 1))) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kGemvThreads, smem);
+    if (e == cudaSuccess && dev < 64) ready |= 1ull << dev;
+  }
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int mtiles = (m + 15) / 16;
+  const int grid = mtiles < per_sm * sms ? mtiles : per_sm * sms;
+  kernel<<<grid, kGemvThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qw),
+      static_cast<const float*>(lut), static_cast<float*>(out), N, m, k, ldw);
   return (int)cudaGetLastError();
 }
 

@@ -33,17 +33,22 @@ MAX_ROWS = 8  # GEMV rows; more rows take the dequant + product path
 ALIGN_P = 128  # indices a row must be a multiple of this
 SUPPORTED = tuple([(b, 1) for b in range(2, 9)]
                   + [(b, 2) for b in range(3, 13)])  # (bits, vec)
+# the GEMV's shared-memory table (kTabBytes of csrc/vq.cu): 2^15 bytes,
+# min(32, 2^(13-w)) copies of each 32-bit entry of a w-bit window
+GEMV_TABLE_BITS = 15
+GEMV_WARPS = 8  # warps a block of the GEMV: they split a row's chunks
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+SIGNATURES = {  # the C interface of csrc/vq.cu
+    "vq_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vq_dequant": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return _build.load(SOURCE, {
-        "vq_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "vq_dequant": [_P, _P, _P, _I, _I, _I, _I, _P],
-    })
+    return _build.load(SOURCE, SIGNATURES)
 
 
 def row_words(k: int, bits: int, vec: int) -> int:

@@ -5,7 +5,8 @@ shapes, the arithmetic
 dequants (K2, K3) at the same shapes, the LUT trellis kernels (tcq /
 tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship and at KV 3,
 the SQ/VQ row-pack kernels (K8, K9) at the shapes of the ldlq_2_6 path and
-at every ldlq (bits, vec), and the int8 lm_head GEMVs (K10, K11) at the
+at every ldlq (bits, vec) (K8 also at m not a multiple of 16, and two
+launches bit-equal), and the int8 lm_head GEMVs (K10, K11) at the
 8B head's shape.  Marked ``gpu``; each test skips itself when no CUDA
 device is present.
 
@@ -353,6 +354,40 @@ def test_vq_kernels_match_plain_on_card(cuda, bits, vec, m, k):
     assert vq.vq_dequant.launches == before + 1
     ref = vq.vq_dequant_plain(words, lut, bits, vec, m, k)
     assert torch.equal(w.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("N", [1, 8])
+@pytest.mark.parametrize("bits,vec,m,k", [(6, 2, 4096, 4096),
+                                          (4, 1, 4096, 14336)])
+def test_vq_gemv_launches_are_bit_equal(cuda, bits, vec, m, k, N):
+    """Two launches on the same inputs give the same bits (the warps' C
+    fragments are summed in a fixed order, without atomics), at Path C's o
+    and Path D's down."""
+    words, lut = _vq_case(bits, vec, m, k, cuda, seed=5 * m + k)
+    x = torch.randn((N, k), device=cuda).bfloat16()
+    ys = []
+    for _ in range(2):
+        before = vq.vq_gemv.launches
+        ys.append(vq.vq_gemv(x, words, lut, bits, vec, m, k))
+        torch.cuda.synchronize()
+        assert vq.vq_gemv.launches == before + 1
+    assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("bits,vec", vq.SUPPORTED)
+def test_vq_gemv_ragged_m_matches_plain(cuda, bits, vec):
+    """m not a multiple of 16 (the last m-tile's missing rows read a valid
+    row and are never stored), one m-tile or many, k of three chunks and
+    of 56 (Path C's down): within 1e-4 of max|y| at N in {1, 8}."""
+    for m, k in ((5, 384 * vec), (4100, 384 * vec), (1000, 7168 * vec)):
+        words, lut = _vq_case(bits, vec, m, k, cuda, seed=m + k + bits)
+        for N in (1, 8):
+            x = torch.randn((N, k), device=cuda).bfloat16()
+            y = vq.vq_gemv(x, words, lut, bits, vec, m, k)
+            torch.cuda.synchronize()
+            ref = vq.vq_gemv_plain(x, words, lut, bits, vec, m, k)
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= 1e-4, (m, k, N, rel)
 
 
 def _head_case(device, N, seed):
