@@ -4,6 +4,7 @@
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
       [--ab tcq2_gemv|tcq2mix|tcq1_gemv|tcq_lut|vq]
+  python chip_smoke.py --recapture N
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
 decode (--ab tcq2_gemv, the default), K1 dualmad at Path A's shapes with
@@ -13,7 +14,8 @@ K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
 or K8 at Path C's and Path D's shapes, every other ldlq scheme at o and
 down, and the Path C decode (--ab vq), with the source against the same
 source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
-`git archive`).
+`git archive`).  With --recapture N it runs only recapture: fresh
+captures of the 215 step timed over N consecutive windows of replays.
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -48,12 +50,12 @@ Phases (each raises on failure):
   6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
      cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
-     129 sum2 K1 launches per forward; decode twice for determinism
+     129 sum2 K1 launches per forward
   7. the flagship path: the 8B model from the 3.25-bit mem-constrained
      solver output (unmerged tcq 6/8/10 and tcomb 8/9, bf16 lm_head, impl
      exact, dummy weights from seed 0); the 16-token prefill launches 194
      tcq + 30 tcomb dequants, each of 64 decode forwards 194 tcq + 30
-     tcomb GEMVs; decode twice for determinism
+     tcomb GEMVs
   8. Path A: the 8B tcq2mix model (merged qkv tcq2_6 and ug tcq2_7 in mode
      dualmad, o/down tcq1_3 in mode 1mad, the 4-bit tcq2s_8 lm_head), impl
      a8 and impl exact; prefill 16 and decode 64, 129 K1 launches per
@@ -69,12 +71,25 @@ Phases (each raises on failure):
  9c. Path D: 8 layers of ldlq_1_4 (4-bit scalar, unmerged) with the int8
      head built here without the rotation: 56 K9 in the prefill, 56 K8 + 1
      K11 a decode forward
+ 9d. after its counted eager run, each decode path (6, 7, both impls of
+     8, 9b, 9c) runs through the captured step (runtime/decode.py, one
+     CUDA graph replay a token): the launches recorded at capture equal
+     the path's per-forward counts; 4 replays give the eager forward's
+     logits and caches bit for bit from the same caches and position;
+     greedy generate_fast gives the eager loop's 65 tokens; two sampled
+     generate_fast runs with one seed, and generate with it, agree;
+     tokens/s of the eager loop beside the graph's; a torch.profiler trace
+     of 8 replays (device busy share of the wall time, device time a step,
+     the top 10 device ops a step, GEMV against glue, host enqueue a
+     replay); 64 replays timed while nvidia-smi samples the SM clock and
+     power draw
  10. 2-layer models with each path's scheme mix on the CPU (plain
      versions) against the same weights on the card (kernels); the tcq2mix
      one with a 300-token exact prompt (K2/K3) and one decode step; the
      Path C one with a 12-token prompt (K9) and one decode step (K8, K10)
- 11. a JSON line of kernels, the nvidia-smi name/power line, and the final
-     JSON status line
+ 11. eager and graph tokens/s of every decode path side by side, a JSON
+     line of them ("[graph] {...}"), a JSON line of kernels, the
+     nvidia-smi name/power line, and the final JSON status line
 """
 
 import argparse
@@ -210,17 +225,6 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[card] {name}, {count} device(s), nvidia-smi: {smi}", flush=True)
     return name, count, smi
-
-
-def all_kernels():
-    from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
-                                            tcq_lut, vq)
-    return (arith.KERNELS + arith_dequant.KERNELS + tcq_lut.KERNELS
-            + vq.KERNELS + int8_gemv.KERNELS)
-
-
-def counts():
-    return {f.__name__: f.launches for f in all_kernels()}
 
 
 def _words(m, k, W, device, seed):
@@ -501,6 +505,7 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
     prefill and read after it and after each decode forward; each must
     match want_prefill / want_step exactly (other kernels 0).  Returns the
     counts of the whole run."""
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import decode
 
@@ -510,12 +515,12 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
                                   device)
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    for f in all_kernels():
+    for f in wrappers():
         f.launches = 0
     logits, caches = decode.prefill(spec, params,
                                     torch.as_tensor(prompt, device=device),
                                     caches)
-    seen = [counts()]
+    seen = [launch_counts()]
     finite = bool(torch.isfinite(logits).all())
     check(logits.shape == (1, prompt_len, V),
           f"{label}: prefill logits shape {tuple(logits.shape)}")
@@ -524,7 +529,7 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
     for pos in range(prompt_len, prompt_len + new_tokens):
         logits, caches = llama.forward(spec, params, cur, kv_caches=caches,
                                        cache_pos=pos)
-        seen.append(counts())
+        seen.append(launch_counts())
         finite = finite and bool(torch.isfinite(logits).all())
         cur = decode.sample_logits(logits[:, -1], gen, 0.6, 5)[:, None]
         toks.append(cur)
@@ -550,7 +555,9 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
 
 
 def throughput(label, spec, params, device, card_label):
-    """Determinism and tokens/s through the user-facing generate()."""
+    """Determinism and tokens/s through the user-facing generate() (a
+    replay of the captured step a token); the captured steps are dropped
+    after, so that the next call captures the kernels then in use."""
     from qpalette_tpu_torch.runtime import decode
 
     V = spec.config.vocab_size
@@ -561,16 +568,264 @@ def throughput(label, spec, params, device, card_label):
                             max_seq=T, temperature=0.6, top_k=5, seed=99)
             for _ in range(2)]
     peak = torch.cuda.max_memory_allocated(device)
+    decode.release_captured(params)
     check(np.array_equal(runs[0][0], runs[1][0]),
           f"{label}: same seed, different tokens")
     tps = runs[1][1]["tokens_per_sec"]
     mbytes = decode.model_bytes(params)
     streamed = mbytes - decode.model_bytes(params["embed"])
-    print(f"[{label}] decode {tps:.2f} tokens/s bs=1 (eager loop, host "
+    print(f"[{label}] decode {tps:.2f} tokens/s bs=1 (captured step, host "
           f"clock, {runs[1][1]['timed_tokens']} steps), model "
           f"{mbytes / 1e9:.3f} GB, streamed {streamed / 1e9:.3f} GB/token "
           f"(computed from tensor sizes), {streamed * tps / 1e9:.1f} GB/s, "
           f"peak memory {peak / 1e9:.3f} GB; card {card_label}", flush=True)
+    return tps
+
+
+def eager_loop(spec, params, prompt, n, T, temperature=0.0, top_k=5,
+               seed=99):
+    """The eager decode loop (one launch an op from Python): a prefill,
+    then n - 1 decode_step calls at int positions, the first untimed.
+    Returns (tokens (B, S + n), tokens/s over the timed steps)."""
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import decode
+
+    device = params["embed"].device
+    S = prompt.shape[1]
+    caches = llama.init_kv_caches(spec, 1, T, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    logits, caches = decode.prefill(
+        spec, params, torch.as_tensor(prompt, device=device), caches)
+    cur = decode.sample_logits(logits[:, -1], gen, temperature, top_k)[:, None]
+    outs = [cur]
+    for i in range(n - 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        cur, caches = decode.decode_step(spec, params, cur, caches, S + i,
+                                         gen, temperature, top_k)
+        outs.append(cur)
+    torch.cuda.synchronize()
+    tps = (n - 2) / (time.perf_counter() - t0)
+    seq = np.concatenate([prompt] + [o.cpu().numpy() for o in outs], axis=1)
+    return seq, tps
+
+
+# a decode step's kernels of the port (K1, K4/K5, K8, K10 with its
+# quantize kernel, K11), by their CUDA names; every other device op is glue
+PORT_GEMV = re.compile(r"(arith|v1|v2|lut|vq)_gemv_kernel|i8gemv_kernel|"
+                       r"quantize_kernel")
+BIT_STEPS, PROFILE_STEPS = 4, 8
+# the glue's kinds of device op, by name (first match; the rest "other")
+GLUE_KINDS = [(kind, re.compile(pattern, re.I)) for kind, pattern in (
+    ("copy/cast", r"copy_kernel|direct_copy"),
+    ("matmul", r"gemm|gemv|cutlass|xmma"),
+    ("reduce/softmax", r"reduce|softmax"),
+    ("index", r"index|scatter|gather"),
+    ("elementwise", r"elementwise"))]
+
+
+def profile_replays(label, step, pos, n, card_label):
+    """torch.profiler over n replays of a captured step: device time a step
+    (the ops' summed durations; the union of their intervals is the busy
+    time), GEMV against glue, the top 10 ops.  Then the same n replays
+    without the profiler: host clock to enqueue them and to the end of a
+    synchronize, and CUDA events around them.  The device's busy share is
+    the traced busy time over that unprofiled wall time (the profiler's
+    own host work would inflate the wall).  Each window starts at position
+    pos.  Returns the summary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step.reset(step.token.clone(), pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.replay(n)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    step.reset(step.token.clone(), pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    step.replay(n)
+    e1.record()
+    enqueue = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    event_ms = e0.elapsed_time(e1) / n
+    timing = {"wall_ms_a_step": wall * 1e3, "enqueue_ms_a_step": enqueue * 1e3,
+              "event_ms_a_step": event_ms,
+              "traced_wall_ms_a_step": traced * 1e3 / n}
+    if not ops:
+        print(f"[{label} graph] profiler: no device op in the trace; {n} "
+              f"replays without it: wall {wall * 1e3:.3f} ms a step, enqueue "
+              f"{enqueue * 1e3:.3f} ms, CUDA events {event_ms:.3f} ms; card "
+              f"{card_label}", flush=True)
+        return timing
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in ops:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    total = sum(t for t, _ in by_name.values()) / n / 1e3
+    gemv = sum(t for k, (t, _) in by_name.items()
+               if PORT_GEMV.search(k)) / n / 1e3
+    out = {**timing, "busy_ms_a_step": busy / n / 1e3,
+           "busy_share": busy / n / 1e3 / (wall * 1e3),
+           "span_share": busy / (spans[-1][1] - spans[0][0]),
+           "device_ms_a_step": total, "gemv_ms_a_step": gemv,
+           "glue_ms_a_step": total - gemv, "ops_a_step": len(ops) / n}
+    print(f"[{label} graph] {n} replays: wall {wall * 1e3:.3f} ms a step "
+          f"(host clock, to a synchronize), enqueue {enqueue * 1e3:.3f} ms, "
+          f"CUDA events {event_ms:.3f} ms; traced: device busy "
+          f"{out['busy_ms_a_step']:.3f} ms a step ({out['busy_share']:.1%} of "
+          f"the wall, {out['span_share']:.1%} of the ops' span; the traced "
+          f"window's wall {traced * 1e3 / n:.3f} ms), device time {total:.3f}"
+          f" ms a step (op sum), GEMV {gemv:.3f} ms, glue {total - gemv:.3f} "
+          f"ms, {len(ops) / n:.0f} device ops a step; card {card_label}",
+          flush=True)
+    kinds = {}
+    for name, (t, c) in by_name.items():
+        if PORT_GEMV.search(name):
+            continue
+        kind = next((k for k, r in GLUE_KINDS if r.search(name)), "other")
+        kt, kc = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (kt + t, kc + c)
+    out["glue_kinds"] = {k: (t / n / 1e3, c / n) for k, (t, c) in
+                         kinds.items()}
+    print(f"[{label} graph] glue by kind, ms a step (ops a step): " + ", ".join(
+        f"{k} {t:.3f} ({c:.0f})" for k, (t, c) in sorted(
+            out["glue_kinds"].items(), key=lambda kv: -kv[1][0])), flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (t, c) in top:
+        print(f"[{label} graph]   {t / n / 1e3:8.4f} ms a step, {c / n:5.1f} "
+              f"a step: {name[:110]}", flush=True)
+    # the longest single ops (on the flagship: the bf16 head's f32 copy
+    # and the f32 head product)
+    longest = sorted(ops, key=lambda e: -e.time_range.elapsed_us())[:3 * n]
+    for e in longest[::n]:
+        print(f"[{label} graph]   longest: {e.time_range.elapsed_us() / 1e3:.4f}"
+              f" ms once: {e.name[:110]}", flush=True)
+    return out
+
+
+def clocked_replays(label, step, pos, n, card_label):
+    """n replays from position pos timed with CUDA events while nvidia-smi
+    samples the SM clock and the power draw every 10 ms (started before,
+    stopped after the window).  Returns ms a step and the samples'
+    median SM clock (MHz) and power (W)."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "10"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.2)
+        step.reset(step.token.clone(), pos)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        step.replay(n)
+        e1.record()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    finally:
+        smi.terminate()
+        log, _ = smi.communicate()
+    ms = e0.elapsed_time(e1) / n
+    samples = [tuple(float(v) for v in ln.split(","))
+               for ln in log.splitlines() if ln.count(",") == 1]
+    clk = [c for c, _ in samples] or [float("nan")]
+    pw = [w for _, w in samples] or [float("nan")]
+    out = {"long_ms_a_step": ms, "sm_mhz": float(np.median(clk)),
+           "sm_mhz_min": min(clk), "power_w": float(np.median(pw))}
+    print(f"[{label} graph] {n} replays: CUDA events {ms:.3f} ms a step; "
+          f"nvidia-smi over {len(samples)} samples: SM clock median "
+          f"{out['sm_mhz']:.0f} MHz (min {min(clk):.0f}, max {max(clk):.0f}),"
+          f" power median {out['power_w']:.0f} W (max {max(pw):.0f}); card "
+          f"{card_label}", flush=True)
+    return out
+
+
+def graph_phase(label, spec, params, device, want_step, card_label):
+    """The path through the captured step (runtime/decode.py): the launches
+    recorded at capture equal want_step; BIT_STEPS replays give the eager
+    forward's logits (and caches) bit for bit from the same caches and
+    position; greedy generate_fast gives the eager loop's tokens; two
+    sampled generate_fast runs with one seed, and generate with it, give
+    the same tokens; tokens/s of the eager loop and of the graph; a
+    profile of PROFILE_STEPS replays; NEW_TOKENS replays with the SM
+    clock and power sampled.  Returns {eager, graph, sampled} tokens/s,
+    the profile and the clocked window."""
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import decode
+
+    V = spec.config.vocab_size
+    prompt = np.random.default_rng(0).integers(0, V, (1, PROMPT_LEN))
+    n = NEW_TOKENS + 1
+    T = PROMPT_LEN + n
+    eager_seq, eager_tps = eager_loop(spec, params, prompt, n, T)
+    torch.cuda.reset_peak_memory_stats(device)
+    seq0, st0 = decode.generate_fast(spec, params, prompt, n, max_seq=T,
+                                     temperature=0.0)
+    check(st0["captured"], f"{label}: generate_fast did not capture")
+    check(np.array_equal(seq0, eager_seq),
+          f"{label}: greedy tokens of the graph differ from the eager loop's "
+          f"at {np.nonzero(seq0[0] != eager_seq[0])[0].tolist()}")
+    for temperature in (0.0, 0.6):
+        got = decode.captured_step(spec, params, 1, T, temperature,
+                                   5).launches
+        check(got == want_step, f"{label}: launches at capture {got}, want "
+              f"{want_step}")
+    runs = [decode.generate_fast(spec, params, prompt, n, max_seq=T,
+                                 temperature=0.6, top_k=5, seed=99)
+            for _ in range(2)]
+    seq_g, st_g = decode.generate(spec, params, prompt, n, max_seq=T,
+                                  temperature=0.6, top_k=5, seed=99)
+    check(np.array_equal(runs[0][0], runs[1][0])
+          and np.array_equal(runs[0][0], seq_g),
+          f"{label}: same seed, different tokens (generate_fast twice, "
+          f"generate)")
+    peak = torch.cuda.max_memory_allocated(device)
+    step = decode.captured_step(spec, params, 1, T, 0.6, 5)
+    tok = torch.as_tensor(prompt, device=device)
+    logits, _ = decode.prefill(spec, params, tok, step.caches)
+    tok = decode.sample_logits(logits[:, -1], step.generator, 0.6,
+                               5)[:, None]
+    step.reset(tok, PROMPT_LEN)
+    eager = [tuple(t.clone() for t in c) for c in step.caches]
+    for i in range(BIT_STEPS):
+        step.replay()
+        want, eager = llama.forward(spec, params, tok, kv_caches=eager,
+                                    cache_pos=PROMPT_LEN + i)
+        check(torch.equal(step.logits, want[:, -1]),
+              f"{label}: captured step {i} logits differ from eager, max "
+              f"{(step.logits - want[:, -1]).abs().max().item()}")
+        tok = step.token.clone()
+    check(all(torch.equal(a, b) for c, e in zip(step.caches, eager)
+              for a, b in zip(c, e)), f"{label}: captured caches differ")
+    prof = profile_replays(label, step, PROMPT_LEN, PROFILE_STEPS,
+                           card_label)
+    prof.update(clocked_replays(label, step, PROMPT_LEN, NEW_TOKENS,
+                                card_label))
+    decode.release_captured(params)
+    tps = {"eager": eager_tps, "graph": st0["tokens_per_sec"],
+           "sampled": runs[1][1]["tokens_per_sec"],
+           "generate": st_g["tokens_per_sec"], **prof}
+    print(f"[{label} graph] launches at capture {want_step}; {BIT_STEPS} "
+          f"replays bit-equal to eager; greedy tokens equal the eager loop's;"
+          f" sampled runs repeat; tokens/s bs=1 eager loop {eager_tps:.2f}, "
+          f"graph {tps['graph']:.2f} (generate_fast, greedy), sampled "
+          f"{tps['sampled']:.2f} (generate_fast) / {tps['generate']:.2f} "
+          f"(generate), peak memory {peak / 1e9:.3f} GB; card {card_label}",
+          flush=True)
     return tps
 
 
@@ -636,10 +891,11 @@ def main_path(device, card_label):
     want = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD}
     launches = drive("main", spec, params, device, PROMPT_LEN, NEW_TOKENS,
                      want, want)
-    throughput("main", spec, params, device, card_label)
+    graphs = {"215": graph_phase("main", spec, params, device, want,
+                                 card_label)}
     del params
     torch.cuda.empty_cache()
-    return launches, qdict
+    return launches, qdict, graphs
 
 
 def flagship_shapes(cfg, qdict):
@@ -1028,14 +1284,15 @@ def flagship_path(device, card_label):
     with open(FLAGSHIP_QDICT) as f:
         qdict = json.load(f)
     spec, params = _build("flagship", qdict, None, "exact", 16, device)
+    want = {"tcq_lut_gemv": FLAGSHIP_TCQ, "tcomb_lut_gemv": FLAGSHIP_TCOMB}
     launches = drive(
         "flagship", spec, params, device, PROMPT_LEN, NEW_TOKENS,
         {"tcq_lut_dequant": FLAGSHIP_TCQ, "tcomb_lut_dequant": FLAGSHIP_TCOMB},
-        {"tcq_lut_gemv": FLAGSHIP_TCQ, "tcomb_lut_gemv": FLAGSHIP_TCOMB})
-    throughput("flagship", spec, params, device, card_label)
+        want)
+    graph = graph_phase("flagship", spec, params, device, want, card_label)
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, graph
 
 
 def _vq_words(m, k, bits, vec, device, seed):
@@ -1200,7 +1457,7 @@ def int8_head_checks(ig, device):
 def path_c(device, card_label):
     """Path C: the 8B ldlq_2_6 model, merged qkv / ug, the rotated int8
     head, impl a8; 128 K9 in the 16-token prefill, 128 K8 + 1 K10 each
-    decode forward.  Returns (launch counts, tokens/s)."""
+    decode forward.  Returns (launch counts, graph_phase's result)."""
     spec, params = _build("pathC", PATH_C_QSTR, [["merge_qkv", "merge_ug"]]
                           * 32, "a8", 8, device)
     kinds = {(ls.kind, ls.bits, ls.vec) for a, m in spec.layers
@@ -1210,10 +1467,11 @@ def path_c(device, card_label):
           and "lm_head_su" in params, f"pathC model {kinds}")
     launches = drive("pathC", spec, params, device, PROMPT_LEN, NEW_TOKENS,
                      PATH_C_PREFILL, PATH_C_STEP)
-    tps = throughput("pathC", spec, params, device, card_label)
+    graph = graph_phase("pathC", spec, params, device, PATH_C_STEP,
+                        card_label)
     del params
     torch.cuda.empty_cache()
-    return launches, tps
+    return launches, graph
 
 
 def unrotated_int8_head(w):
@@ -1249,10 +1507,11 @@ def path_d(device, card_label):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = drive("pathD", spec, params, device, PROMPT_LEN, NEW_TOKENS,
                      PATH_D_PREFILL, PATH_D_STEP)
-    tps = throughput("pathD", spec, params, device, card_label)
+    graph = graph_phase("pathD", spec, params, device, PATH_D_STEP,
+                        card_label)
     del params
     torch.cuda.empty_cache()
-    return launches, tps
+    return launches, graph
 
 
 def tcq2mix_qdict(num_layers=32):
@@ -1263,7 +1522,8 @@ def tcq2mix_qdict(num_layers=32):
 def path_a_b(device, card_label):
     """Path A (tcq2mix decode at a8 and exact) and Path B (512-token exact
     prefill on tcq2mix and on the 215 config).  Returns (launch counts
-    summed over the counted runs, tokens/s by impl, prefill s by config)."""
+    summed over the counted runs, graph_phase's result by impl, prefill s
+    by config)."""
     spec, params = _build("pathA", tcq2mix_qdict(), [["merge_qkv",
                                                        "merge_ug"]] * 32,
                           "a8", 4, device)
@@ -1286,8 +1546,8 @@ def path_a_b(device, card_label):
                     NEW_TOKENS, PATH_A_STEP, PATH_A_STEP)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
-        tps[impl] = throughput(f"pathA {impl}", sp, params, device,
-                               card_label)
+        tps[impl] = graph_phase(f"pathA {impl}", sp, params, device,
+                                PATH_A_STEP, card_label)
     pre = {}
     sp = with_impl(spec, "exact")
     got = drive("pathB tcq2mix", sp, params, device, PREFILL_B, 0,
@@ -1406,7 +1666,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
 def main():
     name, count, smi = card()
     from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
-                                            tcq_lut, vq)
+                                            tcq_lut, vq, wrappers)
     from qpalette_tpu_torch.models.llama import LlamaConfig
 
     build_all()
@@ -1432,14 +1692,16 @@ def main():
         d.update(new)
     print(f"[time] kernel checks {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches, qdict = main_path(device, smi)
-    for k, v in flagship_path(device, smi).items():
+    launches, qdict, graphs = main_path(device, smi)
+    fl, graphs["flagship"] = flagship_path(device, smi)
+    for k, v in fl.items():
         launches[k] += v
     ab, tps, pre = path_a_b(device, smi)
     for k, v in ab.items():
         launches[k] += v
-    pc, tps["pathC"] = path_c(device, smi)
-    pd, tps["pathD"] = path_d(device, smi)
+    graphs.update({f"pathA {k}": v for k, v in tps.items()})
+    pc, graphs["pathC"] = path_c(device, smi)
+    pd, graphs["pathD"] = path_d(device, smi)
     for k in launches:
         launches[k] += pc[k] + pd[k]
     small_model_checks(device)
@@ -1478,13 +1740,23 @@ def main():
           + json.dumps({f"{b}/{v} {n}": [round(a, 5), round(d, 5)]
                         for (b, v, n), (a, d) in vq_schemes.items()}),
           flush=True)
-    print(f"[pathC] tokens/s {tps['pathC']:.2f}; [pathD] tokens/s "
-          f"{tps['pathD']:.2f} ({smi})", flush=True)
-    print(f"[pathA] tokens/s a8 {tps['a8']:.2f}, exact {tps['exact']:.2f}; "
-          f"[pathB] 512-token exact prefill tcq2mix {pre['tcq2mix'] * 1e3:.1f}"
+    print(f"[pathB] 512-token exact prefill tcq2mix {pre['tcq2mix'] * 1e3:.1f}"
           f" ms, 215 {pre['215'] * 1e3:.1f} ms ({smi})", flush=True)
+    for path, g in graphs.items():
+        print(f"[graph] {path}: tokens/s bs=1 eager loop {g['eager']:.2f}, "
+              f"captured step {g['graph']:.2f} (greedy generate_fast), "
+              f"{g['sampled']:.2f} (sampled); device busy "
+              f"{g.get('busy_share', float('nan')):.1%} of a replay window, "
+              f"device time {g.get('device_ms_a_step', float('nan')):.3f} ms "
+              f"a step (GEMV {g.get('gemv_ms_a_step', float('nan')):.3f}, "
+              f"glue {g.get('glue_ms_a_step', float('nan')):.3f}); "
+              f"{NEW_TOKENS} replays {g['long_ms_a_step']:.3f} ms a step at "
+              f"SM {g['sm_mhz']:.0f} MHz, {g['power_w']:.0f} W ({smi})",
+              flush=True)
+    print("[graph] " + json.dumps({"card": smi, "paths": graphs}),
+          flush=True)
     kernels = []
-    for f in all_kernels():
+    for f in wrappers():
         kname = f.__name__
         check(launches[kname] > 0, f"{kname} launched no time on a path")
         src, where = KERNEL_INFO[kname]
@@ -1502,6 +1774,74 @@ def main():
                                              "count": count}}))
 
 
+def recapture(n):
+    """What sets a captured step's pace: the 215 path's step (temperature
+    0.6, top-k 5) captured afresh and timed over consecutive windows of
+    NEW_TOKENS replays (CUDA events), while nvidia-smi samples the SM and
+    memory clocks.  Capture B: n windows straight after its capture.
+    Capture A, made before B and left idle while B ran: n windows.  B
+    again after 6 s with no replay.  Capture C: a torch.profiler session
+    (its ops' sum printed) over its first replays, then n windows."""
+    from qpalette_tpu_torch.runtime import decode
+
+    _, _, smi = card()
+    build_all()
+    device = torch.device("cuda:0")
+    qdict, merge_info = _load_215()
+    spec, params = _build("recapture", qdict, merge_info, "a8", 4, device)
+    T = PROMPT_LEN + NEW_TOKENS + 1
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, spec.config.vocab_size, (1, PROMPT_LEN)), device=device)
+
+    def captured():
+        step = decode.CapturedStep(spec, params, 1, T, 0.6, 5)
+        logits, _ = decode.prefill(spec, params, prompt, step.caches)
+        step.reset(logits[:, -1].argmax(dim=-1)[:, None], PROMPT_LEN)
+        return step
+
+    def windows(label, step):
+        sampler = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.mem",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        t0, ms = time.perf_counter(), []
+        try:
+            for _ in range(n):
+                step.reset(step.token.clone(), PROMPT_LEN)
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                step.replay(NEW_TOKENS)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1) / NEW_TOKENS)
+        finally:
+            sampler.terminate()
+            log, _ = sampler.communicate()
+        clocks = sorted({ln.strip() for ln in log.splitlines()
+                         if ln.count(",") == 1})
+        print(f"[recapture] {label}: {n} windows of {NEW_TOKENS} replays in "
+              f"{time.perf_counter() - t0:.1f} s, ms a step: "
+              + ", ".join(f"{m:.3f}" for m in ms)
+              + f"; SM, memory MHz seen: {clocks} ({smi})", flush=True)
+        return ms
+
+    a = captured()
+    t_a = time.perf_counter()
+    b = captured()
+    out = {"card": smi, "B": windows("B, straight after its capture", b)}
+    out["A"] = windows(f"A, idle {time.perf_counter() - t_a:.1f} s since "
+                       f"its capture", a)
+    time.sleep(6)
+    out["B_idle"] = windows("B again, after 6 s with no replay", b)
+    c = captured()
+    prof = profile_replays("recapture C", c, PROMPT_LEN, PROFILE_STEPS, smi)
+    out["op_sum_ms_a_step"] = prof.get("device_ms_a_step")
+    out["C"] = windows("C, after a profiler session over its first "
+                       "replays", c)
+    print("[recapture] " + json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
@@ -1510,8 +1850,13 @@ if __name__ == "__main__":
     ap.add_argument("--ab", default="tcq2_gemv", choices=sorted(AB),
                     help="the kernels and path parent_ab compares (default "
                     "tcq2_gemv)")
+    ap.add_argument("--recapture", type=int, default=0,
+                    help="run recapture only, with this many windows of "
+                    "replays a capture of the 215 step")
     args = ap.parse_args()
     if args.parent:
         parent_ab(args.parent, args.ab)
+    elif args.recapture:
+        recapture(args.recapture)
     else:
         main()

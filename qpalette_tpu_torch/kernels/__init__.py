@@ -1,0 +1,17 @@
+"""The port's hand-written CUDA kernels, each behind a wrapper that runs its
+plain PyTorch version on CPU tensors and counts its launches on the card
+in ``<wrapper>.launches``."""
+
+
+def wrappers() -> tuple:
+    """Every kernel wrapper, K1 to K11 (imported here, not at package
+    import: the modules build their libraries lazily)."""
+    from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
+                                            tcq_lut, vq)
+    return (arith.KERNELS + arith_dequant.KERNELS + tcq_lut.KERNELS
+            + vq.KERNELS + int8_gemv.KERNELS)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: its launch count}."""
+    return {f.__name__: f.launches for f in wrappers()}

@@ -24,14 +24,17 @@ forward):
       --quantizer_str ldlq_2_6_none_1.0 --lm_head_bits 8
 
 Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
-with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Reports
-tokens/s and achieved GB/s (streamed bytes x tokens/s) beside the device
-name; a CPU run (``--device cpu``) is for rehearsal only.
+with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Decode
+goes through ``runtime.decode.generate``: the step is captured once in a
+CUDA graph and replayed a token.  Reports tokens/s and achieved GB/s
+(streamed bytes x tokens/s) on the line of the card's name and power limit
+(``nvidia-smi``); a CPU run (``--device cpu``) is for rehearsal only.
 """
 
 import argparse
 import json
 import os
+import subprocess
 
 _QDIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "msq_results", "3_8b", "lat_constrained", "v5e",
@@ -40,6 +43,14 @@ _QDIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HEADS = {4: "tcq2s_8 (4-bit trellis, sum2 K1)",
          8: "rotated int8 (int8_gemv_a8)", 16: "bf16 (f32 product)"}
+
+
+def card_label(index: int) -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def main():
@@ -79,7 +90,7 @@ def main():
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device")
-        dev_name = torch.cuda.get_device_name(device)
+        dev_name = card_label(device.index or 0)
     else:
         dev_name = "cpu (rehearsal, not a device measurement)"
     cfg = CONFIGS[MODEL_KEYS[args.hf_path]]()
@@ -121,7 +132,8 @@ def main():
         tps = stats["tokens_per_sec"]
         all_tps.append(tps)
         print(f"sample {i}: {tps:.2f} tokens/sec, "
-              f"{streamed * tps / 1e9:.1f} GB/s streamed", flush=True)
+              f"{streamed * tps / 1e9:.1f} GB/s streamed on {dev_name}",
+              flush=True)
     avg = float(np.mean(all_tps))
     print(f"Average tokens/sec: {avg:.2f} on {dev_name}")
     print(json.dumps({"average_tokens_per_sec": avg, "device": dev_name,

@@ -2,8 +2,12 @@
 
 Counterpart of ``qpalette_tpu/models/llama.py``: a functional forward over
 a params dict, with the static layout in hashable specs.  Serving only,
-no autograd.  The KV cache is a preallocated bf16 tensor per layer that
-the forward writes in place.
+no autograd.  The KV cache is preallocated per layer, bf16 ``(k, v)`` or
+int8 ``(k8, ks, v8, vs)`` with per-(token, head) scales, and the forward
+writes it in place.  The cache position is a Python int, a 0-d integer
+tensor or a (B,) tensor (one position a row); as a tensor it stays on
+the device, so a step can be captured in a CUDA graph and replayed at a
+new position.
 """
 
 from __future__ import annotations
@@ -115,32 +119,73 @@ def _rotate_in(x: torch.Tensor, su: torch.Tensor) -> torch.Tensor:
     return hadamard_transform_t(x * su).to(x.dtype)
 
 
-def _causal_mask(S: int, T: int, offset: int, device) -> torch.Tensor:
-    """Additive (S, T) mask: query i (position offset+i) sees keys <= it."""
-    q = torch.arange(S, device=device)[:, None] + offset
-    kpos = torch.arange(T, device=device)[None, :]
+def _positions(S: int, offset, device) -> torch.Tensor:
+    """Positions of S queries from offset: (S,) for an int or a 0-d
+    tensor, (B, S) for per-row (B,) offsets."""
+    pos = torch.arange(S, device=device)
+    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+        return pos[None, :] + offset[:, None]
+    return pos + offset
+
+
+def _causal_mask(S: int, T: int, offset, device) -> torch.Tensor:
+    """Additive mask: query i (position offset+i) sees keys <= it; (S, T),
+    or (B, S, T) for per-row offsets."""
+    q = _positions(S, offset, device)[..., None]
+    kpos = torch.arange(T, device=device)
     return torch.where(kpos <= q, 0.0, -1e30).to(torch.float32)
 
 
-def _attention(q, k, v, offset: int, cfg: LlamaConfig):
-    """q (B,S,h,d), k/v (B,T,hk,d); grouped heads, float32 softmax."""
+def _attention(q, k, v, offset, cfg: LlamaConfig):
+    """q (B,S,h,d), k/v (B,T,hk,d); grouped heads, float32 softmax.  The
+    query positions start at offset (see _causal_mask)."""
     B, S, H, D = q.shape
     T = k.shape[1]
     hk = cfg.num_kv_heads
     g = H // hk
     qf = (q.float() * (D ** -0.5)).reshape(B, S, hk, g, D)
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
-    logits = logits + _causal_mask(S, T, offset, q.device)
+    mask = _causal_mask(S, T, offset, q.device)
+    logits = logits + (mask if mask.dim() == 2 else mask[:, None, None])
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H * D).to(q.dtype)
 
 
+def _store(cache: torch.Tensor, val: torch.Tensor, cache_pos) -> None:
+    """Write val (B, S, ...) into cache (B, T, ...) in place at cache_pos:
+    rows cache_pos..+S-1 along T for an int or a 0-d tensor (the
+    reference's dynamic_update_slice), or from each row's own position
+    for a (B,) tensor (its per-row scatter)."""
+    B, S = val.shape[:2]
+    val = val.to(cache.dtype)
+    cols = _positions(S, cache_pos, cache.device)
+    if cols.dim() == 1:
+        cache.index_copy_(1, cols, val)
+        return
+    rows = torch.arange(B, device=cache.device).repeat_interleave(S)
+    cache.index_put_((rows, cols.reshape(-1)),
+                     val.reshape((B * S,) + val.shape[2:]))
+
+
+def _q8(x: torch.Tensor):
+    """int8 values and f32 scales a (token, head): absmax / 127 + 1e-8,
+    round half to even (the reference's int8 KV cache)."""
+    xf = x.float()
+    # a true division: on the card PyTorch divides by a Python float
+    # through its reciprocal (one ulp off); a device tensor, unlike
+    # torch.tensor, is made without a host copy (legal under capture)
+    s = xf.abs().amax(dim=-1, keepdim=True) / torch.full(
+        (), 127.0, device=x.device) + 1e-8
+    return torch.round(xf / s).to(torch.int8), s
+
+
 def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
-                 cos, sin, kv_cache=None, cache_pos: int = 0, luts=None):
-    """x (B, S, hidden) -> (out, (k, v)).  With kv_cache, k/v are written
-    into the caches in place at cache_pos (the reference's
-    dynamic_update_slice) and attention runs over the whole cache.  The
+                 cos, sin, kv_cache=None, cache_pos=0, luts=None):
+    """x (B, S, hidden) -> (out, kv).  With kv_cache, k/v are written into
+    the caches in place at cache_pos (see _store) and attention runs over
+    the whole cache: bf16 ``(k, v)``, or int8 ``(k8, ks, v8, vs)`` holding
+    the values quantized by _q8 and read back as (q * s) in bf16.  The
     group's activations are rotated unless its first projection is
     ``dense`` (the bf16 baseline, whose weights are not rotated)."""
     B, S, N = x.shape
@@ -164,10 +209,17 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     q = apply_rope(q.reshape(B, S, cfg.num_heads, cfg.head_dim), cos, sin)
     k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim), cos, sin)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    if kv_cache is not None:
+    if kv_cache is not None and len(kv_cache) == 4:
+        ck, cks, cv, cvs = kv_cache
+        for cache, val in zip(kv_cache, (*_q8(k), *_q8(v))):
+            _store(cache, val, cache_pos)
+        k_full = (ck.float() * cks).to(k.dtype)
+        v_full = (cv.float() * cvs).to(v.dtype)
+        new_kv = kv_cache
+    elif kv_cache is not None:
         ck, cv = kv_cache
-        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        _store(ck, k, cache_pos)
+        _store(cv, v, cache_pos)
         k_full, v_full, new_kv = ck, cv, (ck, cv)
     else:
         k_full, v_full, new_kv = k, v, (k, v)
@@ -206,15 +258,17 @@ def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
 
 @torch.inference_mode()
 def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
-            kv_caches=None, cache_pos: int = 0):
+            kv_caches=None, cache_pos=0, return_hidden: bool = False):
     """tokens (B, S) -> logits (B, S, vocab) float32 (and the caches when
-    kv_caches is given: the incremental path writing at cache_pos)."""
+    kv_caches is given: the incremental path writing at cache_pos, an int,
+    a 0-d tensor or per-row (B,)).  return_hidden=True returns the
+    final-norm hidden state (B, S, hidden) instead of the logits."""
     cfg = spec.config
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
     offset = cache_pos if kv_caches is not None else 0
-    pos = torch.arange(S, device=tokens.device)[None, :] + offset
-    cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    cos, sin = rope_tables(_positions(S, offset, tokens.device), cfg.head_dim,
+                           cfg.rope_theta)
     luts = params.get("luts")
     new_caches = []
     for li, (aspec, mspec) in enumerate(spec.layers):
@@ -229,6 +283,8 @@ def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
         x = x + mlp_forward(mspec, cfg, lp, h, luts=luts)
         new_caches.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
+    if return_hidden:
+        return (x, new_caches) if kv_caches is not None else x
     if spec.lm_head_spec is not None:
         # quantized lm_head: f32 logits over the padded vocab, sliced back
         logits = qlinear_apply(spec.lm_head_spec, params["lm_head_q4"],
@@ -272,10 +328,20 @@ def int8_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def init_kv_caches(spec: ModelSpec, batch: int, max_seq: int, device):
-    """Preallocated bf16 (k, v) caches, (B, T, kv_heads, head_dim) each."""
+def init_kv_caches(spec: ModelSpec, batch: int, max_seq: int, device,
+                   quantized: bool = False):
+    """Preallocated caches a layer, (B, T, kv_heads, head_dim) each: bf16
+    (k, v), or with quantized=True int8 (k8, ks, v8, vs) with f32
+    per-(token, head) scales (B, T, kv_heads, 1), about half the bytes."""
     cfg = spec.config
     shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    if quantized:
+        sshp = shp[:3] + (1,)
+        return [(torch.zeros(shp, dtype=torch.int8, device=device),
+                 torch.ones(sshp, dtype=torch.float32, device=device),
+                 torch.zeros(shp, dtype=torch.int8, device=device),
+                 torch.ones(sshp, dtype=torch.float32, device=device))
+                for _ in range(cfg.num_layers)]
     return [(torch.zeros(shp, dtype=cfg.dtype, device=device),
              torch.zeros(shp, dtype=cfg.dtype, device=device))
             for _ in range(cfg.num_layers)]

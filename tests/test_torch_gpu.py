@@ -7,12 +7,15 @@ tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship and at KV 3,
 the SQ/VQ row-pack kernels (K8, K9) at the shapes of the ldlq_2_6 path and
 at every ldlq (bits, vec) (K8 also at m not a multiple of 16, and two
 launches bit-equal), and the int8 lm_head GEMVs (K10, K11) at the
-8B head's shape.  Marked ``gpu``; each test skips itself when no CUDA
-device is present.
+8B head's shape; and the decode step captured in a CUDA graph on a 2-layer
+tcq2s model (logits bit-equal to the eager forward, seeded sampling,
+positions advanced by the graph).  Marked ``gpu``; each test skips itself
+when no CUDA device is present.
 
   python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +25,10 @@ from qpalette_tpu_torch.kernels.arith import (arith_gemv_plain,
                                               tcq2s_decode_gemv)
 from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv, trellis_tlut,
                                               vq_lut)
+from qpalette_tpu_torch.models import llama
+from qpalette_tpu_torch.models.llama import LlamaConfig
+from qpalette_tpu_torch.runtime import decode
+from qpalette_tpu_torch.runtime.loader import build_quantized_model
 from qpalette_tpu_torch.runtime.qlinear import LinearSpec, qlinear_apply
 
 pytestmark = pytest.mark.gpu
@@ -430,3 +437,94 @@ def test_vq_and_int8_kernels_reject_cpu_operands(cuda):
     with pytest.raises(ValueError):
         int8_gemv.int8_gemv_a8(x, torch.zeros((64, 256), dtype=torch.int8),
                                torch.ones(64, device=cuda))
+
+
+# the captured decode step on test_torch_model.py's 2-layer shapes: tcq2s_6
+# everywhere, merged qkv / ug, the 4-bit head; 9 sum2 K1 launches a step
+SMALL_CFG = dict(vocab_size=512, hidden_size=512, intermediate_size=1792,
+                 num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+                 rope_theta=5e5)
+SMALL_S, SMALL_T = 6, 24
+
+
+@pytest.fixture(scope="module")
+def small_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, params = build_quantized_model(
+        LlamaConfig(**SMALL_CFG), "tcq2s_6_none_0.9",
+        merge_info=[["merge_qkv", "merge_ug"]] * 2, dummy=True, impl="a8",
+        lm_head_bits=4, seed=0, device="cuda")
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 512, (1, SMALL_S)), device="cuda")
+    yield spec, params, prompt
+    decode.release_captured(params)
+
+
+def _prefilled(step, spec, params, prompt):
+    """step's caches prefilled with prompt; its input the greedy token."""
+    logits, _ = decode.prefill(spec, params, prompt, step.caches)
+    cur = logits[:, -1].argmax(dim=-1)[:, None]
+    step.reset(cur, prompt.shape[1])
+    return cur
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_captured_step_bit_equal_to_eager(small_model, quantized):
+    """Capture records the step's 9 K1 launches; 4 replays give the eager
+    forward's logits and caches bit for bit from the same caches and
+    position, with bf16 and int8 KV caches."""
+    spec, params, prompt = small_model
+    step = decode.CapturedStep(spec, params, 1, SMALL_T, 0.6, 5, quantized)
+    assert step.graph is not None
+    assert step.launches == {"tcq2s_decode_gemv": 9}
+    tok = _prefilled(step, spec, params, prompt)
+    eager = [tuple(t.clone() for t in c) for c in step.caches]
+    for i in range(4):
+        before = tcq2s_decode_gemv.launches
+        step.replay()
+        assert tcq2s_decode_gemv.launches == before  # a replay counts none
+        want, eager = llama.forward(spec, params, tok, kv_caches=eager,
+                                    cache_pos=SMALL_S + i)
+        assert torch.equal(step.logits, want[:, -1]), i
+        tok = step.token.clone()
+    assert all(torch.equal(a, b) for c, e in zip(step.caches, eager)
+               for a, b in zip(c, e))
+
+
+def test_captured_sampling_is_seeded(small_model):
+    """Replays from the same token and position draw new noise each time
+    (temperature 1e4: top-5 nearly uniform), and the same seed draws the
+    same tokens; two sampled generate_fast runs with one seed agree."""
+    spec, params, prompt = small_model
+    step = decode.CapturedStep(spec, params, 1, SMALL_T, 1e4, 5)
+    cur = _prefilled(step, spec, params, prompt)
+    draws = []
+    for _ in range(2):
+        step.generator.manual_seed(7)
+        seq = []
+        for _ in range(16):
+            step.reset(cur, SMALL_S)
+            step.replay()
+            seq.append(step.token.item())
+        draws.append(seq)
+    assert draws[0] == draws[1] and len(set(draws[0])) > 1, draws
+    runs = [decode.generate_fast(spec, params, prompt.cpu().numpy(), 12,
+                                 seed=3) for _ in range(2)]
+    assert runs[0][1]["captured"]
+    assert np.array_equal(runs[0][0], runs[1][0])
+
+
+def test_replay_advances_position(small_model):
+    """The graph writes the next token at history[pos + 1] and adds one to
+    pos; replays past the cache raise before launching."""
+    spec, params, prompt = small_model
+    step = decode.CapturedStep(spec, params, 1, SMALL_T, 0.0, None)
+    _prefilled(step, spec, params, prompt)
+    step.replay(3)
+    assert step.pos.item() == step.host_pos == SMALL_S + 3
+    assert step.history[0, SMALL_S + 3].item() == step.token.item()
+    with pytest.raises(ValueError):
+        step.replay(SMALL_T - SMALL_S - 2)
+    assert step.pos.item() == SMALL_S + 3
