@@ -47,6 +47,11 @@ Phases (each raises on failure):
   5c. the int8 lm_head GEMVs (K10 int8_gemv_a8 bit-equal, K11 int8_gemv
      within 1e-5) at the 129024x4096 head, N in {1,8}; times with
      torch._int_mm on the same int8 operands as K10's yardstick
+  5d. the merged shapes: K4/K5 at m = 2048, 5120, 6144, 28672 (kv, qk/qv,
+     qkv, ug; k 4096), K1 sum2/dualmad/1mad and K8 at 2048 and 5120, N in
+     {1,8}; comb as two K4 calls (N <= 8) or two K6 calls (N = 12) over
+     unequal 16-row halves; the dequant route (impl dequant) of every kind
+     at a merged shape, W_hat bit-equal to the plain version's
   6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
      cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
@@ -71,8 +76,14 @@ Phases (each raises on failure):
  9c. Path D: 8 layers of ldlq_1_4 (4-bit scalar, unmerged) with the int8
      head built here without the rotation: 56 K9 in the prefill, 56 K8 + 1
      K11 a decode forward
+ 9e. Path E: the 8B with a mixed qdict (path_e_qdict: six schemes, the
+     attention merges qkv / qk / kv / qv / none, ug merged on even
+     layers, the five impl choices; the dequant route takes ~24% of the
+     weight bytes, K2, K3, K6, K7 and K9 in every decode step), impl a8,
+     the 4-bit head: its census (projections and bytes by kind x route x
+     merge group) predicts each wrapper's launches a prefill and a step
  9d. after its counted eager run, each decode path (6, 7, both impls of
-     8, 9b, 9c) runs through the captured step (runtime/decode.py, one
+     8, 9b, 9c, 9e) runs through the captured step (runtime/decode.py, one
      CUDA graph replay a token): the launches recorded at capture equal
      the path's per-forward counts; 4 replays give the eager forward's
      logits and caches bit for bit from the same caches and position;
@@ -87,9 +98,17 @@ Phases (each raises on failure):
      versions) against the same weights on the card (kernels); the tcq2mix
      one with a 300-token exact prompt (K2/K3) and one decode step; the
      Path C one with a 12-token prompt (K9) and one decode step (K8, K10)
+ 10b. artifacts: two layers of the 8B (merged tcq and tcomb groups, comb
+     with unequal halves, rotfp16, choices "1" and "xla") and a
+     999_lm_head tcq2s_8 artifact written to a temporary save_dir with
+     random words in the reference's meta schema, loaded with dummy=False
+     on the card and on the CPU: a 12-token prefill and 2 decode steps
+     within SMALL_TOL
  11. eager and graph tokens/s of every decode path side by side, a JSON
-     line of them ("[graph] {...}"), a JSON line of kernels, the
-     nvidia-smi name/power line, and the final JSON status line
+     line of them ("[graph] {...}"), the run time, a JSON line of kernels
+     (launches in the counted runs, step_launches in their decode
+     forwards), the nvidia-smi name/power line, and the final JSON status
+     line
 """
 
 import argparse
@@ -177,6 +196,9 @@ I8_TOL = 1e-5  # K11 vs plain, of max|y|
 # "operations", filled as they are timed (the trellis kernels' bounds are
 # bytes at every shape timed)
 BOUND_BY = {}
+# {wrapper: launches in the counted runs' decode forwards}, summed over the
+# paths (drive)
+STEP_LAUNCHES = {}
 L2_BYTES = 50_000_000
 # the least time for a call: bytes over the H100's 3.35 TB/s, operations
 # over its dense peak for their type (NVIDIA's data sheet, SXM, 700 W)
@@ -547,6 +569,8 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
     toks = torch.cat(toks, dim=1).cpu().numpy()
     check(bool(((toks >= 0) & (toks < V)).all()), "token out of vocab")
     total = {k: v for k, v in seen[-1].items() if v}
+    for k in seen[-1]:
+        STEP_LAUNCHES[k] = STEP_LAUNCHES.get(k, 0) + seen[-1][k] - seen[0][k]
     print(f"[{label}] prefill {prompt_len}: "
           f"{ {k: v for k, v in seen[0].items() if v} }; {new_tokens} decode "
           f"forwards: {want_step} each; total {total}; logits finite, tokens "
@@ -613,9 +637,11 @@ def eager_loop(spec, params, prompt, n, T, temperature=0.0, top_k=5,
 
 
 # a decode step's kernels of the port (K1, K4/K5, K8, K10 with its
-# quantize kernel, K11), by their CUDA names; every other device op is glue
+# quantize kernel, K11; the dequants K2/K3, K6/K7, K9 of the dequant
+# route), by their CUDA names; every other device op is glue
 PORT_GEMV = re.compile(r"(arith|v1|v2|lut|vq)_gemv_kernel|i8gemv_kernel|"
                        r"quantize_kernel")
+PORT_DEQUANT = re.compile(r"(arith|lut|vq)_dequant_kernel")
 BIT_STEPS, PROFILE_STEPS = 4, 8
 # the glue's kinds of device op, by name (first match; the rest "other")
 GLUE_KINDS = [(kind, re.compile(pattern, re.I)) for kind, pattern in (
@@ -679,23 +705,27 @@ def profile_replays(label, step, pos, n, card_label):
     total = sum(t for t, _ in by_name.values()) / n / 1e3
     gemv = sum(t for k, (t, _) in by_name.items()
                if PORT_GEMV.search(k)) / n / 1e3
+    deq = sum(t for k, (t, _) in by_name.items()
+              if PORT_DEQUANT.search(k)) / n / 1e3
     out = {**timing, "busy_ms_a_step": busy / n / 1e3,
            "busy_share": busy / n / 1e3 / (wall * 1e3),
            "span_share": busy / (spans[-1][1] - spans[0][0]),
            "device_ms_a_step": total, "gemv_ms_a_step": gemv,
-           "glue_ms_a_step": total - gemv, "ops_a_step": len(ops) / n}
+           "dequant_ms_a_step": deq, "glue_ms_a_step": total - gemv - deq,
+           "ops_a_step": len(ops) / n}
     print(f"[{label} graph] {n} replays: wall {wall * 1e3:.3f} ms a step "
           f"(host clock, to a synchronize), enqueue {enqueue * 1e3:.3f} ms, "
           f"CUDA events {event_ms:.3f} ms; traced: device busy "
           f"{out['busy_ms_a_step']:.3f} ms a step ({out['busy_share']:.1%} of "
           f"the wall, {out['span_share']:.1%} of the ops' span; the traced "
           f"window's wall {traced * 1e3 / n:.3f} ms), device time {total:.3f}"
-          f" ms a step (op sum), GEMV {gemv:.3f} ms, glue {total - gemv:.3f} "
-          f"ms, {len(ops) / n:.0f} device ops a step; card {card_label}",
+          f" ms a step (op sum), GEMV {gemv:.3f} ms, dequant {deq:.3f} ms, "
+          f"glue {total - gemv - deq:.3f} ms, {len(ops) / n:.0f} device ops "
+          f"a step; card {card_label}",
           flush=True)
     kinds = {}
     for name, (t, c) in by_name.items():
-        if PORT_GEMV.search(name):
+        if PORT_GEMV.search(name) or PORT_DEQUANT.search(name):
             continue
         kind = next((k for k, r in GLUE_KINDS if r.search(name)), "other")
         kt, kc = kinds.get(kind, (0.0, 0))
@@ -818,7 +848,7 @@ def graph_phase(label, spec, params, device, want_step, card_label):
     decode.release_captured(params)
     tps = {"eager": eager_tps, "graph": st0["tokens_per_sec"],
            "sampled": runs[1][1]["tokens_per_sec"],
-           "generate": st_g["tokens_per_sec"], **prof}
+           "generate": st_g["tokens_per_sec"], "peak_gb": peak / 1e9, **prof}
     print(f"[{label} graph] launches at capture {want_step}; {BIT_STEPS} "
           f"replays bit-equal to eager; greedy tokens equal the eager loop's;"
           f" sampled runs repeat; tokens/s bs=1 eager loop {eager_tps:.2f}, "
@@ -1571,6 +1601,422 @@ def path_a_b(device, card_label):
     return total, tps, pre
 
 
+# Path E: the 8B with a mixed qdict.  Each layer's groups take the six
+# schemes in turn, the attention merge cycles qkv / qk / kv / qv / none
+# (7, 7, 6, 6, 6 layers), ug is merged on even layers, and the groups take
+# the impl choices in turn from PATH_E_CHOICES: "1" and "xla" are the
+# dequant route under the session's a8 (2 of 8 groups, about a quarter
+# of the streamed weight bytes), "pallas" exact, "0" and "pallas_a8" a8
+PATH_E_SCHEMES = ("tcq_8_none_0.9", "tcomb_8_9_0.5_none_0.9",
+                  "tcq2s_6_none_0.9", "tcq2_6_none_0.9", "tcq1_3_none_0.9",
+                  "ldlq_2_6_none_1.0")
+PATH_E_CHOICES = ("0", "1", "pallas", "xla", "pallas_a8", "0", "pallas", "0")
+PATH_E_PARTS = ("qkv", "qk", "kv", "qv", None)
+PATH_E_DEQUANT_SHARE = (0.2, 0.3)  # of the streamed weight bytes
+# the wrapper each kind launches on the dequant route, and on the GEMV
+# class below and above 8 rows (K1 takes up to 256 rows)
+DEQUANT_OF = {"tcq2": "tcq2_dequant", "tcq1": "tcq1_dequant",
+              "tcq": "tcq_lut_dequant", "comb": "tcq_lut_dequant",
+              "tcomb": "tcomb_lut_dequant", "vq": "vq_dequant"}
+GEMV_OF = {"sum2": "tcq2s_decode_gemv", "dualmad": "tcq2_decode_gemv",
+           "1mad": "tcq1_decode_gemv", "2mad": "tcq1_decode_gemv",
+           "tcq": "tcq_lut_gemv", "comb": "tcq_lut_gemv",
+           "tcomb": "tcomb_lut_gemv", "vq": "vq_gemv"}
+
+
+def path_e_qdict(num_layers=32):
+    """(qdict, merge_info) of Path E."""
+    from qpalette_tpu_torch.runtime.loader import ATTN_GROUPS, LAYER_KEYS
+
+    KO, KG, KU, KD = LAYER_KEYS[3:]
+    qdict, merge_info, g = {}, [], 0
+    for i in range(num_layers):
+        part = PATH_E_PARTS[i % len(PATH_E_PARTS)]
+        ug = i % 2 == 0
+        groups = [keys for _, keys in ATTN_GROUPS[part]] + [(KO,)] + (
+            [(KU, KG)] if ug else [(KU,), (KG,)]) + [(KD,)]
+        for j, keys in enumerate(groups):
+            scheme = PATH_E_SCHEMES[(i + j) % len(PATH_E_SCHEMES)]
+            choice = PATH_E_CHOICES[g % len(PATH_E_CHOICES)]
+            g += 1
+            for key in keys:
+                qdict[f"{i}_{key}"] = (scheme, choice)
+        merge_info.append(([f"merge_{part}"] if part else [])
+                          + (["merge_ug"] if ug else []))
+    return qdict, merge_info
+
+
+def proj_launches(ls, rows):
+    """{wrapper: launches} of one qlinear_apply of ls at rows, as
+    runtime/qlinear.py dispatches it."""
+    if ls.kind in ("dense", "dense_rot"):
+        return {}
+    halves = 2 if ls.kind == "comb" else 1
+    if ls.impl == "dequant":
+        return {DEQUANT_OF[ls.kind]: halves}
+    if ls.kind in ("tcq1", "tcq2"):
+        if rows <= 256 or ls.impl == "a8":
+            return {GEMV_OF[ls.mode]: -(-rows // 256)}
+        return {DEQUANT_OF[ls.kind]: 1}
+    if rows > 8:
+        return {DEQUANT_OF[ls.kind]: halves}
+    return {GEMV_OF[ls.kind]: halves}
+
+
+def kind_label(ls):
+    if ls.kind in ("tcq1", "tcq2"):
+        return f"{ls.kind} {ls.mode}"
+    if ls.kind == "vq":
+        return f"vq {ls.bits}/{ls.vec}"
+    return ls.kind
+
+
+def census(label, spec, params, rows):
+    """Projections and streamed bytes by kind x route (impl) x group (the
+    merged group's name, or "single"), printed; returns ({wrapper:
+    launches} of a forward at each of rows, {(kind, route, group): (n,
+    bytes)}, the dequant route's share of the weight bytes)."""
+    table, want = {}, {r: {} for r in rows}
+    projs = [(nm, ls, lp[nm]) for (a, m), lp in zip(spec.layers,
+                                                   params["layers"])
+             for nm, ls in a.projs + m.projs]
+    if spec.lm_head_spec is not None:
+        projs.append(("lm_head", spec.lm_head_spec, params["lm_head_q4"]))
+    for nm, ls, p in projs:
+        group = nm if nm in ("qkv", "qk", "kv", "qv", "ug") else "single"
+        key = (kind_label(ls), ls.impl, group)
+        nbytes = sum(t.numel() * t.element_size() for t in p.values())
+        n, b = table.get(key, (0, 0))
+        table[key] = (n + 1, b + nbytes)
+        for r in rows:
+            for w, c in proj_launches(ls, r).items():
+                want[r][w] = want[r].get(w, 0) + c
+    total = sum(b for _, b in table.values())
+    deq = sum(b for (_, route, _), (_, b) in table.items()
+              if route == "dequant")
+    print(f"[{label}] census: kind, route, group: projections, MB "
+          f"(computed from tensor sizes)", flush=True)
+    for key, (n, b) in sorted(table.items()):
+        print(f"[{label}]   {key[0]:<13} {key[1]:<8} {key[2]:<7} {n:4d} "
+              f"{b / 1e6:10.1f}", flush=True)
+    print(f"[{label}] weight bytes {total / 1e9:.3f} GB, dequant route "
+          f"{deq / 1e9:.3f} GB ({deq / total:.1%}); launches a forward "
+          + "; ".join(f"{r} rows {want[r]}" for r in rows), flush=True)
+    return want, table, deq / total
+
+
+def path_e(device, card_label):
+    """Path E: the 8B with the mixed qdict (every attention merge, merged
+    tcq / tcomb groups, the five impl choices, the dequant route on K2,
+    K3, K6, K7 and K9 in the decode step), impl a8, the 4-bit head.  Its
+    census's launches, the counted eager run, the graph phase.  Returns
+    (launch counts, graph_phase's result)."""
+    from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
+
+    qdict, merge_info = path_e_qdict()
+    choices = {c for _, c in qdict.values()}
+    check(choices == {"0", "1", "xla", "pallas", "pallas_a8"},
+          f"pathE choices {choices}")
+    spec, params = _build("pathE", qdict, merge_info, "a8", 4, device)
+    want, table, share = census("pathE", spec, params, (PROMPT_LEN, 1))
+    parts = [a.merge for a, _ in spec.layers]
+    check(all(parts.count(p) >= 6 for p in PATH_E_PARTS),
+          f"pathE attention partitions {parts}")
+    check(sum(m.merge_ug for _, m in spec.layers) == 16, "pathE ug merges")
+    fams = {}
+    for (kind, _, group), _ in table.items():
+        fams.setdefault(kind, set()).add(group != "single")
+    for kind in ("tcq", "tcomb", "tcq2 sum2", "tcq2 dualmad", "tcq1 1mad",
+                 "vq 6/2"):
+        check(fams.get(kind) == {True, False},
+              f"pathE {kind}: merged and unmerged {fams.get(kind)}")
+    for kind in ("tcq", "tcomb"):
+        groups = {g for (k, _, g) in table if k == kind and g != "single"}
+        check(groups & {"qkv", "qk", "kv", "qv"} and "ug" in groups,
+              f"pathE merged {kind} groups {groups}")
+    for kname in ("tcq2_dequant", "tcq1_dequant", "tcq_lut_dequant",
+                  "tcomb_lut_dequant", "vq_dequant"):
+        check(want[1].get(kname, 0) > 0, f"pathE step: no {kname}")
+    lo, hi = PATH_E_DEQUANT_SHARE
+    check(lo <= share <= hi, f"pathE dequant share {share}")
+    check({parse_quantizer_str(q).family for q, _ in qdict.values()}
+          == {"tcq", "tcomb", "tcq2s", "tcq2", "tcq1", "ldlq"}, "pathE mix")
+    launches = drive("pathE", spec, params, device, PROMPT_LEN, NEW_TOKENS,
+                     want[PROMPT_LEN], want[1])
+    graph = graph_phase("pathE", spec, params, device, want[1], card_label)
+    del params
+    torch.cuda.empty_cache()
+    return launches, graph
+
+
+def merged_shape_checks(device):
+    """The GEMVs at the merged m no other path gives them (kv 2048, qk / qv
+    5120, qkv 6144, ug 28672; k 4096), comb as two K4 calls over unequal
+    16-row halves, and the dequant route of every kind, each against its
+    plain version on the CPU.  Returns {kernel: max_abs_err}."""
+    from qpalette_tpu_torch.kernels import arith, launch_counts, tcq_lut, vq
+    from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv,
+                                                  trellis_tlut, vq_lut)
+    from qpalette_tpu_torch.runtime.loader import word_shapes
+    from qpalette_tpu_torch.runtime.qlinear import (LinearSpec,
+                                                    dequant_weight,
+                                                    qlinear_apply)
+
+    err = {}
+
+    def note(name, e):
+        err[name] = max(err.get(name, 0.0), e)
+
+    k = 4096
+    for m in (2048, 5120, 6144, 28672):
+        for KV in ((8,), (8, 9)):
+            tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
+                                device=device)
+            words = _lut_words(m, k, KV, device, seed=m + sum(KV))
+            gemv, plain = ((tcq_lut.tcq_lut_gemv, tcq_lut.tcq_lut_gemv_plain)
+                           if len(KV) == 1 else
+                           (tcq_lut.tcomb_lut_gemv,
+                            tcq_lut.tcomb_lut_gemv_plain))
+            for N in (1, 8):
+                x = torch.randn((N, k), device=device).bfloat16()
+                note(gemv.__name__, _rel_check(
+                    f"{gemv.__name__} merged m={m} KV={KV} N={N}",
+                    gemv(x, *words, tlut, *KV, m, k),
+                    plain(x, *words, tlut, *KV, m, k), LUT_TOL))
+        if m > 5120:
+            continue
+        for mode, KV in (("sum2", 6), ("dualmad", 6), ("1mad", 3)):
+            words = _words(m, k, arith.words_per_tile(mode, KV), device,
+                           seed=m + KV)
+            for N in (1, 8):
+                x = torch.randn((N, k), device=device)
+                for a8 in (False, True):
+                    note(GEMV_OF[mode], _rel_check(
+                        f"{GEMV_OF[mode]} {mode} merged m={m} N={N} a8={a8}",
+                        arith.decode_gemv(mode, x, words, KV, m, k, a8),
+                        arith.arith_gemv_plain(x, words, mode, KV, m, k, a8),
+                        TOL[a8]))
+        lut = torch.tensor(vq_lut(6, 2), device=device)
+        qw = _vq_words(m, k, 6, 2, device, seed=m)
+        for N in (1, 8):
+            x = torch.randn((N, k), device=device).bfloat16()
+            note("vq_gemv", _rel_check(
+                f"vq_gemv merged m={m} N={N}",
+                vq.vq_gemv(x, qw, lut, 6, 2, m, k),
+                vq.vq_gemv_plain(x, qw, lut, 6, 2, m, k), VQ_TOL))
+
+    def proj(kind, m, seed, impl, split=(), **kw):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        ls = LinearSpec(kind, k, m, split=split, impl=impl, **kw)
+        p = {name: torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                                 dtype=torch.int32, device=device)
+             for name, shape in word_shapes(ls).items()}
+        p["wscale"] = torch.rand(m, generator=gen, device=device) + 0.5
+        if kind == "vq":
+            p["lut"] = torch.tensor(vq_lut(ls.bits, ls.vec), device=device)
+        luts = ({f"tcq{ls.tlut_bits}": torch.tensor(
+            trellis_tlut(ls.tlut_bits), device=device)}
+            if ls.tlut_bits else {})
+        return ls, p, luts
+
+    def on_cpu(d):
+        return {n: t.cpu() for n, t in d.items()}
+
+    # comb at the 8B's o (ratio 0.4) and k/v row splits; two K4 calls at
+    # N <= 8, two K6 above
+    for m, split in ((4096, (1632, 2464)), (1024, (400, 624))):
+        ls, p, luts = proj("comb", m, m, "exact", split=split, KV=(6, 7),
+                           tlut_bits=9)
+        for N in (1, 8, 12):
+            x = torch.randn((N, k), device=device).bfloat16()
+            before = launch_counts()
+            y = qlinear_apply(ls, p, x, out_dtype=torch.float32, luts=luts)
+            after = launch_counts()
+            wrapper = "tcq_lut_gemv" if N <= 8 else "tcq_lut_dequant"
+            check(after[wrapper] - before[wrapper] == 2,
+                  f"comb {split} N={N}: {wrapper} not launched twice")
+            note(wrapper, _rel_check(
+                f"comb {m}x{k} out_part {split} N={N} ({wrapper} x2)", y,
+                qlinear_apply(ls, on_cpu(p), x.cpu(), out_dtype=torch.float32,
+                              luts=on_cpu(luts)).to(device), LUT_TOL))
+    # the dequant route: W_hat bit-equal to the plain version's
+    cases = [("tcq2", 2048, dict(KV=(6,), mode="sum2")),
+             ("tcq2", 5120, dict(KV=(6,), mode="dualmad")),
+             ("tcq1", 6144, dict(KV=(3,), mode="1mad")),
+             ("tcq", 2048, dict(KV=(8,), tlut_bits=9)),
+             ("comb", 4096, dict(KV=(8, 9), tlut_bits=9,
+                                 split=(1632, 2464))),
+             ("tcomb", 28672, dict(KV=(8, 9), tlut_bits=10,
+                                   split=(k // 2, k // 2))),
+             ("vq", 5120, dict(bits=6, vec=2))]
+    for kind, m, kw in cases:
+        ls, p, luts = proj(kind, m, 7 * m, "dequant", **kw)
+        w = dequant_weight(ls, p, luts)
+        torch.cuda.synchronize()
+        w_ref = dequant_weight(ls, on_cpu(p), on_cpu(luts))
+        same = torch.equal(w.cpu().view(torch.int16), w_ref.view(torch.int16))
+        print(f"[kernel] dequant route {kind_label(ls)} {m}x{k}: W_hat "
+              f"bit-equal to the plain version's: {same}", flush=True)
+        check(same, f"dequant route {kind} {m}: W_hat differs")
+        x = torch.randn((1, k), device=device).bfloat16()
+        y = qlinear_apply(ls, p, x, out_dtype=torch.float32, luts=luts)
+        ref = qlinear_apply(ls, on_cpu(p), x.cpu(), out_dtype=torch.float32,
+                            luts=on_cpu(luts)).to(device)
+        note(DEQUANT_OF[kind], _rel_check(
+            f"dequant route {kind_label(ls)} {m}x{k} N=1 (product and "
+            f"Wscale, against the CPU's)", y, ref, PRODUCT_TOL))
+        del w, w_ref, p
+    return err
+
+
+# Artifacts on the card: two layers of the 8B written with the port's
+# save_artifact (random words in the reference's meta schema), loaded with
+# dummy=False on the card and on the CPU.  (scheme, choice) a projection;
+# comb's out_part is quantize_mat_comb's (ratio 0.4, rows cut to 16s)
+ARTIFACT_LAYERS = [
+    {"self_attn.q_proj": ("tcq_8_none_0.9", "0"),
+     "self_attn.k_proj": ("tcq_8_none_0.9", "0"),
+     "self_attn.v_proj": ("comb_6_7_0.4_none_0.9", "0"),
+     "self_attn.o_proj": ("rotfp16", "0"),
+     "mlp.gate_proj": ("tcomb_8_9_0.5_none_0.9", "0"),
+     "mlp.up_proj": ("tcomb_8_9_0.5_none_0.9", "0"),
+     "mlp.down_proj": ("tcq2s_6_none_0.9", "1")},
+    {"self_attn.q_proj": ("tcq1_3_none_0.9", "1"),
+     "self_attn.k_proj": ("tcq_8_none_0.9", "1"),
+     "self_attn.v_proj": ("tcq_8_none_0.9", "1"),
+     "self_attn.o_proj": ("comb_8_9_0.4_none_0.9", "0"),
+     "mlp.gate_proj": ("tcq2_6_none_0.9", "0"),
+     "mlp.up_proj": ("ldlq_2_6_none_1.0", "1"),
+     "mlp.down_proj": ("tcomb_8_9_0.5_none_0.9", "xla")},
+]
+ARTIFACT_MERGES = [["merge_qk", "merge_ug"], ["merge_kv"]]
+
+
+def random_artifact(qstr, m, n, su, seed):
+    """An (m, n) artifact of qstr in the reference's meta schema: random
+    packed words (a random rotated weight for rotfp16), the SU given, a
+    random Wscale."""
+    from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv,
+                                                  trellis_tlut, vq_lut)
+    from qpalette_tpu_torch.ops.hadamard import get_had_factors
+    from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
+    from qpalette_tpu_torch.runtime import loader
+
+    q = parse_quantizer_str(qstr)
+    rng = np.random.default_rng(seed)
+    meta = {"quantizer_str": qstr, "in_features": n, "out_features": m,
+            "rot_info": "skip_r", "rot_blocks": 1,
+            "had_factors": list(get_had_factors(n))}
+    art = {"SU": su, "Wscale": rng.uniform(0.01, 0.03, m).astype(np.float32)}
+    if q.family == "rotfp16":
+        meta["kind"] = "dense_rot"
+        art["w"] = rng.standard_normal((m, n)).astype(np.float32)
+        art["meta"] = meta
+        return art
+    if q.family == "comb":
+        m0 = int(m * q.ratio)
+        m0 -= m0 % 16
+        meta.update(kind="comb", KV1=q.KV[0], KV2=q.KV[1],
+                    tlut_bits=tlut_bits_for_kv(q.KV[0]),
+                    out_part=(m0, m - m0))
+    elif q.family == "tcomb":
+        meta.update(kind="tcomb", KV1=q.KV[0], KV2=q.KV[1],
+                    tlut_bits=tlut_bits_for_kv(max(q.KV)),
+                    in_part=(n // 2, n // 2))
+    else:
+        meta = {**loader.dummy_artifact(qstr, (m, n))["meta"], **meta}
+    if "tlut_bits" in meta:
+        art["tlut"] = trellis_tlut(meta["tlut_bits"])
+    if meta["kind"] == "vq":
+        art["lut"] = vq_lut(q.bits, q.vec)
+    art["meta"] = meta
+    for name, shape in loader.word_shapes(
+            loader._spec_from_meta(meta, "exact")).items():
+        art[name] = rng.integers(0, 1 << 32, shape, dtype=np.uint32)
+    return art
+
+
+def artifact_check(device, cfg=None):
+    """Two layers of the 8B (every attention projection kind of the
+    loader: merged tcq and tcomb groups, comb with unequal halves,
+    rotfp16, choice "1" and "xla") and the 999_lm_head tcq2s_8 artifact
+    written to a temporary save_dir with the port's save_artifact, loaded
+    with dummy=False on the card and on the CPU: a 12-token prefill and 2
+    decode steps within SMALL_TOL of max|logit|.  Returns the card run's
+    launches."""
+    import tempfile
+
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.quant.incoherent import (artifact_path,
+                                                     save_artifact)
+    from qpalette_tpu_torch.runtime import loader
+
+    cfg = cfg or LlamaConfig.llama31_8b()
+    VP = -(-cfg.vocab_size // 4096) * 4096  # the 4-bit head's rows
+    qdict = {f"{i}_{k}": v for i, layer in enumerate(ARTIFACT_LAYERS)
+             for k, v in layer.items()}
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 12))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as save_dir:
+        for i, layer in enumerate(ARTIFACT_LAYERS):
+            for key, (qstr, _) in layer.items():
+                art = random_artifact(qstr, *loader.proj_shape(cfg, key),
+                                      loader.su_for(cfg, i, key, 0),
+                                      seed=10 * i + len(key))
+                save_artifact(art, artifact_path(save_dir, "3_8b", 0, qstr,
+                                                 i, key))
+        h = cfg.hidden_size
+        su = ((np.random.default_rng(99).standard_normal(h) > 0) * 2.0
+              - 1.0).astype(np.float32)  # the head's SU: seed 0 * 7 + 99
+        save_artifact(random_artifact(loader.LM_HEAD_QSTR, VP, h, su,
+                                      seed=99),
+                      artifact_path(save_dir, "3_8b", 0, loader.LM_HEAD_QSTR,
+                                    *loader.LM_HEAD_LAYER))
+        print(f"[artifacts] 2 layers + the 4-bit head written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out, counts = {}, {}
+        for dev in ("cpu", device):
+            spec, params = loader.build_quantized_model(
+                cfg, qdict, merge_info=ARTIFACT_MERGES, dummy=False,
+                impl="a8", num_layers=2, lm_head_bits=4, device=dev,
+                model_key="3_8b", save_dir=save_dir)
+            caches = llama.init_kv_caches(spec, 1, 15, dev)
+            for f in wrappers():
+                f.launches = 0
+            l1, caches = llama.forward(spec, params, torch.as_tensor(
+                prompt, device=dev), kv_caches=caches, cache_pos=0)
+            logits = [l1.cpu()]
+            for s in range(2):
+                nxt = torch.tensor([[17 + s]], device=dev)
+                ls, caches = llama.forward(spec, params, nxt, kv_caches=caches,
+                                           cache_pos=12 + s)
+                logits.append(ls.cpu())
+            out[str(dev)] = logits
+            counts = {k: v for k, v in launch_counts().items() if v}
+            del params, caches
+    kinds = sorted({(nm, ls.kind, ls.impl) for a, m in spec.layers
+                    for nm, ls in a.projs + m.projs})
+    print(f"[artifacts] projections (name, kind, impl): {kinds}", flush=True)
+    check(counts.get("tcq_lut_gemv", 0) >= 4
+          and counts.get("tcq_lut_dequant", 0) >= 4,
+          f"artifacts: comb's K4/K6 calls {counts}")
+    for i, step in enumerate(("prefill 12", "decode step 1",
+                              "decode step 2")):
+        a, b = out["cpu"][i], out[str(device)][i]
+        check(bool(torch.isfinite(b).all()), f"artifacts {step}: non-finite")
+        rel = ((a - b).abs().max() / a.abs().max()).item()
+        print(f"[artifacts] 8B 2 layers from artifacts {step}: card vs CPU "
+              f"plain rel={rel:.3e} (limit {SMALL_TOL}); card launches "
+              f"{counts}", flush=True)
+        check(rel <= SMALL_TOL, f"artifacts {step}: rel {rel}")
+    print(f"[artifacts] check took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return counts
+
+
 SMALL_CFG = dict(vocab_size=512, hidden_size=512, intermediate_size=1792,
                  num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
                  rope_theta=5e5)
@@ -1664,6 +2110,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
 
 
 def main():
+    t_start = time.perf_counter()
     name, count, smi = card()
     from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
                                             tcq_lut, vq, wrappers)
@@ -1690,6 +2137,8 @@ def main():
     for d, new in ((err, vq_err), (err, i8_err), (times, vq_times),
                    (times, i8_times)):
         d.update(new)
+    for kname, e in merged_shape_checks(device).items():
+        err[kname] = max(err[kname], e)
     print(f"[time] kernel checks {time.perf_counter() - t0:.1f} s",
           flush=True)
     launches, qdict, graphs = main_path(device, smi)
@@ -1702,9 +2151,11 @@ def main():
     graphs.update({f"pathA {k}": v for k, v in tps.items()})
     pc, graphs["pathC"] = path_c(device, smi)
     pd, graphs["pathD"] = path_d(device, smi)
+    pe, graphs["pathE"] = path_e(device, smi)
     for k in launches:
-        launches[k] += pc[k] + pd[k]
+        launches[k] += pc[k] + pd[k] + pe[k]
     small_model_checks(device)
+    artifact_check(device)
     times["tcq2s_decode_gemv"] = step_ms(sum2_times, qdict)
     ms, pms, bms = times["tcq2s_decode_gemv"]
     print(f"[time] one 215 decode step's 129 sum2 calls: kernel {ms:.3f} ms, "
@@ -1749,12 +2200,16 @@ def main():
               f"{g.get('busy_share', float('nan')):.1%} of a replay window, "
               f"device time {g.get('device_ms_a_step', float('nan')):.3f} ms "
               f"a step (GEMV {g.get('gemv_ms_a_step', float('nan')):.3f}, "
-              f"glue {g.get('glue_ms_a_step', float('nan')):.3f}); "
+              f"dequant {g.get('dequant_ms_a_step', float('nan')):.3f}, "
+              f"glue {g.get('glue_ms_a_step', float('nan')):.3f}), peak "
+              f"memory {g['peak_gb']:.3f} GB; "
               f"{NEW_TOKENS} replays {g['long_ms_a_step']:.3f} ms a step at "
               f"SM {g['sm_mhz']:.0f} MHz, {g['power_w']:.0f} W ({smi})",
               flush=True)
     print("[graph] " + json.dumps({"card": smi, "paths": graphs}),
           flush=True)
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+          f"({smi})", flush=True)
     kernels = []
     for f in wrappers():
         kname = f.__name__
@@ -1764,7 +2219,9 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"qpalette_tpu_torch/csrc/{src}", "replaces": where,
-            "launches": launches[kname], "max_abs_err": err[kname],
+            "launches": launches[kname],
+            "step_launches": STEP_LAUNCHES.get(kname, 0),
+            "max_abs_err": err[kname],
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
             "bound_by": BOUND_BY.get(kname, "bytes"),
             "library_ms": library.get(kname)})

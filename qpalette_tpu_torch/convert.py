@@ -11,13 +11,18 @@ projection under its pallas impls; even KV, or odd KV with an even
 k/16) is inverted to canonical words.  tcq / tcomb projections come as
 canonical ``trellis`` / ``trellis1`` + ``trellis2`` (the reference's
 impl ``xla``) or as the kernel layouts ``trellis_kt`` / ``trellisc_kt``
-plus ``clut`` (its ``pallas`` impls), inverted to canonical words; their
+plus ``clut`` (its ``pallas`` impls), inverted to canonical words; comb
+projections come as ``trellis1`` + ``trellis2`` or as ``trellis1_kt`` +
+``trellis2_kt`` + ``clut``, each row half inverted as a tcq; their
 tables must be the committed ones (``luts`` entries ``tcq{S}``,
 ``clut``), which the port holds once per S.  vq projections come as the
 canonical row-pack ``qweight`` + ``lut`` (impl ``xla``) or as the kernel
 layout ``qweight_t`` + ``clut`` (its pallas impls), inverted to the
 row-pack with a zero pad word; the codebook is kept per projection, in
-float32.  A ``dense`` projection (the bf16 baseline) is its weight ``w``.
+float32.  A ``dense`` projection (the bf16 baseline) is its weight ``w``,
+a ``dense_rot`` one (``rotfp16``) its weight ``w`` and ``wscale``.
+Projection names follow the spec (q / k / v / qkv / qk / kv / qv / o, up
+/ gate / ug / down).
 The int8 lm_head (``lm_head_q`` (hidden, vocab padded) int8,
 ``lm_head_s`` (1, vocab padded), and ``lm_head_su`` when it is rotated)
 is transposed to the port's (vocab padded, hidden) rows.  Any other
@@ -62,6 +67,8 @@ def _canonical_words(p: dict, ls: LinearSpec) -> dict:
                "tcq2": ({"trellis"}, {"trellis_pl"}),
                "tcq": ({"trellis"}, {"trellis_kt", "clut"}),
                "tcomb": ({"trellis1", "trellis2"}, {"trellisc_kt", "clut"}),
+               "comb": ({"trellis1", "trellis2"},
+                        {"trellis1_kt", "trellis2_kt", "clut"}),
                "vq": ({"qweight", "lut"}, {"qweight_t", "clut"})}
     if ls.kind not in layouts:
         raise NotImplementedError(f"kind {ls.kind!r}")
@@ -85,6 +92,10 @@ def _canonical_words(p: dict, ls: LinearSpec) -> dict:
     if ls.kind == "tcq":
         return {"trellis": tcq_kernel_to_canonical(_u32(p["trellis_kt"]), m,
                                                    k, ls.KV[0])}
+    if ls.kind == "comb":
+        return {f"trellis{h}": tcq_kernel_to_canonical(
+            _u32(p[f"trellis{h}_kt"]), m_h, k, KV)
+            for h, m_h, KV in zip((1, 2), ls.split, ls.KV)}
     t1, t2 = tcomb_kernel_to_canonical(_u32(p["trellisc_kt"]), m,
                                        *ls.split, *ls.KV)
     return {"trellis1": t1, "trellis2": t2}
@@ -99,6 +110,13 @@ def _proj(p: dict, ls: LinearSpec, device) -> dict:
         if tuple(w.shape) != (m, ls.in_features):
             raise ValueError(f"w {tuple(w.shape)} does not fit {ls}")
         return {"w": w}
+    if ls.kind == "dense_rot":  # the rotated bf16 baseline
+        if set(p) != {"w", "wscale"}:
+            raise ValueError(f"unsupported dense_rot layout {sorted(p)}")
+        w = _bf16(p["w"], device)
+        if tuple(w.shape) != (m, ls.in_features):
+            raise ValueError(f"w {tuple(w.shape)} does not fit {ls}")
+        return {"w": w, "wscale": _f32(p["wscale"], device)}
     shapes = word_shapes(ls)
     out = {}
     for name, words in _canonical_words(p, ls).items():

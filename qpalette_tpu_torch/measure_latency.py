@@ -23,12 +23,21 @@ forward):
   python -m qpalette_tpu_torch.measure_latency --dummy \
       --quantizer_str ldlq_2_6_none_1.0 --lm_head_bits 8
 
+Without --dummy the projections are read from the artifacts the JAX
+package's quantizer wrote under --save_dir (default quant_results, as the
+reference's), with random embed, norms and head as the reference takes
+them when it finds no checkpoint:
+
+  python -m qpalette_tpu_torch.measure_latency --impl dequant \
+      --qdict_path my_qdict.json --merge_info_path "" --lm_head_bits 16
+
 Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
 with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Decode
 goes through ``runtime.decode.generate``: the step is captured once in a
 CUDA graph and replayed a token.  Reports tokens/s and achieved GB/s
 (streamed bytes x tokens/s) on the line of the card's name and power limit
-(``nvidia-smi``); a CPU run (``--device cpu``) is for rehearsal only.
+(``nvidia-smi``), and how many projections take each route (kind, impl);
+a CPU run (``--device cpu``) is for rehearsal only.
 """
 
 import argparse
@@ -53,6 +62,19 @@ def card_label(index: int) -> str:
         check=True).stdout.strip()
 
 
+def route_census(spec) -> dict:
+    """{(kind, impl): projections a forward} of a model spec, the lm_head
+    included."""
+    out = {}
+    projs = [ls for a, m in spec.layers for _, ls in a.projs + m.projs]
+    if spec.lm_head_spec is not None:
+        projs.append(spec.lm_head_spec)
+    for ls in projs:
+        key = (ls.kind, ls.impl)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--hf_path", default="meta-llama/Llama-3.1-8B")
@@ -67,7 +89,10 @@ def main():
     ap.add_argument("--max_new_tokens", type=int, default=128)
     ap.add_argument("--num_samples", type=int, default=3)
     ap.add_argument("--dummy", action="store_true")
-    ap.add_argument("--impl", default="a8", choices=["exact", "a8"])
+    ap.add_argument("--save_dir", default="quant_results",
+                    help="where the artifacts are read without --dummy")
+    ap.add_argument("--impl", default="a8",
+                    choices=["exact", "a8", "dequant"])
     ap.add_argument("--num_hidden_layers", type=int, default=-1)
     ap.add_argument("--lm_head_bits", type=int, default=4,
                     choices=[4, 8, 16],
@@ -76,8 +101,6 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    if not args.dummy:
-        ap.error("only --dummy (random weights) is supported by the port")
 
     import numpy as np
     import torch
@@ -110,15 +133,19 @@ def main():
         with open(mi_path) as f:
             merge_info = json.load(f)
 
+    model_key = MODEL_KEYS[args.hf_path]
     spec, params = build_quantized_model(
-        cfg, qdict, merge_info=merge_info, dummy=True, impl=args.impl,
+        cfg, qdict, merge_info=merge_info, dummy=args.dummy, impl=args.impl,
         num_layers=nl, lm_head_bits=args.lm_head_bits, seed=args.seed,
-        device=device)
+        device=device, model_key=model_key, save_dir=args.save_dir)
     mbytes = model_bytes(params)
     streamed = mbytes - model_bytes(params["embed"])
     bits = calc_avg_bits(cfg, qdict, num_layers=nl)
     head = HEADS[args.lm_head_bits]
+    routes = route_census(spec)
     print(f"device: {dev_name}")
+    print("projections by route (kind, impl): " + ", ".join(
+        f"{k}/{im} {n}" for (k, im), n in sorted(routes.items())))
     print(f"model size: {mbytes / 1e9:.3f} GB, streamed per token: "
           f"{streamed / 1e9:.3f} GB, {bits:.2f} bits/weight avg, "
           f"{nl} layers, impl {args.impl}, lm_head {head}")
@@ -141,6 +168,9 @@ def main():
                       "streamed_gb_per_token": streamed / 1e9,
                       "avg_bits": bits, "impl": args.impl, "num_layers": nl,
                       "quantizer_str": args.quantizer_str,
+                      "weights": "dummy" if args.dummy else args.save_dir,
+                      "routes": {f"{k}/{im}": n
+                                 for (k, im), n in sorted(routes.items())},
                       "lm_head_bits": args.lm_head_bits, "lm_head": head}))
 
 

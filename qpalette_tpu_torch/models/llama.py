@@ -68,7 +68,9 @@ class LlamaConfig:
 
 @dataclass(frozen=True)
 class AttnSpec:
-    """merge in {None, 'qkv'}; projs = ((name, LinearSpec), ..., ('o', _))."""
+    """merge in {None, 'qkv', 'qk', 'kv', 'qv'}; projs = ((name,
+    LinearSpec), ..., ('o', _)): q, k, v unmerged, else the merged group
+    and the projection it leaves out, in the loader's order."""
     merge: Optional[str]
     projs: tuple
 
@@ -194,16 +196,29 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     non_o = [(nm, ls) for nm, ls in spec.projs if nm != "o"]
     hs = cfg.num_heads * cfg.head_dim
     kv = cfg.kv_out
-    if spec.merge == "qkv":
+    if len(non_o) == 1:
+        # a lone group (merged qkv) takes the un-rotated activation, so
+        # that qlinear_apply can keep the rotation in float32 where the
+        # reference fuses it into the kernel's prologue
         (name, lspec), = non_o
-        y = qlinear_apply(lspec, p[name], xs,
-                          pre_rot=p["su_qkv"] if rotated else None,
-                          luts=luts)
-        q, k, v = torch.split(y, [hs, kv, kv], dim=-1)
-    elif spec.merge is None:
+        outs = {name: qlinear_apply(lspec, p[name], xs,
+                                    pre_rot=p["su_qkv"] if rotated else None,
+                                    luts=luts)}
+    else:
+        # several groups share one rotated activation
         z = _rotate_in(xs, p["su_qkv"]) if rotated else xs
-        q, k, v = (qlinear_apply(ls, p[nm], z, luts=luts)
-                   for nm, ls in non_o)
+        outs = {nm: qlinear_apply(ls, p[nm], z, luts=luts)
+                for nm, ls in non_o}
+    if spec.merge is None:
+        q, k, v = outs["q"], outs["k"], outs["v"]
+    elif spec.merge == "qkv":
+        q, k, v = torch.split(outs["qkv"], [hs, kv, kv], dim=-1)
+    elif spec.merge == "qk":
+        (q, k), v = torch.split(outs["qk"], [hs, kv], dim=-1), outs["v"]
+    elif spec.merge == "kv":
+        q, (k, v) = outs["q"], torch.split(outs["kv"], [kv, kv], dim=-1)
+    elif spec.merge == "qv":
+        (q, v), k = torch.split(outs["qv"], [hs, kv], dim=-1), outs["k"]
     else:
         raise NotImplementedError(f"attention merge {spec.merge!r}")
     q = apply_rope(q.reshape(B, S, cfg.num_heads, cfg.head_dim), cos, sin)

@@ -11,11 +11,20 @@ Counterpart of ``QuantizerSpec`` / ``parse_quantizer_str`` in
   sq_{bits}_{hess}_{scale}           scalar VQ
   vq2_{bits}_{hess}_{scale}          2-dim VQ
   rotfp16                            rotated dense baseline
+
+and the artifact files of ``quant/incoherent.py`` (``artifact_path``,
+``save_artifact``, ``load_artifact``): one ``.npz`` a projection, its
+arrays beside a JSON ``__meta__`` string, read and written unchanged by
+either package.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -68,3 +77,33 @@ def parse_quantizer_str(qstr: str) -> QuantizerSpec:
     if fam == "rotfp16":
         return QuantizerSpec(qstr, "rotfp16", False, 1.0, bits=16, vec=1)
     raise ValueError(f"unknown quantizer_str {qstr!r}")
+
+
+# meta entries that the quantizer writes as tuples; JSON stores lists
+_TUPLE_META = ("in_part", "out_part")
+
+
+def artifact_path(save_dir: str, model_key: str, seed: int,
+                  quantizer_str: str, layer_idx: int, layer_key: str) -> str:
+    return os.path.join(save_dir, model_key, f"left_only_seed{seed}_cache",
+                        quantizer_str, f"{layer_idx}_{layer_key}.npz")
+
+
+def save_artifact(art: dict, path: str) -> None:
+    """Write art's arrays and its JSON meta to path (an ``.npz``)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arrays = {k: v for k, v in art.items() if k != "meta"}
+    np.savez(path, __meta__=json.dumps(art["meta"]), **arrays)
+
+
+def load_artifact(path: str) -> dict:
+    """An artifact's arrays and meta; ``in_part`` / ``out_part`` come back
+    as the tuples the quantizer wrote."""
+    with np.load(path, allow_pickle=False) as z:
+        art = {k: z[k] for k in z.files if k != "__meta__"}
+        meta = json.loads(str(z["__meta__"]))
+    for key in _TUPLE_META:
+        if key in meta:
+            meta[key] = tuple(meta[key])
+    art["meta"] = meta
+    return art

@@ -1,24 +1,35 @@
-"""Model assembly: qdict + merge_info -> (ModelSpec, params).
+"""Model assembly: qdict + merge_info (+ artifacts) -> (ModelSpec, params).
 
-Counterpart of ``qpalette_tpu/runtime/loader.py`` for the arithmetic
-trellis kinds (tcq1 1mad/2mad, tcq2 dualmad/sum2), the LUT trellis kinds
-(tcq, tcomb) and the SQ/VQ row-pack kind (vq: the ldlq, sq and vq2
-families), keeping its seeds (``su_for``, the lm_head SU ``seed*7+99``
-and dummy artifact ``seed*11+5``), its merge semantics (qkv / ug merges
-of tcq1 / tcq2 with one KV and decode mode, of vq with one bits, vec and
-codebook), the 4096-multiple vocab pad of the 4-bit lm_head and the
-2048-multiple pad of the rotated int8 one.  Projections keep the canonical
-``trellis`` (tcomb: ``trellis1`` / ``trellis2``; vq: ``qweight``) words;
-the port defines no kernel-side layout yet.  The (2^S, 2) tables of tcq /
-tcomb are held once per S in ``params["luts"]``; a vq projection holds its
-own (2^bits, vec) float32 codebook ``lut``.  Dummy packed words come from
-a ``torch.Generator`` on the target device.  ``random_dense_params`` and
+Counterpart of ``qpalette_tpu/runtime/loader.py`` on one device, for
+every kind the reference quantizes: the arithmetic trellis kinds (tcq1
+1mad/2mad, tcq2 dualmad/sum2), the LUT trellis kinds (tcq, input-split
+tcomb, output-split comb), the SQ/VQ row-pack kind (vq: the ldlq, sq and
+vq2 families) and the rotated dense baseline (dense_rot, ``rotfp16``).
+It keeps the reference's seeds (``su_for``, the lm_head SU ``seed*7+99``
+and dummy artifact ``seed*11+5``), its impl choices (``qstr_for``), its
+merges (qkv / qk / kv / qv / ug of tcq1, tcq2, tcq, tcomb and vq, with
+its agreement checks), the 4096-multiple vocab pad of the 4-bit lm_head
+and the 2048-multiple pad of the rotated int8 one.  Weights are dummy
+(packed words drawn by a ``torch.Generator`` on the target device) or read
+from the artifacts the reference writes (``quant/incoherent.py``), whose
+Hadamard stamp must match ``get_had_factors``; embed, norms and lm_head
+come from ``dense_params`` or from the reference's numpy draws.
+Projections keep the canonical ``trellis`` (tcomb / comb: ``trellis1`` /
+``trellis2``; vq: ``qweight``) words.  The (2^S, 2) tables of tcq / tcomb
+/ comb are held once per S in ``params["luts"]`` (an artifact's own
+``tlut`` must be the committed one); a vq projection holds its own
+(2^bits, vec) float32 codebook ``lut``.  ``random_dense_params`` and
 ``build_dense_model`` give the unquantized bf16 baseline.
+
+Not ported: quantize-on-demand (a missing or stale artifact raises;
+ROADMAP Queue 1 item 7), ``hess`` (item 7) and ``row_parallel_tp`` with
+its unequal tcomb halves (item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import Optional
 
@@ -31,10 +42,12 @@ from qpalette_tpu_torch.models.llama import (AttnSpec, LlamaConfig, MLPSpec,
                                              ModelSpec)
 from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv, trellis_tlut,
                                               vq_lut)
-from qpalette_tpu_torch.ops.hadamard import hadamard_transform
+from qpalette_tpu_torch.ops.hadamard import get_had_factors, hadamard_transform
 from qpalette_tpu_torch.ops.packing import TD, words_to_torch
-from qpalette_tpu_torch.quant.incoherent import parse_quantizer_str
-from qpalette_tpu_torch.runtime.qlinear import IMPLS, LinearSpec
+from qpalette_tpu_torch.quant.incoherent import (artifact_path, load_artifact,
+                                                 parse_quantizer_str)
+from qpalette_tpu_torch.runtime.qlinear import (GEMV_IMPLS, IMPLS, LinearSpec,
+                                                require_equal_halves)
 
 LAYER_KEYS = [
     "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
@@ -57,8 +70,11 @@ LM_HEAD_QSTR = "tcq2s_8_none_0.9"
 LM_HEAD_BITS = (4, 8, 16)
 I8_VOCAB_ALIGN = 2048  # the int8 head's vocab pad
 I8_HEAD_ROWS = 8192  # head rows rotated and quantized a step
-# the reference's solver emits these names for an explicit per-layer impl
-_IMPL_NAMES = {"pallas": "exact", "pallas_a8": "a8"}
+LM_HEAD_LAYER = (999, "lm_head")  # the 4-bit head's artifact name
+# the reference's impl names (its solver's explicit per-layer choices) and
+# the port's
+IMPL_NAMES = {"pallas": "exact", "pallas_a8": "a8", "xla": "dequant"}
+MERGES = ("merge_qkv", "merge_qk", "merge_kv", "merge_qv", "merge_ug")
 
 
 def proj_shape(cfg: LlamaConfig, key: str):
@@ -99,14 +115,22 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
         return LinearSpec("tcq", KV=(meta["KV"],),
                           tlut_bits=meta["tlut_bits"], **common)
     if kind == "tcomb":
-        return LinearSpec("tcomb", KV=(meta["KV1"], meta["KV2"]),
+        ls = LinearSpec("tcomb", KV=(meta["KV1"], meta["KV2"]),
+                        tlut_bits=meta["tlut_bits"],
+                        split=tuple(meta["in_part"]), **common)
+        require_equal_halves(ls)
+        return ls
+    if kind == "comb":
+        return LinearSpec("comb", KV=(meta["KV1"], meta["KV2"]),
                           tlut_bits=meta["tlut_bits"],
-                          split=tuple(meta["in_part"]), **common)
+                          split=tuple(meta["out_part"]), **common)
     if kind == "vq":
         if (meta["bits"], meta["vec"]) not in vq.SUPPORTED:
             raise NotImplementedError(f"vq bits={meta['bits']} vec="
                                       f"{meta['vec']} is not ported")
         return LinearSpec("vq", bits=meta["bits"], vec=meta["vec"], **common)
+    if kind == "dense_rot":
+        return LinearSpec("dense_rot", **common)
     raise NotImplementedError(f"scheme kind {kind!r} is not ported")
 
 
@@ -142,29 +166,51 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
             "__device_dummy__": seed, "meta": meta}
 
 
+# the meta that merged artifacts must share, and their word arrays
 _MERGE_KEYS = {"tcq1": ("KV", "decode_mode"), "tcq2": ("KV", "decode_mode"),
+               "tcq": ("KV", "tlut_bits"),
+               "tcomb": ("KV1", "KV2", "tlut_bits", "in_part"),
                "vq": ("bits", "vec")}
+_WORDS = {"tcq1": ("trellis",), "tcq2": ("trellis",), "tcq": ("trellis",),
+          "tcomb": ("trellis1", "trellis2"), "vq": ("qweight",)}
+
+
+def _check_tlut(art: dict) -> None:
+    """The port holds one table per S for the whole model: an artifact's
+    own ``tlut`` must be the committed one."""
+    tlut = art.get("tlut")
+    if tlut is not None and not np.array_equal(
+            np.asarray(tlut, np.float32),
+            trellis_tlut(art["meta"]["tlut_bits"])):
+        raise ValueError(f"the artifact's tlut is not the committed "
+                         f"tcq_tlut_{art['meta']['tlut_bits']}, which the "
+                         f"port shares model-wide")
 
 
 def merge_artifacts(arts: list) -> dict:
-    """Row-concat merge of same-scheme tcq1 / tcq2 / vq artifacts (fused
-    qkv / ug): trellis tiles are tile-row-major and row-packs row-major
-    with a shared in_features, so stacking artifacts stacks output rows.
-    KV and decode mode (vq: bits, vec and the codebook) must agree, and SU
-    must already be shared."""
+    """Row-concat merge of same-scheme artifacts (fused qkv / qk / kv / qv
+    / ug): trellis tiles are tile-row-major (tcomb: each half's) and
+    row-packs row-major with a shared in_features, so stacking artifacts
+    stacks output rows.  The scheme's meta (tcq1 / tcq2: KV and decode
+    mode; tcq: KV and tlut_bits; tcomb: both KV, tlut_bits and in_part;
+    vq: bits, vec and the codebook) must agree, and SU must already be
+    shared.  comb (output-split) and dense_rot do not merge, as in the
+    reference."""
     m0 = arts[0]["meta"]
     if m0["kind"] not in _MERGE_KEYS:
-        raise NotImplementedError(f"merge of {m0['kind']!r} is not ported")
+        raise ValueError(f"merge not supported for scheme {m0['kind']!r}")
     same = ("kind", "in_features") + _MERGE_KEYS[m0["kind"]]
-    for a in arts[1:]:
+    for a in arts:
         if any(a["meta"][key] != m0[key] for key in same):
-            raise ValueError("can only merge the same scheme and in_features")
+            raise ValueError(f"can only merge the same scheme and "
+                             f"in_features ({same})")
         if not np.array_equal(a["SU"], arts[0]["SU"]):
             raise ValueError("merge needs a shared SU")
         lut, lut0 = a.get("lut"), arts[0].get("lut")
         if (lut is None) != (lut0 is None) or (
                 lut is not None and not np.array_equal(lut, lut0)):
             raise ValueError("VQ merge needs identical codebooks")
+        _check_tlut(a)
     out = {
         "meta": dict(m0, out_features=sum(a["meta"]["out_features"]
                                           for a in arts)),
@@ -176,15 +222,16 @@ def merge_artifacts(arts: list) -> dict:
     if all(a.get("__device_dummy__") is not None for a in arts):
         out["__device_dummy__"] = arts[0]["__device_dummy__"]
     else:
-        name = "qweight" if m0["kind"] == "vq" else "trellis"
-        out[name] = np.concatenate([a[name] for a in arts], axis=0)
+        for name in _WORDS[m0["kind"]]:
+            out[name] = np.concatenate([a[name] for a in arts], axis=0)
     return out
 
 
 def word_shapes(ls: LinearSpec) -> dict:
-    """Canonical word arrays of a tcq1 / tcq2 / tcq / tcomb / vq
-    projection: name -> ((m/16)*(n_i/16), 4*KV_i), 8*KV words a tile for
-    tcq1, and the row-pack (m, P*bits/32 + 1) for vq."""
+    """Canonical word arrays of a tcq1 / tcq2 / tcq / tcomb / comb / vq
+    projection: name -> ((m/16)*(n_i/16), 4*KV_i) (comb: (m_i/16)*(n/16)
+    tiles a half), 8*KV words a tile for tcq1, and the row-pack
+    (m, P*bits/32 + 1) for vq."""
     m, n = ls.out_features, ls.in_features
     if ls.kind == "vq":
         return {"qweight": (m, vq.row_words(n, ls.bits, ls.vec))}
@@ -192,15 +239,27 @@ def word_shapes(ls: LinearSpec) -> dict:
         n1, n2 = ls.split
         return {"trellis1": ((m // TD) * (n1 // TD), 4 * ls.KV[0]),
                 "trellis2": ((m // TD) * (n2 // TD), 4 * ls.KV[1])}
+    if ls.kind == "comb":
+        m1, m2 = ls.split
+        return {"trellis1": ((m1 // TD) * (n // TD), 4 * ls.KV[0]),
+                "trellis2": ((m2 // TD) * (n // TD), 4 * ls.KV[1])}
     per_state = 8 if ls.kind == "tcq1" else 4
     return {"trellis": ((m // TD) * (n // TD), per_state * ls.KV[0])}
 
 
 def _params_from_artifact(art: dict, device) -> dict:
-    p = {"wscale": torch.as_tensor(art["Wscale"], dtype=torch.float32,
-                                   device=device)}
+    p = {"wscale": torch.tensor(np.asarray(art["Wscale"], np.float32),
+                                device=device)}
     meta = art["meta"]
-    shapes = word_shapes(_spec_from_meta(meta, "exact"))
+    ls = _spec_from_meta(meta, "exact")
+    if ls.kind == "dense_rot":
+        w = np.asarray(art["w"], np.float32)
+        if w.shape != (ls.out_features, ls.in_features):
+            raise ValueError(f"w {w.shape} does not fit {ls}")
+        p["w"] = torch.tensor(w, device=device).to(torch.bfloat16)
+        return p
+    _check_tlut(art)
+    shapes = word_shapes(ls)
     if meta["kind"] == "vq":
         # real sq_ / vq2_ artifacts carry their own codebook
         lut = art.get("lut")
@@ -225,9 +284,10 @@ def _params_from_artifact(art: dict, device) -> dict:
 
 def tlut_tensors(spec, device) -> dict:
     """One (2^S, 2) float32 table per tlut_bits that the model's tcq /
-    tcomb projections use, shared by all of them: {"tcq{S}": table}."""
+    tcomb / comb projections use, shared by all of them: {"tcq{S}": table}."""
     bits = {ls.tlut_bits for a, m in spec.layers
-            for _, ls in a.projs + m.projs if ls.kind in ("tcq", "tcomb")}
+            for _, ls in a.projs + m.projs
+            if ls.kind in ("tcq", "tcomb", "comb")}
     return {f"tcq{S}": torch.tensor(trellis_tlut(S), device=device)
             for S in sorted(bits)}
 
@@ -258,23 +318,102 @@ def _get_dummy_artifact(cfg, layer, key, qstr, seed):
     return art
 
 
+def read_artifact(path: str, shape, stamp_required: bool = False) -> dict:
+    """The artifact at path, for a projection of shape (m, n).  Its Hadamard
+    stamp ``had_factors`` must be ``get_had_factors(n)`` (an artifact
+    without one is taken as current, as the reference takes it, unless
+    stamp_required: the reference's lm_head check).  The reference
+    re-quantizes a missing or stale artifact from the dense weights; the
+    port raises."""
+    if not os.path.exists(path):
+        raise NotImplementedError(
+            f"{path}: no artifact; quantize-on-demand is not ported "
+            f"(ROADMAP Queue 1 item 7)")
+    art = load_artifact(path)
+    meta = art["meta"]
+    if (meta["out_features"], meta["in_features"]) != tuple(shape):
+        raise ValueError(f"{path}: ({meta['out_features']}, "
+                         f"{meta['in_features']}), want {tuple(shape)}")
+    if meta.get("rot_blocks", 1) != 1 or meta.get("in_perm_blocks", 0):
+        raise NotImplementedError(
+            f"{path}: block rotations are the row-parallel layout "
+            f"(ROADMAP Queue 1 item 9)")
+    have, want = meta.get("had_factors"), list(get_had_factors(shape[1]))
+    if (have is None and stamp_required) or (
+            have is not None and list(have) != want):
+        raise RuntimeError(
+            f"{path}: quantized against Hadamard factors {have}, the "
+            f"rotation is {want}; re-quantize it (quantize-on-demand is "
+            f"ROADMAP Queue 1 item 7)")
+    return art
+
+
+def impl_for(choice, impl: str) -> str:
+    """The impl of a qdict entry's choice under the session impl (the
+    reference's qstr_for): "0" / False the session's; "1" / True the other
+    kernel class (dequant under exact or a8, exact under dequant); the
+    reference's impl names "pallas", "pallas_a8", "xla" as named."""
+    if isinstance(choice, str) and choice in IMPL_NAMES:
+        return IMPL_NAMES[choice]
+    if choice in ("1", 1, True, "True"):
+        return "dequant" if impl in GEMV_IMPLS else "exact"
+    return impl
+
+
+KQ, KK, KV_, KO, KG, KU, KD = LAYER_KEYS
+# (param name, the projections it holds) of each attention merge and of
+# the MLP, in the reference's order
+ATTN_GROUPS = {
+    None: (("q", (KQ,)), ("k", (KK,)), ("v", (KV_,))),
+    "qkv": (("qkv", (KQ, KK, KV_)),),
+    "qk": (("qk", (KQ, KK)), ("v", (KV_,))),
+    "kv": (("q", (KQ,)), ("kv", (KK, KV_))),
+    "qv": (("qv", (KQ, KV_)), ("k", (KK,))),
+}
+MLP_GROUPS = {False: (("up", (KU,)), ("gate", (KG,))),
+              True: (("ug", (KU, KG)),)}
+# the projections that share one rotation (and SU)
+ROT_GROUPS = {"su_qkv": (KQ, KK, KV_), "su_o": (KO,), "su_ug": (KU, KG),
+              "su_dp": (KD,)}
+
+
+# the reference's arguments that the port refuses, with what they wait for
+# (their values that change nothing are accepted)
+_UNPORTED = {"hess": (None, "calibration Hessians feed the quantizers "
+                            "(ROADMAP Queue 1 item 7)"),
+             "row_parallel_tp": (1, "block-rotated row-parallel layers "
+                                    "(ROADMAP Queue 1 item 9)")}
+
+
 def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                           dummy: bool = True, impl: str = "a8",
                           num_layers: Optional[int] = None,
                           lm_head_bits: int = 16, seed: int = 0,
-                          device="cuda"):
-    """Assemble (ModelSpec, params) with random (dummy) packed weights.
+                          device="cuda", model_key: str = "model",
+                          save_dir: str = "quant_results",
+                          dense_params: Optional[dict] = None, **unported):
+    """Assemble (ModelSpec, params) from dummy weights or artifacts.
 
     qdict: quantizer_str, or {f"{i}_{key}": qstr | (qstr, impl_choice)}
-    where impl_choice "0" is the default ``impl`` and "pallas"/"pallas_a8"
-    name an impl explicitly.  merge_info: per-layer lists such as
-    ["merge_qkv", "merge_ug"].  lm_head_bits: 16 (bf16), 8 (the rotated
-    per-row int8 head) or 4 (tcq2s_8, always impl a8 as in the
-    reference).  device: the card unless the caller asks for the CPU
-    (``device="cpu"`` runs the plain versions)."""
-    if not dummy:
-        raise NotImplementedError("loading quantized artifacts is not "
-                                  "ported; use dummy=True")
+    (see impl_for).  merge_info: per-layer lists such as ["merge_qkv",
+    "merge_ug"] (also merge_qk, merge_kv, merge_qv).  impl: exact, a8 or
+    dequant.  dummy=False reads
+    each projection's artifact from ``artifact_path(save_dir, model_key,
+    seed, qstr, i, key)`` (read_artifact).  dense_params (numpy, as
+    random_dense_params): embed, norms and lm_head; without it they are
+    the reference's numpy draws from seed.  lm_head_bits: 16 (bf16), 8
+    (the rotated per-row int8 head, built from the dense head) or 4
+    (tcq2s_8, always impl a8 as in the reference: dummy, or the
+    ``999_lm_head`` artifact; a missing one is a dummy head when there is
+    no dense_params, as in the reference).  device: the card unless the
+    caller asks for the CPU (``device="cpu"`` runs the plain versions).
+    The reference's ``hess`` and ``row_parallel_tp`` raise (see
+    _UNPORTED)."""
+    for name, value in unported.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"unexpected argument {name!r}")
+        if value != _UNPORTED[name][0]:
+            raise NotImplementedError(f"{name}: {_UNPORTED[name][1]}")
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if lm_head_bits not in LM_HEAD_BITS:
@@ -291,87 +430,84 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         if not isinstance(v, (tuple, list)):
             return v, impl
         qs, choice = v
-        if choice in _IMPL_NAMES:
-            return qs, _IMPL_NAMES[choice]
-        if choice in ("0", 0, False, "False"):
-            return qs, impl
-        raise NotImplementedError(f"impl choice {choice!r} for {i}_{key}: "
-                                  f"the dequant path is not ported")
+        return qs, impl_for(choice, impl)
 
     def bf16(a):
-        return torch.as_tensor(a, dtype=torch.float32,
+        return torch.as_tensor(np.asarray(a, np.float32),
                                device=device).to(dtype)
+
+    def artifact(i, key, qs):
+        if dummy:
+            return _get_dummy_artifact(cfg, i, key, qs, seed)
+        return read_artifact(artifact_path(save_dir, model_key, seed, qs, i,
+                                           key), proj_shape(cfg, key))
 
     layers_params, layer_specs = [], []
     for i in range(nl):
         mi = merge_info[i] if merge_info is not None else []
-        unknown = set(mi) - {"merge_qkv", "merge_ug"}
+        unknown = set(mi) - set(MERGES)
         if unknown:
             raise NotImplementedError(f"merges {sorted(unknown)}")
+        merge_attn = None
+        for mm in ("qkv", "qk", "kv", "qv"):  # the last one named wins
+            if f"merge_{mm}" in mi:
+                merge_attn = mm
         arts, impls = {}, {}
         for key in LAYER_KEYS:
             qs, impls[key] = qstr_for(i, key)
-            arts[key] = _get_dummy_artifact(cfg, i, key, qs, seed)
+            arts[key] = artifact(i, key, qs)
 
-        def group_impl(*keys):
+        lp = {}
+        for name, keys in ROT_GROUPS.items():
+            if any(not np.array_equal(arts[k]["SU"], arts[keys[0]]["SU"])
+                   for k in keys):
+                raise ValueError(f"layer {i}: {keys} must share one SU")
+            lp[name] = bf16(arts[keys[0]]["SU"])
+
+        def group(name, keys):
             ims = {impls[k] for k in keys}
             if len(ims) != 1:
                 raise ValueError(f"merged projections need one impl, got "
                                  f"{ims} for {keys}")
-            return ims.pop()
+            art = (arts[keys[0]] if len(keys) == 1
+                   else merge_artifacts([arts[k] for k in keys]))
+            lp[name] = _params_from_artifact(art, device)
+            return name, _spec_from_meta(art["meta"], ims.pop())
 
-        KQ, KK, KV_, KO = LAYER_KEYS[:4]
-        KG, KU, KD = LAYER_KEYS[4:]
-        lp = {"su_qkv": bf16(arts[KQ]["SU"]), "su_o": bf16(arts[KO]["SU"]),
-              "su_ug": bf16(arts[KU]["SU"]), "su_dp": bf16(arts[KD]["SU"])}
-        if "merge_qkv" in mi:
-            m = merge_artifacts([arts[KQ], arts[KK], arts[KV_]])
-            im = group_impl(KQ, KK, KV_)
-            attn_projs = [("qkv", _spec_from_meta(m["meta"], im))]
-            lp["qkv"] = _params_from_artifact(m, device)
-            merge_attn = "qkv"
-        else:
-            attn_projs = []
-            for nm, kk in (("q", KQ), ("k", KK), ("v", KV_)):
-                attn_projs.append((nm, _spec_from_meta(arts[kk]["meta"],
-                                                       impls[kk])))
-                lp[nm] = _params_from_artifact(arts[kk], device)
-            merge_attn = None
-        attn_projs.append(("o", _spec_from_meta(arts[KO]["meta"], impls[KO])))
-        lp["o"] = _params_from_artifact(arts[KO], device)
-        d_spec = ("down", _spec_from_meta(arts[KD]["meta"], impls[KD]))
-        if "merge_ug" in mi:
-            m = merge_artifacts([arts[KU], arts[KG]])
-            mlp_projs = (("ug", _spec_from_meta(m["meta"],
-                                                group_impl(KU, KG))), d_spec)
-            lp["ug"] = _params_from_artifact(m, device)
-        else:
-            mlp_projs = (("up", _spec_from_meta(arts[KU]["meta"], impls[KU])),
-                         ("gate", _spec_from_meta(arts[KG]["meta"],
-                                                  impls[KG])), d_spec)
-            lp["up"] = _params_from_artifact(arts[KU], device)
-            lp["gate"] = _params_from_artifact(arts[KG], device)
-        lp["down"] = _params_from_artifact(arts[KD], device)
-        lp["ln_attn"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
-        lp["ln_mlp"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
+        attn_projs = tuple(group(nm, keys) for nm, keys in
+                           ATTN_GROUPS[merge_attn] + (("o", (KO,)),))
+        merge_ug = "merge_ug" in mi
+        mlp_projs = tuple(group(nm, keys) for nm, keys in
+                          MLP_GROUPS[merge_ug] + (("down", (KD,)),))
+        for name in ("ln_attn", "ln_mlp"):
+            lp[name] = (bf16(dense_params["layers"][i][name])
+                        if dense_params is not None else
+                        torch.ones(cfg.hidden_size, dtype=dtype,
+                                   device=device))
         layers_params.append(lp)
-        layer_specs.append((AttnSpec(merge_attn, tuple(attn_projs)),
-                            MLPSpec("merge_ug" in mi, mlp_projs)))
+        layer_specs.append((AttnSpec(merge_attn, attn_projs),
+                            MLPSpec(merge_ug, mlp_projs)))
 
     cfg_nl = cfg if nl == cfg.num_layers else \
         LlamaConfig(**{**cfg.__dict__, "num_layers": nl})
     spec = ModelSpec(cfg_nl, tuple(layer_specs))
     params = {"layers": layers_params, "luts": tlut_tensors(spec, device)}
-    # the same numpy draws as the reference, so dummy embeddings agree
-    scale = 0.02
-    params["embed"] = bf16(
-        rng.standard_normal((cfg.vocab_size, cfg.hidden_size)) * scale)
-    params["ln_f"] = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
+    if dense_params is not None:
+        params["embed"] = bf16(dense_params["embed"])
+        params["ln_f"] = bf16(dense_params["ln_f"])
+        head = dense_params["lm_head"]
+    else:
+        # the same numpy draws as the reference, so dummy embeddings agree
+        scale = 0.02
+        params["embed"] = bf16(
+            rng.standard_normal((cfg.vocab_size, cfg.hidden_size)) * scale)
+        params["ln_f"] = torch.ones(cfg.hidden_size, dtype=dtype,
+                                    device=device)
+        head = None if cfg.tie_embeddings or lm_head_bits == 4 else \
+            rng.standard_normal((cfg.vocab_size, cfg.hidden_size)) * scale
     lm_spec = None
     if lm_head_bits in (8, 16):
-        params["lm_head"] = (params["embed"] if cfg.tie_embeddings else
-                             bf16(rng.standard_normal(
-                                 (cfg.vocab_size, cfg.hidden_size)) * scale))
+        params["lm_head"] = params["embed"] if head is None else bf16(head)
     if lm_head_bits == 8:
         su = ((np.random.default_rng(seed * 7 + 99)
                .standard_normal(cfg.hidden_size) > 0) * 2.0 - 1.0)
@@ -385,8 +521,15 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         VP = -(-cfg.vocab_size // 4096) * 4096  # 128256 -> 131072
         su = ((np.random.default_rng(seed * 7 + 99).standard_normal(h) > 0)
               * 2.0 - 1.0).astype(np.float32)
-        art = dummy_artifact(LM_HEAD_QSTR, (VP, h), seed=seed * 11 + 5)
-        art["SU"] = su
+        path = artifact_path(save_dir, model_key, seed, LM_HEAD_QSTR,
+                             *LM_HEAD_LAYER)
+        if not dummy and (dense_params is not None or os.path.exists(path)):
+            art = read_artifact(path, (VP, h), stamp_required=True)
+            if not np.array_equal(np.asarray(art["SU"], np.float32), su):
+                raise ValueError(f"{path}: SU is not the lm_head's "
+                                 f"(seed * 7 + 99)")
+        else:
+            art = dummy_artifact(LM_HEAD_QSTR, (VP, h), seed=seed * 11 + 5)
         lm_spec = _spec_from_meta(art["meta"], "a8")
         params["lm_head_q4"] = _params_from_artifact(art, device)
         params["lm_head_su"] = torch.as_tensor(su, device=device)

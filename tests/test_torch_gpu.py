@@ -528,3 +528,207 @@ def test_replay_advances_position(small_model):
     with pytest.raises(ValueError):
         step.replay(SMALL_T - SMALL_S - 2)
     assert step.pos.item() == SMALL_S + 3
+
+
+# --- the loader's routes: impl dequant, comb, merged shapes ---------------
+
+def _to_cpu(p):
+    return {k: v.cpu() for k, v in p.items()}
+
+
+def _spec_and_params(kind, m, k, device, seed, KV=(), mode="", bits=0,
+                     vec=0, split=(), impl="dequant"):
+    """A projection of the given kind with random words and Wscale on the
+    card (canonical layouts, as the loader holds them), and its luts."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def words(rows, cols, per_state, kv):
+        return torch.randint(-(1 << 31), 1 << 31,
+                             ((rows // 16) * (cols // 16), per_state * kv),
+                             generator=gen, dtype=torch.int32, device=device)
+
+    S = tlut_bits_for_kv(max(KV)) if kind in ("tcq", "tcomb", "comb") else 0
+    p = {"wscale": torch.rand(m, generator=gen, device=device) + 0.5}
+    if kind in ("tcq1", "tcq2"):
+        p["trellis"] = words(m, k, 8 if kind == "tcq1" else 4, KV[0])
+    elif kind == "tcq":
+        p["trellis"] = words(m, k, 4, KV[0])
+    elif kind == "tcomb":
+        split = (k // 2, k // 2)
+        p["trellis1"], p["trellis2"] = (words(m, k // 2, 4, kv) for kv in KV)
+    elif kind == "comb":
+        p["trellis1"], p["trellis2"] = (words(mh, k, 4, kv)
+                                        for mh, kv in zip(split, KV))
+    else:
+        p["qweight"] = torch.randint(
+            -(1 << 31), 1 << 31, (m, vq.row_words(k, bits, vec)),
+            generator=gen, dtype=torch.int32, device=device)
+        p["lut"] = torch.tensor(vq_lut(bits, vec), device=device)
+    spec = LinearSpec(kind, k, m, KV=KV, tlut_bits=S, bits=bits, vec=vec,
+                      split=split, mode=mode, impl=impl)
+    luts = {f"tcq{S}": torch.tensor(trellis_tlut(S), device=device)} if S \
+        else {}
+    return spec, p, luts
+
+
+# (kind, m, k, options, its dequant kernel, launches a call): each kind at
+# an 8B shape of a merge, comb with unequal 16-row halves
+DEQUANT_ROUTE = [
+    ("tcq2", 2048, 4096, dict(KV=(6,), mode="sum2"), "tcq2_dequant", 1),
+    ("tcq2", 5120, 4096, dict(KV=(6,), mode="dualmad"), "tcq2_dequant", 1),
+    ("tcq1", 4096, 4096, dict(KV=(3,), mode="1mad"), "tcq1_dequant", 1),
+    ("tcq1", 2048, 4096, dict(KV=(4,), mode="2mad"), "tcq1_dequant", 1),
+    ("tcq", 6144, 4096, dict(KV=(8,)), "tcq_lut_dequant", 1),
+    ("comb", 4096, 4096, dict(KV=(6, 7), split=(1632, 2464)),
+     "tcq_lut_dequant", 2),
+    ("tcomb", 5120, 4096, dict(KV=(8, 9)), "tcomb_lut_dequant", 1),
+    ("vq", 2048, 4096, dict(bits=6, vec=2), "vq_dequant", 1),
+]
+
+
+@pytest.mark.parametrize("kind,m,k,opts,kernel,calls", DEQUANT_ROUTE)
+def test_dequant_route_matches_plain_on_card(cuda, kind, m, k, opts, kernel,
+                                             calls):
+    """impl dequant: W_hat from the kind's dequant kernel (K2, K3, K6 - twice
+    for comb -, K7, K9) bit-equal to the plain version's, and the f32
+    product with Wscale within 1e-5 of max|y| of the CPU's (the same bf16
+    operands, f32 sums in another order)."""
+    from qpalette_tpu_torch.kernels import launch_counts
+    from qpalette_tpu_torch.runtime.qlinear import dequant_weight
+
+    spec, p, luts = _spec_and_params(kind, m, k, cuda, seed=m + k, **opts)
+    p_cpu, luts_cpu = _to_cpu(p), _to_cpu(luts)
+    before = launch_counts()
+    w = dequant_weight(spec, p, luts)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {kernel: calls}
+    w_ref = dequant_weight(spec, p_cpu, luts_cpu)
+    assert torch.equal(w.cpu().view(torch.int16), w_ref.view(torch.int16))
+    for N in (1, 8, 16):
+        x = torch.randn((N, k), device=cuda).bfloat16()
+        y = qlinear_apply(spec, p, x, out_dtype=torch.float32, luts=luts)
+        ref = qlinear_apply(spec, p_cpu, x.cpu(), out_dtype=torch.float32,
+                            luts=luts_cpu)
+        rel = ((y.cpu() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-5, (kind, N, rel)
+
+
+@pytest.mark.parametrize("split", [(1632, 2464), (16, 4080), (4080, 16)])
+def test_comb_is_two_lut_gemvs_on_card(cuda, split):
+    """comb under exact at N <= 8: two K4 launches over the row halves
+    (unequal, 16-row aligned), outputs side by side, against the plain
+    versions within 1e-4 of max|y|."""
+    spec, p, luts = _spec_and_params("comb", 4096, 4096, cuda, seed=9,
+                                     KV=(6, 7), split=split, impl="exact")
+    p_cpu, luts_cpu = _to_cpu(p), _to_cpu(luts)
+    for N in (1, 8):
+        x = torch.randn((N, 4096), device=cuda).bfloat16()
+        before = tcq_lut.tcq_lut_gemv.launches
+        y = qlinear_apply(spec, p, x, out_dtype=torch.float32, luts=luts)
+        torch.cuda.synchronize()
+        assert tcq_lut.tcq_lut_gemv.launches == before + 2
+        ref = qlinear_apply(spec, p_cpu, x.cpu(), out_dtype=torch.float32,
+                            luts=luts_cpu)
+        rel = ((y.cpu() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, (split, N, rel)
+
+
+# the m of the attention merges (kv 2048, qk / qv 5120, qkv 6144) and of ug
+# (28672) at k = 4096, for the GEMVs no path ran there before
+MERGED_M = [2048, 5120, 6144, 28672]
+
+
+@pytest.mark.parametrize("m", MERGED_M)
+@pytest.mark.parametrize("KV", [(8,), (8, 9)])
+def test_lut_gemv_at_merged_m(cuda, m, KV):
+    words, tlut = _lut_case(m, 4096, KV, cuda, seed=m + sum(KV))
+    gemv, plain = _lut_gemv(KV)
+    for N in (1, 8):
+        x = torch.randn((N, 4096), device=cuda).bfloat16()
+        y = gemv(x, *words, tlut, *KV, m, 4096)
+        ref = plain(x, *words, tlut, *KV, m, 4096)
+        rel = ((y - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, (m, KV, N, rel)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m", MERGED_M[:2])
+@pytest.mark.parametrize("mode,KV", [("sum2", 6), ("dualmad", 6),
+                                     ("1mad", 3)])
+def test_arith_gemv_at_merged_m(cuda, mode, KV, m, a8):
+    for N in (1, 8):
+        words, x = _case(m, 4096, KV, N, torch.float32, cuda, seed=m + N,
+                         mode=mode)
+        y = arith.decode_gemv(mode, x, words, KV, m, 4096, a8)
+        ref = arith_gemv_plain(x, words, mode, KV, m, 4096, a8)
+        rel = ((y - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= (1e-3 if a8 else 1e-4), (mode, m, N, rel)
+
+
+@pytest.mark.parametrize("m", MERGED_M[:2])
+def test_vq_gemv_at_merged_m(cuda, m):
+    qweight, lut = _vq_case(6, 2, m, 4096, cuda, seed=m)
+    for N in (1, 8):
+        x = torch.randn((N, 4096), device=cuda).bfloat16()
+        y = vq.vq_gemv(x, qweight, lut, 6, 2, m, 4096)
+        ref = vq.vq_gemv_plain(x, qweight, lut, 6, 2, m, 4096)
+        rel = ((y - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, (m, N, rel)
+
+
+def test_merged_model_replays_bit_equal_to_eager(cuda):
+    """A 3-layer model with the qk, kv and qv merges, choices "1", "xla"
+    and "pallas" beside "0" (session a8): the capture records an eager
+    forward's launches, dequant kernels among them, and 4 replays give the
+    eager forward's logits and caches bit for bit."""
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+
+    t8, tc, t2s, t2, t1, ld = ("tcq_8_none_0.9", "tcomb_8_9_0.5_none_0.9",
+                               "tcq2s_6_none_0.9", "tcq2_6_none_0.9",
+                               "tcq1_3_none_0.9", "ldlq_2_6_none_1.0")
+    keys = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+            "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+            "mlp.down_proj")
+    layers = [(t8, "0"), (t8, "0"), (t2s, "1"), (tc, "xla"), (t2, "0"),
+              (t2, "0"), (ld, "1")], \
+        [(t1, "1"), (t2s, "0"), (t2s, "0"), (tc, "0"), (t8, "xla"),
+         (t8, "xla"), (t1, "pallas")], \
+        [(ld, "0"), (t8, "1"), (ld, "0"), (t2, "pallas"), (tc, "0"),
+         (tc, "0"), (t1, "0")]
+    qdict = {f"{i}_{k}": v for i, layer in enumerate(layers)
+             for k, v in zip(keys, layer)}
+    merge = [["merge_qk", "merge_ug"], ["merge_kv"], ["merge_qv", "merge_ug"]]
+    spec, params = build_quantized_model(
+        LlamaConfig(**dict(SMALL_CFG, num_layers=3)), qdict,
+        merge_info=merge, dummy=True, impl="a8", lm_head_bits=4, seed=0,
+        device="cuda")
+    assert [a.merge for a, _ in spec.layers] == ["qk", "kv", "qv"]
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 512, (1, SMALL_S)), device="cuda")
+    caches = llama.init_kv_caches(spec, 1, SMALL_T, "cuda")
+    logits, caches = decode.prefill(spec, params, prompt, caches)
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    for f in wrappers():
+        f.launches = 0
+    llama.forward(spec, params, tok, kv_caches=caches, cache_pos=SMALL_S)
+    torch.cuda.synchronize()
+    eager_counts = {k: v for k, v in launch_counts().items() if v}
+    for name in ("tcq2_dequant", "tcq1_dequant", "tcq_lut_dequant",
+                 "tcomb_lut_dequant", "vq_dequant"):
+        assert eager_counts.get(name), (name, eager_counts)
+    step = decode.CapturedStep(spec, params, 1, SMALL_T, 0.0, None)
+    assert step.launches == eager_counts
+    tok = _prefilled(step, spec, params, prompt)
+    eager = [tuple(t.clone() for t in c) for c in step.caches]
+    for i in range(4):
+        step.replay()
+        want, eager = llama.forward(spec, params, tok, kv_caches=eager,
+                                    cache_pos=SMALL_S + i)
+        assert torch.equal(step.logits, want[:, -1]), i
+        tok = step.token.clone()
+    assert all(torch.equal(a, b) for c, e in zip(step.caches, eager)
+               for a, b in zip(c, e))
+    decode.release_captured(params)
