@@ -29,7 +29,10 @@ Phases (each raises on failure):
      k/16 shapes (N in {1,8,256}; every mode on its tensor-core kernel at
      N <= 8, two launches bit-equal at N=8); exact and a8; kernel and
      plain times at N=1 on Path A's shapes, kernel times of 2mad (on no
-     path) at 4096x4096
+     path) at 4096x4096; K1 sum2 on the arith.cuh template at the 215
+     shapes: against its plain version at N in {49, 64, 191, 256}, exact
+     and a8, and timed at N in {16, 64, 256} (a zero-shot forward's rows:
+     layers exact, head a8) beside the bound (plain at N=64)
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
@@ -55,12 +58,13 @@ Phases (each raises on failure):
   6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
      cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
-     129 sum2 K1 launches per forward
+     129 sum2 K1 launches per forward; then the zero-shot harness on it
+     at impl exact (see 10c)
   7. the flagship path: the 8B model from the 3.25-bit mem-constrained
      solver output (unmerged tcq 6/8/10 and tcomb 8/9, bf16 lm_head, impl
      exact, dummy weights from seed 0); the 16-token prefill launches 194
      tcq + 30 tcomb dequants, each of 64 decode forwards 194 tcq + 30
-     tcomb GEMVs
+     tcomb GEMVs; then ctx-8192 perplexity on it at impl dequant (10c)
   8. Path A: the 8B tcq2mix model (merged qkv tcq2_6 and ug tcq2_7 in mode
      dualmad, o/down tcq1_3 in mode 1mad, the 4-bit tcq2s_8 lm_head), impl
      a8 and impl exact; prefill 16 and decode 64, 129 K1 launches per
@@ -104,8 +108,25 @@ Phases (each raises on failure):
      random words in the reference's meta schema, loaded with dummy=False
      on the card and on the CPU: a 12-token prefill and 2 decode steps
      within SMALL_TOL
+ 10c. evaluation (runtime/evaluate.py, runtime/zeroshot.py): eval_ppl
+     of the 32-layer flagship at impl dequant over two ctx-8192 windows of
+     a synthetic stream from seed 0 (194 K6 + 30 K7 a window, the
+     blockwise attention in every layer; s a window, eval tokens/s, peak
+     memory, timed after the first window's ce_loss is held within 2e-3
+     of the CE of the forward's own logits; torch.profiler over one
+     window: device time of the dequant kernels, the f32 copies and
+     products of W_hat, attention,
+     the head's CE, the rest); eval_multiple_choice of the 32-layer 215
+     model at impl exact on 8 synthetic questions x 4 choices of 33-200
+     tokens (a byte-level stand-in tokenizer; 129 K1 sum2 launches a
+     forward at 8 < N <= 256, one loglikelihood within 1e-4 of the
+     forward's log-softmax; examples/s); the blockwise attention against
+     the whole logits at the 8B's heads (S = T = 4096; S = 2048 over T =
+     4096 from offset 2048; within 1e-5 of max|out|); a 2-layer model's
+     ctx-2560 logits and ce_loss, card against the CPU, within SMALL_TOL
  11. eager and graph tokens/s of every decode path side by side, a JSON
-     line of them ("[graph] {...}"), the run time, a JSON line of kernels
+     line of them ("[graph] {...}"), a JSON line of the evaluation
+     ("[eval] {...}"), the run time, a JSON line of kernels
      (launches in the counted runs, step_launches in their decode
      forwards), the nvidia-smi name/power line, and the final JSON status
      line
@@ -135,6 +156,11 @@ EXTRA_KV = [("kv4", 4096, 4096, 4), ("kv8", 4096, 4096, 8)]
 # per decode step: qkv, o, ug, down in each of 32 layers, plus the lm_head
 CALLS_PER_STEP = {"qkv": 32, "o": 32, "ug": 32, "down": 32, "lm_head": 1}
 LAUNCHES_PER_FORWARD = 129
+# rows a zero-shot forward gives K1 (its prompts' lengths), timed in phase 3
+ZS_ROWS = (16, 64, 256)
+# rows at which phase 3 holds the template against its plain version: two
+# full-group counts and two that leave a partial last group of 8 rows
+ZS_CHECK_ROWS = (49, 64, 191, 256)
 # bench.py's tcq2mix scheme (3.27 bits/weight): (projection, m, k, mode,
 # KV, calls a forward), then 2mad and odd-KV sum2 at 4096x4096 and odd
 # k/16 shapes (calls 0: checked, not on a path)
@@ -203,7 +229,7 @@ L2_BYTES = 50_000_000
 # the least time for a call: bytes over the H100's 3.35 TB/s, operations
 # over its dense peak for their type (NVIDIA's data sheet, SXM, 700 W)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "float32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 # KV 3 of the LUT kernels (tcq_3, tcomb_3_4 of the memory palette) at o and
 # down: checked, on no path, (m, k, KV) -> 0 calls a forward
 LUT_KV3 = {(4096, 4096, (3,)): 0, (4096, 14336, (3,)): 0,
@@ -221,11 +247,11 @@ def bound_ms(nbytes, ops, kind):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def gemv_bound(trellis_bytes, N, m, k, x_bytes, a8):
+def gemv_bound(trellis_bytes, N, m, k, x_bytes, a8, exact_kind="float32"):
     """K1/K4/K5: packed words + x read once, f32 y written once; 2*N*m*k
-    operations in int8 (a8) or float32."""
+    operations in int8 (a8) or else exact_kind."""
     return bound_ms(trellis_bytes + N * k * x_bytes + N * m * 4,
-                    2 * N * m * k, "int8" if a8 else "float32")
+                    2 * N * m * k, "int8" if a8 else exact_kind)
 
 
 def dequant_bound(trellis_bytes, m, k):
@@ -351,6 +377,62 @@ def sum2_checks(arith, device):
         print(f"[time] sum2 {name} {m}x{k} KV={KV} a8 N=1: kernel {ms:.4f} ms "
               f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of packed trellis), "
               f"plain {pms:.4f} ms, bound {bms:.4f} ms", flush=True)
+        del copies
+    return max_abs, times
+
+
+def sum2_row_times(arith, device):
+    """K1 sum2 on the arith.cuh template (8 < N <= 256, bf16 x) at the 215
+    shapes: held against its plain version at ZS_CHECK_ROWS, exact and a8,
+    then timed as a zero-shot forward calls it: the layers at exact, the
+    4-bit head at a8.  The exact rows' bound counts their operations at
+    the bf16 tensor-core peak: bf16 x against integer weights in [-256,
+    254], which bf16 holds exactly (the TPU kernel's MXU product).
+    Returns (max_abs_err, {(N, name, KV): (ms, plain_ms or None,
+    bound_ms)}); the plain version is timed at N = 64 only (its time is
+    the decode of W, whatever N)."""
+    times, max_abs = {}, 0.0
+    for name, m, k, KV in SHAPES_215:
+        copies, nbytes = _copies(m, k, 4 * KV, device)
+        for N in ZS_CHECK_ROWS:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(N)
+            x = torch.randn((N, k), generator=gen,
+                            device=device).bfloat16()
+            for a8 in (False, True):
+                y = arith.tcq2s_decode_gemv(x, copies[0], KV, m, k, a8)
+                torch.cuda.synchronize()
+                ref = arith.arith_gemv_plain(x, copies[0], "sum2", KV, m, k,
+                                             a8)
+                max_abs = max(max_abs, _rel_check(
+                    f"sum2 template {name} {m}x{k} KV={KV} N={N} "
+                    f"{'a8' if a8 else 'exact'}", y, ref, TOL[a8]))
+                del y, ref
+        a8 = name == "lm_head"
+        for N in ZS_ROWS:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(N)
+            x = torch.randn((N, k), generator=gen,
+                            device=device).bfloat16()
+            out = torch.empty((N, m), device=device)
+
+            def kern(i=0):
+                arith.tcq2s_decode_gemv(x, copies[i % len(copies)], KV, m,
+                                        k, a8, out=out)
+
+            def plain(i=0):
+                arith.arith_gemv_plain(x, copies[i % len(copies)], "sum2",
+                                       KV, m, k, a8)
+
+            ms = _time_ms(kern, 50, graph=True)
+            pms = _time_ms(plain, 1) if N == 64 else None
+            bms, by = gemv_bound(nbytes, N, m, k, 2, a8, "bfloat16")
+            times[(N, name, KV)] = (ms, pms, bms)
+            print(f"[time] sum2 template {name} {m}x{k} KV={KV} N={N} "
+                  f"{'a8' if a8 else 'exact'}: kernel {ms:.4f} ms, plain "
+                  + (f"{pms:.4f} ms" if pms is not None else "not timed")
+                  + f", bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it)",
+                  flush=True)
         del copies
     return max_abs, times
 
@@ -915,7 +997,9 @@ def with_impl(spec, impl):
 
 
 def main_path(device, card_label):
-    """The 215 path: 129 sum2 K1 launches per forward."""
+    """The 215 path: 129 sum2 K1 launches per forward; then the same model
+    through the zero-shot harness (zs_check).  Returns the launch counts
+    of both, the qdict, graph_phase's result and zs_check's summary."""
     qdict, merge_info = _load_215()
     spec, params = _build("main", qdict, merge_info, "a8", 4, device)
     want = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD}
@@ -923,9 +1007,12 @@ def main_path(device, card_label):
                      want, want)
     graphs = {"215": graph_phase("main", spec, params, device, want,
                                  card_label)}
+    zs_counts, zs = zs_check(spec, params, device, card_label)
+    for k, v in zs_counts.items():
+        launches[k] += v
     del params
     torch.cuda.empty_cache()
-    return launches, qdict, graphs
+    return launches, qdict, graphs, zs
 
 
 def flagship_shapes(cfg, qdict):
@@ -1310,7 +1397,10 @@ def parent_ab(parent_csrc, which):
 
 def flagship_path(device, card_label):
     """The 8B model from the 3.25-bit solver output: 194 tcq + 30 tcomb
-    dequants in the prefill, 194 + 30 GEMVs in each decode forward."""
+    dequants in the prefill, 194 + 30 GEMVs in each decode forward; then
+    the same model through ctx-8192 perplexity at impl dequant (ppl_check).
+    Returns the launch counts of both, graph_phase's result and
+    ppl_check's summary."""
     with open(FLAGSHIP_QDICT) as f:
         qdict = json.load(f)
     spec, params = _build("flagship", qdict, None, "exact", 16, device)
@@ -1320,9 +1410,12 @@ def flagship_path(device, card_label):
         {"tcq_lut_dequant": FLAGSHIP_TCQ, "tcomb_lut_dequant": FLAGSHIP_TCOMB},
         want)
     graph = graph_phase("flagship", spec, params, device, want, card_label)
+    ppl_counts, ppl = ppl_check(spec, params, device, card_label)
+    for k, v in ppl_counts.items():
+        launches[k] += v
     del params
     torch.cuda.empty_cache()
-    return launches, graph
+    return launches, graph, ppl
 
 
 def _vq_words(m, k, bits, vec, device, seed):
@@ -2022,6 +2115,15 @@ SMALL_CFG = dict(vocab_size=512, hidden_size=512, intermediate_size=1792,
                  rope_theta=5e5)
 
 
+def to_device(p, device):
+    """A params tree (dicts, lists, tensors) copied to device."""
+    if isinstance(p, dict):
+        return {k: to_device(v, device) for k, v in p.items()}
+    if isinstance(p, list):
+        return [to_device(v, device) for v in p]
+    return p.to(device)
+
+
 def small_model_check(device, what, qdict, merge_info, impl, lm_head_bits,
                       prompt_len, seed):
     """A 2-layer model: CPU (plain versions) vs the same weights on the card
@@ -2035,14 +2137,7 @@ def small_model_check(device, what, qdict, merge_info, impl, lm_head_bits,
         cfg, qdict, merge_info=merge_info, dummy=True, impl=impl,
         lm_head_bits=lm_head_bits, seed=seed, device="cpu")
 
-    def to_dev(p):
-        if isinstance(p, dict):
-            return {k: to_dev(v) for k, v in p.items()}
-        if isinstance(p, list):
-            return [to_dev(v) for v in p]
-        return p.to(device)
-
-    p_dev = to_dev(p_cpu)
+    p_dev = to_device(p_cpu, device)
     prompt = np.random.default_rng(5).integers(0, 512, (1, prompt_len))
     out = {}
     for dev, p in (("cpu", p_cpu), (device, p_dev)):
@@ -2091,6 +2186,343 @@ def small_model_checks(device):
                       "a8", 8, 12, seed=7)
 
 
+# Evaluation (runtime/evaluate.py, runtime/zeroshot.py): ctx-8192
+# perplexity windows of the flagship at impl dequant (the reference's
+# eval_qdict.py default, xla), and the zero-shot harness on the 215 model
+# at impl exact (its pallas)
+EVAL_CTX, EVAL_WINDOWS = 8192, 2
+ATTN_TOL = 1e-5  # blockwise vs whole-logits attention, of max|out|
+# ce_loss against the CE of the forward's own logits, absolute (the
+# reference's bound for the same comparison, tests/test_model.py:289)
+CE_TOL = 2e-3
+# one loglikelihood against the sum of the full forward's log-softmax
+LL_TOL = 1e-4
+ZS_QUESTIONS, ZS_CHOICES = 8, 4
+SMALL_CTX = 2560  # > 2048: S * T above 2^22, the blockwise attention
+
+
+class ByteTok:
+    """A byte-level stand-in for a Hugging Face tokenizer (the card's
+    machine has none): Llama-3's BOS with special tokens, then each UTF-8
+    byte + 1000."""
+
+    class _Out(list):
+        @property
+        def input_ids(self):
+            return list(self)
+
+    def __call__(self, text, add_special_tokens=True):
+        ids = [128000] if add_special_tokens else []
+        return self._Out(ids + [1000 + b for b in text.encode()])
+
+
+def zs_questions(seed=0):
+    """ZS_QUESTIONS questions of 32-200 tokens (ByteTok) with ZS_CHOICES
+    answers of 1-3 words each, from a seed."""
+    rng = np.random.default_rng(seed)
+    words = ["the", "river", "stone", "quietly", "red", "machine", "under",
+             "seven", "glass", "winter", "carried", "light", "north", "of"]
+
+    def text(n_chars):
+        out = ""
+        while len(out) < n_chars:
+            out += (" " if out else "") + str(rng.choice(words))
+        return out[:n_chars]
+
+    return [{"query": text(int(rng.integers(31, 180))),
+             "choices": [" " + text(int(rng.integers(3, 19)))
+                         for _ in range(ZS_CHOICES)],
+             "gold": int(rng.integers(0, ZS_CHOICES))}
+            for _ in range(ZS_QUESTIONS)]
+
+
+def zs_check(spec, params, device, card_label):
+    """The zero-shot harness on the 215 model at impl exact: every prompt
+    of 33-200 tokens sends its rows to K1 sum2's arith.cuh template (8 < N
+    <= 256), 129 launches a forward (128 exact layers, the a8 head); one
+    loglikelihood against the sum of the forward's log-softmax.  Returns
+    (launch counts, summary)."""
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import zeroshot
+
+    spec = with_impl(spec, "exact")
+    tok, questions = ByteTok(), zs_questions()
+    lengths = [len(tok(q["query"]).input_ids)
+               + len(tok(c, add_special_tokens=False).input_ids)
+               for q in questions for c in q["choices"]]
+    check(8 < min(lengths) and max(lengths) <= 256,
+          f"zero-shot prompt lengths {min(lengths)}-{max(lengths)}")
+    zeroshot.loglikelihood(spec, params, tok, questions[0]["query"],
+                           questions[0]["choices"][0])  # warm-up
+    torch.cuda.synchronize()
+    for f in wrappers():
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = zeroshot.eval_multiple_choice(spec, params, tok, questions)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    n_fwd = len(lengths)
+    zero = {k: 0 for k in counts}
+    check(counts == {**zero, "tcq2s_decode_gemv": LAUNCHES_PER_FORWARD
+                     * n_fwd}, f"zero-shot launches {counts}, want "
+          f"{LAUNCHES_PER_FORWARD} sum2 a forward x {n_fwd}")
+    check(0 <= res["acc"] <= 1 and 0 <= res["acc_norm"] <= 1
+          and res["n"] == ZS_QUESTIONS, f"zero-shot result {res}")
+    q, c = questions[0]["query"], questions[0]["choices"][0]
+    got, n_cont = zeroshot.loglikelihood(spec, params, tok, q, c)
+    ids = tok(q).input_ids + tok(c, add_special_tokens=False).input_ids
+    tokens = torch.as_tensor([ids], device=device)
+    logp = torch.log_softmax(llama.forward(spec, params, tokens)[0, :-1],
+                             dim=-1)
+    tgt = tokens[0, 1:]
+    want = float(logp.gather(-1, tgt[:, None])[-n_cont:].sum())
+    err = abs(got - want)
+    print(f"[zeroshot] 215 at exact: {ZS_QUESTIONS} questions x "
+          f"{ZS_CHOICES} choices, prompts of {min(lengths)}-{max(lengths)} "
+          f"tokens, {n_fwd} forwards in {dt:.2f} s ({ZS_QUESTIONS / dt:.2f} "
+          f"examples/s, {n_fwd / dt:.2f} forwards/s); acc {res['acc']:.3f} "
+          f"acc_norm {res['acc_norm']:.3f} (random weights); K1 sum2 "
+          f"{counts['tcq2s_decode_gemv']} launches ({LAUNCHES_PER_FORWARD} "
+          f"a forward, N 9-256); loglikelihood {got:.5f} against the "
+          f"forward's log-softmax {want:.5f}: |err| {err:.2e} (limit "
+          f"{LL_TOL:.0e}); card {card_label}", flush=True)
+    check(err <= LL_TOL, f"loglikelihood {got} against {want}")
+    return counts, {"zs_seconds": dt, "zs_examples_s": ZS_QUESTIONS / dt,
+                    "zs_forwards": n_fwd, "zs_acc": res["acc"],
+                    "zs_acc_norm": res["acc_norm"]}
+
+
+def _ranged(label, fn):
+    """fn inside a torch.profiler range named label."""
+    from torch.profiler import record_function
+
+    def wrapper(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _device_us(event):
+    """Device time of a CPU event and the ops under it (us)."""
+    total = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if total is None else total
+
+
+def profile_window(spec, params, tokens, card_label):
+    """torch.profiler over one ce_loss window: device time by kind.  The
+    attention, the f32 products of the dequant route (qlinear._product:
+    the f32 copies of x and W_hat and the product) and the forward run
+    inside ranges for the trace; the dequant kernels are named; the head's
+    CE is the window's device time outside the forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import evaluate, qlinear
+
+    ranges = {"attention": (llama, "_attention"),
+              "product": (qlinear, "_product"),
+              "forward": (llama, "forward")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in ranges.items()}
+    torch.cuda.synchronize()
+    try:
+        for k, (mod, name) in ranges.items():
+            setattr(mod, name, _ranged(f"eval::{k}", saved[k]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            evaluate.ce_loss(spec, params, tokens)
+            torch.cuda.synchronize()
+    finally:
+        for k, (mod, name) in ranges.items():
+            setattr(mod, name, saved[k])
+    t0 = time.perf_counter()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ops = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("eval::")]
+    check(ops, "profiler: no device op in the trace of a window")
+    total = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    deq = sum(e.time_range.elapsed_us() for e in ops
+              if PORT_DEQUANT.search(e.name)) / 1e3
+    by = {k: sum(_device_us(e) for e in events
+                 if e.name == f"eval::{k}" and e.device_type == cpu) / 1e3
+          for k in ranges}
+    kinds = {"dequant kernels": deq, "f32 copies and products of W_hat":
+             by["product"], "attention": by["attention"],
+             "head CE": total - by["forward"]}
+    kinds["rest"] = total - sum(kinds.values())
+    print(f"[eval] one ctx-{tokens.shape[1]} window, torch.profiler: device "
+          f"{total:.1f} ms (ops summed, {len(ops)} device ops; trace read in "
+          f"{time.perf_counter() - t0:.1f} s): " + ", ".join(
+              f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in kinds.items())
+          + f"; card {card_label}", flush=True)
+    return {"device_ms": total, "device_ops": len(ops), **{
+        k.replace(" ", "_"): v for k, v in kinds.items()}}
+
+
+def _count_flash():
+    """A counting stand-in for llama._attention_flash; (calls, restore)."""
+    from qpalette_tpu_torch.models import llama
+
+    calls, real = [], llama._attention_flash
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    llama._attention_flash = counted
+
+    def restore():
+        llama._attention_flash = real
+    return calls, restore
+
+
+def ppl_check(spec, params, device, card_label):
+    """ctx-8192 perplexity of the flagship at impl dequant over
+    EVAL_WINDOWS windows of a synthetic stream from seed 0: ce_loss of the
+    first window against the CE of the forward's own logits (which also
+    warms the 8192-row shapes up before the timed run); a finite loss,
+    194 K6 + 30 K7 a window, the blockwise attention in every layer;
+    seconds a window, eval tokens/s, peak memory; the device time of a
+    window by kind.  Returns (launch counts, summary)."""
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import evaluate
+
+    spec = with_impl(spec, "dequant")
+    nl = spec.config.num_layers
+    V = spec.config.vocab_size
+    stream = np.random.default_rng(0).integers(0, V, EVAL_WINDOWS * EVAL_CTX)
+    want = {"tcq_lut_dequant": FLAGSHIP_TCQ, "tcomb_lut_dequant":
+            FLAGSHIP_TCOMB}
+    # the first window's ce_loss against the CE of forward's float32
+    # logits (8192 x 128256, 4.2 GB)
+    tokens = torch.as_tensor(stream[None, :EVAL_CTX], device=device)
+    for f in wrappers():
+        f.launches = 0
+    ce = float(evaluate.ce_loss(spec, params, tokens))
+    one = launch_counts()
+    zero = {k: 0 for k in one}
+    check(one == {**zero, **want}, f"one window's launches {one}")
+    logits = llama.forward(spec, params, tokens)[0, :-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    del logits
+    ref = float(-logp.gather(-1, tokens[0, 1:, None]).mean())
+    del logp
+    torch.cuda.empty_cache()
+    print(f"[eval] window 0: ce_loss {ce:.6f}, CE of the forward's logits "
+          f"{ref:.6f}, |diff| {abs(ce - ref):.2e} (limit {CE_TOL:.0e})",
+          flush=True)
+    check(abs(ce - ref) <= CE_TOL, f"ce_loss {ce} against {ref}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    flash, restore = _count_flash()
+    try:
+        for f in wrappers():
+            f.launches = 0
+        t0 = time.perf_counter()
+        ppl, avg = evaluate.eval_ppl(spec, params, stream, ctx_size=EVAL_CTX,
+                                     progress=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated(device)
+    check(counts == {**zero, **{k: v * EVAL_WINDOWS for k, v in
+                                want.items()}},
+          f"ppl launches {counts}, want {want} a window")
+    check(len(flash) == nl * EVAL_WINDOWS,
+          f"blockwise attention taken {len(flash)} times, want {nl} a "
+          f"window")
+    check(np.isfinite(avg) and np.isfinite(ppl), f"ppl {ppl} loss {avg}")
+    n_tok = EVAL_WINDOWS * EVAL_CTX
+    print(f"[eval] flagship ppl at impl dequant, ctx {EVAL_CTX}, "
+          f"{EVAL_WINDOWS} windows: loss {avg:.4f}, ppl {ppl:.1f} (random "
+          f"weights); {dt / EVAL_WINDOWS:.3f} s a window (host clock), "
+          f"{n_tok / dt:.0f} eval tokens/s (after a warm window 0), peak "
+          f"memory {peak / 1e9:.3f} GB; "
+          f"{FLAGSHIP_TCQ} K6 + {FLAGSHIP_TCOMB} K7 a window, blockwise "
+          f"attention in all {nl} layers; card {card_label}", flush=True)
+    prof = profile_window(spec, params, tokens, card_label)
+    return counts, {"ppl_window_s": dt / EVAL_WINDOWS,
+                    "eval_tokens_s": n_tok / dt, "peak_gb": peak / 1e9,
+                    "loss": avg, "ce_diff": abs(ce - ref), **prof}
+
+
+def attention_checks(device):
+    """The port's blockwise attention against its attention over the whole
+    logits at the 8B's heads, float32 inputs: S = T = 4096 from offset 0,
+    and S = 2048 over T = 4096 from offset 2048 (whole KV chunks
+    pruned)."""
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama31_8b()
+    H, hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    worst = 0.0
+    for S, T, offset in ((4096, 4096, 0), (2048, 4096, 2048)):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(S + offset)
+        q, k, v = (torch.randn((1, n, h, D), generator=gen, device=device)
+                   for n, h in ((S, H), (T, hk), (T, hk)))
+        got = llama._attention_flash(q, k, v, offset, cfg)
+        want = llama._attention_whole(q, k, v, offset, cfg)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, rel)
+        print(f"[eval] blockwise attention S={S} T={T} offset {offset} "
+              f"against the whole logits: rel {rel:.3e} (limit "
+              f"{ATTN_TOL:.0e})", flush=True)
+        check(rel <= ATTN_TOL, f"blockwise attention S={S} T={T}: {rel}")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def small_ce_check(device):
+    """A 2-layer model with the flagship's mix at impl dequant over a
+    ctx-SMALL_CTX window (blockwise attention): the CPU (plain versions)
+    against the card (kernels), the forward's logits within SMALL_TOL of
+    max|logit| and ce_loss within SMALL_TOL relative.  Returns the larger
+    of the two."""
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.runtime import evaluate
+    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+
+    with open(FLAGSHIP_QDICT) as f:
+        flagship = json.load(f)
+    spec, p_cpu = build_quantized_model(
+        LlamaConfig(**SMALL_CFG), flagship, dummy=True, impl="dequant",
+        lm_head_bits=16, seed=8, device="cpu")
+    p_dev = to_device(p_cpu, device)
+    tokens = np.random.default_rng(9).integers(0, 512, (1, SMALL_CTX))
+    flash, restore = _count_flash()
+    out, logits = [], []
+    try:
+        for dev, p in (("cpu", p_cpu), (device, p_dev)):
+            tok = torch.as_tensor(tokens, device=dev)
+            out.append(float(evaluate.ce_loss(spec, p, tok)))
+            with torch.inference_mode():
+                logits.append(llama.forward(spec, p, tok).cpu())
+    finally:
+        restore()
+    rel = abs(out[0] - out[1]) / abs(out[0])
+    rel_l = ((logits[0] - logits[1]).abs().max()
+             / logits[0].abs().max()).item()
+    print(f"[eval] 2-layer flagship mix, ctx {SMALL_CTX}, dequant: logits "
+          f"card vs CPU plain rel {rel_l:.3e} of max|logit| (limit "
+          f"{SMALL_TOL}); ce_loss CPU plain {out[0]:.6f}, card "
+          f"{out[1]:.6f}, rel {rel:.3e} (limit {SMALL_TOL}); blockwise "
+          f"attention {len(flash)} times", flush=True)
+    check(len(flash) == 2 * 2 * 2, f"blockwise attention {len(flash)} times")
+    check(rel_l <= SMALL_TOL, f"small logits rel {rel_l}")
+    check(rel <= SMALL_TOL, f"small ce_loss rel {rel}")
+    return max(rel, rel_l)
+
+
 REPLACES = "qpalette_tpu/kernels/fused.py:"
 KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
     "tcq2s_decode_gemv": ("tcq2_gemv.cu", REPLACES + "508"),
@@ -2120,8 +2552,9 @@ def main():
     device = torch.device("cuda:0")
     t0 = time.perf_counter()
     sum2_err, sum2_times = sum2_checks(arith, device)
+    row_err, row_times = sum2_row_times(arith, device)
     err, times, deq215 = arith_checks(arith, arith_dequant, device)
-    err["tcq2s_decode_gemv"] = sum2_err
+    err["tcq2s_decode_gemv"] = max(sum2_err, row_err)
     with open(FLAGSHIP_QDICT) as f:
         shapes = flagship_shapes(LlamaConfig.llama31_8b(), json.load(f))
     check(sum(n for (_, _, KV), n in shapes.items() if len(KV) == 1)
@@ -2141,8 +2574,8 @@ def main():
         err[kname] = max(err[kname], e)
     print(f"[time] kernel checks {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches, qdict, graphs = main_path(device, smi)
-    fl, graphs["flagship"] = flagship_path(device, smi)
+    launches, qdict, graphs, zs = main_path(device, smi)
+    fl, graphs["flagship"], ppl = flagship_path(device, smi)
     for k, v in fl.items():
         launches[k] += v
     ab, tps, pre = path_a_b(device, smi)
@@ -2156,11 +2589,27 @@ def main():
         launches[k] += pc[k] + pd[k] + pe[k]
     small_model_checks(device)
     artifact_check(device)
+    t0 = time.perf_counter()
+    attn_rel = attention_checks(device)
+    small_rel = small_ce_check(device)
+    print(f"[time] attention and 2-layer ce_loss checks "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     times["tcq2s_decode_gemv"] = step_ms(sum2_times, qdict)
     ms, pms, bms = times["tcq2s_decode_gemv"]
     print(f"[time] one 215 decode step's 129 sum2 calls: kernel {ms:.3f} ms, "
           f"plain {pms:.3f} ms, bound {bms:.3f} ms (a8, N=1; {smi})",
           flush=True)
+    zs_forward = {}
+    for N in ZS_ROWS:
+        kms, pms, kbms = step_ms({
+            (name, KV): tuple(t or 0.0 for t in row_times[(N, name, KV)])
+            for name, _, _, KV in SHAPES_215}, qdict)
+        zs_forward[N] = (kms, pms if N == 64 else None, kbms)
+        plain = f"plain {pms:.3f} ms, " if N == 64 else ""
+        print(f"[time] a zero-shot forward's 129 sum2 calls at N={N} (the "
+              f"arith.cuh template; layers exact, head a8): kernel "
+              f"{kms:.3f} ms, {plain}bound {kbms:.3f} ms ({kbms / kms:.1%} "
+              f"of it; {smi})", flush=True)
     for kname in ("tcq2_decode_gemv", "tcq1_decode_gemv"):
         kms, kpms, kbms = times[kname]
         print(f"[time] Path A decode step's 64 calls of {kname}: kernel "
@@ -2208,6 +2657,14 @@ def main():
               flush=True)
     print("[graph] " + json.dumps({"card": smi, "paths": graphs}),
           flush=True)
+    print("[eval] " + json.dumps({
+        "card": smi, "ppl_window_s": ppl["ppl_window_s"],
+        "eval_tokens_s": ppl["eval_tokens_s"], "peak_gb": ppl["peak_gb"],
+        "zeroshot_examples_s": zs["zs_examples_s"], "ppl": ppl, "zeroshot": zs,
+        "attention_rel": attn_rel, "small_2layer_rel": small_rel,
+        "k1_rows_forward": zs_forward,
+        "k1_rows": {f"{N} {name} KV{KV}": t
+                    for (N, name, KV), t in row_times.items()}}), flush=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"({smi})", flush=True)
     kernels = []

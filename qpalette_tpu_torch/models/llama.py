@@ -138,9 +138,22 @@ def _causal_mask(S: int, T: int, offset, device) -> torch.Tensor:
     return torch.where(kpos <= q, 0.0, -1e30).to(torch.float32)
 
 
+_FLASH_MIN_CELLS = 1 << 22  # S*T above this -> blockwise attention
+
+
 def _attention(q, k, v, offset, cfg: LlamaConfig):
     """q (B,S,h,d), k/v (B,T,hk,d); grouped heads, float32 softmax.  The
-    query positions start at offset (see _causal_mask)."""
+    query positions start at offset (see _causal_mask).  Above
+    _FLASH_MIN_CELLS query-key pairs (a long prefill, a ctx-8192
+    perplexity window) it takes _attention_flash: the whole (B, h, S, T)
+    float32 logits would be 8.6 GB a layer at S = T = 8192."""
+    if q.shape[1] * k.shape[1] > _FLASH_MIN_CELLS:
+        return _attention_flash(q, k, v, offset, cfg)
+    return _attention_whole(q, k, v, offset, cfg)
+
+
+def _attention_whole(q, k, v, offset, cfg: LlamaConfig):
+    """_attention over the whole (B, h, S, T) float32 logits."""
     B, S, H, D = q.shape
     T = k.shape[1]
     hk = cfg.num_kv_heads
@@ -152,6 +165,63 @@ def _attention(q, k, v, offset, cfg: LlamaConfig):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H * D).to(q.dtype)
+
+
+def _attention_flash(q, k, v, offset, cfg: LlamaConfig, qc: int = 512,
+                     tc: int = 512):
+    """Blockwise softmax attention: query chunks of qc rows, each over KV
+    chunks of tc keys with a running (max, denom, acc) in float32, so the
+    live logits are (B, hk, qc, g, tc).  qc / tc fall back to the largest
+    of 256, 128, ..., 1 that divides S / T.  With a Python-int offset the
+    KV chunks wholly after a query chunk's last position are skipped; a
+    0-d or per-row (B,) tensor offset scans them all (masked)."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    hk = cfg.num_kv_heads
+    g = H // hk
+    qc = next(c for c in (qc, 256, 128, 64, 32, 16, 8, 4, 2, 1)
+              if S % c == 0)
+    tc = next(c for c in (tc, 256, 128, 64, 32, 16, 8, 4, 2, 1)
+              if T % c == 0)
+    static_off = isinstance(offset, int)
+    per_row = isinstance(offset, torch.Tensor) and offset.dim() == 1
+    dev = q.device
+    # heads first: (B, hk, S, g, D) queries, (B, hk, T, D) keys and values
+    qf = (q.float() * (D ** -0.5)).reshape(B, S, hk, g, D).transpose(1, 2)
+    kf = k.float().transpose(1, 2).contiguous()
+    vf = v.float().transpose(1, 2).contiguous()
+    outs = []
+    for qi in range(S // qc):
+        qb = qf[:, :, qi * qc:(qi + 1) * qc].reshape(B, hk, qc * g, D)
+        qpos = torch.arange(qc, device=dev) + qi * qc
+        if per_row:  # (B, 1, qc, 1, 1) against the keys' last axis
+            qpos = (qpos[None, :] + offset[:, None])[:, None, :, None, None]
+        else:  # (qc, 1, 1)
+            qpos = (qpos + offset)[:, None, None]
+        n_kv = (min(T // tc, (qi * qc + qc + offset + tc - 1) // tc)
+                if static_off else T // tc)
+        m = torch.full((B, hk, qc, g), -1e30, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, hk, qc, g), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, hk, qc * g, D), dtype=torch.float32,
+                          device=dev)
+        for ti in range(n_kv):
+            kb = kf[:, :, ti * tc:(ti + 1) * tc]  # (B, hk, tc, D)
+            vb = vf[:, :, ti * tc:(ti + 1) * tc]
+            lg = (qb @ kb.transpose(-1, -2)).reshape(B, hk, qc, g, tc)
+            kpos = torch.arange(tc, device=dev) + ti * tc
+            lg = torch.where(kpos <= qpos, lg, -1e30)
+            mb = torch.maximum(m, lg.amax(dim=-1))
+            p = torch.exp(lg - mb[..., None])
+            alpha = torch.exp(m - mb)
+            l = l * alpha + p.sum(dim=-1)
+            acc = (acc * alpha.reshape(B, hk, qc * g, 1)
+                   + p.reshape(B, hk, qc * g, tc) @ vb)
+            m = mb
+        acc = acc / torch.clamp_min(l.reshape(B, hk, qc * g, 1), 1e-30)
+        outs.append(acc.reshape(B, hk, qc, g, D))
+    out = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, S, H * D).to(q.dtype)
 
 
 def _store(cache: torch.Tensor, val: torch.Tensor, cache_pos) -> None:

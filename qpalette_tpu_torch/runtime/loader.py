@@ -385,6 +385,16 @@ _UNPORTED = {"hess": (None, "calibration Hessians feed the quantizers "
                                     "(ROADMAP Queue 1 item 9)")}
 
 
+def refuse_unported(**unported) -> None:
+    """Raise for a reference argument the port refuses (see _UNPORTED)
+    unless its value changes nothing."""
+    for name, value in unported.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"unexpected argument {name!r}")
+        if value != _UNPORTED[name][0]:
+            raise NotImplementedError(f"{name}: {_UNPORTED[name][1]}")
+
+
 def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                           dummy: bool = True, impl: str = "a8",
                           num_layers: Optional[int] = None,
@@ -409,11 +419,7 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
     caller asks for the CPU (``device="cpu"`` runs the plain versions).
     The reference's ``hess`` and ``row_parallel_tp`` raise (see
     _UNPORTED)."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected argument {name!r}")
-        if value != _UNPORTED[name][0]:
-            raise NotImplementedError(f"{name}: {_UNPORTED[name][1]}")
+    refuse_unported(**unported)
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if lm_head_bits not in LM_HEAD_BITS:
