@@ -3,11 +3,14 @@
 
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
-      [--ab tcq2_gemv|tcq2mix|tcq1_gemv|tcq_lut|vq]
+      [--ab tcq2_gemv|tcq2_wide|tcq2mix|tcq1_gemv|tcq_lut|vq]
   python chip_smoke.py --recapture N
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
-decode (--ab tcq2_gemv, the default), K1 dualmad at Path A's shapes with
+decode (--ab tcq2_gemv, the default), K1 sum2 above 8 rows at the 215
+shapes at N = 16/64/256 with the zero-shot run, an a8 512-token 215
+prefill and the 215 decode (--ab tcq2_wide, ab_wide), K1 dualmad at Path
+A's shapes with
 K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
 1mad at Path A's shapes with 2mad at 4096x4096 and the Path A a8 decode
 (--ab tcq1_gemv), the LUT GEMVs and the flagship decode (--ab tcq_lut),
@@ -24,15 +27,17 @@ Phases (each raises on failure):
   3. the arithmetic trellis GEMV (K1) against its plain PyTorch version:
      sum2 at every Llama-3.1-8B shape of the 215.0thp_cc path (N in
      {1,4,16}: the tensor-core kernel at N <= 8, two launches bit-equal at
-     N=4; the 8-row template at 16); dualmad, 1mad, 2mad and odd-KV sum2
+     N=4; sum2_wide_kernel at 16); dualmad, 1mad, 2mad and odd-KV sum2
      at every shape of bench.py's tcq2mix scheme plus 4096x4096 and odd
      k/16 shapes (N in {1,8,256}; every mode on its tensor-core kernel at
      N <= 8, two launches bit-equal at N=8); exact and a8; kernel and
      plain times at N=1 on Path A's shapes, kernel times of 2mad (on no
-     path) at 4096x4096; K1 sum2 on the arith.cuh template at the 215
-     shapes: against its plain version at N in {49, 64, 191, 256}, exact
-     and a8, and timed at N in {16, 64, 256} (a zero-shot forward's rows:
-     layers exact, head a8) beside the bound (plain at N=64)
+     path) at 4096x4096; K1 sum2 above 8 rows (sum2_wide_kernel, its x
+     prologue a second launch) at the 215 shapes: against its plain
+     version at N in {9, 16, 49, 64, 191, 256}, exact and a8, two launches
+     bit-equal at 191, and timed at N in {16, 64, 256} (a zero-shot
+     forward's rows: layers exact, head a8) beside the bound, the dequant
+     route (K2 + the f32 product) and, at N=64, the plain version
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
@@ -58,8 +63,9 @@ Phases (each raises on failure):
   6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
      cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
-     129 sum2 K1 launches per forward; then the zero-shot harness on it
-     at impl exact (see 10c)
+     129 sum2 K1 calls per forward (the prefill's at 16 rows two launches
+     each); then the zero-shot harness on it at impl exact (see 10c) and
+     a warm 512-token prefill at a8 (K1 in 256-row chunks)
   7. the flagship path: the 8B model from the 3.25-bit mem-constrained
      solver output (unmerged tcq 6/8/10 and tcomb 8/9, bf16 lm_head, impl
      exact, dummy weights from seed 0); the 16-token prefill launches 194
@@ -118,9 +124,10 @@ Phases (each raises on failure):
      products of W_hat, attention,
      the head's CE, the rest); eval_multiple_choice of the 32-layer 215
      model at impl exact on 8 synthetic questions x 4 choices of 33-200
-     tokens (a byte-level stand-in tokenizer; 129 K1 sum2 launches a
-     forward at 8 < N <= 256, one loglikelihood within 1e-4 of the
-     forward's log-softmax; examples/s); the blockwise attention against
+     tokens (a byte-level stand-in tokenizer; 129 K1 sum2 calls a forward
+     at 8 < N <= 256, 258 launches, one loglikelihood within 1e-4 of the
+     forward's log-softmax; examples/s after a warm-up pass over the same
+     prompts); the blockwise attention against
      the whole logits at the 8B's heads (S = T = 4096; S = 2048 over T =
      4096 from offset 2048; within 1e-5 of max|out|); a 2-layer model's
      ctx-2560 logits and ce_loss, card against the CPU, within SMALL_TOL
@@ -158,9 +165,10 @@ CALLS_PER_STEP = {"qkv": 32, "o": 32, "ug": 32, "down": 32, "lm_head": 1}
 LAUNCHES_PER_FORWARD = 129
 # rows a zero-shot forward gives K1 (its prompts' lengths), timed in phase 3
 ZS_ROWS = (16, 64, 256)
-# rows at which phase 3 holds the template against its plain version: two
-# full-group counts and two that leave a partial last group of 8 rows
-ZS_CHECK_ROWS = (49, 64, 191, 256)
+# rows at which phase 3 holds sum2_wide_kernel against its plain version:
+# whole n-tiles, and 9, 49, 191 ending in a partial one (a8 splits 191 and
+# 256 over two row groups)
+ZS_CHECK_ROWS = (9, 16, 49, 64, 191, 256)
 # bench.py's tcq2mix scheme (3.27 bits/weight): (projection, m, k, mode,
 # KV, calls a forward), then 2mad and odd-KV sum2 at 4096x4096 and odd
 # k/16 shapes (calls 0: checked, not on a path)
@@ -185,12 +193,15 @@ SHAPES_ARITH = [("qkv", 6144, 4096, "dualmad", 6, 32),
                 ("odd_kt", 256, 4112, "dualmad", 9, 0)]
 PATH_A_STEP = {"tcq2_decode_gemv": 64, "tcq1_decode_gemv": 64,
                "tcq2s_decode_gemv": 1}
+# the 16-token prefill: the sum2 head above 8 rows, two launches
+PATH_A_PREFILL = {**PATH_A_STEP, "tcq2s_decode_gemv": 2}
 PATH_A_MIX = {("tcq2", "dualmad", 6): 32, ("tcq2", "dualmad", 7): 32,
               ("tcq1", "1mad", 3): 64}
 PREFILL_B = 512
+# the a8 head in two 256-row chunks of two launches each
 PATH_B = {"tcq2mix": {"tcq2_dequant": 64, "tcq1_dequant": 64,
-                      "tcq2s_decode_gemv": 2},
-          "215": {"tcq2_dequant": 128, "tcq2s_decode_gemv": 2}}
+                      "tcq2s_decode_gemv": 4},
+          "215": {"tcq2_dequant": 128, "tcq2s_decode_gemv": 4}}
 PROMPT_LEN, NEW_TOKENS = 16, 64
 TOL = {False: 1e-4, True: 1e-3}  # GEMV kernel vs plain, of max|y|
 SMALL_TOL = 2e-2  # CPU plain vs card kernel through a 2-layer model
@@ -381,16 +392,21 @@ def sum2_checks(arith, device):
     return max_abs, times
 
 
-def sum2_row_times(arith, device):
-    """K1 sum2 on the arith.cuh template (8 < N <= 256, bf16 x) at the 215
-    shapes: held against its plain version at ZS_CHECK_ROWS, exact and a8,
-    then timed as a zero-shot forward calls it: the layers at exact, the
-    4-bit head at a8.  The exact rows' bound counts their operations at
-    the bf16 tensor-core peak: bf16 x against integer weights in [-256,
-    254], which bf16 holds exactly (the TPU kernel's MXU product).
-    Returns (max_abs_err, {(N, name, KV): (ms, plain_ms or None,
-    bound_ms)}); the plain version is timed at N = 64 only (its time is
-    the decode of W, whatever N)."""
+def sum2_row_times(arith, arith_dequant, device):
+    """K1 sum2 above 8 rows (sum2_wide_kernel after its x prologue, bf16 x)
+    at the 215 shapes: held against its plain version at ZS_CHECK_ROWS,
+    exact and a8, two launches bit-equal at 191 rows (a8: two row groups),
+    then timed as a zero-shot forward calls it (the layers at exact, the
+    4-bit head at a8) beside its yardstick, the dequant route (K2, then
+    qlinear._product: impl dequant's f32 product of x and W_hat).  The
+    exact rows' bound counts their operations at the bf16 tensor-core
+    peak: bf16 x against integer weights in [-256, 254], which bf16 holds
+    exactly (the TPU kernel's MXU product).  Returns (max_abs_err, {(N,
+    name, KV): (ms, plain_ms or None, bound_ms, route_ms, bound_by)}); the
+    plain version is timed at N = 64 only (its time is the decode of W,
+    whatever N)."""
+    from qpalette_tpu_torch.runtime.qlinear import _product
+
     times, max_abs = {}, 0.0
     for name, m, k, KV in SHAPES_215:
         copies, nbytes = _copies(m, k, 4 * KV, device)
@@ -400,13 +416,18 @@ def sum2_row_times(arith, device):
             x = torch.randn((N, k), generator=gen,
                             device=device).bfloat16()
             for a8 in (False, True):
+                label = (f"sum2 wide {name} {m}x{k} KV={KV} N={N} "
+                         f"{'a8' if a8 else 'exact'}")
                 y = arith.tcq2s_decode_gemv(x, copies[0], KV, m, k, a8)
                 torch.cuda.synchronize()
                 ref = arith.arith_gemv_plain(x, copies[0], "sum2", KV, m, k,
                                              a8)
-                max_abs = max(max_abs, _rel_check(
-                    f"sum2 template {name} {m}x{k} KV={KV} N={N} "
-                    f"{'a8' if a8 else 'exact'}", y, ref, TOL[a8]))
+                max_abs = max(max_abs, _rel_check(label, y, ref, TOL[a8]))
+                if N == 191:  # the cluster's fragments add in rank order
+                    y2 = arith.tcq2s_decode_gemv(x, copies[0], KV, m, k, a8)
+                    check(torch.equal(y.view(torch.int32),
+                                      y2.view(torch.int32)),
+                          f"{label}: two launches differ")
                 del y, ref
         a8 = name == "lm_head"
         for N in ZS_ROWS:
@@ -424,15 +445,20 @@ def sum2_row_times(arith, device):
                 arith.arith_gemv_plain(x, copies[i % len(copies)], "sum2",
                                        KV, m, k, a8)
 
+            def route(i=0):
+                _product(x, arith_dequant.dequant(
+                    "sum2", copies[i % len(copies)], KV, m, k))
+
             ms = _time_ms(kern, 50, graph=True)
             pms = _time_ms(plain, 1) if N == 64 else None
+            rms = _time_ms(route, 3)
             bms, by = gemv_bound(nbytes, N, m, k, 2, a8, "bfloat16")
-            times[(N, name, KV)] = (ms, pms, bms)
-            print(f"[time] sum2 template {name} {m}x{k} KV={KV} N={N} "
+            times[(N, name, KV)] = (ms, pms, bms, rms, by)
+            print(f"[time] sum2 wide {name} {m}x{k} KV={KV} N={N} "
                   f"{'a8' if a8 else 'exact'}: kernel {ms:.4f} ms, plain "
                   + (f"{pms:.4f} ms" if pms is not None else "not timed")
-                  + f", bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it)",
-                  flush=True)
+                  + f", dequant route {rms:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}; {bms / ms:.1%} of it)", flush=True)
         del copies
     return max_abs, times
 
@@ -585,7 +611,7 @@ def build_all():
 
 SPILL = re.compile(r"[1-9]\d* bytes spill")
 # the tensor-core GEMVs' instances: K1's and K8's
-TC_GEMV = re.compile(r"v[12q]_gemv_kernel")
+TC_GEMV = re.compile(r"v[12q]_gemv_kernel|sum2_wide_kernel")
 
 
 def ptxas_entries(log):
@@ -997,19 +1023,27 @@ def with_impl(spec, impl):
 
 
 def main_path(device, card_label):
-    """The 215 path: 129 sum2 K1 launches per forward; then the same model
-    through the zero-shot harness (zs_check).  Returns the launch counts
-    of both, the qdict, graph_phase's result and zs_check's summary."""
+    """The 215 path: 129 sum2 K1 calls per forward (a decode forward's at
+    N=1 one launch each, the 16-token prefill's two); then the same model
+    through the zero-shot harness (zs_check) and a warm a8 512-token
+    prefill.  Returns the launch counts of all, the qdict, graph_phase's
+    result and zs_check's summary with the prefill's ms."""
+    from qpalette_tpu_torch.kernels import arith
+
     qdict, merge_info = _load_215()
     spec, params = _build("main", qdict, merge_info, "a8", 4, device)
     want = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD}
+    want_prefill = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD
+                    * arith.kernel_launches("sum2", PROMPT_LEN)}
     launches = drive("main", spec, params, device, PROMPT_LEN, NEW_TOKENS,
-                     want, want)
+                     want_prefill, want)
     graphs = {"215": graph_phase("main", spec, params, device, want,
                                  card_label)}
     zs_counts, zs = zs_check(spec, params, device, card_label)
     for k, v in zs_counts.items():
         launches[k] += v
+    zs["a8_prefill_512_ms"] = 1e3 * prefill_time(
+        "main a8", spec, params, device, PREFILL_B, card_label)
     del params
     torch.cuda.empty_cache()
     return launches, qdict, graphs, zs
@@ -1309,7 +1343,128 @@ def _ab_vq(device, smi):
 
 
 AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
-      "tcq_lut": _ab_lut, "vq": _ab_vq}
+      "tcq_lut": _ab_lut, "vq": _ab_vq, "tcq2_wide": None}
+
+
+class _NoWorkspace:
+    """A tcq2_gemv library built from a tree whose C function takes no
+    workspace (before sum2_wide_kernel): the wrappers' call, the workspace
+    argument dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def tcq2_gemv(self, x, x_bf16, tr, out, ws, *rest):
+        return self.lib.tcq2_gemv(x, x_bf16, tr, out, *rest)
+
+
+def _bind_parent(kb, source, parent_csrc, parent_so, sigs):
+    """The parent's library behind the wrappers' C interface."""
+    from pathlib import Path
+
+    text = (Path(parent_csrc) / f"{source}.cu").read_text()
+    if source == "tcq2_gemv" and "void* ws" not in text:
+        old = list(sigs["tcq2_gemv"])
+        del old[4]
+        return _NoWorkspace(kb.bind(parent_so, {"tcq2_gemv": old}))
+    return kb.bind(parent_so, sigs)
+
+
+def ab_wide(parent_csrc):
+    """--ab tcq2_wide: K1 sum2 above 8 rows against an older csrc's, in
+    turns parent, new, new, parent, on one card: each 215 shape's call at
+    N = 16 / 64 / 256 as a zero-shot forward makes it (layers exact, the
+    4-bit head a8; CUDA-graph replays, weights cycled past L2), summed over
+    a forward's 129 calls; then, on the 215 model, the zero-shot run
+    (examples/s), a warm a8 512-token prefill (ms) and the a8 decode
+    (tokens/s through generate()).  Both libraries are first held against
+    the plain version at o, N = 49."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from qpalette_tpu_torch.kernels import _build as kb
+    from qpalette_tpu_torch.kernels import arith
+    from qpalette_tpu_torch.runtime import zeroshot
+
+    _, _, smi = card()
+    device = torch.device("cuda:0")
+    source, sigs = "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"]
+    parent_so = kb.BUILD / f"lib{source}_parent.so"
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(kb.build, source),
+                  ex.submit(kb.compile_cu, Path(parent_csrc) / f"{source}.cu",
+                            parent_so)]
+        for label, b in zip(("new", "parent"), builds):
+            entries = ptxas_entries(b.result())
+            print(f"[ab] {label} {source}.cu: {len(entries)} kernels, "
+                  f"{sum(bool(SPILL.search(e[2])) for e in entries)} with "
+                  f"spills", flush=True)
+    libs = {"parent": _bind_parent(kb, source, parent_csrc, parent_so, sigs),
+            "new": kb.bind(kb.lib_path(source), sigs)}
+    lib_of = arith._lib
+
+    def use(lib):
+        arith._lib = lambda *a: lib if a[0] == source else lib_of(*a)
+
+    qdict, merge_info = _load_215()
+    spec, params = _build("main", qdict, merge_info, "a8", 4, device)
+    exact = with_impl(spec, "exact")
+    tok, questions = ByteTok(), zs_questions()
+    shapes = {(name, KV): _copies(m, k, 4 * KV, device)
+              for name, m, k, KV in SHAPES_215}
+    for label, lib in libs.items():
+        use(lib)
+        _, m, k, KV = SHAPES_215[1]
+        x = torch.randn((49, k), device=device).bfloat16()
+        w = shapes[("o", KV)][0][0]
+        for a8 in (False, True):
+            _rel_check(f"{label} sum2 o N=49 a8={a8}",
+                       arith.tcq2s_decode_gemv(x, w, KV, m, k, a8),
+                       arith.arith_gemv_plain(x, w, "sum2", KV, m, k, a8),
+                       TOL[a8])
+    turns = []
+    for label in ("parent", "new", "new", "parent"):
+        use(libs[label])
+        turn = {"lib": label}
+        for N in ZS_ROWS:
+            times = {}
+            for name, m, k, KV in SHAPES_215:
+                copies, nbytes = shapes[(name, KV)]
+                a8 = name == "lm_head"
+                x = torch.randn((N, k), device=device).bfloat16()
+                out = torch.empty((N, m), device=device)
+                ms = _time_ms(lambda i=0: arith.tcq2s_decode_gemv(
+                    x, copies[i % len(copies)], KV, m, k, a8, out=out), 20,
+                    graph=True)
+                bms, _ = gemv_bound(nbytes, N, m, k, 2, a8, "bfloat16")
+                times[(name, KV)] = (ms, 0.0, bms)
+                print(f"[ab] {label} sum2 {name} {m}x{k} KV={KV} N={N} "
+                      f"{'a8' if a8 else 'exact'}: {ms:.4f} ms (bound "
+                      f"{bms:.4f})", flush=True)
+            kms, _, bms = step_ms(times, qdict)
+            turn[f"forward_ms_N{N}"] = kms
+            turn[f"bound_ms_N{N}"] = bms
+        zeroshot.eval_multiple_choice(exact, params, tok, questions)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zeroshot.eval_multiple_choice(exact, params, tok, questions)
+        torch.cuda.synchronize()
+        turn["zs_examples_s"] = ZS_QUESTIONS / (time.perf_counter() - t0)
+        turn["a8_prefill_512_ms"] = 1e3 * prefill_time(
+            f"ab {label} a8", spec, params, device, PREFILL_B, smi)
+        turn["tokens_per_s"] = throughput(f"215, {label} {source}.cu", spec,
+                                          params, device, smi)
+        turns.append(turn)
+        print(f"[ab] {label}: a zero-shot forward's 129 sum2 calls "
+              + ", ".join(f"N={N} {turn[f'forward_ms_N{N}']:.3f} ms"
+                          for N in ZS_ROWS)
+              + f"; zero-shot {turn['zs_examples_s']:.2f} examples/s; a8 "
+              f"512-token prefill {turn['a8_prefill_512_ms']:.1f} ms; "
+              f"decode {turn['tokens_per_s']:.2f} tokens/s ({smi})",
+              flush=True)
+    arith._lib = lib_of
+    print(json.dumps({"card": smi, "source": source, "ab": "tcq2_wide",
+                      "turns": turns}))
 
 
 def parent_ab(parent_csrc, which):
@@ -1317,7 +1472,8 @@ def parent_ab(parent_csrc, which):
     tree (parent_csrc: that tree's qpalette_tpu_torch/csrc, e.g. unpacked
     from `git archive`, so that the source builds with its own headers),
     on one card, in turns: parent, new, new, parent.  which: "tcq2_gemv"
-    (K1 sum2 on the 215 path), "tcq2mix" (K1 dualmad on Path A, with K1
+    (K1 sum2 on the 215 path), "tcq2_wide" (ab_wide: K1 sum2 above 8
+    rows), "tcq2mix" (K1 dualmad on Path A, with K1
     sum2 at the 215 shapes), "tcq1_gemv" (K1 1mad on Path A, with 2mad at
     4096x4096), "tcq_lut" (K4/K5 on the flagship) or "vq" (K8 on Paths C
     and D, every other ldlq scheme at o and down).  Both
@@ -1331,6 +1487,8 @@ def parent_ab(parent_csrc, which):
 
     from qpalette_tpu_torch.kernels import _build as kb
 
+    if which == "tcq2_wide":
+        return ab_wide(parent_csrc)
     _, _, smi = card()
     device = torch.device("cuda:0")
     mod, source, sigs, cases, (path, spec, params) = AB[which](device, smi)
@@ -1344,8 +1502,8 @@ def parent_ab(parent_csrc, which):
             print(f"[ab] {label} {source}.cu: {len(entries)} kernels, "
                   f"{sum(bool(SPILL.search(e[2])) for e in entries)} with "
                   f"spills", flush=True)
-    libs = {"parent": kb.bind(parent_so, sigs), "new": kb.bind(
-        kb.lib_path(source), sigs)}
+    libs = {"parent": _bind_parent(kb, source, parent_csrc, parent_so, sigs),
+            "new": kb.bind(kb.lib_path(source), sigs)}
     lib_of = mod._lib
 
     def use(lib):  # arith's loader serves both K1 sources on Path A
@@ -1666,7 +1824,7 @@ def path_a_b(device, card_label):
     for impl in ("a8", "exact"):
         sp = with_impl(spec, impl)
         got = drive(f"pathA {impl}", sp, params, device, PROMPT_LEN,
-                    NEW_TOKENS, PATH_A_STEP, PATH_A_STEP)
+                    NEW_TOKENS, PATH_A_PREFILL, PATH_A_STEP)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
         tps[impl] = graph_phase(f"pathA {impl}", sp, params, device,
@@ -1742,14 +1900,18 @@ def path_e_qdict(num_layers=32):
 def proj_launches(ls, rows):
     """{wrapper: launches} of one qlinear_apply of ls at rows, as
     runtime/qlinear.py dispatches it."""
+    from qpalette_tpu_torch.kernels import arith
+
     if ls.kind in ("dense", "dense_rot"):
         return {}
     halves = 2 if ls.kind == "comb" else 1
     if ls.impl == "dequant":
         return {DEQUANT_OF[ls.kind]: halves}
     if ls.kind in ("tcq1", "tcq2"):
-        if rows <= 256 or ls.impl == "a8":
-            return {GEMV_OF[ls.mode]: -(-rows // 256)}
+        if rows <= arith.MAX_ROWS or ls.impl == "a8":  # 256-row chunks
+            return {GEMV_OF[ls.mode]: sum(
+                arith.kernel_launches(ls.mode, min(arith.MAX_ROWS, rows - r))
+                for r in range(0, rows, arith.MAX_ROWS))}
         return {DEQUANT_OF[ls.kind]: 1}
     if rows > 8:
         return {DEQUANT_OF[ls.kind]: halves}
@@ -2238,11 +2400,11 @@ def zs_questions(seed=0):
 
 def zs_check(spec, params, device, card_label):
     """The zero-shot harness on the 215 model at impl exact: every prompt
-    of 33-200 tokens sends its rows to K1 sum2's arith.cuh template (8 < N
-    <= 256), 129 launches a forward (128 exact layers, the a8 head); one
-    loglikelihood against the sum of the forward's log-softmax.  Returns
-    (launch counts, summary)."""
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    of 33-200 tokens sends its rows to K1 sum2's sum2_wide_kernel (8 < N
+    <= 256), 129 calls a forward (128 exact layers, the a8 head) of two
+    launches each; one loglikelihood against the sum of the forward's
+    log-softmax.  Returns (launch counts, summary)."""
+    from qpalette_tpu_torch.kernels import arith, launch_counts, wrappers
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import zeroshot
 
@@ -2253,8 +2415,9 @@ def zs_check(spec, params, device, card_label):
                for q in questions for c in q["choices"]]
     check(8 < min(lengths) and max(lengths) <= 256,
           f"zero-shot prompt lengths {min(lengths)}-{max(lengths)}")
-    zeroshot.loglikelihood(spec, params, tok, questions[0]["query"],
-                           questions[0]["choices"][0])  # warm-up
+    # warm-up: every prompt once, so that each kernel instance the run
+    # takes is loaded and set up before the timed run
+    zeroshot.eval_multiple_choice(spec, params, tok, questions)
     torch.cuda.synchronize()
     for f in wrappers():
         f.launches = 0
@@ -2265,9 +2428,11 @@ def zs_check(spec, params, device, card_label):
     counts = launch_counts()
     n_fwd = len(lengths)
     zero = {k: 0 for k in counts}
+    per_call = arith.kernel_launches("sum2", min(lengths))
     check(counts == {**zero, "tcq2s_decode_gemv": LAUNCHES_PER_FORWARD
-                     * n_fwd}, f"zero-shot launches {counts}, want "
-          f"{LAUNCHES_PER_FORWARD} sum2 a forward x {n_fwd}")
+                     * per_call * n_fwd}, f"zero-shot launches {counts}, "
+          f"want {LAUNCHES_PER_FORWARD} sum2 calls a forward x {per_call} x "
+          f"{n_fwd}")
     check(0 <= res["acc"] <= 1 and 0 <= res["acc_norm"] <= 1
           and res["n"] == ZS_QUESTIONS, f"zero-shot result {res}")
     q, c = questions[0]["query"], questions[0]["choices"][0]
@@ -2285,11 +2450,12 @@ def zs_check(spec, params, device, card_label):
           f"examples/s, {n_fwd / dt:.2f} forwards/s); acc {res['acc']:.3f} "
           f"acc_norm {res['acc_norm']:.3f} (random weights); K1 sum2 "
           f"{counts['tcq2s_decode_gemv']} launches ({LAUNCHES_PER_FORWARD} "
-          f"a forward, N 9-256); loglikelihood {got:.5f} against the "
+          f"calls a forward, N 9-256); loglikelihood {got:.5f} against the "
           f"forward's log-softmax {want:.5f}: |err| {err:.2e} (limit "
           f"{LL_TOL:.0e}); card {card_label}", flush=True)
     check(err <= LL_TOL, f"loglikelihood {got} against {want}")
     return counts, {"zs_seconds": dt, "zs_examples_s": ZS_QUESTIONS / dt,
+                    "zs_k1_launches": counts["tcq2s_decode_gemv"],
                     "zs_forwards": n_fwd, "zs_acc": res["acc"],
                     "zs_acc_norm": res["acc_norm"]}
 
@@ -2552,7 +2718,7 @@ def main():
     device = torch.device("cuda:0")
     t0 = time.perf_counter()
     sum2_err, sum2_times = sum2_checks(arith, device)
-    row_err, row_times = sum2_row_times(arith, device)
+    row_err, row_times = sum2_row_times(arith, arith_dequant, device)
     err, times, deq215 = arith_checks(arith, arith_dequant, device)
     err["tcq2s_decode_gemv"] = max(sum2_err, row_err)
     with open(FLAGSHIP_QDICT) as f:
@@ -2602,14 +2768,21 @@ def main():
     zs_forward = {}
     for N in ZS_ROWS:
         kms, pms, kbms = step_ms({
-            (name, KV): tuple(t or 0.0 for t in row_times[(N, name, KV)])
+            (name, KV): tuple(t or 0.0 for t in row_times[(N, name, KV)][:3])
             for name, _, _, KV in SHAPES_215}, qdict)
-        zs_forward[N] = (kms, pms if N == 64 else None, kbms)
+        rms, _, _ = step_ms({(name, KV): (row_times[(N, name, KV)][3], 0, 0)
+                             for name, _, _, KV in SHAPES_215}, qdict)
+        ops, _, _ = step_ms({(name, KV): (
+            row_times[(N, name, KV)][2]
+            * (row_times[(N, name, KV)][4] == "operations"), 0, 0)
+            for name, _, _, KV in SHAPES_215}, qdict)
+        zs_forward[N] = (kms, pms if N == 64 else None, kbms, rms,
+                         "operations" if 2 * ops >= kbms else "bytes")
         plain = f"plain {pms:.3f} ms, " if N == 64 else ""
-        print(f"[time] a zero-shot forward's 129 sum2 calls at N={N} (the "
-              f"arith.cuh template; layers exact, head a8): kernel "
-              f"{kms:.3f} ms, {plain}bound {kbms:.3f} ms ({kbms / kms:.1%} "
-              f"of it; {smi})", flush=True)
+        print(f"[time] a zero-shot forward's 129 sum2 calls at N={N} "
+              f"(sum2_wide_kernel; layers exact, head a8): kernel "
+              f"{kms:.3f} ms, {plain}dequant route {rms:.3f} ms, bound "
+              f"{kbms:.3f} ms ({kbms / kms:.1%} of it; {smi})", flush=True)
     for kname in ("tcq2_decode_gemv", "tcq1_decode_gemv"):
         kms, kpms, kbms = times[kname]
         print(f"[time] Path A decode step's 64 calls of {kname}: kernel "
@@ -2682,6 +2855,18 @@ def main():
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
             "bound_by": BOUND_BY.get(kname, "bytes"),
             "library_ms": library.get(kname)})
+    # sum2 above 8 rows, its own kernel behind the same wrapper: launches
+    # in the zero-shot run (every call at 9-200 rows), times a zero-shot
+    # forward's 129 calls at N=64
+    check(zs["zs_k1_launches"] > 0, "sum2_wide_kernel launched no time")
+    kms, kpms, kbms, _, kby = zs_forward[64]
+    kernels.append({
+        "name": "tcq2s_decode_gemv_wide", "route": "cuda",
+        "source": "qpalette_tpu_torch/csrc/sum2_wide.cuh",
+        "replaces": KERNEL_INFO["tcq2s_decode_gemv"][1],
+        "launches": zs["zs_k1_launches"], "step_launches": 0,
+        "max_abs_err": row_err, "ms": kms, "plain_ms": kpms,
+        "bound_ms": kbms, "bound_by": kby, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,6 +16,11 @@ SASS of its kernels.
       the same for each DIR's vq.cu (K8, vq_gemv_kernel): ldlq_2_6 at
       Path C's four shapes and ldlq_1_4 at Path D's down, N = 1; us a call
       and ms a Path C forward.
+  python chip_variants.py time wide DIR [DIR ...]
+      the same for each DIR's tcq2_gemv.cu (K1 sum2 above 8 rows,
+      sum2_wide_kernel): checked at o, N = 49, then the 215 shapes at N =
+      16, 64 and 256 as a zero-shot forward calls them (layers exact, the
+      head a8); ms a zero-shot forward's 129 calls.
   python chip_variants.py sass NEW.cu PARENT.cu KERNEL
       the SASS of every instance of the kernel template KERNEL in two
       builds, instruction by instruction (cuobjdump -sass of nvcc -cubin).
@@ -130,6 +135,62 @@ def time_variants(dirs):
             print(f"[time] {d}: 1mad a8 {step[True]:.4f} ms, exact "
                   f"{step[False]:.4f} ms a Path A step; " + ", ".join(per)
                   + f" ({smi})", flush=True)
+    finally:
+        arith._lib = orig
+
+
+def time_wide(dirs):
+    import torch
+
+    import chip_smoke as cs
+    from qpalette_tpu_torch.kernels import arith
+
+    _, _, smi = cs.card()
+    dev = torch.device("cuda:0")
+    libs = _variants(dirs, "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"],
+                     "sum2_wide")
+    copies = {(n, KV): cs._copies(m, k, 4 * KV, dev)[0]
+              for n, m, k, KV in cs.SHAPES_215}
+    qdict, _ = cs._load_215()
+    orig = arith._lib
+
+    def use(lib):
+        arith._lib = lambda *a: lib if a[0] == "tcq2_gemv" else orig(*a)
+
+    try:
+        _, m, k, KV = cs.SHAPES_215[1]
+        for d, lib in libs.items():
+            if Path(d).name.startswith("probe"):
+                continue
+            use(lib)
+            x = torch.randn((49, k), device=dev).bfloat16()
+            for a8 in (False, True):
+                cs._rel_check(
+                    f"{d} o N=49 a8={a8}",
+                    arith.tcq2s_decode_gemv(x, copies[("o", KV)][0], KV, m,
+                                            k, a8),
+                    arith.arith_gemv_plain(x, copies[("o", KV)][0], "sum2",
+                                           KV, m, k, a8), cs.TOL[a8])
+        for d in list(libs) + list(libs)[::-1]:
+            use(libs[d])
+            per = []
+            for N in (16, 64, 256):
+                times = {}
+                for name, m, k, KV in cs.SHAPES_215:
+                    cp = copies[(name, KV)]
+                    a8 = name == "lm_head"
+                    x = torch.randn((N, k), device=dev).bfloat16()
+                    out = torch.empty((N, m), device=dev)
+                    t = cs._time_ms(lambda i=0: arith.tcq2s_decode_gemv(
+                        x, cp[i % len(cp)], KV, m, k, a8, out=out), 20,
+                        graph=True)
+                    times[(name, KV)] = (t, 0.0, 0.0)
+                per.append(f"N={N} {cs.step_ms(times, qdict)[0]:.3f} ms ("
+                           + ", ".join(f"{n}/{kv} {v[0] * 1e3:.1f}us"
+                                       for (n, kv), v in times.items())
+                           + ")")
+            print(f"[time] {d}: a zero-shot forward's 129 sum2 calls "
+                  + "; ".join(per) + f" ({smi})", flush=True)
     finally:
         arith._lib = orig
 
@@ -350,6 +411,7 @@ def conflicts(samples=20000, seed=0):
 if __name__ == "__main__":
     cmd, args = sys.argv[1], sys.argv[2:]
     {"time": lambda: (time_vq(args[1:]) if args[0] == "vq"
+                      else time_wide(args[1:]) if args[0] == "wide"
                       else time_variants(args)),
      "sass": lambda: sass_diff(*args) if len(args) == 3 else sass_dirs(*args),
      "opcodes": lambda: opcodes(*args),

@@ -1,0 +1,561 @@
+// K1 in mode sum2 above 8 rows of x (9 <= N <= 256): y = x @ W_hat^T in
+// float32, no Wscale, both variants (a8: x quantized to int8 per 512-column
+// chunk, one absmax scale a chunk over all N rows; exact: x rounded to
+// bf16).  Replaces qpalette_tpu/kernels/fused.py::_arith_kernel in sum2
+// mode at prefill and zero-shot rows (reached through _arith_decode_matmul
+// from tcq2_decode_matmul), where the TPU kernel decodes a block of W once
+// and takes it to all N rows in one MXU product.
+//
+// What bounds it: 2*N*m*k operations (bf16 tensor cores for exact, whose
+// integer weights in [-256, 254] bf16 holds exactly; int8 for a8) against
+// the packed trellis (KV/16 bytes a weight), x and the f32 y, each moved
+// once: the operations from N ~ 32 on (exact), the bytes below.  Design:
+//  - One decode a tile.  A warp owns one 16-row m-tile and every row of x
+//    its block takes (NT n-tiles of 8 rows): it decodes a tile once into
+//    its four A registers (sum2_a8_regs / sum2_exact_regs, the lane map of
+//    tcq2_gemv.cu's v2_gemv_kernel: lane (g, c) holds states 16c+2g, +1,
+//    +64, +65) and issues one mma.m16n8k32.s8 (a8) or mma.m16n8k16.bf16
+//    (exact) per n-tile against those registers, with no branch between
+//    them.  exact takes all N <= 256 rows in one block (NT <= 32, 128 f32
+//    accumulators a lane); a8 holds an int32 and an f32 fragment an
+//    n-tile, so its blocks take at most 16 n-tiles (128 rows) and a call
+//    above 128 rows splits them over blockIdx.y, decoding each tile once
+//    per row group.  Instances at NT = 2, 4, 8, 12, 16, 24, 32 keep the
+//    MMAs on n-tiles past N few.
+//  - x staged once a block.  A block is 8 consumer warps on 8 adjacent
+//    m-tiles (x is read m/128 times a call, not m/16) and one producer warp.
+//    A prologue kernel (wide_x_kernel) writes x once into a workspace in
+//    B-fragment order: exact as bf16x2 words, lane (g, c)'s pair for an
+//    (n-tile, k-tile) being the words of columns (2c, 2c+1) and (8+2c,
+//    9+2c) of row 8j+g; a8 as one word [q(2c), q(2c+1), q(8+2c), q(9+2c)]
+//    per lane (the B registers are its byte permutes, as in v2_gemv_kernel),
+//    after the chunk scales (absmax over all N rows, written first).  The
+//    words of a block's rows and 8 k-tiles are contiguous, so the producer
+//    copies each step's x with one cp.async.bulk into a ring of kStages
+//    slots: full / empty mbarriers, no block barrier in the loop.  A lane
+//    reads its B registers of an n-tile with one conflict-free 8-byte
+//    (exact) or 4-byte (a8) load.  Each warp streams its m-tile's trellis
+//    through its own ring of bulk copies, in the same 8-tile steps.
+//  - Work for 132 SMs.  Where the m-groups (and row groups) of a call give
+//    fewer blocks than the SMs hold, a cluster of up to 8 blocks splits k
+//    (in whole steps, so a step never straddles a 512-column chunk); the
+//    partial fragments are summed in rank order through distributed shared
+//    memory, each rank writing a share of the outputs: no atomics, and two
+//    launches give the same bits.
+//  - a8: each warp's int32 fragments are exact within a chunk (|w| <= 256,
+//    |q| <= 127: at most 512*256*127 < 2^24) and are descaled into its f32
+//    fragments at each chunk boundary, as v2_gemv_kernel does.
+//
+// What holds it on an H100 (14-19% of the bound over a zero-shot forward's
+// calls): at 16 rows the decode's issue, ~36 instructions a tile a warp
+// for 2 MMAs, as in the N <= 8 kernels; at 256 rows the 256 bytes of x
+// read from shared memory an MMA, with one 9-warp block an SM.  Tried and
+// slower: a branch around each MMA for the n-tiles past N (2x at 64
+// rows), no cluster split, clusters sized for the fill of the last wave.
+//
+// A call is two launches: the prologue, then the GEMV (arith.py counts
+// both).  The workspace is the caller's: kWideScaleBytes, then x padded to
+// whole n-tiles, one byte (a8) or two (exact) a value.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "arith_tc.cuh"
+
+namespace qpt {
+
+__device__ __forceinline__ uint32_t sum2_hash(uint32_t f) {
+  return (f & 0xffffu) * kMad1A + kMad1B;
+}
+
+// the state's weights (sb0+sb1, sb2+sb3) as one bf16x2 A register
+__device__ __forceinline__ uint32_t sum2_bf16x2(uint32_t f) {
+  const int h = (int)sum2_hash(f);
+  const float w0 = (float)__dp4a(h, 0x00000101, 0);
+  const float w1 = (float)__dp4a(h, 0x01010000, 0);
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(w1), "f"(w0));
+  return r;
+}
+
+// The decode step of a sum2 tile at wt: lane (g, c)'s four A registers
+// (states s0, s0+1, s0+64, s0+65 of lm), the hash words for a8 (the s8 A
+// registers of mma.m16n8k32 as they stand) ...
+template <int KV>
+__device__ __forceinline__ void sum2_a8_regs(const uint8_t* wt,
+                                             const LaneMap& lm,
+                                             uint32_t (&a)[4]) {
+  uint32_t f0, f1;
+  lane_windows(wt, lm, f0, f1);
+  a[0] = sum2_hash(f0);
+  a[1] = sum2_hash(f0 >> KV);
+  a[2] = sum2_hash(f1);
+  a[3] = sum2_hash(f1 >> KV);
+}
+
+// ... and the bf16x2 weight pairs for exact (mma.m16n8k16.bf16)
+template <int KV>
+__device__ __forceinline__ void sum2_exact_regs(const uint8_t* wt,
+                                                const LaneMap& lm,
+                                                uint32_t (&a)[4]) {
+  uint32_t f0, f1;
+  lane_windows(wt, lm, f0, f1);
+  a[0] = sum2_bf16x2(f0);
+  a[1] = sum2_bf16x2(f0 >> KV);
+  a[2] = sum2_bf16x2(f1);
+  a[3] = sum2_bf16x2(f1 >> KV);
+}
+
+// The MMA step of a8: one n-tile's B registers, the lane's x word
+// [q(2c), q(2c+1), q(8+2c), q(9+2c)] under byte permutes, against the A
+// registers of a tile (exact takes its two bf16x2 x words as they stand)
+__device__ __forceinline__ void sum2_a8_mma(int (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t xw) {
+  mma_s8(d, a[0], a[1], a[2], a[3], __byte_perm(xw, 0, 0x1100),
+         __byte_perm(xw, 0, 0x3322));
+}
+
+constexpr int kWideWarps = 8;  // consumer warps a block, one m-tile each
+constexpr int kWideThreads = 32 * (kWideWarps + 1);  // + the x producer
+constexpr int kWideTiles = kStageTiles;  // k-tiles a step (ring and x slot)
+constexpr int kWideMaxCluster = 8;
+// the workspace: a8's (scale, 1/scale) per chunk, then the x words
+constexpr int kWideScaleBytes = kMaxChunks * 8;
+static_assert(kChunk % (16 * kWideTiles) == 0, "steps tile the chunks");
+
+__host__ __device__ constexpr int wide_words(bool a8) { return a8 ? 1 : 2; }
+
+// Byte offset in the workspace's words of lane 0's words for n-tile nt at
+// k-tile t, for NT n-tiles a row group: group y = nt / NT holds k-tile
+// major runs of its n-tiles, ntg of them (NT but in the last group), each
+// 32 lanes x wide_words(a8) words
+__device__ __forceinline__ size_t wide_x_offset(int nt, int t, int NT,
+                                                int ntot, int kt, bool a8) {
+  const int y = nt / NT, j = nt - y * NT, ntg = min(NT, ntot - y * NT);
+  return ((size_t)y * kt * NT + (size_t)t * ntg + j) * 128 * wide_words(a8);
+}
+
+__device__ __forceinline__ void mbar_init_n(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// Dynamic shared memory of a block: kStages x slots (after the loop, the
+// warps' partial fragments), the warps' trellis rings of kStages slots,
+// their barriers, then the x slots' full and empty barriers
+template <int KV, bool A8, int NT>
+struct WideSmem {
+  // steps in flight: a step is short at few n-tiles, so more of them hide
+  // the copies' latency; exact NT >= 24 fits three
+  static constexpr int kStages = NT >= 24 ? 3 : 4;
+  static constexpr int kTN = 128 * wide_words(A8);  // x an (n-tile, tile)
+  static constexpr int kXSlot = kWideTiles * NT * kTN;
+  static constexpr int kPart = kWideWarps * NT * 32 * 16;
+  static constexpr int kX = kStages * kXSlot;
+  static constexpr int kBuf = kX > kPart ? kX : kPart;
+  static constexpr int kRing = kStages * Ring<KV, kWideTiles>::kSlotBytes;
+  static constexpr int kRings0 = kBuf;
+  static constexpr int kBars0 = kRings0 + kWideWarps * kRing;
+  static constexpr int kBytes = kBars0 + (kWideWarps + 2) * kStages * 8;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+  // registers: up to 16 accumulators a lane leave room for three blocks an
+  // SM, up to 64 (exact) or 32 (a8, which spills at 64) for two
+  static constexpr int kAcc = 4 * NT * (A8 ? 2 : 1);
+  static constexpr int kMinBlocks =
+      kAcc <= 16 ? 3 : kAcc <= (A8 ? 32 : 64) ? 2 : 1;
+};
+
+// slot it % S of a warp's trellis ring: its 8 k-tiles it*8.. of job
+template <int KV, int S>
+__device__ __forceinline__ void wide_ring_issue(const WarpJob& job,
+                                                uint8_t* ring, uint64_t* bars,
+                                                int it) {
+  using R = Ring<KV, kWideTiles>;
+  const int n = min(kWideTiles, job.nt - it * kWideTiles);
+  bulk_load(ring + (it % S) * R::kSlotBytes,
+            job.src + (size_t)it * R::kSlotBytes, n * R::kTileBytes,
+            bars + it % S);
+}
+
+// The prologue: x (N, k) -> the workspace.  Grid: (chunks, n-tiles), a
+// block an (n-tile, chunk); a8 blocks first take their chunk's absmax over
+// all N rows (every block of the chunk alike), 8 loads in flight a thread.
+template <typename XT, bool A8>
+__global__ void __launch_bounds__(256)
+wide_x_kernel(const XT* __restrict__ x, uint8_t* __restrict__ ws, int N,
+              int k, int NT) {
+  __shared__ float red[8];
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kChunk, cw = min(kChunk, k - c0);
+  const int kt = k >> 4, ntot = (N + 7) >> 3, nt = blockIdx.y;
+  float inv = 0.f;
+  if constexpr (A8) {
+    const int q = cw >> 2;  // 4-value groups a row of the chunk
+    float amax = 0.f;
+#pragma unroll 8
+    for (int i = tid; i < N * q; i += 256) {
+      const int n = i / q;
+      const XT* xp = x + (size_t)n * k + c0 + 4 * (i - n * q);
+      const float2 a = load_x2(xp), b = load_x2(xp + 2);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)),
+                               fmaxf(fabsf(b.x), fabsf(b.y))));
+    }
+    for (int o = 16; o; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if ((tid & 31) == 0) red[tid >> 5] = amax;
+    __syncthreads();
+    amax = red[0];
+    for (int w = 1; w < 8; ++w) amax = fmaxf(amax, red[w]);
+    const float s = __fadd_rn(__fdiv_rn(amax, 127.0f), 1e-30f);
+    inv = __fdiv_rn(1.0f, s);
+    if (nt == 0 && tid == 0)
+      reinterpret_cast<float2*>(ws)[blockIdx.x] = make_float2(s, inv);
+  }
+  uint8_t* words = ws + kWideScaleBytes;
+  // a8: one item a (row, k-tile), its 4 lanes' words (c = 0..3); exact:
+  // one a (row, k-tile, half h), the 4 words of lanes 2h and 2h+1.  Row
+  // g is the fastest index after h, so that a warp's stores fill whole
+  // runs of the n-tile's words.
+  constexpr int kH = A8 ? 1 : 2;
+  const int items = 8 * (cw >> 4) * kH;
+#pragma unroll 2
+  for (int i = tid; i < items; i += 256) {
+    const int h = A8 ? 0 : i & 1, g = (i / kH) & 7;
+    const int t = (c0 >> 4) + i / (8 * kH), n = 8 * nt + g;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);  // rows N.. of the last n-tile
+    if (n < N) {
+      const XT* xp = x + (size_t)n * k + 16 * t;
+      if constexpr (A8) {
+        uint32_t q[16];
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          const float2 f = load_x2(xp + 2 * p);
+          q[2 * p] = quant8(f.x, inv);
+          q[2 * p + 1] = quant8(f.y, inv);
+        }
+        uint32_t w[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          w[c] = q[2 * c] | q[2 * c + 1] << 8 | q[8 + 2 * c] << 16 |
+                 q[9 + 2 * c] << 24;
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        xp += 4 * h;  // lane 2h: columns 4h, 4h+1 and 8+4h, 9+4h; 2h+1: +2
+        v = make_uint4(x_bf16x2(xp), x_bf16x2(xp + 8), x_bf16x2(xp + 2),
+                       x_bf16x2(xp + 10));
+      }
+    }
+    const size_t off = wide_x_offset(nt, t, NT, ntot, kt, A8) +
+                       (size_t)(4 * g + 2 * h) * 4 * wide_words(A8);
+    *reinterpret_cast<uint4*>(words + off) = v;
+  }
+}
+
+// Grid: (m-groups of 8 m-tiles x cs, row groups of NT n-tiles); a cluster
+// of cs blocks (cs = 1: none) splits one m-group's k in whole steps.
+template <int KV, bool A8, int NT>
+__global__ void __launch_bounds__(kWideThreads,
+                                  WideSmem<KV, A8, NT>::kMinBlocks)
+sum2_wide_kernel(const uint8_t* __restrict__ ws,
+                 const uint8_t* __restrict__ tr, float* __restrict__ out,
+                 int N, int m, int k) {
+  using L = WideSmem<KV, A8, NT>;
+  using R = Ring<KV, kWideTiles>;
+  constexpr int kTN = L::kTN, S = L::kStages;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kt = k >> 4, mtiles = m >> 4, ntot = (N + 7) >> 3;
+  const int mg = blockIdx.x / cs, y = blockIdx.y;
+  const int nact = min(kWideWarps, mtiles - mg * kWideWarps);
+  const int ntg = min(NT, ntot - y * NT);
+  // this block's k-tiles [ta, tb): steps s0 .. s0 + nsteps of the m-group
+  const int nst = (kt + kWideTiles - 1) / kWideTiles;
+  const int s0 = nst * rank / cs, nsteps = nst * (rank + 1) / cs - s0;
+  const int ta = s0 * kWideTiles;
+  const int tb = min(kt, (s0 + nsteps) * kWideTiles);
+  const uint8_t* xsrc = ws + kWideScaleBytes +
+                        wide_x_offset(y * NT, ta, NT, ntot, kt, A8);
+  uint64_t* rbars = reinterpret_cast<uint64_t*>(smem + L::kBars0);
+  uint64_t* xfull = rbars + kWideWarps * S;
+  uint64_t* xempty = xfull + S;
+  const auto issue_x = [&](int s) {  // step s's x into slot s % S
+    const int n = min(kWideTiles, tb - ta - s * kWideTiles);
+    bulk_load(smem + (s % S) * L::kXSlot,
+              xsrc + (size_t)s * kWideTiles * ntg * kTN, n * ntg * kTN,
+              xfull + s % S);
+  };
+
+  const bool consumer = warp < nact;
+  const WarpJob job{tr + ((size_t)(mg * kWideWarps + warp) * kt + ta) *
+                             R::kTileBytes,
+                    tb - ta, 16 * ta};
+  uint8_t* ring = smem + L::kRings0 + warp * L::kRing;
+  uint64_t* bars = rbars + warp * S;
+  if (tid == kWideWarps * 32) {
+    for (int b = 0; b < S; ++b) {
+      mbar_init(xfull + b);
+      mbar_init_n(xempty + b, nact);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < min(S, nsteps); ++s) issue_x(s);
+  } else if (consumer && lane == 0) {
+    for (int b = 0; b < S; ++b) mbar_init(bars + b);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < min(S, nsteps); ++s)
+      wide_ring_issue<KV, S>(job, ring, bars, s);
+  }
+  __syncthreads();  // every barrier is initialized before a wait or arrive
+
+  float acc[NT][4];
+  int di[A8 ? NT : 1][4];  // a8: the current chunk's int32 fragments
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      acc[j][r] = 0.f;
+      if constexpr (A8) di[j][r] = 0;
+    }
+  float sc = 0.f;  // a8: the current chunk's scale
+  const auto descale = [&]() {
+    if constexpr (A8) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          acc[j][r] = __fadd_rn(acc[j][r], __fmul_rn((float)di[j][r], sc));
+          di[j][r] = 0;
+        }
+    }
+  };
+
+  if (warp == kWideWarps) {
+    // the producer: step s refills slot s % S once every consumer has
+    // read step s - S from it
+    if (lane == 0)
+      for (int s = S; s < nsteps; ++s) {
+        mbar_wait(xempty + s % S, (s / S - 1) & 1);
+        issue_x(s);
+      }
+  } else if (consumer) {
+    const auto lm = lane_map<KV>(16 * (lane & 3) + 2 * (lane >> 2));
+    const float2* scales = reinterpret_cast<const float2*>(ws);
+    int ch = -1;
+    for (int s = 0; s < nsteps; ++s) {
+      const int b = s % S;
+      const uint32_t parity = (s / S) & 1;
+      const int n = min(kWideTiles, tb - ta - s * kWideTiles);
+      if constexpr (A8) {
+        const int chunk = (ta + s * kWideTiles) / (kChunk / 16);
+        if (chunk != ch) {
+          if (ch >= 0) descale();
+          ch = chunk;
+          sc = __ldg(&scales[ch].x);
+        }
+      }
+      mbar_wait(xfull + b, parity);
+      mbar_wait(bars + b, parity);
+      const uint8_t* st = ring + b * R::kSlotBytes;
+      const uint8_t* xs = smem + b * L::kXSlot + lane * 4 * wide_words(A8);
+      // tile t of the step: one decode, then all NT n-tiles with no branch
+      // (in a row group of ntg < NT, n-tile j >= ntg reads other words of
+      // the slot, t*ntg + j < 8*NT, into fragments that are never stored:
+      // cheaper than a branch an MMA)
+      const auto tile = [&](int t) {
+        uint32_t a[4];
+        const uint8_t* xt = xs + t * ntg * kTN;
+        if constexpr (A8) {
+          sum2_a8_regs<KV>(st + t * R::kTileBytes, lm, a);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            sum2_a8_mma(di[j], a,
+                        *reinterpret_cast<const uint32_t*>(xt + j * kTN));
+        } else {
+          sum2_exact_regs<KV>(st + t * R::kTileBytes, lm, a);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_bf16(acc[j], a[0], a[1], a[2], a[3],
+                     *reinterpret_cast<const uint2*>(xt + j * kTN));
+        }
+      };
+      if (n == kWideTiles) {  // a whole step, unrolled
+#pragma unroll
+        for (int t = 0; t < kWideTiles; ++t) tile(t);
+      } else {
+#pragma unroll 1
+        for (int t = 0; t < n; ++t) tile(t);
+      }
+      __syncwarp();  // every lane has read the step's slots
+      if (lane == 0) {
+        mbar_arrive(xempty + b);
+        if (s + S < nsteps) wide_ring_issue<KV, S>(job, ring, bars, s + S);
+      }
+    }
+    if (A8 && ch >= 0) descale();
+  }
+
+  // The partial fragments, summed over the cluster in rank order.  C
+  // element (row, n) of n-tile j sits in lane 4*(row%8) + n/2, register
+  // 2*(row/8) + n%2, and fragment row fr is tile row 2*(fr%8) + fr/8, so
+  // lane (g, c)'s float4 is rows 2g, 2g+1 of x rows 2c (x, z), 2c+1 (y, w).
+  __syncthreads();  // every x slot is read: the buffer takes the fragments
+  float4* part = reinterpret_cast<float4*>(smem);
+  if (consumer) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < ntg)
+        part[(warp * NT + j) * 32 + lane] =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+  if (cs > 1)
+    cluster.sync();
+  else
+    __syncthreads();  // no cluster-wide release fence
+  const int items = nact * ntg * 32;
+  const int i1 = items * (rank + 1) / cs;
+  for (int i = items * rank / cs + tid; i < i1; i += kWideThreads) {
+    const int w = i / (ntg * 32), j = (i >> 5) - w * ntg, l = i & 31;
+    const int idx = (w * NT + j) * 32 + l;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = 0; b < cs; ++b) {
+      const float4 p = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(smem, b))[idx];
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    const int row = (mg * kWideWarps + w) * 16 + 2 * (l >> 2);
+    const int xr = (y * NT + j) * 8 + 2 * (l & 3);
+    if (xr < N)
+      *reinterpret_cast<float2*>(out + (size_t)xr * m + row) =
+          make_float2(v.x * kMadInv, v.z * kMadInv);
+    if (xr + 1 < N)
+      *reinterpret_cast<float2*>(out + (size_t)(xr + 1) * m + row) =
+          make_float2(v.y * kMadInv, v.w * kMadInv);
+  }
+  if (cs > 1) cluster.sync();  // every block's sums live until all are read
+}
+
+// The launch functions are static: each library built from a source that
+// includes this header keeps its own launch state (the SM count, the
+// shared-memory attribute set once a device) when two builds are loaded
+// into one process, as a function-local static of an inline function or
+// template with external linkage would not.
+
+// SMs of the current device, read once per device
+static int wide_sm_count(int dev) {
+  static int count[64] = {};
+  if (dev < 64 && count[dev]) return count[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) count[dev] = n;
+  return n;
+}
+
+template <int KV, bool A8, int NT>
+static int launch_wide(const void* x, int x_bf16, const void* tr, void* out,
+                       void* ws, int N, int m, int k, cudaStream_t st) {
+  using L = WideSmem<KV, A8, NT>;
+  const auto kernel = sum2_wide_kernel<KV, A8, NT>;
+  static unsigned long long ready = 0;  // devices that allow L::kBytes
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !((ready >> dev) & 1)) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  const int ntot = (N + 7) / 8, rg = (ntot + NT - 1) / NT;
+  const dim3 pgrid((k + kChunk - 1) / kChunk, ntot);
+  if (x_bf16)
+    wide_x_kernel<__nv_bfloat16, A8><<<pgrid, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(ws), N,
+        k, NT);
+  else
+    wide_x_kernel<float, A8><<<pgrid, 256, 0, st>>>(
+        static_cast<const float*>(x), static_cast<uint8_t*>(ws), N, k, NT);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // split k over a cluster until the blocks fill the SMs, as long as every
+  // block keeps a step a stage
+  const int mgroups = (m / 16 + kWideWarps - 1) / kWideWarps;
+  const int nst = (k / 16 + kWideTiles - 1) / kWideTiles;
+  const int nsm = wide_sm_count(dev) * L::kMinBlocks;
+  int cs = 1;
+  while (cs < kWideMaxCluster && mgroups * rg * cs < nsm &&
+         nst >= 2 * L::kStages * cs)
+    cs *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(mgroups * cs, rg);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 1 : 0;  // a launch of single blocks is cheaper
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint8_t*>(ws),
+                         static_cast<const uint8_t*>(tr),
+                         static_cast<float*>(out), N, m, k);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The instance of a call: the fewest n-tiles a warp that hold an even
+// share of its rows in the fewest row groups (exact one, a8 one per 16
+// n-tiles)
+template <int KV, bool A8>
+static int wide_rows(const void* x, int x_bf16, const void* tr, void* out,
+                     void* ws, int N, int m, int k, cudaStream_t st) {
+  const int ntot = (N + 7) / 8, most = A8 ? 16 : 32;
+  const int rg = (ntot + most - 1) / most, share = (ntot + rg - 1) / rg;
+#define QPT_WIDE_NT(NT_) \
+  launch_wide<KV, A8, NT_>(x, x_bf16, tr, out, ws, N, m, k, st)
+  if (share <= 2) return QPT_WIDE_NT(2);
+  if (share <= 4) return QPT_WIDE_NT(4);
+  if (share <= 8) return QPT_WIDE_NT(8);
+  if (share <= 12) return QPT_WIDE_NT(12);
+  if constexpr (!A8) {
+    if (share > 24) return QPT_WIDE_NT(32);
+    if (share > 16) return QPT_WIDE_NT(24);
+  }
+  return QPT_WIDE_NT(16);
+#undef QPT_WIDE_NT
+}
+
+// x: (N, k) float32 or bfloat16, 8 < N <= 256, 8-byte aligned; ws:
+// kWideScaleBytes + 8 * ceil(N / 8) * k * wide_words(a8) bytes, 16-byte
+// aligned
+template <int KV>
+static int sum2_wide(const void* x, int x_bf16, const void* tr, void* out,
+                     void* ws, int N, int m, int k, int a8,
+                     cudaStream_t st) {
+  if (reinterpret_cast<uintptr_t>(x) % 8 ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  return a8 ? wide_rows<KV, true>(x, x_bf16, tr, out, ws, N, m, k, st)
+            : wide_rows<KV, false>(x, x_bf16, tr, out, ws, N, m, k, st);
+}
+
+}  // namespace qpt

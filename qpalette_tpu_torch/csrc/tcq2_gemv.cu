@@ -1,5 +1,6 @@
 // K1 in the V=2 modes: sum2 (tcq2s) and dualmad (tcq2), KV 4..10.  Both
-// modes at N <= 8 rows run v2_gemv_kernel below; both at N > 8 run the
+// modes at N <= 8 rows run v2_gemv_kernel below; sum2 at 8 < N <= 256 runs
+// sum2_wide_kernel (sum2_wide.cuh, its note there), dualmad there the
 // template of arith.cuh.
 //
 // v2_gemv_kernel: y = x @ W_hat^T in float32 for N <= 8 rows of x, no
@@ -63,25 +64,11 @@
 // 4 warps a block (fewer warps for the small-m shapes); 3, 5 or 6 blocks
 // an SM.
 
-#include "arith_tc.cuh"
+#include "sum2_wide.cuh"
 
 using namespace qpt;
 
 namespace {
-
-__device__ __forceinline__ uint32_t sum2_hash(uint32_t f) {
-  return (f & 0xffffu) * kMad1A + kMad1B;
-}
-
-// the state's weights (sb0+sb1, sb2+sb3) as one bf16x2 A register
-__device__ __forceinline__ uint32_t sum2_bf16x2(uint32_t f) {
-  const int h = (int)sum2_hash(f);
-  const float w0 = (float)__dp4a(h, 0x00000101, 0);
-  const float w1 = (float)__dp4a(h, 0x01010000, 0);
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(w1), "f"(w0));
-  return r;
-}
 
 // dualmad: the signed byte sum of the hash h as an f32 (tf32) A register:
 // __dp4a adds the sum to the bits of 1.5*2^23, the FADD takes that away
@@ -107,13 +94,13 @@ struct V2Tile {
   static __device__ __forceinline__ void a8(const uint8_t* wt,
                                             const LaneMap& lm, uint32_t xw,
                                             int (&d)[4]) {
-    uint32_t f0, f1;
-    lane_windows(wt, lm, f0, f1);
     if constexpr (MODE == kSum2) {
-      mma_s8(d, sum2_hash(f0), sum2_hash(f0 >> KV), sum2_hash(f1),
-             sum2_hash(f1 >> KV), __byte_perm(xw, 0, 0x1100),
-             __byte_perm(xw, 0, 0x3322));
+      uint32_t a[4];  // the decode step, then the MMA step (sum2_wide.cuh)
+      sum2_a8_regs<KV>(wt, lm, a);
+      sum2_a8_mma(d, a, xw);
     } else {
+      uint32_t f0, f1;
+      lane_windows(wt, lm, f0, f1);
       const uint32_t u0 = f0 & 0xffffu, u1 = (f0 >> KV) & 0xffffu;
       const uint32_t u2 = f1 & 0xffffu, u3 = (f1 >> KV) & 0xffffu;
       mma_s8(d, u0 * kMad1A, u1 * kMad1A, u2 * kMad1A, u3 * kMad1A,
@@ -192,23 +179,25 @@ int v2_variants(const void* x, int x_bf16, const void* tr, void* out, int N,
 #define QPT_DUALMAD(KV_) \
   v2_variants<kDualmad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
 #define QPT_SUM2_WIDE(KV_) \
-  gemv_variants<kSum2, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
+  sum2_wide<KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 #define QPT_DUALMAD_WIDE(KV_) \
   gemv_variants<kDualmad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
 
 // x: (N, k) float32 (x_bf16 == 0) or bfloat16, 1 <= N <= 256, 8-byte
 // aligned; tr: canonical (m/16*k/16, 4*KV) words, 16-byte aligned; out:
-// (N, m) float32; mode 0 = sum2, 1 = dualmad.  Launches on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for arguments the
-// kernels do not take).
+// (N, m) float32; ws: sum2 at N > 8, sum2_wide's workspace, else unused;
+// mode 0 = sum2, 1 = dualmad.  Launches on `stream` (sum2 at N > 8: two
+// kernels) and returns cudaGetLastError() (cudaErrorInvalidValue for
+// arguments the kernels do not take).
 extern "C" int tcq2_gemv(const void* x, int x_bf16, const void* tr,
-                         void* out, int N, int m, int k, int KV, int mode,
-                         int a8, void* stream) {
+                         void* out, void* ws, int N, int m, int k, int KV,
+                         int mode, int a8, void* stream) {
   if (bad_gemv_args(N, m, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = N <= kTcRows;
   if (mode == 0 && narrow) QPT_KV_CASES(QPT_SUM2)
   if (mode == 1 && narrow) QPT_KV_CASES(QPT_DUALMAD)
+  if (mode == 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == 0) QPT_KV_CASES(QPT_SUM2_WIDE)
   if (mode == 1) QPT_KV_CASES(QPT_DUALMAD_WIDE)
   return (int)cudaErrorInvalidValue;

@@ -14,12 +14,15 @@ Each reads the canonical trellis, (T, 4*KV) words for V=2 and (T, 8*KV)
 for V=1, and returns y = x @ W_hat^T in float32 without Wscale, for
 N <= 256 rows of x.  exact rounds x to bf16; a8 quantizes x to int8 per
 512-column chunk with one absmax scale over all rows.  On a CPU tensor a
-wrapper runs the plain version; on a CUDA tensor it launches its kernel or
+wrapper runs the plain version; on a CUDA tensor it launches its kernels or
 raises.  Up to 8 rows every mode runs on tensor cores (``csrc/
 arith_tc.cuh``, one body: ``v2_gemv_kernel`` for V=2, ``v1_gemv_kernel``
-for V=1), above that the template of ``csrc/arith.cuh``; both sources
-are compiled with nvcc into ``qpalette_tpu_torch/_build/`` at first use
-(``kernels/_build.py``).
+for V=1).  Above 8 rows sum2 runs ``sum2_wide_kernel`` (``csrc/
+sum2_wide.cuh``: each tile decoded once for all rows, on tensor cores),
+after a prologue kernel that writes x into a workspace the wrapper
+allocates, so such a call counts two launches; dualmad, 1mad and 2mad run
+the template of ``csrc/arith.cuh``.  Both sources are compiled with nvcc
+into ``qpalette_tpu_torch/_build/`` at first use (``kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,12 @@ from qpalette_tpu_torch.ops.packing import TD, tiles_to_mat, unpack_trellis
 MAD_INV = 1.0 / MAD_SCALE
 CHUNK = 512  # a8 columns per activation scale (the kernel's kChunk)
 MAX_ROWS = 256
+TC_ROWS = 8  # rows the narrow tensor-core kernels take (csrc kTcRows)
 MAX_K = CHUNK * 64
+# sum2 above TC_ROWS: the workspace holds the chunk scales (csrc
+# kWideScaleBytes), then x padded to whole 8-row n-tiles, one byte a value
+# (a8) or two (exact)
+WIDE_SCALE_BYTES = 512
 SUPPORTED_KV = {"sum2": tuple(range(4, 11)), "dualmad": tuple(range(4, 11)),
                 "1mad": (2, 3, 4, 5), "2mad": (2, 3, 4, 5)}
 # mode -> (CUDA source and its C function, the function's mode number)
@@ -48,13 +56,31 @@ SOURCES = ("tcq2_gemv", "tcq1_gemv")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # the C interface of each source: one function of the source's name
-SIGNATURES = {s: {s: [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
-              for s in SOURCES}
+# (tcq2_gemv takes the sum2 workspace after out)
+SIGNATURES = {
+    "tcq2_gemv": {"tcq2_gemv": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P]},
+    "tcq1_gemv": {"tcq1_gemv": [_P, _I, _P, _P] + [_I] * 6 + [_P]}}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
     return _build.load(source, SIGNATURES[source])
+
+
+def wide(mode: str, rows: int) -> bool:
+    """Whether a call of `rows` rows runs sum2_wide_kernel."""
+    return mode == "sum2" and rows > TC_ROWS
+
+
+def kernel_launches(mode: str, rows: int) -> int:
+    """Kernels one call of `rows` rows launches: 2 for sum2 above 8 rows
+    (the x prologue, then the GEMV), else 1."""
+    return 2 if wide(mode, rows) else 1
+
+
+def workspace_bytes(rows: int, k: int, a8: bool) -> int:
+    """Bytes of sum2_wide_kernel's workspace for `rows` rows of x."""
+    return WIDE_SCALE_BYTES + -(-rows // 8) * 8 * k * (1 if a8 else 2)
 
 
 def words_per_tile(mode: str, KV: int) -> int:
@@ -149,8 +175,8 @@ def arith_gemv_plain(x: torch.Tensor, trellis: torch.Tensor, mode: str,
 
 
 def _gemv(wrapper, mode, x, trellis, KV, m, k, a8, out) -> torch.Tensor:
-    """Plain version on the CPU; on the card, launch and count in
-    ``wrapper.launches``."""
+    """Plain version on the CPU; on the card, launch and count each kernel
+    in ``wrapper.launches``."""
     _check(x, trellis, mode, KV, m, k, out)
     if x.device.type == "cpu":
         y = arith_gemv_plain(x, trellis, mode, KV, m, k, a8)
@@ -162,10 +188,16 @@ def _gemv(wrapper, mode, x, trellis, KV, m, k, a8, out) -> torch.Tensor:
         out = torch.empty((x.shape[0], m), dtype=torch.float32,
                           device=x.device)
     source, cmode = _C_MODE[mode]
-    _build.launch(_lib(source), source, x.device, x.data_ptr(),
-                  int(x.dtype == torch.bfloat16), trellis.data_ptr(),
-                  out.data_ptr(), x.shape[0], m, k, KV, cmode, int(a8))
-    wrapper.launches += 1
+    N = x.shape[0]
+    args = [x.data_ptr(), int(x.dtype == torch.bfloat16), trellis.data_ptr(),
+            out.data_ptr()]
+    if source == "tcq2_gemv":  # the workspace of sum2 above 8 rows, or null
+        ws = (torch.empty(workspace_bytes(N, k, a8), dtype=torch.uint8,
+                          device=x.device) if wide(mode, N) else None)
+        args.append(0 if ws is None else ws.data_ptr())
+    _build.launch(_lib(source), source, x.device, *args, N, m, k, KV, cmode,
+                  int(a8))
+    wrapper.launches += kernel_launches(mode, N)
     return out
 
 

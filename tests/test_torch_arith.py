@@ -20,6 +20,14 @@ from qpalette_tpu.ops import codebooks as jcb
 from qpalette_tpu.ops import packing as jpk
 from qpalette_tpu.runtime import qlinear as jqlinear
 
+from arith_fragment import M32 as _M32
+from arith_fragment import S8_MMAS as _S8_MMAS
+from arith_fragment import c_frag as _c_frag
+from arith_fragment import lane_weights as _lane_weights
+from arith_fragment import lane_windows as _lane_windows
+from arith_fragment import prmt as _prmt
+from arith_fragment import sbytes as _sbytes
+from arith_fragment import unpermute as _unpermute
 from qpalette_tpu_torch.kernels import arith, arith_dequant, formats
 from qpalette_tpu_torch.ops import codebooks, packing
 from qpalette_tpu_torch.ops.packing import words_to_torch
@@ -280,87 +288,7 @@ def test_wrappers_reject_unsupported_input():
 
 # --- the V=2 decode GEMV's fragment algebra, rehearsed on the CPU ----------
 
-_M32 = 0xFFFFFFFF
 _SLOT_TILES, _WARPS, _CHUNK_TILES = 16, 8, arith.CHUNK // 16
-# a8: per mode, the MMAs of a tile as (the hash of a window u, the byte
-# permutes of the x word that give B registers b0 and b1)
-_S8_MMAS = {
-    "sum2": [(lambda u: (u * codebooks.MAD1_A + codebooks.MAD1_B) & _M32,
-              (0x1100, 0x3322))],
-    "dualmad": [(lambda u: (u * codebooks.MAD1_A) & _M32, (0x0000, 0x2222)),
-                (lambda u: (u * codebooks.MAD2_A) & _M32, (0x1111, 0x3333))],
-}
-
-
-def _prmt(w, sel):
-    """__byte_perm(w, 0, sel): byte i of the result is byte sel[4i..4i+3]
-    of w (selectors < 4 here)."""
-    return sum(((w >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
-               for i in range(4))
-
-
-def _sbytes(w):
-    """(...) 32-bit words -> (..., 4) signed bytes, byte 0 first."""
-    b = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], -1)
-    return torch.where(b >= 128, b - 256, b)
-
-
-def _lane_windows(words, KV):
-    """(T, 32 lanes, 4 registers) 16-bit windows of v2_gemv_kernel's lane
-    states: lane (g, c) cuts states s0 = 16c + 2g and s0+1 from one funnel
-    shift of words w0, w0+1, and s0+64, s0+65 from words w0 + 2*KV and the
-    next (wrapping the tile's circular stream)."""
-    lane = torch.arange(32)
-    g, c = lane >> 2, lane & 3
-    off = KV * (16 * c + 2 * g)
-    w0, sh = off >> 5, off & 31
-    w2 = w0 + 2 * KV
-    w3 = torch.where(w2 + 1 == 4 * KV, 0, w2 + 1)
-    assert bool((w3 == 0).any())  # state 127's window wraps the stream
-    u = words.to(torch.int64) & _M32
-
-    def funnel(lo, hi):  # __funnelshift_r(lo, hi, sh)
-        return ((lo >> sh) | (hi << (32 - sh))) & _M32
-
-    f0, f1 = funnel(u[:, w0], u[:, w0 + 1]), funnel(u[:, w2], u[:, w3])
-    return torch.stack([f0, f0 >> KV, f1, f1 >> KV], -1) & 0xFFFF
-
-
-def _lane_weights(u, mode):
-    """(..., 2) integer weights (w0, w1) of each window, as the exact tile
-    function decodes them."""
-    if mode == "sum2":
-        sb = _sbytes(_S8_MMAS["sum2"][0][0](u))
-        return torch.stack([sb[..., 0] + sb[..., 1],
-                            sb[..., 2] + sb[..., 3]], -1)
-    # dualmad: each signed byte sum through the f32 bits of 1.5*2^23 + w
-    # minus 1.5*2^23, as dual_weight computes it; tf32 (the low 13 bits
-    # ignored) holds it
-    ws = []
-    for hash_fn, _ in _S8_MMAS["dualmad"]:
-        w = _sbytes(hash_fn(u)).sum(-1)
-        bits = (0x4B400000 + w).to(torch.int32)
-        f = bits.view(torch.float32) - torch.tensor(12582912.0)
-        tf32 = (f.view(torch.int32) & ~0x1FFF).view(torch.float32)
-        assert torch.equal(tf32, w.to(torch.float32))
-        ws.append(tf32.to(torch.int64))
-    return torch.stack(ws, -1)
-
-
-def _unpermute(frag):
-    """(..., 32 lanes, 4 registers) C fragment -> (..., 16 tile rows, 8):
-    the kernel's epilogue, element (row, n) from lane 4*(row/2) + n/2,
-    register 2*(row%2) + n%2."""
-    row = torch.arange(16)[:, None]
-    n = torch.arange(8)[None, :]
-    return frag[..., 4 * (row >> 1) + (n >> 1), 2 * (row & 1) + (n & 1)]
-
-
-def _c_frag(C, g, c):
-    """(mt, 16, 8) C -> (mt, 32 lanes, 4) fragment registers: c0, c1 row
-    g, columns 2c, 2c+1; c2, c3 row g+8."""
-    return torch.stack([C[:, g, 2 * c], C[:, g, 2 * c + 1],
-                        C[:, g + 8, 2 * c], C[:, g + 8, 2 * c + 1]], -1)
 
 
 @pytest.mark.parametrize("mode,KV", [

@@ -6,7 +6,8 @@ dequants (K2, K3) at the same shapes, the LUT trellis kernels (tcq /
 tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship and at KV 3,
 the SQ/VQ row-pack kernels (K8, K9) at the shapes of the ldlq_2_6 path and
 at every ldlq (bits, vec) (K8 also at m not a multiple of 16, and two
-launches bit-equal), and the int8 lm_head GEMVs (K10, K11) at the
+launches bit-equal), K1 sum2 above 8 rows (sum2_wide_kernel, N = 9..256,
+two launches bit-equal), and the int8 lm_head GEMVs (K10, K11) at the
 8B head's shape; and the decode step captured in a CUDA graph on a 2-layer
 tcq2s model (logits bit-equal to the eager forward, seeded sampling,
 positions advanced by the graph).  Marked ``gpu``; each test skips itself
@@ -128,7 +129,8 @@ SHAPES_V1 = [
 @pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_V2 + SHAPES_V1)
 def test_kernel_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
     """N = 1..8 (the tensor-core kernels) with f32 and bf16 x, and N = 16
-    (the 8-row template), each call counted once."""
+    (sum2: sum2_wide_kernel after its x prologue, two launches; the other
+    modes the 8-row template), each kernel counted once."""
     cases = [(N, dt) for N in range(1, 9)
              for dt in (torch.float32, torch.bfloat16)]
     fn = _counted(mode)
@@ -138,7 +140,7 @@ def test_kernel_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
         before = fn.launches
         y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert fn.launches == before + arith.kernel_launches(mode, N)
         ref = arith_gemv_plain(x, words, mode, KV, m, k, a8)
         rel = ((y - ref).abs().max() / ref.abs().max()).item()
         # exact: bf16 x times integer weights is exact in f32, only the
@@ -190,12 +192,50 @@ def test_arith_gemv_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
         before = fn.launches
         y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert fn.launches == before + arith.kernel_launches(mode, N)
         ref = arith_gemv_plain(x, words, mode, KV, m, k, a8)
         rel = ((y - ref).abs().max() / ref.abs().max()).item()
         # exact: f32 sums in another order; a8: the same chunks and
         # rounding, but a tie may round the other way
         assert rel <= (1e-3 if a8 else 1e-4), (name, N, rel)
+
+
+# sum2_wide_kernel (8 < N <= 256) at a small shape: 10 m-tiles (a whole
+# m-group of 8 and one of 2), k = 2576 (161 k-tiles: a partial step and a
+# partial chunk), which few blocks split over a cluster; N = 9, 49, 191
+# end in a partial n-tile, a8 above 128 rows splits the rows over blocks
+WIDE_ROWS = (9, 16, 49, 64, 191, 256)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("KV", list(range(4, 11)))
+def test_sum2_wide_matches_plain_on_card(cuda, KV, a8):
+    m, k = 160, 2576
+    for N in WIDE_ROWS:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            words, x = _case(m, k, KV, N, x_dtype, cuda, seed=KV + N)
+            before = tcq2s_decode_gemv.launches
+            y = tcq2s_decode_gemv(x, words, KV, m, k, a8)
+            torch.cuda.synchronize()
+            assert tcq2s_decode_gemv.launches == before + 2
+            ref = arith_gemv_plain(x, words, "sum2", KV, m, k, a8)
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            # exact: bf16 x times integer weights, f32 sums in another
+            # order; a8: the same chunks, scales and integer chunk sums,
+            # but a tie in the quantization may round the other way
+            assert rel <= (1e-3 if a8 else 1e-4), (N, x_dtype, rel)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m,k", [(160, 2576), (4096, 14336)])
+def test_sum2_wide_launches_are_bit_equal(cuda, m, k, a8):
+    """Two launches give the same bits: the cluster's partial fragments
+    are summed in rank order (no atomics)."""
+    for N in (9, 191, 256):
+        words, x = _case(m, k, 6, N, torch.bfloat16, cuda, seed=N)
+        ys = [tcq2s_decode_gemv(x, words, 6, m, k, a8) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 
 
 @pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_DEQUANT)
