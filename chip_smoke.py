@@ -3,22 +3,27 @@
 
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
-      [--ab tcq2_gemv|tcq2_wide|tcq2mix|tcq1_gemv|tcq_lut|vq]
+      [--ab tcq2_gemv|tcq2_wide|tcq2mix_wide|tcq2mix|tcq1_gemv|tcq_lut|vq]
+  python chip_smoke.py --rows
   python chip_smoke.py --recapture N
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
 decode (--ab tcq2_gemv, the default), K1 sum2 above 8 rows at the 215
 shapes at N = 16/64/256 with the zero-shot run, an a8 512-token 215
-prefill and the 215 decode (--ab tcq2_wide, ab_wide), K1 dualmad at Path
-A's shapes with
+prefill and the 215 decode (--ab tcq2_wide, ab_wide), K1 dualmad above 8
+rows at Path A's qkv and ug at N = 16/64/256 (exact and a8) with the Path
+A zero-shot run, an a8 512-token Path A prefill, the Path A and the 215
+decode (--ab tcq2mix_wide, ab_wide), K1 dualmad at Path A's shapes with
 K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
 1mad at Path A's shapes with 2mad at 4096x4096 and the Path A a8 decode
 (--ab tcq1_gemv), the LUT GEMVs and the flagship decode (--ab tcq_lut),
 or K8 at Path C's and Path D's shapes, every other ldlq scheme at o and
 down, and the Path C decode (--ab vq), with the source against the same
 source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
-`git archive`).  With --recapture N it runs only recapture: fresh
-captures of the 215 step timed over N consecutive windows of replays.
+`git archive`).  With --rows it runs only k1_rows (phase 3's K1 dualmad,
+1mad and 2mad above 8 rows).  With --recapture N it runs only recapture:
+fresh captures of the 215 step timed over N consecutive windows of
+replays.
 
 Phases (each raises on failure):
   1. card: name, count, power limit; no CUDA device -> exit 1
@@ -27,17 +32,25 @@ Phases (each raises on failure):
   3. the arithmetic trellis GEMV (K1) against its plain PyTorch version:
      sum2 at every Llama-3.1-8B shape of the 215.0thp_cc path (N in
      {1,4,16}: the tensor-core kernel at N <= 8, two launches bit-equal at
-     N=4; sum2_wide_kernel at 16); dualmad, 1mad, 2mad and odd-KV sum2
+     N=4; v2_wide_kernel at 16); dualmad, 1mad, 2mad and odd-KV sum2
      at every shape of bench.py's tcq2mix scheme plus 4096x4096 and odd
      k/16 shapes (N in {1,8,256}; every mode on its tensor-core kernel at
      N <= 8, two launches bit-equal at N=8); exact and a8; kernel and
      plain times at N=1 on Path A's shapes, kernel times of 2mad (on no
-     path) at 4096x4096; K1 sum2 above 8 rows (sum2_wide_kernel, its x
+     path) at 4096x4096; K1 sum2 above 8 rows (v2_wide_kernel, its x
      prologue a second launch) at the 215 shapes: against its plain
      version at N in {9, 16, 49, 64, 191, 256}, exact and a8, two launches
      bit-equal at 191, and timed at N in {16, 64, 256} (a zero-shot
      forward's rows: layers exact, head a8) beside the bound, the dequant
-     route (K2 + the f32 product) and, at N=64, the plain version
+     route (K2 + the f32 product) and, at N=64, the plain version; K1
+     dualmad above 8 rows (v2_wide_kernel) against its plain version at
+     Path A's qkv and ug and the odd k/16 shapes at N in {9, 16, 49, 64,
+     191, 256}, exact and a8, two launches bit-equal at 191; dualmad, 1mad
+     and 2mad (the arith.cuh template) above 8 rows timed at Path A's
+     shapes (2mad at 4096x4096) at N in {16, 64, 256}, exact and a8,
+     beside the bound (exact at the tf32 peak), the dequant route and, at
+     N=64, the plain version, summed over a Path A forward's calls, with
+     the SM clock sampled (k1_rows)
   4. the arithmetic dequants (K2 tcq2, K3 tcq1) bit-equal to their plain
      versions at the tcq2mix and 215 shapes; kernel and plain times
   5. the LUT trellis kernels (K4-K7) against their plain versions at every
@@ -74,8 +87,12 @@ Phases (each raises on failure):
   8. Path A: the 8B tcq2mix model (merged qkv tcq2_6 and ug tcq2_7 in mode
      dualmad, o/down tcq1_3 in mode 1mad, the 4-bit tcq2s_8 lm_head), impl
      a8 and impl exact; prefill 16 and decode 64, 129 K1 launches per
-     forward (32 dualmad KV6 + 32 dualmad KV7, 64 1mad KV3, 1 sum2);
-     tokens/s and peak memory
+     decode forward (32 dualmad KV6 + 32 dualmad KV7, 64 1mad KV3, 1
+     sum2), 194 in the prefill (dualmad and the head on v2_wide_kernel,
+     two launches a call); tokens/s and peak memory; then the zero-shot
+     harness on it at impl exact (as 10c's: 64 dualmad calls a forward of
+     two launches, 64 1mad of one on the template, the head's two;
+     examples/s after a warm-up pass)
   9. Path B: a 512-token prefill at impl exact on tcq2mix (64 K2 + 64 K3,
      the head as 2 chunked sum2 K1 launches) and on the 215 config (128 K2
      sum2 + 2); prefill time and peak memory
@@ -165,7 +182,7 @@ CALLS_PER_STEP = {"qkv": 32, "o": 32, "ug": 32, "down": 32, "lm_head": 1}
 LAUNCHES_PER_FORWARD = 129
 # rows a zero-shot forward gives K1 (its prompts' lengths), timed in phase 3
 ZS_ROWS = (16, 64, 256)
-# rows at which phase 3 holds sum2_wide_kernel against its plain version:
+# rows at which phase 3 holds v2_wide_kernel against its plain version:
 # whole n-tiles, and 9, 49, 191 ending in a partial one (a8 splits 191 and
 # 256 over two row groups)
 ZS_CHECK_ROWS = (9, 16, 49, 64, 191, 256)
@@ -193,8 +210,10 @@ SHAPES_ARITH = [("qkv", 6144, 4096, "dualmad", 6, 32),
                 ("odd_kt", 256, 4112, "dualmad", 9, 0)]
 PATH_A_STEP = {"tcq2_decode_gemv": 64, "tcq1_decode_gemv": 64,
                "tcq2s_decode_gemv": 1}
-# the 16-token prefill: the sum2 head above 8 rows, two launches
-PATH_A_PREFILL = {**PATH_A_STEP, "tcq2s_decode_gemv": 2}
+# the 16-token prefill: dualmad and the sum2 head above 8 rows on
+# v2_wide_kernel, two launches a call; 1mad on the template, one
+PATH_A_PREFILL = {**PATH_A_STEP, "tcq2_decode_gemv": 128,
+                  "tcq2s_decode_gemv": 2}
 PATH_A_MIX = {("tcq2", "dualmad", 6): 32, ("tcq2", "dualmad", 7): 32,
               ("tcq1", "1mad", 3): 64}
 PREFILL_B = 512
@@ -240,7 +259,8 @@ L2_BYTES = 50_000_000
 # the least time for a call: bytes over the H100's 3.35 TB/s, operations
 # over its dense peak for their type (NVIDIA's data sheet, SXM, 700 W)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "tfloat32": 495e12,
+              "float32": 67e12}
 # KV 3 of the LUT kernels (tcq_3, tcomb_3_4 of the memory palette) at o and
 # down: checked, on no path, (m, k, KV) -> 0 calls a forward
 LUT_KV3 = {(4096, 4096, (3,)): 0, (4096, 14336, (3,)): 0,
@@ -284,6 +304,28 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[card] {name}, {count} device(s), nvidia-smi: {smi}", flush=True)
     return name, count, smi
+
+
+class SmClock:
+    """nvidia-smi's SM clock of card 0, sampled every 20 ms while the block
+    runs: .mhz (median), .lo, .hi (NaN without a sample)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        log, _ = self.proc.communicate()
+        v = [float(t) for t in log.split() if t.isdigit()] or [float("nan")]
+        self.mhz, self.lo, self.hi = float(np.median(v)), min(v), max(v)
+        return False
+
+    def __str__(self):
+        return f"SM {self.mhz:.0f} MHz (min {self.lo:.0f}, max {self.hi:.0f})"
 
 
 def _words(m, k, W, device, seed):
@@ -393,7 +435,7 @@ def sum2_checks(arith, device):
 
 
 def sum2_row_times(arith, arith_dequant, device):
-    """K1 sum2 above 8 rows (sum2_wide_kernel after its x prologue, bf16 x)
+    """K1 sum2 above 8 rows (v2_wide_kernel after its x prologue, bf16 x)
     at the 215 shapes: held against its plain version at ZS_CHECK_ROWS,
     exact and a8, two launches bit-equal at 191 rows (a8: two row groups),
     then timed as a zero-shot forward calls it (the layers at exact, the
@@ -461,6 +503,140 @@ def sum2_row_times(arith, arith_dequant, device):
                   f"({by}; {bms / ms:.1%} of it)", flush=True)
         del copies
     return max_abs, times
+
+
+# Path A's K1 calls of the other V=2 and the V=1 modes above 8 rows, timed
+# at ZS_ROWS in phase 3 (k1_rows): (name, m, k, mode, KV, calls a forward);
+# 2mad on no path.  dualmad is also held against its plain version at
+# ZS_CHECK_ROWS, at these shapes and at the odd k/16 ones
+ROWS_ARITH = [sh for sh in SHAPES_ARITH
+              if sh[3] != "sum2" and sh[0] != "odd_kt"]
+ROWS_CHECK = [sh for sh in SHAPES_ARITH if sh[3] == "dualmad"]
+
+
+def k1_rows(arith, arith_dequant, device, reps=10):
+    """K1 dualmad, 1mad and 2mad above 8 rows (bf16 x, as a prefill or a
+    zero-shot forward gives them): dualmad held against its plain version
+    at ZS_CHECK_ROWS, exact and a8, two launches bit-equal at 191 rows;
+    then each ROWS_ARITH shape timed at N in ZS_ROWS, exact and a8,
+    beside its bound and the dequant route (K2/K3, then qlinear._product),
+    and the plain version at N = 64, exact.  Exact's bound counts its
+    operations at the tf32 tensor-core peak: bf16 does not hold the V=1 and dualmad
+    weights beyond +-256, tf32 holds them (the tensor-core kernels' exact
+    MMAs).  Returns (max_abs_err of dualmad, {(N, name, mode, KV, a8):
+    (ms, plain_ms or None, bound_ms, route_ms, bound_by)})."""
+    from qpalette_tpu_torch.runtime.qlinear import _product
+
+    max_abs, times = 0.0, {}
+    for name, m, k, mode, KV, _ in ROWS_CHECK:
+        words = _words(m, k, arith.words_per_tile(mode, KV), device,
+                       seed=m + k + KV)
+        for N in ZS_CHECK_ROWS:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(N)
+            x = torch.randn((N, k), generator=gen,
+                            device=device).bfloat16()
+            for a8 in (False, True):
+                label = (f"{mode} wide {name} {m}x{k} KV={KV} N={N} "
+                         f"{'a8' if a8 else 'exact'}")
+                y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
+                torch.cuda.synchronize()
+                ref = arith.arith_gemv_plain(x, words, mode, KV, m, k, a8)
+                max_abs = max(max_abs, _rel_check(label, y, ref, TOL[a8]))
+                if N == 191:  # the cluster's fragments add in rank order
+                    y2 = arith.decode_gemv(mode, x, words, KV, m, k, a8)
+                    check(torch.equal(y.view(torch.int32),
+                                      y2.view(torch.int32)),
+                          f"{label}: two launches differ")
+                del y, ref
+        del words
+    with SmClock() as clock:
+        for name, m, k, mode, KV, _ in ROWS_ARITH:
+            copies, nbytes = _copies(m, k, arith.words_per_tile(mode, KV),
+                                     device)
+            for N in ZS_ROWS:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(N)
+                x = torch.randn((N, k), generator=gen,
+                                device=device).bfloat16()
+                out = torch.empty((N, m), device=device)
+
+                def route(i=0):
+                    _product(x, arith_dequant.dequant(
+                        mode, copies[i % len(copies)], KV, m, k))
+
+                rms = _time_ms(route, 3)
+                for a8 in (False, True):
+                    def kern(i=0):
+                        arith.decode_gemv(mode, x, copies[i % len(copies)], KV,
+                                          m, k, a8, out=out)
+
+                    def plain(i=0):
+                        arith.arith_gemv_plain(x, copies[i % len(copies)],
+                                               mode, KV, m, k, a8)
+
+                    ms = _time_ms(kern, reps, graph=True)
+                    pms = _time_ms(plain, 1) if N == 64 and not a8 else None
+                    bms, by = gemv_bound(nbytes, N, m, k, 2, a8, "tfloat32")
+                    times[(N, name, mode, KV, a8)] = (ms, pms, bms, rms, by)
+                    plain = (f"{pms:.4f} ms" if pms is not None
+                             else "not timed")
+                    print(f"[time] {mode} rows {name} {m}x{k} KV={KV} N={N} "
+                          f"{'a8' if a8 else 'exact'}: kernel {ms:.4f} ms, "
+                          f"plain {plain}, dequant route {rms:.4f} ms, bound "
+                          f"{bms:.4f} ms ({by}; {bms / ms:.1%} of it)",
+                          flush=True)
+            del copies
+    print(f"[time] K1 rows timed at {clock}", flush=True)
+    times["sm_clock"] = clock.mhz
+    return max_abs, times
+
+
+def k1_rows_forward(times, card_label):
+    """Print and return a Path A forward's sums of k1_rows' times: {(mode,
+    N, a8): (ms, plain_ms or None, bound_ms, route_ms, bound_by)} over its
+    32 qkv + 32 ug dualmad calls and its 32 o + 32 down 1mad calls; 2mad
+    (on no path) as 64 calls at 4096x4096 KV 3."""
+    out = {}
+    for mode in ("dualmad", "1mad", "2mad"):
+        shapes = [(name, KV, calls or 64) for name, _, _, md, KV, calls
+                  in ROWS_ARITH if md == mode and (calls or KV == 3)]
+        for a8 in (False, True):
+            for N in ZS_ROWS:
+                rows = [(calls, times[(N, name, mode, KV, a8)])
+                        for name, KV, calls in shapes]
+                tot = [sum(c * t[j] for c, t in rows) for j in (0, 2, 3)]
+                pms = (sum(c * t[1] for c, t in rows)
+                       if N == 64 and not a8 else None)
+                ops = sum(c * t[2] for c, t in rows if t[4] == "operations")
+                by = "operations" if 2 * ops >= tot[1] else "bytes"
+                out[(mode, N, a8)] = (tot[0], pms, tot[1], tot[2], by)
+                plain = f"plain {pms:.3f} ms, " if pms is not None else ""
+                n = sum(c for _, _, c in shapes)
+                print(f"[time] a Path A forward's {n} {mode} calls at N={N} {'a8' if a8 else 'exact'}: "
+                      f"kernel {tot[0]:.3f} ms, {plain}dequant route "
+                      f"{tot[2]:.3f} ms, bound {tot[1]:.3f} ms ({by}; "
+                      f"{tot[1] / tot[0]:.1%} of it; {card_label}, SM "
+                      f"{times['sm_clock']:.0f} MHz)", flush=True)
+    return out
+
+
+def rows_only():
+    """--rows: build, then k1_rows and its Path A sums alone."""
+    from qpalette_tpu_torch.kernels import arith, arith_dequant
+
+    _, _, smi = card()
+    build_all()
+    err, times = k1_rows(arith, arith_dequant, torch.device("cuda:0"))
+    fwd = k1_rows_forward(times, smi)
+    print(json.dumps({"card": smi, "sm_mhz": times.pop("sm_clock"),
+                      "dualmad_rows_max_abs_err": err,
+                      "forward": {f"{md} N={N} {'a8' if a8 else 'exact'}": v
+                                  for (md, N, a8), v in fwd.items()},
+                      "calls": {f"{N} {name} {md} KV{KV} "
+                                f"{'a8' if a8 else 'exact'}": v
+                                for (N, name, md, KV, a8), v in
+                                times.items()}}), flush=True)
 
 
 def step_ms(times, qdict):
@@ -611,7 +787,7 @@ def build_all():
 
 SPILL = re.compile(r"[1-9]\d* bytes spill")
 # the tensor-core GEMVs' instances: K1's and K8's
-TC_GEMV = re.compile(r"v[12q]_gemv_kernel|sum2_wide_kernel")
+TC_GEMV = re.compile(r"v[12q]_gemv_kernel|v2_wide_kernel")
 
 
 def ptxas_entries(log):
@@ -1343,12 +1519,14 @@ def _ab_vq(device, smi):
 
 
 AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
-      "tcq_lut": _ab_lut, "vq": _ab_vq, "tcq2_wide": None}
+      "tcq_lut": _ab_lut, "vq": _ab_vq, "tcq2_wide": None,
+      "tcq2mix_wide": None}
+WIDE_AB = {"tcq2_wide": "sum2", "tcq2mix_wide": "dualmad"}  # ab_wide's
 
 
 class _NoWorkspace:
     """A tcq2_gemv library built from a tree whose C function takes no
-    workspace (before sum2_wide_kernel): the wrappers' call, the workspace
+    workspace (before the wide kernel): the wrappers' call, the workspace
     argument dropped."""
 
     def __init__(self, lib):
@@ -1370,15 +1548,19 @@ def _bind_parent(kb, source, parent_csrc, parent_so, sigs):
     return kb.bind(parent_so, sigs)
 
 
-def ab_wide(parent_csrc):
-    """--ab tcq2_wide: K1 sum2 above 8 rows against an older csrc's, in
-    turns parent, new, new, parent, on one card: each 215 shape's call at
-    N = 16 / 64 / 256 as a zero-shot forward makes it (layers exact, the
-    4-bit head a8; CUDA-graph replays, weights cycled past L2), summed over
-    a forward's 129 calls; then, on the 215 model, the zero-shot run
-    (examples/s), a warm a8 512-token prefill (ms) and the a8 decode
-    (tokens/s through generate()).  Both libraries are first held against
-    the plain version at o, N = 49."""
+def ab_wide(parent_csrc, mode):
+    """--ab tcq2_wide (mode sum2) and --ab tcq2mix_wide (dualmad): K1 above
+    8 rows against an older csrc's, in turns parent, new, new, parent, on
+    one card.  Each shape's call at N = 16 / 64 / 256 as a zero-shot
+    forward makes it (CUDA-graph replays, weights cycled past L2), summed
+    over a forward's calls: sum2 at the 215 shapes (129 calls, layers
+    exact, the 4-bit head a8), dualmad at Path A's qkv and ug (64 calls,
+    exact and a8 each); then, on the 215 model (sum2) or the Path A model
+    (dualmad), the zero-shot run at exact (examples/s), a warm a8
+    512-token prefill (ms) and the a8 decode (tokens/s through generate());
+    dualmad also the 215 decode, whose N = 1 kernels did not change.  Each
+    turn's SM clock is sampled.  Both libraries are first held against the
+    plain version at N = 49."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
@@ -1407,43 +1589,67 @@ def ab_wide(parent_csrc):
         arith._lib = lambda *a: lib if a[0] == source else lib_of(*a)
 
     qdict, merge_info = _load_215()
-    spec, params = _build("main", qdict, merge_info, "a8", 4, device)
+    spec215, params215 = _build("main", qdict, merge_info, "a8", 4, device)
+    if mode == "sum2":
+        ug_kv = [int(qdict[f"{i}_mlp.up_proj"][0].split("_")[1])
+                 for i in range(32)]
+        # (name, m, k, KV, calls a forward, variants timed: a8 or not)
+        shapes = [(name, m, k, KV, sum(kv == KV for kv in ug_kv)
+                   if name == "ug" else CALLS_PER_STEP[name],
+                   (name == "lm_head",)) for name, m, k, KV in SHAPES_215]
+        path, spec, params = "215", spec215, params215
+    else:
+        shapes = [(name, m, k, KV, calls, (False, True))
+                  for name, m, k, md, KV, calls in SHAPES_ARITH
+                  if md == mode and calls]
+        path = "Path A"
+        spec, params = _build("pathA", tcq2mix_qdict(),
+                              [["merge_qkv", "merge_ug"]] * 32, "a8", 4,
+                              device)
     exact = with_impl(spec, "exact")
     tok, questions = ByteTok(), zs_questions()
-    shapes = {(name, KV): _copies(m, k, 4 * KV, device)
-              for name, m, k, KV in SHAPES_215}
+    copies = {sh[:4]: _copies(sh[1], sh[2], 4 * sh[3], device)
+              for sh in shapes}
     for label, lib in libs.items():
         use(lib)
-        _, m, k, KV = SHAPES_215[1]
+        name, m, k, KV = shapes[0][:4] if mode != "sum2" else SHAPES_215[1]
         x = torch.randn((49, k), device=device).bfloat16()
-        w = shapes[("o", KV)][0][0]
+        w = copies[(name, m, k, KV)][0][0]
         for a8 in (False, True):
-            _rel_check(f"{label} sum2 o N=49 a8={a8}",
-                       arith.tcq2s_decode_gemv(x, w, KV, m, k, a8),
-                       arith.arith_gemv_plain(x, w, "sum2", KV, m, k, a8),
+            _rel_check(f"{label} {mode} {name} N=49 a8={a8}",
+                       arith.decode_gemv(mode, x, w, KV, m, k, a8),
+                       arith.arith_gemv_plain(x, w, mode, KV, m, k, a8),
                        TOL[a8])
     turns = []
     for label in ("parent", "new", "new", "parent"):
         use(libs[label])
         turn = {"lib": label}
-        for N in ZS_ROWS:
-            times = {}
-            for name, m, k, KV in SHAPES_215:
-                copies, nbytes = shapes[(name, KV)]
-                a8 = name == "lm_head"
-                x = torch.randn((N, k), device=device).bfloat16()
-                out = torch.empty((N, m), device=device)
-                ms = _time_ms(lambda i=0: arith.tcq2s_decode_gemv(
-                    x, copies[i % len(copies)], KV, m, k, a8, out=out), 20,
-                    graph=True)
-                bms, _ = gemv_bound(nbytes, N, m, k, 2, a8, "bfloat16")
-                times[(name, KV)] = (ms, 0.0, bms)
-                print(f"[ab] {label} sum2 {name} {m}x{k} KV={KV} N={N} "
-                      f"{'a8' if a8 else 'exact'}: {ms:.4f} ms (bound "
-                      f"{bms:.4f})", flush=True)
-            kms, _, bms = step_ms(times, qdict)
-            turn[f"forward_ms_N{N}"] = kms
-            turn[f"bound_ms_N{N}"] = bms
+        with SmClock() as clock:
+            for N in ZS_ROWS:
+                fwd = {}
+                for name, m, k, KV, calls, variants in shapes:
+                    cp, nbytes = copies[(name, m, k, KV)]
+                    x = torch.randn((N, k), device=device).bfloat16()
+                    out = torch.empty((N, m), device=device)
+                    for a8 in variants:
+                        ms = _time_ms(lambda i=0: arith.decode_gemv(
+                            mode, x, cp[i % len(cp)], KV, m, k, a8,
+                            out=out), 20, graph=True)
+                        bms, _ = gemv_bound(
+                            nbytes, N, m, k, 2, a8,
+                            "bfloat16" if mode == "sum2" else "tfloat32")
+                        key = "" if len(variants) == 1 else (
+                            "_a8" if a8 else "_exact")
+                        t = fwd.setdefault(key, [0.0, 0.0])
+                        t[0] += calls * ms
+                        t[1] += calls * bms
+                        print(f"[ab] {label} {mode} {name} {m}x{k} KV={KV} "
+                              f"N={N} {'a8' if a8 else 'exact'}: {ms:.4f} "
+                              f"ms (bound {bms:.4f})", flush=True)
+                for key, (kms, bms) in fwd.items():
+                    turn[f"forward_ms_N{N}{key}"] = kms
+                    turn[f"bound_ms_N{N}{key}"] = bms
+        turn["sm_mhz"] = clock.mhz
         zeroshot.eval_multiple_choice(exact, params, tok, questions)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1452,18 +1658,25 @@ def ab_wide(parent_csrc):
         turn["zs_examples_s"] = ZS_QUESTIONS / (time.perf_counter() - t0)
         turn["a8_prefill_512_ms"] = 1e3 * prefill_time(
             f"ab {label} a8", spec, params, device, PREFILL_B, smi)
-        turn["tokens_per_s"] = throughput(f"215, {label} {source}.cu", spec,
-                                          params, device, smi)
+        turn["tokens_per_s"] = throughput(f"{path}, {label} {source}.cu",
+                                          spec, params, device, smi)
+        if mode != "sum2":
+            turn["tokens_per_s_215"] = throughput(
+                f"215, {label} {source}.cu", spec215, params215, device, smi)
         turns.append(turn)
-        print(f"[ab] {label}: a zero-shot forward's 129 sum2 calls "
-              + ", ".join(f"N={N} {turn[f'forward_ms_N{N}']:.3f} ms"
-                          for N in ZS_ROWS)
-              + f"; zero-shot {turn['zs_examples_s']:.2f} examples/s; a8 "
-              f"512-token prefill {turn['a8_prefill_512_ms']:.1f} ms; "
-              f"decode {turn['tokens_per_s']:.2f} tokens/s ({smi})",
-              flush=True)
+        calls = sum(sh[4] for sh in shapes)
+        print(f"[ab] {label}: a {path} forward's {calls} {mode} calls "
+              + ", ".join(f"{k[len('forward_ms_'):]} {v:.3f} ms"
+                          for k, v in turn.items()
+                          if k.startswith("forward_ms_"))
+              + f" at {clock}; zero-shot {turn['zs_examples_s']:.2f} "
+              f"examples/s; a8 512-token prefill "
+              f"{turn['a8_prefill_512_ms']:.1f} ms; {path} decode "
+              f"{turn['tokens_per_s']:.2f} tokens/s"
+              + (f", 215 decode {turn['tokens_per_s_215']:.2f} tokens/s"
+                 if mode != "sum2" else "") + f" ({smi})", flush=True)
     arith._lib = lib_of
-    print(json.dumps({"card": smi, "source": source, "ab": "tcq2_wide",
+    print(json.dumps({"card": smi, "source": source, "ab": f"{mode} wide",
                       "turns": turns}))
 
 
@@ -1487,8 +1700,8 @@ def parent_ab(parent_csrc, which):
 
     from qpalette_tpu_torch.kernels import _build as kb
 
-    if which == "tcq2_wide":
-        return ab_wide(parent_csrc)
+    if which in WIDE_AB:
+        return ab_wide(parent_csrc, WIDE_AB[which])
     _, _, smi = card()
     device = torch.device("cuda:0")
     mod, source, sigs, cases, (path, spec, params) = AB[which](device, smi)
@@ -1801,10 +2014,12 @@ def tcq2mix_qdict(num_layers=32):
 
 
 def path_a_b(device, card_label):
-    """Path A (tcq2mix decode at a8 and exact) and Path B (512-token exact
-    prefill on tcq2mix and on the 215 config).  Returns (launch counts
-    summed over the counted runs, graph_phase's result by impl, prefill s
-    by config)."""
+    """Path A (tcq2mix decode at a8 and exact, then the zero-shot harness
+    at exact: K1 dualmad and the sum2 head on v2_wide_kernel, 1mad on the
+    template) and Path B (512-token exact prefill on tcq2mix and on the 215
+    config).  Returns (launch counts summed over the counted runs,
+    graph_phase's result by impl, prefill s by config (and Path A's warm
+    16-token prefill by impl), zs_check's summary of Path A)."""
     spec, params = _build("pathA", tcq2mix_qdict(), [["merge_qkv",
                                                        "merge_ug"]] * 32,
                           "a8", 4, device)
@@ -1819,17 +2034,21 @@ def path_a_b(device, card_label):
           ("tcq2", "sum2", 8, 131072), f"tcq2mix projections {mix}, {head}")
     print(f"[pathA] projections per forward {mix} + the sum2 KV8 head "
           f"(131072x4096)", flush=True)
-    total = {}
-    tps = {}
+    total, tps, pre = {}, {}, {}
     for impl in ("a8", "exact"):
         sp = with_impl(spec, impl)
         got = drive(f"pathA {impl}", sp, params, device, PROMPT_LEN,
                     NEW_TOKENS, PATH_A_PREFILL, PATH_A_STEP)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
+        pre[f"pathA {impl} {PROMPT_LEN}"] = prefill_time(
+            f"pathA {impl}", sp, params, device, PROMPT_LEN, card_label)
         tps[impl] = graph_phase(f"pathA {impl}", sp, params, device,
                                 PATH_A_STEP, card_label)
-    pre = {}
+    got, zs = zs_check(spec, params, device, card_label, "Path A",
+                       PATH_A_STEP)
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
     sp = with_impl(spec, "exact")
     got = drive("pathB tcq2mix", sp, params, device, PREFILL_B, 0,
                 PATH_B["tcq2mix"], {})
@@ -1849,7 +2068,7 @@ def path_a_b(device, card_label):
                               card_label)
     del params
     torch.cuda.empty_cache()
-    return total, tps, pre
+    return total, tps, pre, zs
 
 
 # Path E: the 8B with a mixed qdict.  Each layer's groups take the six
@@ -2398,16 +2617,21 @@ def zs_questions(seed=0):
             for _ in range(ZS_QUESTIONS)]
 
 
-def zs_check(spec, params, device, card_label):
-    """The zero-shot harness on the 215 model at impl exact: every prompt
-    of 33-200 tokens sends its rows to K1 sum2's sum2_wide_kernel (8 < N
-    <= 256), 129 calls a forward (128 exact layers, the a8 head) of two
-    launches each; one loglikelihood against the sum of the forward's
-    log-softmax.  Returns (launch counts, summary)."""
+def zs_check(spec, params, device, card_label, label="215", calls=None):
+    """The zero-shot harness on a model at impl exact: every prompt of
+    33-200 tokens sends its rows to K1 above 8 rows (v2_wide_kernel in
+    sum2 and dualmad, two launches a call; the arith.cuh template in 1mad
+    and 2mad, one).  calls: {wrapper: K1 calls a forward} (default the 215
+    model's 129 sum2 calls, 128 exact layers and the a8 head); one
+    loglikelihood against the sum of the forward's log-softmax.  Returns
+    (launch counts, summary)."""
     from qpalette_tpu_torch.kernels import arith, launch_counts, wrappers
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import zeroshot
 
+    calls = calls or {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD}
+    mode_of = {"tcq2s_decode_gemv": "sum2", "tcq2_decode_gemv": "dualmad",
+               "tcq1_decode_gemv": "1mad"}
     spec = with_impl(spec, "exact")
     tok, questions = ByteTok(), zs_questions()
     lengths = [len(tok(q["query"]).input_ids)
@@ -2427,12 +2651,12 @@ def zs_check(spec, params, device, card_label):
     dt = time.perf_counter() - t0
     counts = launch_counts()
     n_fwd = len(lengths)
-    zero = {k: 0 for k in counts}
-    per_call = arith.kernel_launches("sum2", min(lengths))
-    check(counts == {**zero, "tcq2s_decode_gemv": LAUNCHES_PER_FORWARD
-                     * per_call * n_fwd}, f"zero-shot launches {counts}, "
-          f"want {LAUNCHES_PER_FORWARD} sum2 calls a forward x {per_call} x "
-          f"{n_fwd}")
+    want = {k: 0 for k in counts}
+    for kname, n in calls.items():
+        want[kname] = (n * arith.kernel_launches(mode_of[kname],
+                                                 min(lengths)) * n_fwd)
+    check(counts == want, f"{label} zero-shot launches {counts}, want "
+          f"{want} ({calls} calls a forward x {n_fwd} forwards)")
     check(0 <= res["acc"] <= 1 and 0 <= res["acc_norm"] <= 1
           and res["n"] == ZS_QUESTIONS, f"zero-shot result {res}")
     q, c = questions[0]["query"], questions[0]["choices"][0]
@@ -2442,20 +2666,20 @@ def zs_check(spec, params, device, card_label):
     logp = torch.log_softmax(llama.forward(spec, params, tokens)[0, :-1],
                              dim=-1)
     tgt = tokens[0, 1:]
-    want = float(logp.gather(-1, tgt[:, None])[-n_cont:].sum())
-    err = abs(got - want)
-    print(f"[zeroshot] 215 at exact: {ZS_QUESTIONS} questions x "
+    want_ll = float(logp.gather(-1, tgt[:, None])[-n_cont:].sum())
+    err = abs(got - want_ll)
+    k1 = sum(counts[kname] for kname in calls)
+    print(f"[zeroshot] {label} at exact: {ZS_QUESTIONS} questions x "
           f"{ZS_CHOICES} choices, prompts of {min(lengths)}-{max(lengths)} "
           f"tokens, {n_fwd} forwards in {dt:.2f} s ({ZS_QUESTIONS / dt:.2f} "
           f"examples/s, {n_fwd / dt:.2f} forwards/s); acc {res['acc']:.3f} "
-          f"acc_norm {res['acc_norm']:.3f} (random weights); K1 sum2 "
-          f"{counts['tcq2s_decode_gemv']} launches ({LAUNCHES_PER_FORWARD} "
-          f"calls a forward, N 9-256); loglikelihood {got:.5f} against the "
-          f"forward's log-softmax {want:.5f}: |err| {err:.2e} (limit "
-          f"{LL_TOL:.0e}); card {card_label}", flush=True)
-    check(err <= LL_TOL, f"loglikelihood {got} against {want}")
+          f"acc_norm {res['acc_norm']:.3f} (random weights); K1 {k1} "
+          f"launches ({calls} calls a forward, N 9-256); loglikelihood "
+          f"{got:.5f} against the forward's log-softmax {want_ll:.5f}: |err| "
+          f"{err:.2e} (limit {LL_TOL:.0e}); card {card_label}", flush=True)
+    check(err <= LL_TOL, f"loglikelihood {got} against {want_ll}")
     return counts, {"zs_seconds": dt, "zs_examples_s": ZS_QUESTIONS / dt,
-                    "zs_k1_launches": counts["tcq2s_decode_gemv"],
+                    "zs_k1_launches": {k: counts[k] for k in calls},
                     "zs_forwards": n_fwd, "zs_acc": res["acc"],
                     "zs_acc_norm": res["acc_norm"]}
 
@@ -2721,6 +2945,8 @@ def main():
     row_err, row_times = sum2_row_times(arith, arith_dequant, device)
     err, times, deq215 = arith_checks(arith, arith_dequant, device)
     err["tcq2s_decode_gemv"] = max(sum2_err, row_err)
+    dual_err, k1rows = k1_rows(arith, arith_dequant, device)
+    err["tcq2_decode_gemv"] = max(err["tcq2_decode_gemv"], dual_err)
     with open(FLAGSHIP_QDICT) as f:
         shapes = flagship_shapes(LlamaConfig.llama31_8b(), json.load(f))
     check(sum(n for (_, _, KV), n in shapes.items() if len(KV) == 1)
@@ -2744,7 +2970,7 @@ def main():
     fl, graphs["flagship"], ppl = flagship_path(device, smi)
     for k, v in fl.items():
         launches[k] += v
-    ab, tps, pre = path_a_b(device, smi)
+    ab, tps, pre, zs_a = path_a_b(device, smi)
     for k, v in ab.items():
         launches[k] += v
     graphs.update({f"pathA {k}": v for k, v in tps.items()})
@@ -2780,9 +3006,10 @@ def main():
                          "operations" if 2 * ops >= kbms else "bytes")
         plain = f"plain {pms:.3f} ms, " if N == 64 else ""
         print(f"[time] a zero-shot forward's 129 sum2 calls at N={N} "
-              f"(sum2_wide_kernel; layers exact, head a8): kernel "
+              f"(v2_wide_kernel; layers exact, head a8): kernel "
               f"{kms:.3f} ms, {plain}dequant route {rms:.3f} ms, bound "
               f"{kbms:.3f} ms ({kbms / kms:.1%} of it; {smi})", flush=True)
+    rows_fwd = k1_rows_forward(k1rows, smi)
     for kname in ("tcq2_decode_gemv", "tcq1_decode_gemv"):
         kms, kpms, kbms = times[kname]
         print(f"[time] Path A decode step's 64 calls of {kname}: kernel "
@@ -2814,7 +3041,10 @@ def main():
                         for (b, v, n), (a, d) in vq_schemes.items()}),
           flush=True)
     print(f"[pathB] 512-token exact prefill tcq2mix {pre['tcq2mix'] * 1e3:.1f}"
-          f" ms, 215 {pre['215'] * 1e3:.1f} ms ({smi})", flush=True)
+          f" ms, 215 {pre['215'] * 1e3:.1f} ms; Path A {PROMPT_LEN}-token "
+          f"prefill a8 {pre[f'pathA a8 {PROMPT_LEN}'] * 1e3:.2f} ms, exact "
+          f"{pre[f'pathA exact {PROMPT_LEN}'] * 1e3:.2f} ms ({smi})",
+          flush=True)
     for path, g in graphs.items():
         print(f"[graph] {path}: tokens/s bs=1 eager loop {g['eager']:.2f}, "
               f"captured step {g['graph']:.2f} (greedy generate_fast), "
@@ -2834,6 +3064,11 @@ def main():
         "card": smi, "ppl_window_s": ppl["ppl_window_s"],
         "eval_tokens_s": ppl["eval_tokens_s"], "peak_gb": ppl["peak_gb"],
         "zeroshot_examples_s": zs["zs_examples_s"], "ppl": ppl, "zeroshot": zs,
+        "pathA_zeroshot_examples_s": zs_a["zs_examples_s"],
+        "pathA_zeroshot": zs_a,
+        "k1_rows_pathA_forward": {f"{md} N={N} {'a8' if a8 else 'exact'}": v
+                                  for (md, N, a8), v in rows_fwd.items()},
+        "k1_rows_pathA_sm_mhz": k1rows["sm_clock"],
         "attention_rel": attn_rel, "small_2layer_rel": small_rel,
         "k1_rows_forward": zs_forward,
         "k1_rows": {f"{N} {name} KV{KV}": t
@@ -2855,18 +3090,36 @@ def main():
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
             "bound_by": BOUND_BY.get(kname, "bytes"),
             "library_ms": library.get(kname)})
-    # sum2 above 8 rows, its own kernel behind the same wrapper: launches
-    # in the zero-shot run (every call at 9-200 rows), times a zero-shot
-    # forward's 129 calls at N=64
-    check(zs["zs_k1_launches"] > 0, "sum2_wide_kernel launched no time")
+    # above 8 rows, kernels of their own behind the same wrappers:
+    # sum2 (v2_wide_kernel) with its launches in the 215 zero-shot run
+    # (every call at 9-200 rows) and times a zero-shot forward's 129 calls
+    # at N=64; dualmad (v2_wide_kernel) and 1mad (the arith.cuh template)
+    # with their launches in the Path A zero-shot run and 16-token
+    # prefills (a8 and exact) and times a Path A forward's 64 calls each
+    # at N=64, exact
+    wide = zs["zs_k1_launches"]["tcq2s_decode_gemv"]
+    check(wide > 0, "v2_wide_kernel (sum2) launched no time")
     kms, kpms, kbms, _, kby = zs_forward[64]
     kernels.append({
         "name": "tcq2s_decode_gemv_wide", "route": "cuda",
-        "source": "qpalette_tpu_torch/csrc/sum2_wide.cuh",
+        "source": "qpalette_tpu_torch/csrc/v2_wide.cuh",
         "replaces": KERNEL_INFO["tcq2s_decode_gemv"][1],
-        "launches": zs["zs_k1_launches"], "step_launches": 0,
+        "launches": wide, "step_launches": 0,
         "max_abs_err": row_err, "ms": kms, "plain_ms": kpms,
         "bound_ms": kbms, "bound_by": kby, "library_ms": None})
+    for kname, mode, src in (("tcq2_decode_gemv", "dualmad", "v2_wide.cuh"),
+                             ("tcq1_decode_gemv", "1mad", "arith.cuh")):
+        wide = zs_a["zs_k1_launches"][kname] + 2 * PATH_A_PREFILL[kname]
+        check(wide > 0, f"{kname} above 8 rows launched no time")
+        kms, kpms, kbms, _, kby = rows_fwd[(mode, 64, False)]
+        kernels.append({
+            "name": f"{kname}_wide", "route": "cuda",
+            "source": f"qpalette_tpu_torch/csrc/{src}",
+            "replaces": KERNEL_INFO[kname][1], "launches": wide,
+            "step_launches": 0,
+            "max_abs_err": dual_err if mode == "dualmad" else err[kname],
+            "ms": kms, "plain_ms": kpms, "bound_ms": kbms, "bound_by": kby,
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2949,12 +3202,17 @@ if __name__ == "__main__":
     ap.add_argument("--ab", default="tcq2_gemv", choices=sorted(AB),
                     help="the kernels and path parent_ab compares (default "
                     "tcq2_gemv)")
+    ap.add_argument("--rows", action="store_true",
+                    help="run only phase 3's K1 dualmad / 1mad / 2mad "
+                    "above 8 rows (k1_rows)")
     ap.add_argument("--recapture", type=int, default=0,
                     help="run recapture only, with this many windows of "
                     "replays a capture of the 215 step")
     args = ap.parse_args()
     if args.parent:
         parent_ab(args.parent, args.ab)
+    elif args.rows:
+        rows_only()
     elif args.recapture:
         recapture(args.recapture)
     else:

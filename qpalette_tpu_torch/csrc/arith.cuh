@@ -1,5 +1,5 @@
 // Arithmetic trellis decode for Hopper (sm_90a): the shared decoder and the
-// decode-GEMV kernel template (K1 above 8 rows but in sum2), included by
+// decode-GEMV kernel template (K1 in 1mad and 2mad above 8 rows), included by
 // tcq2_gemv.cu (V=2 modes) and tcq1_gemv.cu (V=1 modes), both through
 // arith_tc.cuh, and by arith_dequant.cu (K2, K3).
 //
@@ -88,17 +88,15 @@ __device__ __forceinline__ void state_weights(uint32_t u, int (&w)[2]) {
 //                                  there, the body in arith_tc.cuh)
 //   1mad, 2mad at N <= 8           tcq1_gemv.cu's v1_gemv_kernel (the same
 //                                  body, its own lane map)
-//   sum2 at 8 < N <= 256           sum2_wide.cuh's sum2_wide_kernel (tensor
+//   sum2, dualmad at 8 < N <= 256  v2_wide.cuh's v2_wide_kernel (tensor
 //                                  cores, a tile decoded once for all rows)
-//   dualmad, 1mad, 2mad at         this template, 8 rows a pass
-//   8 < N <= 256
+//   1mad, 2mad at 8 < N <= 256     this template, 8 rows a pass
 //
 // Variants: exact (x rounded to bf16, f32 accumulation of x * w) and a8 (x
 // quantized to int8 inside the kernel per 512-column chunk, one absmax
 // scale per chunk over all N rows as in the TPU kernel; integer dot per
-// chunk, each chunk descaled into f32).  a8 per state: dualmad
-// __dp4a(h1, [q0]*4) + __dp4a(h2, [q1]*4); 1mad/2mad (unsigned byte sum -
-// 510) * q, the exact integer weight (the TPU kernel instead sums XOR'd
+// chunk, each chunk descaled into f32).  a8 per state: (unsigned byte sum
+// - 510) * q, the exact integer weight (the TPU kernel instead sums XOR'd
 // bytes and adds 2*sum(x) in f32).
 //
 // What bounds it: at bs=1 every weight is read once, KV/V bits of packed
@@ -134,15 +132,14 @@ template <typename XT, int MODE, int KV, bool A8>
 __global__ void __launch_bounds__(kThreads)
 arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
                   float* __restrict__ out, int N, int m, int k) {
-  static_assert(MODE != kSum2, "sum2 above 8 rows is sum2_wide_kernel");
+  static_assert(mode_v(MODE) == 1, "the V=2 modes above 8 rows are "
+                "v2_wide_kernel");
   constexpr int NG = kGroup;
   constexpr int V = mode_v(MODE);
   constexpr int W = 8 * KV / V;  // 32-bit words per tile
   constexpr int WV = W / 4;      // int4 per tile
   constexpr int Q = 8 / V;       // states per lane per tile
-  // a8 activation words per row of a chunk, one per column: dualmad
-  // [q]*4, 1mad/2mad q
-  constexpr int XW = kChunk;
+  constexpr int XW = kChunk;  // a8 activation words (q) a row of a chunk
   constexpr int kLoads = (kChunkTiles * WV + kThreads - 1) / kThreads;
   __shared__ __align__(16) uint32_t ws[kChunkTiles * W];
   __shared__ __align__(16) float xs[kGroup * kChunk];  // exact: bf16 values
@@ -204,11 +201,7 @@ arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
           int v = 0;
           if (n < ng) {
             const XT* xp = x + (size_t)(g0 + n) * k + c0;
-            if (MODE == kDualmad) {
-              v = (int)(quant8(load_x(xp + p), inv) * 0x01010101u);
-            } else {
-              v = __float2int_rn(__fmul_rn(load_x(xp + p), inv));
-            }
+            v = __float2int_rn(__fmul_rn(load_x(xp + p), inv));
           }
           xq[n * XW + p] = v;
         }
@@ -234,31 +227,14 @@ arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
           const int s = lane + 32 * q;
-          const int g = s >> 4;  // column pair (V=2) or column (V=1)
+          const int g = s >> 4;  // the column
           const uint32_t u = state_at<KV, W>(wt, s);
-          if (A8 && MODE == kDualmad) {
-            const int h1 = (int)(u * kMad1A), h2 = (int)(u * kMad2A);
-            const int* xr = xq + j * 16 + 2 * g;
-#pragma unroll
-            for (int n = 0; n < NG; ++n)
-              iacc[n] = __dp4a(h2, xr[n * XW + 1],
-                               __dp4a(h1, xr[n * XW], iacc[n]));
-          } else if (A8) {
+          if (A8) {
             int w[2];
             state_weights<MODE>(u, w);
             const int* xr = xq + j * 16 + g;
 #pragma unroll
             for (int n = 0; n < NG; ++n) iacc[n] += w[0] * xr[n * XW];
-          } else if (V == 2) {
-            int w[2];
-            state_weights<MODE>(u, w);
-            const float w0 = (float)w[0], w1 = (float)w[1];
-            const float* xr = xs + j * 16 + 2 * g;
-#pragma unroll
-            for (int n = 0; n < NG; ++n) {
-              acc[n] = fmaf(xr[n * kChunk], w0, acc[n]);
-              acc[n] = fmaf(xr[n * kChunk + 1], w1, acc[n]);
-            }
           } else {
             int w[2];
             state_weights<MODE>(u, w);
@@ -299,9 +275,9 @@ arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
   }
 }
 
-// dualmad, 1mad and 2mad reach this template only at N > 8 (the
-// tensor-core kernels take N <= 8, sum2_wide_kernel sum2 above), so only
-// its 8-row instances of those modes are built
+// 1mad and 2mad reach this template only at N > 8 (the tensor-core
+// kernels take N <= 8, v2_wide_kernel the V=2 modes above), so only its
+// 8-row instances of those modes are built
 template <typename XT, int MODE, int KV, bool A8>
 int launch_gemv(const void* x, const void* tr, void* out, int N, int m,
                 int k, cudaStream_t st) {

@@ -1,7 +1,6 @@
 // K1 in the V=2 modes: sum2 (tcq2s) and dualmad (tcq2), KV 4..10.  Both
-// modes at N <= 8 rows run v2_gemv_kernel below; sum2 at 8 < N <= 256 runs
-// sum2_wide_kernel (sum2_wide.cuh, its note there), dualmad there the
-// template of arith.cuh.
+// modes at N <= 8 rows run v2_gemv_kernel below, and at 8 < N <= 256
+// v2_wide_kernel (v2_wide.cuh, its note there).
 //
 // v2_gemv_kernel: y = x @ W_hat^T in float32 for N <= 8 rows of x, no
 // Wscale.  Replaces qpalette_tpu/kernels/fused.py::_arith_kernel in sum2
@@ -64,20 +63,11 @@
 // 4 warps a block (fewer warps for the small-m shapes); 3, 5 or 6 blocks
 // an SM.
 
-#include "sum2_wide.cuh"
+#include "v2_wide.cuh"
 
 using namespace qpt;
 
 namespace {
-
-// dualmad: the signed byte sum of the hash h as an f32 (tf32) A register:
-// __dp4a adds the sum to the bits of 1.5*2^23, the FADD takes that away
-// (a plain int-to-float conversion spills at the register cap in one
-// instance)
-__device__ __forceinline__ uint32_t dual_weight(uint32_t h) {
-  const int v = __dp4a((int)h, 0x01010101, 0x4b400000);
-  return __float_as_uint(__fsub_rn(__int_as_float(v), 12582912.0f));
-}
 
 // The V=2 tile policy of arith_tc.cuh: lane (g, c) decodes states 16c+2g,
 // +1, +64, +65 and reads x columns (2c, 2c+1) and (8+2c, 9+2c)
@@ -94,20 +84,11 @@ struct V2Tile {
   static __device__ __forceinline__ void a8(const uint8_t* wt,
                                             const LaneMap& lm, uint32_t xw,
                                             int (&d)[4]) {
-    if constexpr (MODE == kSum2) {
-      uint32_t a[4];  // the decode step, then the MMA step (sum2_wide.cuh)
-      sum2_a8_regs<KV>(wt, lm, a);
-      sum2_a8_mma(d, a, xw);
-    } else {
-      uint32_t f0, f1;
-      lane_windows(wt, lm, f0, f1);
-      const uint32_t u0 = f0 & 0xffffu, u1 = (f0 >> KV) & 0xffffu;
-      const uint32_t u2 = f1 & 0xffffu, u3 = (f1 >> KV) & 0xffffu;
-      mma_s8(d, u0 * kMad1A, u1 * kMad1A, u2 * kMad1A, u3 * kMad1A,
-             __byte_perm(xw, 0, 0x0000), __byte_perm(xw, 0, 0x2222));
-      mma_s8(d, u0 * kMad2A, u1 * kMad2A, u2 * kMad2A, u3 * kMad2A,
-             __byte_perm(xw, 0, 0x1111), __byte_perm(xw, 0, 0x3333));
-    }
+    // the decode step, then the MMA step (v2_wide.cuh's tile policy)
+    using W = WideTile<MODE, KV, true>;
+    uint32_t a[W::kRegs];
+    W::decode(wt, lm, a);
+    W::mma(d, a, xw);
   }
 
   // exact: one tile against bf16 x columns (2c, 2c+1) and (8+2c, 9+2c),
@@ -115,6 +96,8 @@ struct V2Tile {
   static __device__ __forceinline__ void exact(const uint8_t* wt,
                                                const LaneMap& lm, uint2 b,
                                                float (&d)[4]) {
+    // (not the wide tile policy's steps: decoding all 8 registers before
+    // the MMAs changes the SASS of the exact dualmad instances)
     uint32_t f0, f1;
     lane_windows(wt, lm, f0, f1);
     if constexpr (MODE == kSum2) {
@@ -179,16 +162,16 @@ int v2_variants(const void* x, int x_bf16, const void* tr, void* out, int N,
 #define QPT_DUALMAD(KV_) \
   v2_variants<kDualmad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
 #define QPT_SUM2_WIDE(KV_) \
-  sum2_wide<KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
+  v2_wide<kSum2, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 #define QPT_DUALMAD_WIDE(KV_) \
-  gemv_variants<kDualmad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
+  v2_wide<kDualmad, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 
 // x: (N, k) float32 (x_bf16 == 0) or bfloat16, 1 <= N <= 256, 8-byte
 // aligned; tr: canonical (m/16*k/16, 4*KV) words, 16-byte aligned; out:
-// (N, m) float32; ws: sum2 at N > 8, sum2_wide's workspace, else unused;
-// mode 0 = sum2, 1 = dualmad.  Launches on `stream` (sum2 at N > 8: two
-// kernels) and returns cudaGetLastError() (cudaErrorInvalidValue for
-// arguments the kernels do not take).
+// (N, m) float32; ws: at N > 8, v2_wide's workspace, else unused; mode 0 =
+// sum2, 1 = dualmad.  Launches on `stream` (at N > 8: two kernels) and
+// returns cudaGetLastError() (cudaErrorInvalidValue for arguments the
+// kernels do not take).
 extern "C" int tcq2_gemv(const void* x, int x_bf16, const void* tr,
                          void* out, void* ws, int N, int m, int k, int KV,
                          int mode, int a8, void* stream) {
@@ -197,7 +180,7 @@ extern "C" int tcq2_gemv(const void* x, int x_bf16, const void* tr,
   const bool narrow = N <= kTcRows;
   if (mode == 0 && narrow) QPT_KV_CASES(QPT_SUM2)
   if (mode == 1 && narrow) QPT_KV_CASES(QPT_DUALMAD)
-  if (mode == 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == 0) QPT_KV_CASES(QPT_SUM2_WIDE)
   if (mode == 1) QPT_KV_CASES(QPT_DUALMAD_WIDE)
   return (int)cudaErrorInvalidValue;

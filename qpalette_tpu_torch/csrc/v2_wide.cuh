@@ -1,56 +1,79 @@
-// K1 in mode sum2 above 8 rows of x (9 <= N <= 256): y = x @ W_hat^T in
-// float32, no Wscale, both variants (a8: x quantized to int8 per 512-column
-// chunk, one absmax scale a chunk over all N rows; exact: x rounded to
-// bf16).  Replaces qpalette_tpu/kernels/fused.py::_arith_kernel in sum2
-// mode at prefill and zero-shot rows (reached through _arith_decode_matmul
+// K1 in the V=2 modes, sum2 and dualmad, above 8 rows of x (9 <= N <=
+// 256): y = x @ W_hat^T in float32, no Wscale, both variants (a8: x
+// quantized to int8 per 512-column chunk, one absmax scale a chunk over
+// all N rows; exact: x rounded to bf16).  Replaces
+// qpalette_tpu/kernels/fused.py::_arith_kernel in sum2 and dualmad modes
+// at prefill and zero-shot rows (reached through _arith_decode_matmul
 // from tcq2_decode_matmul), where the TPU kernel decodes a block of W once
 // and takes it to all N rows in one MXU product.
 //
-// What bounds it: 2*N*m*k operations (bf16 tensor cores for exact, whose
-// integer weights in [-256, 254] bf16 holds exactly; int8 for a8) against
-// the packed trellis (KV/16 bytes a weight), x and the f32 y, each moved
-// once: the operations from N ~ 32 on (exact), the bytes below.  Design:
+// What bounds it: 2*N*m*k operations against the packed trellis (KV/16
+// bytes a weight), x and the f32 y, each moved once.  The operations run
+// on int8 tensor cores for a8 and, for exact, on bf16 ones in sum2 (its
+// integer weights in [-256, 254] bf16 holds exactly) and tf32 ones in
+// dualmad (its weights in [-512, 508]: bf16 does not hold the odd ones
+// beyond +-256, tf32 holds every one): exact sum2 is bound by its
+// operations from N ~ 32 on, exact dualmad from N ~ 16, the rest by bytes
+// below that.  Design:
 //  - One decode a tile.  A warp owns one 16-row m-tile and every row of x
 //    its block takes (NT n-tiles of 8 rows): it decodes a tile once into
-//    its four A registers (sum2_a8_regs / sum2_exact_regs, the lane map of
-//    tcq2_gemv.cu's v2_gemv_kernel: lane (g, c) holds states 16c+2g, +1,
-//    +64, +65) and issues one mma.m16n8k32.s8 (a8) or mma.m16n8k16.bf16
-//    (exact) per n-tile against those registers, with no branch between
-//    them.  exact takes all N <= 256 rows in one block (NT <= 32, 128 f32
+//    its A registers and issues the tile's MMAs on every n-tile against
+//    them, with no branch between them.  Only these two steps depend on
+//    the mode, so they are the tile policy WideTile<MODE, KV, A8> (as
+//    arith_tc.cuh's body takes V2Tile / V1Tile); the lane map is
+//    tcq2_gemv.cu's v2_gemv_kernel's (lane (g, c) holds states 16c+2g,
+//    +1, +64, +65), and so are the MMAs a tile:
+//      sum2 a8      4 A registers, the hash words as they stand; one
+//                   mma.m16n8k32.s8 an n-tile
+//      sum2 exact   4 bf16x2 weight pairs; one mma.m16n8k16.bf16
+//      dualmad a8   8: u*kMad1A (h1) and u*kMad2A (h2) of the four
+//                   windows; two mma.m16n8k32.s8 into one int32
+//                   fragment, h1 against the x word's byte permutes
+//                   0x0000 / 0x2222, h2 against 0x1111 / 0x3333
+//      dualmad      8 tf32 weights (dual_weight: w0 of the four states,
+//      exact        then w1); two mma.m16n8k8.tf32, one a column parity,
+//                   against the x word's bf16 halves moved into the high
+//                   half (a bf16 value as tf32 is its bits << 16: 4 ALU
+//                   ops an n-tile, against the 8 more bytes of shared
+//                   memory an n-tile that x written as tf32 would take)
+//    exact sum2 takes all N <= 256 rows in one block (NT <= 32, 128 f32
 //    accumulators a lane); a8 holds an int32 and an f32 fragment an
 //    n-tile, so its blocks take at most 16 n-tiles (128 rows) and a call
 //    above 128 rows splits them over blockIdx.y, decoding each tile once
-//    per row group.  Instances at NT = 2, 4, 8, 12, 16, 24, 32 keep the
-//    MMAs on n-tiles past N few.
+//    per row group.  dualmad's 8 A registers leave room for 24 n-tiles
+//    (exact) and 12 (a8) under the register cap (WideTile::kMost).
+//    Instances at NT = 2, 4, 8, 12, 16, 24, 32 keep the MMAs on n-tiles
+//    past N few.
 //  - x staged once a block.  A block is 8 consumer warps on 8 adjacent
 //    m-tiles (x is read m/128 times a call, not m/16) and one producer warp.
-//    A prologue kernel (wide_x_kernel) writes x once into a workspace in
-//    B-fragment order: exact as bf16x2 words, lane (g, c)'s pair for an
-//    (n-tile, k-tile) being the words of columns (2c, 2c+1) and (8+2c,
-//    9+2c) of row 8j+g; a8 as one word [q(2c), q(2c+1), q(8+2c), q(9+2c)]
-//    per lane (the B registers are its byte permutes, as in v2_gemv_kernel),
-//    after the chunk scales (absmax over all N rows, written first).  The
-//    words of a block's rows and 8 k-tiles are contiguous, so the producer
-//    copies each step's x with one cp.async.bulk into a ring of kStages
-//    slots: full / empty mbarriers, no block barrier in the loop.  A lane
-//    reads its B registers of an n-tile with one conflict-free 8-byte
-//    (exact) or 4-byte (a8) load.  Each warp streams its m-tile's trellis
-//    through its own ring of bulk copies, in the same 8-tile steps.
+//    A prologue kernel (wide_x_kernel, the same for both modes) writes x
+//    once into a workspace in B-fragment order: exact as bf16x2 words,
+//    lane (g, c)'s pair for an (n-tile, k-tile) being the words of columns
+//    (2c, 2c+1) and (8+2c, 9+2c) of row 8j+g; a8 as one word [q(2c),
+//    q(2c+1), q(8+2c), q(9+2c)] per lane (the B registers are its byte
+//    permutes, as in v2_gemv_kernel), after the chunk scales (absmax over
+//    all N rows, written first).  The words of a block's rows and 8
+//    k-tiles are contiguous, so the producer copies each step's x with one
+//    cp.async.bulk into a ring of kStages slots: full / empty mbarriers, no
+//    block barrier in the loop.  A lane reads its B registers of an
+//    n-tile with one conflict-free 8-byte (exact) or 4-byte (a8) load.
+//    Each warp streams its m-tile's trellis through its own ring of bulk
+//    copies, in the same 8-tile steps.
 //  - Work for 132 SMs.  Where the m-groups (and row groups) of a call give
 //    fewer blocks than the SMs hold, a cluster of up to 8 blocks splits k
 //    (in whole steps, so a step never straddles a 512-column chunk); the
 //    partial fragments are summed in rank order through distributed shared
 //    memory, each rank writing a share of the outputs: no atomics, and two
 //    launches give the same bits.
-//  - a8: each warp's int32 fragments are exact within a chunk (|w| <= 256,
-//    |q| <= 127: at most 512*256*127 < 2^24) and are descaled into its f32
+//  - a8: each warp's int32 fragments are exact within a chunk (|w| <= 512,
+//    |q| <= 127: at most 512*512*127 < 2^25) and are descaled into its f32
 //    fragments at each chunk boundary, as v2_gemv_kernel does.
 //
-// What holds it on an H100 (14-19% of the bound over a zero-shot forward's
-// calls): at 16 rows the decode's issue, ~36 instructions a tile a warp
-// for 2 MMAs, as in the N <= 8 kernels; at 256 rows the 256 bytes of x
-// read from shared memory an MMA, with one 9-warp block an SM.  Tried and
-// slower: a branch around each MMA for the n-tiles past N (2x at 64
+// What holds sum2 on an H100 (14-19% of the bound over a zero-shot
+// forward's calls): at 16 rows the decode's issue, ~36 instructions a tile
+// a warp for 2 MMAs, as in the N <= 8 kernels; at 256 rows the 256 bytes
+// of x read from shared memory an MMA, with one 9-warp block an SM.  Tried
+// and slower: a branch around each MMA for the n-tiles past N (2x at 64
 // rows), no cluster split, clusters sized for the fill of the last wave.
 //
 // A call is two launches: the prologue, then the GEMV (arith.py counts
@@ -107,7 +130,7 @@ __device__ __forceinline__ void sum2_exact_regs(const uint8_t* wt,
   a[3] = sum2_bf16x2(f1 >> KV);
 }
 
-// The MMA step of a8: one n-tile's B registers, the lane's x word
+// The MMA step of sum2 a8: one n-tile's B registers, the lane's x word
 // [q(2c), q(2c+1), q(8+2c), q(9+2c)] under byte permutes, against the A
 // registers of a tile (exact takes its two bf16x2 x words as they stand)
 __device__ __forceinline__ void sum2_a8_mma(int (&d)[4],
@@ -116,6 +139,84 @@ __device__ __forceinline__ void sum2_a8_mma(int (&d)[4],
   mma_s8(d, a[0], a[1], a[2], a[3], __byte_perm(xw, 0, 0x1100),
          __byte_perm(xw, 0, 0x3322));
 }
+
+// dualmad: the signed byte sum of the hash h as an f32 (tf32) A register:
+// __dp4a adds the sum to the bits of 1.5*2^23, the FADD takes that away
+// (a plain int-to-float conversion spills at the register cap in one
+// instance of v2_gemv_kernel)
+__device__ __forceinline__ uint32_t dual_weight(uint32_t h) {
+  const int v = __dp4a((int)h, 0x01010101, 0x4b400000);
+  return __float_as_uint(__fsub_rn(__int_as_float(v), 12582912.0f));
+}
+
+// The tile policy of v2_wide_kernel (and of v2_gemv_kernel's dualmad
+// tiles): a tile's decode step (kRegs A registers a lane) and its MMA step
+// on one n-tile against the lane's x words (a8: one word w, exact: b)
+template <int MODE, int KV, bool A8>
+struct WideTile {
+  static_assert(MODE == kSum2 || MODE == kDualmad, "the V=2 modes");
+  static constexpr int kKV = KV;
+  static constexpr bool kA8 = A8;
+  static constexpr int kRegs = MODE == kSum2 ? 4 : 8;
+  // n-tiles a row group at most: exact one group of all 32 (sum2), a8
+  // 16.  dualmad's 4 more A registers spill its exact 32-n-tile and a8
+  // 16-n-tile instances at the register cap of one 9-warp block an SM
+  // (168), so it takes 24 and 12: exact above 192 rows and a8 above 96
+  // decode each tile once a row group, twice or thrice
+  static constexpr int kMost = MODE == kSum2 ? (A8 ? 16 : 32)
+                                             : (A8 ? 12 : 24);
+
+  static __device__ __forceinline__ void decode(const uint8_t* wt,
+                                                const LaneMap& lm,
+                                                uint32_t (&a)[kRegs]) {
+    if constexpr (MODE == kSum2) {
+      if constexpr (A8)
+        sum2_a8_regs<KV>(wt, lm, a);
+      else
+        sum2_exact_regs<KV>(wt, lm, a);
+    } else {
+      uint32_t f0, f1;
+      lane_windows(wt, lm, f0, f1);
+      const uint32_t u[4] = {f0 & 0xffffu, (f0 >> KV) & 0xffffu,
+                             f1 & 0xffffu, (f1 >> KV) & 0xffffu};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // h1's registers, then h2's
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t v = u[r] * (h ? kMad2A : kMad1A);
+          a[4 * h + r] = A8 ? v : dual_weight(v);
+        }
+    }
+  }
+
+  // a8: into the chunk's int32 fragment
+  static __device__ __forceinline__ void mma(int (&d)[4],
+                                             const uint32_t (&a)[kRegs],
+                                             uint32_t w) {
+    if constexpr (MODE == kSum2) {
+      sum2_a8_mma(d, a, w);
+    } else {
+      mma_s8(d, a[0], a[1], a[2], a[3], __byte_perm(w, 0, 0x0000),
+             __byte_perm(w, 0, 0x2222));
+      mma_s8(d, a[4], a[5], a[6], a[7], __byte_perm(w, 0, 0x1111),
+             __byte_perm(w, 0, 0x3333));
+    }
+  }
+
+  // exact: into the f32 fragment; a bf16 value as tf32 is its bits in
+  // the high half of the word
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[kRegs],
+                                             uint2 b) {
+    if constexpr (MODE == kSum2) {
+      mma_bf16(d, a[0], a[1], a[2], a[3], b);
+    } else {
+      mma_tf32(d, a[0], a[1], a[2], a[3], b.x << 16, b.y << 16);
+      mma_tf32(d, a[4], a[5], a[6], a[7], b.x & 0xffff0000u,
+               b.y & 0xffff0000u);
+    }
+  }
+};
 
 constexpr int kWideWarps = 8;  // consumer warps a block, one m-tile each
 constexpr int kWideThreads = 32 * (kWideWarps + 1);  // + the x producer
@@ -175,6 +276,15 @@ struct WideSmem {
   static constexpr int kMinBlocks =
       kAcc <= 16 ? 3 : kAcc <= (A8 ? 32 : 64) ? 2 : 1;
 };
+
+// Blocks an SM of an instance: WideSmem's, but one for exact dualmad at 16
+// n-tiles, whose 4 more A registers spill at two blocks' cap (96)
+template <class TILE, int NT>
+__host__ __device__ constexpr int wide_min_blocks() {
+  return TILE::kRegs > 4 && !TILE::kA8 && NT == 16
+             ? 1
+             : WideSmem<TILE::kKV, TILE::kA8, NT>::kMinBlocks;
+}
 
 // slot it % S of a warp's trellis ring: its 8 k-tiles it*8.. of job
 template <int KV, int S>
@@ -264,12 +374,13 @@ wide_x_kernel(const XT* __restrict__ x, uint8_t* __restrict__ ws, int N,
 
 // Grid: (m-groups of 8 m-tiles x cs, row groups of NT n-tiles); a cluster
 // of cs blocks (cs = 1: none) splits one m-group's k in whole steps.
-template <int KV, bool A8, int NT>
-__global__ void __launch_bounds__(kWideThreads,
-                                  WideSmem<KV, A8, NT>::kMinBlocks)
-sum2_wide_kernel(const uint8_t* __restrict__ ws,
-                 const uint8_t* __restrict__ tr, float* __restrict__ out,
-                 int N, int m, int k) {
+template <class TILE, int NT>
+__global__ void __launch_bounds__(kWideThreads, wide_min_blocks<TILE, NT>())
+v2_wide_kernel(const uint8_t* __restrict__ ws,
+               const uint8_t* __restrict__ tr, float* __restrict__ out,
+               int N, int m, int k) {
+  constexpr int KV = TILE::kKV;
+  constexpr bool A8 = TILE::kA8;
   using L = WideSmem<KV, A8, NT>;
   using R = Ring<KV, kWideTiles>;
   constexpr int kTN = L::kTN, S = L::kStages;
@@ -375,20 +486,17 @@ sum2_wide_kernel(const uint8_t* __restrict__ ws,
       // the slot, t*ntg + j < 8*NT, into fragments that are never stored:
       // cheaper than a branch an MMA)
       const auto tile = [&](int t) {
-        uint32_t a[4];
+        uint32_t a[TILE::kRegs];
         const uint8_t* xt = xs + t * ntg * kTN;
-        if constexpr (A8) {
-          sum2_a8_regs<KV>(st + t * R::kTileBytes, lm, a);
+        TILE::decode(st + t * R::kTileBytes, lm, a);
 #pragma unroll
-          for (int j = 0; j < NT; ++j)
-            sum2_a8_mma(di[j], a,
-                        *reinterpret_cast<const uint32_t*>(xt + j * kTN));
-        } else {
-          sum2_exact_regs<KV>(st + t * R::kTileBytes, lm, a);
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            mma_bf16(acc[j], a[0], a[1], a[2], a[3],
-                     *reinterpret_cast<const uint2*>(xt + j * kTN));
+        for (int j = 0; j < NT; ++j) {
+          if constexpr (A8)
+            TILE::mma(di[j], a,
+                      *reinterpret_cast<const uint32_t*>(xt + j * kTN));
+          else
+            TILE::mma(acc[j], a,
+                      *reinterpret_cast<const uint2*>(xt + j * kTN));
         }
       };
       if (n == kWideTiles) {  // a whole step, unrolled
@@ -468,11 +576,12 @@ static int wide_sm_count(int dev) {
   return n;
 }
 
-template <int KV, bool A8, int NT>
+template <class TILE, int NT>
 static int launch_wide(const void* x, int x_bf16, const void* tr, void* out,
                        void* ws, int N, int m, int k, cudaStream_t st) {
-  using L = WideSmem<KV, A8, NT>;
-  const auto kernel = sum2_wide_kernel<KV, A8, NT>;
+  constexpr bool A8 = TILE::kA8;
+  using L = WideSmem<TILE::kKV, A8, NT>;
+  const auto kernel = v2_wide_kernel<TILE, NT>;
   static unsigned long long ready = 0;  // devices that allow L::kBytes
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -498,7 +607,7 @@ static int launch_wide(const void* x, int x_bf16, const void* tr, void* out,
   // block keeps a step a stage
   const int mgroups = (m / 16 + kWideWarps - 1) / kWideWarps;
   const int nst = (k / 16 + kWideTiles - 1) / kWideTiles;
-  const int nsm = wide_sm_count(dev) * L::kMinBlocks;
+  const int nsm = wide_sm_count(dev) * wide_min_blocks<TILE, NT>();
   int cs = 1;
   while (cs < kWideMaxCluster && mgroups * rg * cs < nsm &&
          nst >= 2 * L::kStages * cs)
@@ -523,39 +632,45 @@ static int launch_wide(const void* x, int x_bf16, const void* tr, void* out,
 }
 
 // The instance of a call: the fewest n-tiles a warp that hold an even
-// share of its rows in the fewest row groups (exact one, a8 one per 16
-// n-tiles)
-template <int KV, bool A8>
+// share of its rows in the fewest row groups of at most TILE::kMost
+// n-tiles
+template <class TILE>
 static int wide_rows(const void* x, int x_bf16, const void* tr, void* out,
                      void* ws, int N, int m, int k, cudaStream_t st) {
-  const int ntot = (N + 7) / 8, most = A8 ? 16 : 32;
+  constexpr int most = TILE::kMost;
+  const int ntot = (N + 7) / 8;
   const int rg = (ntot + most - 1) / most, share = (ntot + rg - 1) / rg;
 #define QPT_WIDE_NT(NT_) \
-  launch_wide<KV, A8, NT_>(x, x_bf16, tr, out, ws, N, m, k, st)
+  launch_wide<TILE, NT_>(x, x_bf16, tr, out, ws, N, m, k, st)
   if (share <= 2) return QPT_WIDE_NT(2);
   if (share <= 4) return QPT_WIDE_NT(4);
   if (share <= 8) return QPT_WIDE_NT(8);
-  if (share <= 12) return QPT_WIDE_NT(12);
-  if constexpr (!A8) {
-    if (share > 24) return QPT_WIDE_NT(32);
-    if (share > 16) return QPT_WIDE_NT(24);
+  if constexpr (most == 12) {
+    return QPT_WIDE_NT(12);
+  } else {
+    if (share <= 12) return QPT_WIDE_NT(12);
+    if constexpr (most >= 32)
+      if (share > 24) return QPT_WIDE_NT(32);
+    if constexpr (most >= 24)
+      if (share > 16) return QPT_WIDE_NT(24);
+    return QPT_WIDE_NT(16);
   }
-  return QPT_WIDE_NT(16);
 #undef QPT_WIDE_NT
 }
 
-// x: (N, k) float32 or bfloat16, 8 < N <= 256, 8-byte aligned; ws:
-// kWideScaleBytes + 8 * ceil(N / 8) * k * wide_words(a8) bytes, 16-byte
-// aligned
-template <int KV>
-static int sum2_wide(const void* x, int x_bf16, const void* tr, void* out,
-                     void* ws, int N, int m, int k, int a8,
-                     cudaStream_t st) {
+// mode sum2 or dualmad; x: (N, k) float32 or bfloat16, 8 < N <= 256,
+// 8-byte aligned; ws: kWideScaleBytes + 8 * ceil(N / 8) * k *
+// wide_words(a8) bytes, 16-byte aligned
+template <int MODE, int KV>
+static int v2_wide(const void* x, int x_bf16, const void* tr, void* out,
+                   void* ws, int N, int m, int k, int a8, cudaStream_t st) {
   if (reinterpret_cast<uintptr_t>(x) % 8 ||
       reinterpret_cast<uintptr_t>(ws) % 16)
     return (int)cudaErrorMisalignedAddress;
-  return a8 ? wide_rows<KV, true>(x, x_bf16, tr, out, ws, N, m, k, st)
-            : wide_rows<KV, false>(x, x_bf16, tr, out, ws, N, m, k, st);
+  return a8 ? wide_rows<WideTile<MODE, KV, true>>(x, x_bf16, tr, out, ws, N,
+                                                  m, k, st)
+            : wide_rows<WideTile<MODE, KV, false>>(x, x_bf16, tr, out, ws,
+                                                   N, m, k, st);
 }
 
 }  // namespace qpt

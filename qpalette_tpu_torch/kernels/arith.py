@@ -17,12 +17,12 @@ N <= 256 rows of x.  exact rounds x to bf16; a8 quantizes x to int8 per
 wrapper runs the plain version; on a CUDA tensor it launches its kernels or
 raises.  Up to 8 rows every mode runs on tensor cores (``csrc/
 arith_tc.cuh``, one body: ``v2_gemv_kernel`` for V=2, ``v1_gemv_kernel``
-for V=1).  Above 8 rows sum2 runs ``sum2_wide_kernel`` (``csrc/
-sum2_wide.cuh``: each tile decoded once for all rows, on tensor cores),
+for V=1).  Above 8 rows sum2 and dualmad run ``v2_wide_kernel`` (``csrc/
+v2_wide.cuh``: each tile decoded once for all rows, on tensor cores),
 after a prologue kernel that writes x into a workspace the wrapper
-allocates, so such a call counts two launches; dualmad, 1mad and 2mad run
-the template of ``csrc/arith.cuh``.  Both sources are compiled with nvcc
-into ``qpalette_tpu_torch/_build/`` at first use (``kernels/_build.py``).
+allocates, so such a call counts two launches; 1mad and 2mad run the
+template of ``csrc/arith.cuh``.  Both sources are compiled with nvcc into
+``qpalette_tpu_torch/_build/`` at first use (``kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ CHUNK = 512  # a8 columns per activation scale (the kernel's kChunk)
 MAX_ROWS = 256
 TC_ROWS = 8  # rows the narrow tensor-core kernels take (csrc kTcRows)
 MAX_K = CHUNK * 64
-# sum2 above TC_ROWS: the workspace holds the chunk scales (csrc
+# sum2 and dualmad above TC_ROWS: the workspace holds the chunk scales (csrc
 # kWideScaleBytes), then x padded to whole 8-row n-tiles, one byte a value
 # (a8) or two (exact)
 WIDE_SCALE_BYTES = 512
@@ -56,7 +56,7 @@ SOURCES = ("tcq2_gemv", "tcq1_gemv")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # the C interface of each source: one function of the source's name
-# (tcq2_gemv takes the sum2 workspace after out)
+# (tcq2_gemv takes the wide kernel's workspace after out)
 SIGNATURES = {
     "tcq2_gemv": {"tcq2_gemv": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P]},
     "tcq1_gemv": {"tcq1_gemv": [_P, _I, _P, _P] + [_I] * 6 + [_P]}}
@@ -68,18 +68,18 @@ def _lib(source: str) -> ctypes.CDLL:
 
 
 def wide(mode: str, rows: int) -> bool:
-    """Whether a call of `rows` rows runs sum2_wide_kernel."""
-    return mode == "sum2" and rows > TC_ROWS
+    """Whether a call of `rows` rows runs v2_wide_kernel."""
+    return mode in ("sum2", "dualmad") and rows > TC_ROWS
 
 
 def kernel_launches(mode: str, rows: int) -> int:
-    """Kernels one call of `rows` rows launches: 2 for sum2 above 8 rows
-    (the x prologue, then the GEMV), else 1."""
+    """Kernels one call of `rows` rows launches: 2 for sum2 and dualmad
+    above 8 rows (the x prologue, then the GEMV), else 1."""
     return 2 if wide(mode, rows) else 1
 
 
 def workspace_bytes(rows: int, k: int, a8: bool) -> int:
-    """Bytes of sum2_wide_kernel's workspace for `rows` rows of x."""
+    """Bytes of v2_wide_kernel's workspace for `rows` rows of x."""
     return WIDE_SCALE_BYTES + -(-rows // 8) * 8 * k * (1 if a8 else 2)
 
 
@@ -191,7 +191,7 @@ def _gemv(wrapper, mode, x, trellis, KV, m, k, a8, out) -> torch.Tensor:
     N = x.shape[0]
     args = [x.data_ptr(), int(x.dtype == torch.bfloat16), trellis.data_ptr(),
             out.data_ptr()]
-    if source == "tcq2_gemv":  # the workspace of sum2 above 8 rows, or null
+    if source == "tcq2_gemv":  # the wide kernel's workspace, or null
         ws = (torch.empty(workspace_bytes(N, k, a8), dtype=torch.uint8,
                           device=x.device) if wide(mode, N) else None)
         args.append(0 if ws is None else ws.data_ptr())

@@ -25,11 +25,18 @@ forward):
 
 Without --dummy the projections are read from the artifacts the JAX
 package's quantizer wrote under --save_dir (default quant_results, as the
-reference's), with random embed, norms and head as the reference takes
-them when it finds no checkpoint:
+reference's), and the embed, norms and head from the local Hugging Face
+checkpoint of --hf_path (a directory or a cached model name; the config
+too for a model the loader does not know), or random ones as the
+reference takes them when it finds no checkpoint:
 
   python -m qpalette_tpu_torch.measure_latency --impl dequant \
       --qdict_path my_qdict.json --merge_info_path "" --lm_head_bits 16
+
+--batch_size B decodes B rows at once (a (B, 1) prompt); the bandwidth
+divides the streamed bytes x tokens/s by B, as the reference's.
+--save_key KEY also writes the result to
+eval_results/latency/<hf_path>/<KEY>.json.
 
 Defaults: Llama-3.1-8B, the latency-constrained 215.0thp_cc solver output
 with its merge_info, a 4-bit tcq2s lm_head, impl a8, on cuda:0.  Decode
@@ -75,7 +82,7 @@ def route_census(spec) -> dict:
     return out
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--hf_path", default="meta-llama/Llama-3.1-8B")
     ap.add_argument("--qdict_path",
@@ -88,6 +95,7 @@ def main():
                     "--qdict_path")
     ap.add_argument("--max_new_tokens", type=int, default=128)
     ap.add_argument("--num_samples", type=int, default=3)
+    ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--dummy", action="store_true")
     ap.add_argument("--save_dir", default="quant_results",
                     help="where the artifacts are read without --dummy")
@@ -100,10 +108,16 @@ def main():
                     "head, 16: bf16 head")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--save_key", default="",
+                    help="write the result to eval_results/latency/"
+                    "<hf_path>/<save_key>.json")
+    args = ap.parse_args(argv)
 
     import numpy as np
     import torch
+    from qpalette_tpu_torch.models.hf_weights import (config_from_hf,
+                                                      find_local_checkpoint,
+                                                      load_dense_params)
     from qpalette_tpu_torch.msq.memmodel import calc_avg_bits
     from qpalette_tpu_torch.runtime.decode import generate, model_bytes
     from qpalette_tpu_torch.runtime.loader import (CONFIGS, MODEL_KEYS,
@@ -116,9 +130,23 @@ def main():
         dev_name = card_label(device.index or 0)
     else:
         dev_name = "cpu (rehearsal, not a device measurement)"
-    cfg = CONFIGS[MODEL_KEYS[args.hf_path]]()
+    model_key = MODEL_KEYS.get(args.hf_path, "custom")
+    known = args.hf_path in MODEL_KEYS
+    ckpt = (find_local_checkpoint(args.hf_path)
+            if not (args.dummy and known) else None)
+    if known:
+        cfg = CONFIGS[model_key]()
+    elif ckpt is not None:  # the config of a model the loader does not know
+        cfg = config_from_hf(ckpt)
+    else:
+        raise SystemExit(f"{args.hf_path}: not a model the loader knows, "
+                         f"and no local checkpoint of it")
     nl = (args.num_hidden_layers if args.num_hidden_layers > 0
           else cfg.num_layers)
+    dense = None
+    if ckpt is not None and not args.dummy:
+        print(f"loading dense weights from {ckpt} ({nl} layers)", flush=True)
+        dense = load_dense_params(ckpt, cfg, num_layers=nl)
     if args.quantizer_str is not None:
         qdict = args.quantizer_str
     else:
@@ -133,11 +161,11 @@ def main():
         with open(mi_path) as f:
             merge_info = json.load(f)
 
-    model_key = MODEL_KEYS[args.hf_path]
     spec, params = build_quantized_model(
         cfg, qdict, merge_info=merge_info, dummy=args.dummy, impl=args.impl,
         num_layers=nl, lm_head_bits=args.lm_head_bits, seed=args.seed,
-        device=device, model_key=model_key, save_dir=args.save_dir)
+        device=device, model_key=model_key, save_dir=args.save_dir,
+        dense_params=dense)
     mbytes = model_bytes(params)
     streamed = mbytes - model_bytes(params["embed"])
     bits = calc_avg_bits(cfg, qdict, num_layers=nl)
@@ -150,7 +178,8 @@ def main():
           f"{streamed / 1e9:.3f} GB, {bits:.2f} bits/weight avg, "
           f"{nl} layers, impl {args.impl}, lm_head {head}")
 
-    prompt = np.ones((1, 1), dtype=np.int64)
+    B = args.batch_size
+    prompt = np.ones((B, 1), dtype=np.int64)
     all_tps = []
     for i in range(args.num_samples):
         _, stats = generate(spec, params, prompt,
@@ -159,19 +188,31 @@ def main():
         tps = stats["tokens_per_sec"]
         all_tps.append(tps)
         print(f"sample {i}: {tps:.2f} tokens/sec, "
-              f"{streamed * tps / 1e9:.1f} GB/s streamed on {dev_name}",
+              f"{streamed * tps / B / 1e9:.1f} GB/s streamed on {dev_name}",
               flush=True)
     avg = float(np.mean(all_tps))
     print(f"Average tokens/sec: {avg:.2f} on {dev_name}")
-    print(json.dumps({"average_tokens_per_sec": avg, "device": dev_name,
-                      "model_size_gb": mbytes / 1e9,
-                      "streamed_gb_per_token": streamed / 1e9,
-                      "avg_bits": bits, "impl": args.impl, "num_layers": nl,
-                      "quantizer_str": args.quantizer_str,
-                      "weights": "dummy" if args.dummy else args.save_dir,
-                      "routes": {f"{k}/{im}": n
-                                 for (k, im), n in sorted(routes.items())},
-                      "lm_head_bits": args.lm_head_bits, "lm_head": head}))
+    result = {"average_tokens_per_sec": avg, "device": dev_name,
+              "model_size_gb": mbytes / 1e9,
+              "streamed_gb_per_token": streamed / 1e9, "avg_bits": bits,
+              "impl": args.impl, "num_layers": nl, "batch_size": B,
+              "quantizer_str": args.quantizer_str,
+              "qdict_path": (None if args.quantizer_str is not None
+                             else args.qdict_path),
+              "weights": "dummy" if args.dummy else args.save_dir,
+              "dense_params": None if dense is None else ckpt,
+              "routes": {f"{k}/{im}": n
+                         for (k, im), n in sorted(routes.items())},
+              "lm_head_bits": args.lm_head_bits, "lm_head": head}
+    print(json.dumps(result))
+    if args.save_key:
+        out = os.path.join("eval_results", "latency", args.hf_path,
+                           f"{args.save_key}.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(result, f, indent=1)
+        print(f"saved {out}")
+    return result
 
 
 if __name__ == "__main__":

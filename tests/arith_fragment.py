@@ -1,6 +1,6 @@
 """The V=2 decode GEMVs' fragment algebra on the CPU, shared by the
 rehearsals of tcq2_gemv.cu's v2_gemv_kernel (test_torch_arith.py) and
-sum2_wide.cuh's sum2_wide_kernel (test_torch_arith_wide.py): a lane's
+v2_wide.cuh's v2_wide_kernel (wide_fragment.py): a lane's
 16-bit state windows, its hash bytes and weights, byte permutes, and the
 C fragment's layout."""
 

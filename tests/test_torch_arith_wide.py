@@ -1,5 +1,7 @@
-"""csrc/sum2_wide.cuh's sum2_wide_kernel (K1 sum2 at 8 < N <= 256) rehearsed
-on the CPU against the plain version (``-k wide_fragment``).
+"""csrc/v2_wide.cuh's v2_wide_kernel in mode sum2 (K1 sum2 at 8 < N <= 256)
+rehearsed on the CPU against the plain version (``-k wide_fragment``;
+the emulation is tests/wide_fragment.py, shared with the dualmad
+rehearsal).
 
 The emulation follows the kernel on the plain words: the prologue's
 workspace (a8's chunk scales over all N rows, then x in B-fragment order
@@ -18,243 +20,23 @@ import numpy as np
 import pytest
 import torch
 
-from arith_fragment import (M32, S8_MMAS, c_frag, lane_weights, lane_windows,
-                            prmt, sbytes)
 from qpalette_tpu_torch.kernels import arith
 from qpalette_tpu_torch.ops.packing import words_to_torch
+from wide_fragment import STEP, chunk_sums_exact, emulate, n_tiles
 
-WARPS, STEP = 8, 8  # kWideWarps (m-tiles a block), kWideTiles (a step)
-CHUNK_TILES = arith.CHUNK // 16
-MAX_CLUSTER, SMS = 8, 132
 M, K = 160, 2576  # 10 m-tiles: a whole m-group and one of 2
 # (rows, cluster size): None takes the launcher's choice on 132 SMs
 CASES = [(9, None), (49, 1), (191, None)]
 
 
-def n_tiles(ntot, a8):
-    """The instance's n-tiles a warp (wide_rows): the fewest that hold an
-    even share of the rows in the fewest row groups."""
-    most = 16 if a8 else 32
-    rg = -(-ntot // most)
-    share = -(-ntot // rg)
-    return min(nt for nt in (2, 4, 8, 12, 16, 24, 32)
-               if nt >= share and nt <= most)
-
-
-def stages(NT):
-    """WideSmem's kStages."""
-    return 3 if NT >= 24 else 4
-
-
-def cluster_size(mgroups, rg, nst, NT, a8):
-    """launch_wide's cluster size on SMS SMs (WideSmem's kStages and
-    kMinBlocks)."""
-    acc = 4 * NT * (2 if a8 else 1)
-    min_blocks = 3 if acc <= 16 else 2 if acc <= (32 if a8 else 64) else 1
-    cs = 1
-    while (cs < MAX_CLUSTER and mgroups * rg * cs < SMS * min_blocks
-           and nst >= 2 * stages(NT) * cs):
-        cs *= 2
-    return cs
-
-
-def x_offset(nt, t, NT, ntot, kt, a8):
-    """wide_x_offset: bytes before lane 0's words of n-tile nt at k-tile t
-    (ints, or tensors of them)."""
-    y, j = nt // NT, nt % NT
-    ntg = (torch.clamp(ntot - y * NT, max=NT) if torch.is_tensor(y)
-           else min(NT, ntot - y * NT))
-    return (y * kt * NT + t * ntg + j) * 128 * (1 if a8 else 2)
-
-
-def workspace(x, NT, a8, mutate=None):
-    """wide_x_kernel: (the workspace's words after its scale bytes, a flat
-    int64 tensor of 32-bit values; a8: each chunk's (scale, 1/scale) as
-    each row group's block reads it).  mutate "offset" puts lane 2h+1's
-    exact words where lane 2h's go; "scale" takes each a8 scale over one
-    row group's rows only."""
-    N, k = x.shape
-    kt, ntot = k // 16, -(-N // 8)
-    rows, rg = 8 * ntot, -(-ntot // NT)
-    xp = torch.zeros((rows, k), dtype=torch.float32)
-    xp[:N] = x
-    words = torch.zeros(rows * k * (1 if a8 else 2) // 4, dtype=torch.int64)
-    nt = torch.arange(rows)[:, None] // 8
-    off = x_offset(nt, torch.arange(kt)[None, :], NT, ntot, kt, a8)
-    g = torch.arange(rows)[:, None] % 8
-    scales = []
-    if a8:
-        q = torch.zeros((rows, k), dtype=torch.int64)
-        for c0 in range(0, k, arith.CHUNK):
-            groups = []
-            for y in range(rg):
-                r0, r1 = 8 * NT * y, min(N, 8 * NT * (y + 1))
-                xs = x[r0:r1] if mutate == "scale" else x
-                amax = xs[:, c0:c0 + arith.CHUNK].abs().amax()
-                s = amax / torch.tensor(127.0) + 1e-30
-                inv = torch.tensor(1.0) / s
-                q[r0:r1, c0:c0 + arith.CHUNK] = torch.round(
-                    x[r0:r1, c0:c0 + arith.CHUNK] * inv).to(torch.int64)
-                groups.append((s, inv))
-            scales.append(groups)
-        qb = (q & 0xFF).reshape(rows, kt, 16)
-        for c in range(4):  # lane 4g + c: [q(2c), q(2c+1), q(8+2c), q(9+2c)]
-            w = (qb[..., 2 * c] | qb[..., 2 * c + 1] << 8
-                 | qb[..., 8 + 2 * c] << 16 | qb[..., 9 + 2 * c] << 24)
-            words[(off + (4 * g + c) * 4) // 4] = w
-    else:
-        bits = (xp.to(torch.bfloat16).view(torch.int16).to(torch.int64)
-                & 0xFFFF).reshape(rows, kt, 16)
-
-        def pair(col):
-            return bits[..., col] | bits[..., col + 1] << 16
-
-        for h in (0, 1):  # [pair(4h), pair(8+4h), pair(4h+2), pair(10+4h)]
-            lane = 4 * g + (2 * (1 - h) if mutate == "offset" else 2 * h)
-            for i, col in enumerate((4 * h, 8 + 4 * h, 4 * h + 2, 10 + 4 * h)):
-                words[(off + lane * 8) // 4 + i] = pair(col)
-    return words, scales
-
-
-def a_regs(words, KV, mt, kt, a8):
-    """Each tile's A matrix, decoded once from the lane registers: a8
-    (mt, kt, 16, 32) s8 hash bytes, exact (mt, kt, 16, 16) weights."""
-    u = lane_windows(words, KV).reshape(mt, kt, 32, 4)
-    lane = torch.arange(32)
-    g, c = lane >> 2, lane & 3
-    if a8:
-        a = torch.zeros((mt, kt, 16, 32), dtype=torch.int64)
-        hash_fn = S8_MMAS["sum2"][0][0]
-        for r in range(4):
-            sb = sbytes(hash_fn(u[..., r]))
-            for b in range(4):
-                col = 4 * c + 16 * (r >> 1) + b
-                a[:, :, g + 8 * (r & 1), col] = sb[..., b]
-        return a
-    wl = lane_weights(u, "sum2")
-    a = torch.zeros((mt, kt, 16, 16), dtype=torch.int64)
-    for r in range(4):
-        for p in (0, 1):
-            a[:, :, g + 8 * (r & 1), 2 * c + 8 * (r >> 1) + p] = wl[..., r, p]
-    return a
-
-
-def b_regs(slab, a8):
-    """(..., 32 lanes, wide_words) slab words of an (n-tile, k-tile) ->
-    the MMA's B matrix (..., 32 or 16, 8) from each lane's registers."""
-    lane = torch.arange(32)
-    g, c = lane >> 2, lane & 3
-    if a8:
-        B = torch.zeros(slab.shape[:-2] + (32, 8), dtype=torch.int64)
-        for reg, sel in enumerate(S8_MMAS["sum2"][0][1]):
-            sb = sbytes(prmt(slab[..., 0], sel))  # (..., 32, 4)
-            for b in range(4):
-                B[..., 4 * c + 16 * reg + b, g] = sb[..., b]
-        return B
-    B = torch.zeros(slab.shape[:-2] + (16, 8), dtype=torch.float32)
-    for i in (0, 1):  # b.x, b.y: columns 2c + 8i, +1
-        for p in (0, 1):
-            half = ((slab[..., i] >> (16 * p)) & 0xFFFF) << 16
-            B[..., 2 * c + 8 * i + p, g] = (half & M32).to(
-                torch.int32).view(torch.float32)
-    return B
-
-
-def emulate(x, trellis, KV, m, k, a8, cs=None, mutate=None):
-    """sum2_wide_kernel's y (N, m) float32 and a8's int32 chunk sums
-    {(chunk, m-group, row group): (x rows, m rows)}, block by block."""
-    N = x.shape[0]
-    kt, mtiles, ntot = k // 16, m // 16, -(-N // 8)
-    NT = n_tiles(ntot, a8)
-    rg, mgroups, nst = -(-ntot // NT), -(-mtiles // WARPS), -(-kt // STEP)
-    cs = cs or cluster_size(mgroups, rg, nst, NT, a8)
-    words, scales = workspace(x, NT, a8, mutate)
-    A = a_regs(trellis, KV, mtiles, kt, a8)
-    W = 1 if a8 else 2
-    out = torch.zeros((N, m))
-    chunk_sums = {}
-    for mg in range(mgroups):
-        nact = min(WARPS, mtiles - mg * WARPS)
-        for y in range(rg):
-            ntg = min(NT, ntot - y * NT)
-            parts = []
-            for rank in range(cs):
-                s0 = nst * rank // cs
-                nsteps = nst * (rank + 1) // cs - s0
-                ta, tb = s0 * STEP, min(kt, (s0 + nsteps) * STEP)
-                xsrc = x_offset(y * NT, ta, NT, ntot, kt, a8)
-                acc = torch.zeros((nact, ntg, 16, 8))
-                di = torch.zeros((nact, ntg, 16, 8), dtype=torch.int64)
-                ch = -1
-                # the x slots (stale words stay between steps)
-                slots = torch.zeros((stages(NT), STEP * NT * 32 * W),
-                                    dtype=torch.int64)
-                for s in range(nsteps):
-                    n = min(STEP, tb - ta - s * STEP)
-                    t0 = ta + s * STEP
-                    if a8 and t0 // CHUNK_TILES != ch:
-                        if ch >= 0:
-                            acc, di = descale(acc, di, scales[ch][y][0],
-                                              (ch, mg, y), chunk_sums)
-                        ch = t0 // CHUNK_TILES
-                    # the step's x: one copy of its contiguous bytes into
-                    # slot s % S; every lane reads its words of all NT
-                    # n-tiles at t*ntg + j (past ntg: other words of the
-                    # slot, an index error if outside it), the MMAs on
-                    # n-tiles >= ntg feed fragments never stored
-                    b0 = (xsrc + s * STEP * ntg * 128 * W) // 4
-                    slot = slots[s % stages(NT)]
-                    slot[:n * ntg * 32 * W] = words[b0:b0 + n * ntg * 32 * W]
-                    t_, j_, l_, w_ = torch.meshgrid(
-                        torch.arange(n), torch.arange(NT), torch.arange(32),
-                        torch.arange(W), indexing="ij")
-                    read = slot[((t_ * ntg + j_) * 32 + l_) * W + w_]
-                    B = b_regs(read[:, :ntg], a8)  # (n, ntg, 32|16, 8)
-                    Aw = A[mg * WARPS:mg * WARPS + nact, t0:t0 + n]
-                    if a8:  # int32 in the kernel: exact products and sums
-                        di = di + torch.einsum("wtik,tjkn->wjin", Aw, B)
-                        assert int(di.abs().max()) < 1 << 24
-                    else:  # one MMA a tile and n-tile, f32 sums
-                        for t in range(n):
-                            acc = acc + torch.einsum(
-                                "wik,jkn->wjin", Aw[:, t].float(), B[t])
-                if a8 and ch >= 0:
-                    acc, di = descale(acc, di, scales[ch][y][0], (ch, mg, y),
-                                      chunk_sums)
-                g, c = torch.arange(32) >> 2, torch.arange(32) & 3
-                parts.append(torch.stack([c_frag(acc[:, j], g, c)
-                                          for j in range(ntg)], 1))
-            # the epilogue: lane (g, c)'s float4, summed in rank order, is
-            # rows 2g, 2g+1 of x rows 2c (x, z) and 2c+1 (y, w)
-            v = torch.zeros_like(parts[0])
-            for p in parts:
-                v = v + p
-            for w in range(nact):
-                for j in range(ntg):
-                    for lane in range(32):
-                        row = (mg * WARPS + w) * 16 + 2 * (lane >> 2)
-                        xr = (y * NT + j) * 8 + 2 * (lane & 3)
-                        f = v[w, j, lane] * arith.MAD_INV
-                        if xr < N:
-                            out[xr, row:row + 2] = f[0::2]
-                        if xr + 1 < N:
-                            out[xr + 1, row:row + 2] = f[1::2]
-    return out, chunk_sums
-
-
-def descale(acc, di, sc, key, chunk_sums):
-    """A chunk boundary: the f32 fragments take (float)int32 * scale, and
-    the int32 fragments (nact, ntg, 16, 8) are gathered un-permuted by key
-    (chunk, m-group, row group) as (x rows, m rows) for the exact check
-    (fragment row fr is tile row 2*(fr%8) + fr/8)."""
-    nact, ntg = di.shape[:2]
-    tile_row = 2 * (torch.arange(16) % 8) + torch.arange(16) // 8
-    rows = torch.zeros((8 * ntg, 16 * nact), dtype=torch.int64)
-    for w in range(nact):
-        rows.view(8 * ntg, nact, 16)[:, w, tile_row] = (
-            di[w].permute(0, 2, 1).reshape(8 * ntg, 16))
-    chunk_sums[key] = chunk_sums.get(key, 0) + rows
-    return acc + di.to(torch.float32) * sc, torch.zeros_like(di)
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread (as tests/test_torch_decode.py): parallel test
+    workers, each with a thread a core, oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _case(KV, N, seed):
@@ -277,28 +59,17 @@ def test_wide_fragment_matches_plain(KV, a8):
     y of both variants within the f32 sum order."""
     for N, cs in CASES:
         words, x = _case(KV, N, seed=200 + 10 * KV + N)
-        y, sums = emulate(x, words, KV, M, K, a8, cs)
+        y, sums = emulate(x, words, KV, M, K, a8, cs=cs)
         want = arith.arith_gemv_plain(x, words, "sum2", KV, M, K, a8)
         # bf16 x times integer weights, or int32 chunk sums descaled: only
         # the order of the f32 sums differs
         assert _rel(y, want) < 1e-5, (N, cs, _rel(y, want))
         if not a8:
             continue
-        w_int = arith.arith_weights_mat(words, "sum2", KV, M, K)
         kt, ntot = K // 16, -(-N // 8)
         NT = n_tiles(ntot, True)
         assert (N > 128) == (ntot > NT)  # rows split over blocks at 191
-        for (ch, mg, yg), got in sums.items():
-            c0 = ch * arith.CHUNK
-            xc = x[:, c0:c0 + arith.CHUNK]
-            s = xc.abs().amax() / torch.tensor(127.0) + 1e-30
-            q = torch.round(xc * (torch.tensor(1.0) / s)).to(torch.int64)
-            r0 = yg * NT * 8
-            r1 = min(N, r0 + got.shape[0])
-            m0 = mg * WARPS * 16
-            full = q[r0:r1] @ w_int[m0:m0 + got.shape[1],
-                                    c0:c0 + arith.CHUNK].T
-            assert torch.equal(got[:r1 - r0], full), (N, ch, mg, yg)
+        chunk_sums_exact(sums, x, words, "sum2", KV, M, K)
         assert kt % STEP and K % arith.CHUNK  # partial step and chunk
 
 

@@ -1,7 +1,8 @@
 """Port parity for the loader: the JAX package's artifact files, one real
 artifact of every kind through qlinear_apply under each impl, the tcq /
-tcomb merges, and a 4-layer model that the JAX package quantized and wrote
-to disk, loaded by the port from the same directory.  Its 4-bit head's
+tcomb merges, and (test_torch_loader_model.py, which takes its cases from
+here) a 4-layer model that the JAX package quantized and wrote to disk,
+loaded by the port from the same directory.  Its 4-bit head's
 artifact (4096 x 128 tcq2s_8: the vocab pads to 4096) is written before
 the build with random words in the reference's meta schema, as the
 reference reads it: quantizing it on demand takes 104 s on one CPU.
@@ -24,7 +25,6 @@ whole forward around interpret-mode kernels compiled for minutes."""
 import dataclasses
 import json
 import os
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -32,22 +32,18 @@ import numpy as np
 import pytest
 import torch
 
-from qpalette_tpu.models import llama as jllama
 from qpalette_tpu.models.llama import LlamaConfig as JConfig
 from qpalette_tpu.ops.codebooks import trellis_lut as j_trellis_lut
 from qpalette_tpu.ops.codebooks import trellis_lut_arith as j_lut_arith
-from qpalette_tpu.ops.hadamard import get_had_factors as j_had_factors
 from qpalette_tpu.quant import incoherent as jinc
 from qpalette_tpu.runtime import loader as jloader
 from qpalette_tpu.runtime import qlinear as jqlinear
 
 from qpalette_tpu_torch import convert
-from qpalette_tpu_torch.convert import params_from_jax
-from qpalette_tpu_torch.models import llama
 from qpalette_tpu_torch.models.llama import LlamaConfig
 from qpalette_tpu_torch.ops.codebooks import trellis_tlut
 from qpalette_tpu_torch.quant import incoherent
-from qpalette_tpu_torch.runtime import decode, loader
+from qpalette_tpu_torch.runtime import loader
 from qpalette_tpu_torch.runtime.qlinear import dequant_weight, qlinear_apply
 
 # (b): 64 x 128, but 64 x 256 for ldlq_2_4: the port's row-pack kernels
@@ -310,172 +306,7 @@ def test_impl_choices_match_reference_qstr_for():
             assert JIMPL[loader.impl_for(c, session)] == a.projs[0][1].impl
 
 
-# --- (d) a model quantized and written by the reference ------------------
-
-def _write_head_artifact(save_dir):
-    """The 4-bit head's artifact: random tcq2s_8 words, the head's SU (seed
-    0 * 7 + 99) and Hadamard stamp, in the reference's meta schema."""
-    h, VP = CFG["hidden_size"], 4096
-    rng = np.random.default_rng(5)
-    su = (np.random.default_rng(99).standard_normal(h) > 0) * 2.0 - 1.0
-    art = {"meta": {"quantizer_str": loader.LM_HEAD_QSTR, "kind": "tcq2",
-                    "KV": 8, "decode_mode": "sum2", "in_features": h,
-                    "out_features": VP, "rot_info": "skip_r",
-                    "rot_blocks": 1, "had_factors": list(j_had_factors(h))},
-           "SU": su.astype(np.float32),
-           "Wscale": rng.uniform(0.01, 0.03, VP).astype(np.float32),
-           "trellis": rng.integers(0, 1 << 32, ((VP // 16) * (h // 16), 32),
-                                   dtype=np.uint32)}
-    jinc.save_artifact(art, jinc.artifact_path(
-        save_dir, MODEL_KEY, 0, loader.LM_HEAD_QSTR, *loader.LM_HEAD_LAYER))
-
-
-@pytest.fixture(scope="module")
-def model(tmp_path_factory):
-    """The reference model, quantized on demand into save_dir, and the
-    port's, loaded from it."""
-    save_dir = str(tmp_path_factory.mktemp("quant_results"))
-    _write_head_artifact(save_dir)
-    dense = jloader.random_dense_params(JConfig(**CFG), seed=3)
-    jspec, jparams = jloader.build_quantized_model(
-        JConfig(**CFG), QDICT, merge_info=MERGE, model_key=MODEL_KEY,
-        save_dir=save_dir, dense_params=dense, dummy=False, impl="xla",
-        lm_head_bits=4)
-    spec, params = loader.build_quantized_model(
-        LlamaConfig(**CFG), QDICT, merge_info=MERGE, model_key=MODEL_KEY,
-        save_dir=save_dir, dense_params=dense, dummy=False, impl="dequant",
-        lm_head_bits=4, device="cpu")
-    return jspec, jparams, spec, params, save_dir, dense
-
-
-def _ref_greedy(jspec, jparams):
-    """Eager reference prefill + N_STEPS greedy steps: (tokens (1,
-    N_STEPS + 1), [logits of each forward's last position])."""
-    caches = jllama.init_kv_caches(jspec, 1, PROMPT.shape[1] + N_STEPS)
-    logits, caches = jllama.forward(jspec, jparams, jnp.asarray(PROMPT),
-                                    kv_caches=caches, cache_pos=jnp.int32(0))
-    outs, toks = [np.asarray(logits)], []
-    for s in range(N_STEPS):
-        nxt = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
-        toks.append(int(nxt[0, 0]))
-        logits, caches = jllama.forward(
-            jspec, jparams, nxt, kv_caches=caches,
-            cache_pos=jnp.int32(PROMPT.shape[1] + s))
-        outs.append(np.asarray(logits))
-    toks.append(int(jnp.argmax(logits[0, -1])))
-    return np.array([toks]), outs
-
-
-def test_model_spec_matches_reference(model):
-    """Every merge, kind and resolved impl of the reference's spec."""
-    jspec, _, spec, _, _, _ = model
-    for (ja, jm), (a, m) in zip(jspec.layers, spec.layers, strict=True):
-        assert a.merge == ja.merge
-        for (jn, jls), (n, ls) in zip(ja.projs + jm.projs, a.projs + m.projs,
-                                      strict=True):
-            assert (n, ls.kind, ls.split, ls.out_features) == (
-                jn, jls.kind, tuple(jls.split), jls.out_features)
-            assert JIMPL[ls.impl] == jls.impl, n
-    merges = [a.merge for a, _ in spec.layers]
-    assert merges == ["qkv", "qk", "kv", "qv"]
-    assert {ls.impl for a, m in spec.layers
-            for _, ls in a.projs + m.projs} == {"exact", "dequant"}
-    assert spec.lm_head_spec.impl == "a8"
-
-
-def test_model_params_equal_converted_reference(model):
-    """The port's params, read from the reference's files, are bit-equal to
-    params_from_jax of the reference's params.  One exception: the
-    reference holds the codebook of a vq projection at impl xla in bf16;
-    the port keeps the artifact's float32 codebook, equal after the bf16
-    rounding that every vq kernel and plain version applies first."""
-    jspec, jparams, spec, params, _, _ = model
-    want = params_from_jax(jax.tree.map(np.asarray, jparams), spec,
-                           device="cpu")
-    assert params.keys() == want.keys()
-    assert params["luts"].keys() == want["luts"].keys()
-
-    def same(a, b, path):
-        if isinstance(a, dict):
-            assert a.keys() == b.keys(), path
-            for k in a:
-                same(a[k], b[k], f"{path}.{k}")
-        elif path.endswith(".lut") and a.dtype != b.dtype:
-            raise AssertionError(path)
-        elif path.endswith(".lut"):
-            assert torch.equal(a.to(torch.bfloat16), b.to(torch.bfloat16))
-        else:
-            assert a.dtype == b.dtype and torch.equal(a, b), path
-
-    for i, (lp, wp) in enumerate(zip(params["layers"], want["layers"],
-                                     strict=True)):
-        same(lp, wp, f"layers[{i}]")
-    for key in set(params) - {"layers"}:
-        same(params[key], want[key], key)
-
-
-def test_model_logits_and_greedy_tokens_match_reference(model):
-    """A 6-token prefill and 4 greedy decode steps: the port's logits,
-    teacher-forced on the reference's tokens, within LOGIT_TOL of max|logit|
-    at every forward, and the port's own greedy generate gives the
-    reference's tokens up to a step where the reference's top-2 margin is
-    below the tolerance (measured here: rel 0.7-1.4e-2, and a 0.37% margin
-    at the second token, where the two part ways)."""
-    jspec, jparams, spec, params, _, _ = model
-    want_toks, want = _ref_greedy(jspec, jparams)
-    caches = llama.init_kv_caches(spec, 1, PROMPT.shape[1] + N_STEPS, "cpu")
-    logits, caches = llama.forward(spec, params, torch.as_tensor(PROMPT),
-                                   kv_caches=caches, cache_pos=0)
-    rels = [_rel(logits.numpy(), want[0])]
-    for s in range(N_STEPS):
-        tok = torch.tensor([[want_toks[0, s]]])
-        logits, caches = llama.forward(spec, params, tok, kv_caches=caches,
-                                       cache_pos=PROMPT.shape[1] + s)
-        rels.append(_rel(logits.numpy(), want[s + 1]))
-    assert max(rels) < LOGIT_TOL, rels
-    got, _ = decode.generate(spec, params, PROMPT, N_STEPS + 1,
-                             temperature=0.0)
-    diff = np.nonzero(got[0, PROMPT.shape[1]:] != want_toks[0])[0]
-    if diff.size:
-        # a step may differ only where the reference's top-2 margin is
-        # below the logit tolerance (then the continuations legitimately
-        # part ways), as in test_torch_model.py
-        i = diff[0]
-        top2 = np.sort(want[i][0, -1])[-2:]
-        assert top2[1] - top2[0] < LOGIT_TOL * np.abs(want[i]).max(), i
-
-
 # --- (e) what the port refuses --------------------------------------------
-
-def test_stale_missing_and_foreign_artifacts_raise(model, tmp_path):
-    """A stale had_factors stamp raises (the reference re-quantizes), a
-    missing artifact raises the quantize-on-demand message, a tlut that is
-    not the committed table raises."""
-    _, _, _, _, save_dir, dense = model
-    cfg = LlamaConfig(**CFG)
-
-    def build(where):
-        return loader.build_quantized_model(
-            cfg, QDICT, merge_info=MERGE, model_key=MODEL_KEY,
-            save_dir=where, dense_params=dense, dummy=False, impl="dequant",
-            lm_head_bits=4, device="cpu")
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build(str(tmp_path / "empty"))
-    stale = str(tmp_path / "stale")
-    shutil.copytree(save_dir, stale)
-    path = incoherent.artifact_path(stale, MODEL_KEY, 0, TQ, 2, KQ)
-    art = incoherent.load_artifact(path)
-    incoherent.save_artifact(
-        dict(art, meta=dict(art["meta"], had_factors=[2, 64])), path)
-    with pytest.raises(RuntimeError, match="Hadamard"):
-        build(stale)
-    foreign = dict(art, tlut=art["tlut"] * 2)
-    with pytest.raises(ValueError, match="tlut"):
-        loader._params_from_artifact(foreign, "cpu")
-    with pytest.raises(ValueError, match="tlut"):
-        loader.merge_artifacts([art, foreign])
-
 
 def test_out_of_scope_raises_with_its_roadmap_item(arts):
     """tcomb halves of unequal width (tensor-parallel sharding) and the

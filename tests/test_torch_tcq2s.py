@@ -22,6 +22,16 @@ from qpalette_tpu_torch.runtime.qlinear import LinearSpec, qlinear_apply
 M, K = 64, 256
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread (as tests/test_torch_decode.py): parallel test
+    workers, each with a thread a core, oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(KV, seed, rows=2):
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 1 << 32, ((M // 16) * (K // 16), 4 * KV),

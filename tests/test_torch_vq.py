@@ -60,6 +60,16 @@ KERNEL_CASES = [(6, 2, 512, 8), (5, 1, 1024, 1), (3, 2, 1024, 1)]
 M = 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread (as tests/test_torch_decode.py): parallel test
+    workers, each with a thread a core, oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
     return np.abs(a - b).max() / (np.abs(b).max() + 1e-9)
