@@ -3,7 +3,8 @@
 
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
-      [--ab tcq2_gemv|tcq2_wide|tcq2mix_wide|tcq2mix|tcq1_gemv|tcq_lut|vq]
+      [--ab tcq2_gemv|tcq2_wide|tcq2mix_wide|tcq1_wide|tcq2mix|tcq1_gemv|
+            tcq_lut|vq]
   python chip_smoke.py --rows
   python chip_smoke.py --recapture N
 
@@ -13,7 +14,9 @@ shapes at N = 16/64/256 with the zero-shot run, an a8 512-token 215
 prefill and the 215 decode (--ab tcq2_wide, ab_wide), K1 dualmad above 8
 rows at Path A's qkv and ug at N = 16/64/256 (exact and a8) with the Path
 A zero-shot run, an a8 512-token Path A prefill, the Path A and the 215
-decode (--ab tcq2mix_wide, ab_wide), K1 dualmad at Path A's shapes with
+decode (--ab tcq2mix_wide, ab_wide), K1 1mad above 8 rows at Path A's o
+and down and 2mad at 4096x4096 with the same runs (--ab tcq1_wide,
+ab_wide), K1 dualmad at Path A's shapes with
 K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
 1mad at Path A's shapes with 2mad at 4096x4096 and the Path A a8 decode
 (--ab tcq1_gemv), the LUT GEMVs and the flagship decode (--ab tcq_lut),
@@ -32,22 +35,22 @@ Phases (each raises on failure):
   3. the arithmetic trellis GEMV (K1) against its plain PyTorch version:
      sum2 at every Llama-3.1-8B shape of the 215.0thp_cc path (N in
      {1,4,16}: the tensor-core kernel at N <= 8, two launches bit-equal at
-     N=4; v2_wide_kernel at 16); dualmad, 1mad, 2mad and odd-KV sum2
+     N=4; wide_gemv_kernel at 16); dualmad, 1mad, 2mad and odd-KV sum2
      at every shape of bench.py's tcq2mix scheme plus 4096x4096 and odd
      k/16 shapes (N in {1,8,256}; every mode on its tensor-core kernel at
      N <= 8, two launches bit-equal at N=8); exact and a8; kernel and
      plain times at N=1 on Path A's shapes, kernel times of 2mad (on no
-     path) at 4096x4096; K1 sum2 above 8 rows (v2_wide_kernel, its x
+     path) at 4096x4096; K1 sum2 above 8 rows (wide_gemv_kernel, its x
      prologue a second launch) at the 215 shapes: against its plain
      version at N in {9, 16, 49, 64, 191, 256}, exact and a8, two launches
      bit-equal at 191, and timed at N in {16, 64, 256} (a zero-shot
      forward's rows: layers exact, head a8) beside the bound, the dequant
      route (K2 + the f32 product) and, at N=64, the plain version; K1
-     dualmad above 8 rows (v2_wide_kernel) against its plain version at
-     Path A's qkv and ug and the odd k/16 shapes at N in {9, 16, 49, 64,
-     191, 256}, exact and a8, two launches bit-equal at 191; dualmad, 1mad
-     and 2mad (the arith.cuh template) above 8 rows timed at Path A's
-     shapes (2mad at 4096x4096) at N in {16, 64, 256}, exact and a8,
+     dualmad, 1mad and 2mad above 8 rows (wide_gemv_kernel under the V=2
+     and V=1 tile policies) against their plain versions at Path A's
+     shapes (2mad at 4096x4096) and the odd k/16 ones at N in {9, 16, 49,
+     64, 191, 256}, exact and a8, two launches bit-equal at 191, and
+     timed at Path A's shapes at N in {16, 64, 256}, exact and a8,
      beside the bound (exact at the tf32 peak), the dequant route and, at
      N=64, the plain version, summed over a Path A forward's calls, with
      the SM clock sampled (k1_rows)
@@ -88,11 +91,11 @@ Phases (each raises on failure):
      dualmad, o/down tcq1_3 in mode 1mad, the 4-bit tcq2s_8 lm_head), impl
      a8 and impl exact; prefill 16 and decode 64, 129 K1 launches per
      decode forward (32 dualmad KV6 + 32 dualmad KV7, 64 1mad KV3, 1
-     sum2), 194 in the prefill (dualmad and the head on v2_wide_kernel,
-     two launches a call); tokens/s and peak memory; then the zero-shot
-     harness on it at impl exact (as 10c's: 64 dualmad calls a forward of
-     two launches, 64 1mad of one on the template, the head's two;
-     examples/s after a warm-up pass)
+     sum2), 258 in the prefill (every call on wide_gemv_kernel, two
+     launches a call); tokens/s and peak memory; then the zero-shot
+     harness on it at impl exact (as 10c's: 64 dualmad and 64 1mad calls
+     a forward of two launches each, the head's two; examples/s after a
+     warm-up pass)
   9. Path B: a 512-token prefill at impl exact on tcq2mix (64 K2 + 64 K3,
      the head as 2 chunked sum2 K1 launches) and on the 215 config (128 K2
      sum2 + 2); prefill time and peak memory
@@ -182,7 +185,7 @@ CALLS_PER_STEP = {"qkv": 32, "o": 32, "ug": 32, "down": 32, "lm_head": 1}
 LAUNCHES_PER_FORWARD = 129
 # rows a zero-shot forward gives K1 (its prompts' lengths), timed in phase 3
 ZS_ROWS = (16, 64, 256)
-# rows at which phase 3 holds v2_wide_kernel against its plain version:
+# rows at which phase 3 holds wide_gemv_kernel against its plain version:
 # whole n-tiles, and 9, 49, 191 ending in a partial one (a8 splits 191 and
 # 256 over two row groups)
 ZS_CHECK_ROWS = (9, 16, 49, 64, 191, 256)
@@ -210,9 +213,9 @@ SHAPES_ARITH = [("qkv", 6144, 4096, "dualmad", 6, 32),
                 ("odd_kt", 256, 4112, "dualmad", 9, 0)]
 PATH_A_STEP = {"tcq2_decode_gemv": 64, "tcq1_decode_gemv": 64,
                "tcq2s_decode_gemv": 1}
-# the 16-token prefill: dualmad and the sum2 head above 8 rows on
-# v2_wide_kernel, two launches a call; 1mad on the template, one
-PATH_A_PREFILL = {**PATH_A_STEP, "tcq2_decode_gemv": 128,
+# the 16-token prefill: every K1 call above 8 rows on wide_gemv_kernel, two
+# launches a call
+PATH_A_PREFILL = {"tcq2_decode_gemv": 128, "tcq1_decode_gemv": 128,
                   "tcq2s_decode_gemv": 2}
 PATH_A_MIX = {("tcq2", "dualmad", 6): 32, ("tcq2", "dualmad", 7): 32,
               ("tcq1", "1mad", 3): 64}
@@ -435,7 +438,7 @@ def sum2_checks(arith, device):
 
 
 def sum2_row_times(arith, arith_dequant, device):
-    """K1 sum2 above 8 rows (v2_wide_kernel after its x prologue, bf16 x)
+    """K1 sum2 above 8 rows (wide_gemv_kernel after its x prologue, bf16 x)
     at the 215 shapes: held against its plain version at ZS_CHECK_ROWS,
     exact and a8, two launches bit-equal at 191 rows (a8: two row groups),
     then timed as a zero-shot forward calls it (the layers at exact, the
@@ -507,27 +510,28 @@ def sum2_row_times(arith, arith_dequant, device):
 
 # Path A's K1 calls of the other V=2 and the V=1 modes above 8 rows, timed
 # at ZS_ROWS in phase 3 (k1_rows): (name, m, k, mode, KV, calls a forward);
-# 2mad on no path.  dualmad is also held against its plain version at
+# 2mad on no path.  Each is also held against its plain version at
 # ZS_CHECK_ROWS, at these shapes and at the odd k/16 ones
 ROWS_ARITH = [sh for sh in SHAPES_ARITH
               if sh[3] != "sum2" and sh[0] != "odd_kt"]
-ROWS_CHECK = [sh for sh in SHAPES_ARITH if sh[3] == "dualmad"]
+ROWS_CHECK = [sh for sh in SHAPES_ARITH if sh[3] != "sum2"]
 
 
 def k1_rows(arith, arith_dequant, device, reps=10):
-    """K1 dualmad, 1mad and 2mad above 8 rows (bf16 x, as a prefill or a
-    zero-shot forward gives them): dualmad held against its plain version
-    at ZS_CHECK_ROWS, exact and a8, two launches bit-equal at 191 rows;
-    then each ROWS_ARITH shape timed at N in ZS_ROWS, exact and a8,
-    beside its bound and the dequant route (K2/K3, then qlinear._product),
-    and the plain version at N = 64, exact.  Exact's bound counts its
-    operations at the tf32 tensor-core peak: bf16 does not hold the V=1 and dualmad
-    weights beyond +-256, tf32 holds them (the tensor-core kernels' exact
-    MMAs).  Returns (max_abs_err of dualmad, {(N, name, mode, KV, a8):
-    (ms, plain_ms or None, bound_ms, route_ms, bound_by)})."""
+    """K1 dualmad, 1mad and 2mad above 8 rows (wide_gemv_kernel, bf16 x,
+    as a prefill or a zero-shot forward gives them): held against the
+    plain version at ZS_CHECK_ROWS, exact and a8, two launches bit-equal
+    at 191 rows; then each ROWS_ARITH shape timed at N in ZS_ROWS, exact
+    and a8, beside its bound and the dequant route (K2/K3, then
+    qlinear._product), and the plain version at N = 64, exact.  Exact's
+    bound counts its operations at the tf32 tensor-core peak: bf16 does
+    not hold the V=1 and dualmad weights beyond +-256, tf32 holds them
+    (the tensor-core kernels' exact MMAs).  Returns ({mode: max_abs_err},
+    {(N, name, mode, KV, a8): (ms, plain_ms or None, bound_ms, route_ms,
+    bound_by)})."""
     from qpalette_tpu_torch.runtime.qlinear import _product
 
-    max_abs, times = 0.0, {}
+    max_abs, times = {}, {}
     for name, m, k, mode, KV, _ in ROWS_CHECK:
         words = _words(m, k, arith.words_per_tile(mode, KV), device,
                        seed=m + k + KV)
@@ -542,7 +546,8 @@ def k1_rows(arith, arith_dequant, device, reps=10):
                 y = arith.decode_gemv(mode, x, words, KV, m, k, a8)
                 torch.cuda.synchronize()
                 ref = arith.arith_gemv_plain(x, words, mode, KV, m, k, a8)
-                max_abs = max(max_abs, _rel_check(label, y, ref, TOL[a8]))
+                max_abs[mode] = max(max_abs.get(mode, 0.0),
+                                    _rel_check(label, y, ref, TOL[a8]))
                 if N == 191:  # the cluster's fragments add in rank order
                     y2 = arith.decode_gemv(mode, x, words, KV, m, k, a8)
                     check(torch.equal(y.view(torch.int32),
@@ -630,7 +635,7 @@ def rows_only():
     err, times = k1_rows(arith, arith_dequant, torch.device("cuda:0"))
     fwd = k1_rows_forward(times, smi)
     print(json.dumps({"card": smi, "sm_mhz": times.pop("sm_clock"),
-                      "dualmad_rows_max_abs_err": err,
+                      "rows_max_abs_err": err,
                       "forward": {f"{md} N={N} {'a8' if a8 else 'exact'}": v
                                   for (md, N, a8), v in fwd.items()},
                       "calls": {f"{N} {name} {md} KV{KV} "
@@ -787,7 +792,7 @@ def build_all():
 
 SPILL = re.compile(r"[1-9]\d* bytes spill")
 # the tensor-core GEMVs' instances: K1's and K8's
-TC_GEMV = re.compile(r"v[12q]_gemv_kernel|v2_wide_kernel")
+TC_GEMV = re.compile(r"(v[12q]|wide)_gemv_kernel")
 
 
 def ptxas_entries(log):
@@ -923,8 +928,8 @@ def eager_loop(spec, params, prompt, n, T, temperature=0.0, top_k=5,
 # a decode step's kernels of the port (K1, K4/K5, K8, K10 with its
 # quantize kernel, K11; the dequants K2/K3, K6/K7, K9 of the dequant
 # route), by their CUDA names; every other device op is glue
-PORT_GEMV = re.compile(r"(arith|v1|v2|lut|vq)_gemv_kernel|i8gemv_kernel|"
-                       r"quantize_kernel")
+PORT_GEMV = re.compile(r"(v1|v2|wide|lut|vq)_gemv_kernel|wide_x_kernel|"
+                       r"i8gemv_kernel|quantize_kernel")
 PORT_DEQUANT = re.compile(r"(arith|lut|vq)_dequant_kernel")
 BIT_STEPS, PROFILE_STEPS = 4, 8
 # the glue's kinds of device op, by name (first match; the rest "other")
@@ -1520,20 +1525,21 @@ def _ab_vq(device, smi):
 
 AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
       "tcq_lut": _ab_lut, "vq": _ab_vq, "tcq2_wide": None,
-      "tcq2mix_wide": None}
-WIDE_AB = {"tcq2_wide": "sum2", "tcq2mix_wide": "dualmad"}  # ab_wide's
+      "tcq2mix_wide": None, "tcq1_wide": None}
+# ab_wide's mode
+WIDE_AB = {"tcq2_wide": "sum2", "tcq2mix_wide": "dualmad", "tcq1_wide": "1mad"}
 
 
 class _NoWorkspace:
-    """A tcq2_gemv library built from a tree whose C function takes no
-    workspace (before the wide kernel): the wrappers' call, the workspace
-    argument dropped."""
+    """A K1 library (tcq2_gemv or tcq1_gemv) built from a tree whose C
+    function takes no workspace (before its wide kernel): the wrappers'
+    call, the workspace argument dropped."""
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, lib, fn):
+        def call(x, x_bf16, tr, out, ws, *rest):
+            return getattr(lib, fn)(x, x_bf16, tr, out, *rest)
 
-    def tcq2_gemv(self, x, x_bf16, tr, out, ws, *rest):
-        return self.lib.tcq2_gemv(x, x_bf16, tr, out, *rest)
+        setattr(self, fn, call)
 
 
 def _bind_parent(kb, source, parent_csrc, parent_so, sigs):
@@ -1541,26 +1547,29 @@ def _bind_parent(kb, source, parent_csrc, parent_so, sigs):
     from pathlib import Path
 
     text = (Path(parent_csrc) / f"{source}.cu").read_text()
-    if source == "tcq2_gemv" and "void* ws" not in text:
-        old = list(sigs["tcq2_gemv"])
+    if source in ("tcq2_gemv", "tcq1_gemv") and "void* ws" not in text:
+        old = list(sigs[source])
         del old[4]
-        return _NoWorkspace(kb.bind(parent_so, {"tcq2_gemv": old}))
+        return _NoWorkspace(kb.bind(parent_so, {source: old}), source)
     return kb.bind(parent_so, sigs)
 
 
 def ab_wide(parent_csrc, mode):
-    """--ab tcq2_wide (mode sum2) and --ab tcq2mix_wide (dualmad): K1 above
-    8 rows against an older csrc's, in turns parent, new, new, parent, on
-    one card.  Each shape's call at N = 16 / 64 / 256 as a zero-shot
-    forward makes it (CUDA-graph replays, weights cycled past L2), summed
-    over a forward's calls: sum2 at the 215 shapes (129 calls, layers
-    exact, the 4-bit head a8), dualmad at Path A's qkv and ug (64 calls,
-    exact and a8 each); then, on the 215 model (sum2) or the Path A model
-    (dualmad), the zero-shot run at exact (examples/s), a warm a8
-    512-token prefill (ms) and the a8 decode (tokens/s through generate());
-    dualmad also the 215 decode, whose N = 1 kernels did not change.  Each
-    turn's SM clock is sampled.  Both libraries are first held against the
-    plain version at N = 49."""
+    """--ab tcq2_wide (mode sum2), --ab tcq2mix_wide (dualmad) and --ab
+    tcq1_wide (1mad): K1 above 8 rows against an older csrc's, in turns
+    parent, new, new, parent, on one card.  Each shape's call at N = 16 /
+    64 / 256 as a zero-shot forward makes it (CUDA-graph replays, weights
+    cycled past L2), summed over a forward's calls: sum2 at the 215 shapes
+    (129 calls, layers exact, the 4-bit head a8), dualmad at Path A's qkv
+    and ug, 1mad at Path A's o and down (64 calls, exact and a8 each;
+    with 1mad, 2mad at 4096x4096 KV 3 and 4, summed as 64 calls of KV 3);
+    then, on the 215 model (sum2) or the Path A model, the zero-shot run
+    at exact (examples/s), a warm a8 512-token prefill (ms) and the a8
+    decode (tokens/s through generate()); on Path A also its 16-token
+    prefills at a8 and exact (the median of the last 3 of 4) and the 215
+    decode,
+    whose kernels did not change.  Each turn's SM clock is sampled.  Both
+    libraries are first held against the plain version at N = 49."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
@@ -1570,7 +1579,8 @@ def ab_wide(parent_csrc, mode):
 
     _, _, smi = card()
     device = torch.device("cuda:0")
-    source, sigs = "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"]
+    source = "tcq2_gemv" if arith.ARITH_V[mode] == 2 else "tcq1_gemv"
+    sigs = arith.SIGNATURES[source]
     parent_so = kb.BUILD / f"lib{source}_parent.so"
     with ThreadPoolExecutor(2) as ex:
         builds = [ex.submit(kb.build, source),
@@ -1593,33 +1603,37 @@ def ab_wide(parent_csrc, mode):
     if mode == "sum2":
         ug_kv = [int(qdict[f"{i}_mlp.up_proj"][0].split("_")[1])
                  for i in range(32)]
-        # (name, m, k, KV, calls a forward, variants timed: a8 or not)
-        shapes = [(name, m, k, KV, sum(kv == KV for kv in ug_kv)
+        # (name, m, k, mode, KV, calls a forward, variants timed: a8 or not)
+        shapes = [(name, m, k, mode, KV, sum(kv == KV for kv in ug_kv)
                    if name == "ug" else CALLS_PER_STEP[name],
                    (name == "lm_head",)) for name, m, k, KV in SHAPES_215]
         path, spec, params = "215", spec215, params215
     else:
-        shapes = [(name, m, k, KV, calls, (False, True))
+        modes = ("1mad", "2mad") if mode == "1mad" else (mode,)
+        shapes = [(name, m, k, md, KV, calls, (False, True))
                   for name, m, k, md, KV, calls in SHAPES_ARITH
-                  if md == mode and calls]
+                  if md in modes and name != "odd_kt"]
         path = "Path A"
         spec, params = _build("pathA", tcq2mix_qdict(),
                               [["merge_qkv", "merge_ug"]] * 32, "a8", 4,
                               device)
     exact = with_impl(spec, "exact")
     tok, questions = ByteTok(), zs_questions()
-    copies = {sh[:4]: _copies(sh[1], sh[2], 4 * sh[3], device)
+    copies = {sh[:5]: _copies(sh[1], sh[2], arith.words_per_tile(sh[3],
+                                                                 sh[4]),
+                              device)
               for sh in shapes}
     for label, lib in libs.items():
         use(lib)
-        name, m, k, KV = shapes[0][:4] if mode != "sum2" else SHAPES_215[1]
-        x = torch.randn((49, k), device=device).bfloat16()
-        w = copies[(name, m, k, KV)][0][0]
-        for a8 in (False, True):
-            _rel_check(f"{label} {mode} {name} N=49 a8={a8}",
-                       arith.decode_gemv(mode, x, w, KV, m, k, a8),
-                       arith.arith_gemv_plain(x, w, mode, KV, m, k, a8),
-                       TOL[a8])
+        for md in dict.fromkeys(sh[3] for sh in shapes):  # its first shape
+            name, m, k, _, KV = next(sh for sh in shapes if sh[3] == md)[:5]
+            x = torch.randn((49, k), device=device).bfloat16()
+            w = copies[(name, m, k, md, KV)][0][0]
+            for a8 in (False, True):
+                _rel_check(f"{label} {md} {name} N=49 a8={a8}",
+                           arith.decode_gemv(md, x, w, KV, m, k, a8),
+                           arith.arith_gemv_plain(x, w, md, KV, m, k, a8),
+                           TOL[a8])
     turns = []
     for label in ("parent", "new", "new", "parent"):
         use(libs[label])
@@ -1627,23 +1641,26 @@ def ab_wide(parent_csrc, mode):
         with SmClock() as clock:
             for N in ZS_ROWS:
                 fwd = {}
-                for name, m, k, KV, calls, variants in shapes:
-                    cp, nbytes = copies[(name, m, k, KV)]
+                for name, m, k, md, KV, calls, variants in shapes:
+                    cp, nbytes = copies[(name, m, k, md, KV)]
                     x = torch.randn((N, k), device=device).bfloat16()
                     out = torch.empty((N, m), device=device)
                     for a8 in variants:
                         ms = _time_ms(lambda i=0: arith.decode_gemv(
-                            mode, x, cp[i % len(cp)], KV, m, k, a8,
+                            md, x, cp[i % len(cp)], KV, m, k, a8,
                             out=out), 20, graph=True)
                         bms, _ = gemv_bound(
                             nbytes, N, m, k, 2, a8,
-                            "bfloat16" if mode == "sum2" else "tfloat32")
-                        key = "" if len(variants) == 1 else (
+                            "bfloat16" if md == "sum2" else "tfloat32")
+                        key = ("_2mad" if md != mode else "") + (
+                            "" if len(variants) == 1 else
                             "_a8" if a8 else "_exact")
+                        # 2mad (on no path): 64 calls of KV 3
+                        n = calls or (64 if KV == 3 else 0)
                         t = fwd.setdefault(key, [0.0, 0.0])
-                        t[0] += calls * ms
-                        t[1] += calls * bms
-                        print(f"[ab] {label} {mode} {name} {m}x{k} KV={KV} "
+                        t[0] += n * ms
+                        t[1] += n * bms
+                        print(f"[ab] {label} {md} {name} {m}x{k} KV={KV} "
                               f"N={N} {'a8' if a8 else 'exact'}: {ms:.4f} "
                               f"ms (bound {bms:.4f})", flush=True)
                 for key, (kms, bms) in fwd.items():
@@ -1658,20 +1675,30 @@ def ab_wide(parent_csrc, mode):
         turn["zs_examples_s"] = ZS_QUESTIONS / (time.perf_counter() - t0)
         turn["a8_prefill_512_ms"] = 1e3 * prefill_time(
             f"ab {label} a8", spec, params, device, PREFILL_B, smi)
+        if mode != "sum2":  # Path A's 16-token prefills: the median of 3
+            for impl in ("a8", "exact"):
+                sp = with_impl(spec, impl)
+                ms = [1e3 * prefill_time(f"ab {label} {impl}", sp, params,
+                                         device, PROMPT_LEN, smi)
+                      for _ in range(4)][1:]  # the first warms up
+                turn[f"prefill_{PROMPT_LEN}_{impl}_ms"] = sorted(ms)[1]
         turn["tokens_per_s"] = throughput(f"{path}, {label} {source}.cu",
                                           spec, params, device, smi)
         if mode != "sum2":
             turn["tokens_per_s_215"] = throughput(
                 f"215, {label} {source}.cu", spec215, params215, device, smi)
         turns.append(turn)
-        calls = sum(sh[4] for sh in shapes)
+        calls = sum(sh[5] for sh in shapes if sh[3] == mode)
         print(f"[ab] {label}: a {path} forward's {calls} {mode} calls "
               + ", ".join(f"{k[len('forward_ms_'):]} {v:.3f} ms"
                           for k, v in turn.items()
                           if k.startswith("forward_ms_"))
               + f" at {clock}; zero-shot {turn['zs_examples_s']:.2f} "
               f"examples/s; a8 512-token prefill "
-              f"{turn['a8_prefill_512_ms']:.1f} ms; {path} decode "
+              f"{turn['a8_prefill_512_ms']:.1f} ms; "
+              + "".join(f"{k} {v:.2f} ms; " for k, v in turn.items()
+                        if k.startswith(f"prefill_{PROMPT_LEN}_"))
+              + f"{path} decode "
               f"{turn['tokens_per_s']:.2f} tokens/s"
               + (f", 215 decode {turn['tokens_per_s_215']:.2f} tokens/s"
                  if mode != "sum2" else "") + f" ({smi})", flush=True)
@@ -2015,8 +2042,8 @@ def tcq2mix_qdict(num_layers=32):
 
 def path_a_b(device, card_label):
     """Path A (tcq2mix decode at a8 and exact, then the zero-shot harness
-    at exact: K1 dualmad and the sum2 head on v2_wide_kernel, 1mad on the
-    template) and Path B (512-token exact prefill on tcq2mix and on the 215
+    at exact: K1 dualmad, 1mad and the sum2 head on wide_gemv_kernel) and
+    Path B (512-token exact prefill on tcq2mix and on the 215
     config).  Returns (launch counts summed over the counted runs,
     graph_phase's result by impl, prefill s by config (and Path A's warm
     16-token prefill by impl), zs_check's summary of Path A)."""
@@ -2619,11 +2646,11 @@ def zs_questions(seed=0):
 
 def zs_check(spec, params, device, card_label, label="215", calls=None):
     """The zero-shot harness on a model at impl exact: every prompt of
-    33-200 tokens sends its rows to K1 above 8 rows (v2_wide_kernel in
-    sum2 and dualmad, two launches a call; the arith.cuh template in 1mad
-    and 2mad, one).  calls: {wrapper: K1 calls a forward} (default the 215
-    model's 129 sum2 calls, 128 exact layers and the a8 head); one
-    loglikelihood against the sum of the forward's log-softmax.  Returns
+    33-200 tokens sends its rows to K1 above 8 rows (wide_gemv_kernel in
+    every mode, two launches a call).  calls: {wrapper: K1 calls a
+    forward} (default the 215 model's 129 sum2 calls, 128 exact layers
+    and the a8 head); one loglikelihood against the sum of the forward's
+    log-softmax.  Returns
     (launch counts, summary)."""
     from qpalette_tpu_torch.kernels import arith, launch_counts, wrappers
     from qpalette_tpu_torch.models import llama
@@ -2945,8 +2972,9 @@ def main():
     row_err, row_times = sum2_row_times(arith, arith_dequant, device)
     err, times, deq215 = arith_checks(arith, arith_dequant, device)
     err["tcq2s_decode_gemv"] = max(sum2_err, row_err)
-    dual_err, k1rows = k1_rows(arith, arith_dequant, device)
-    err["tcq2_decode_gemv"] = max(err["tcq2_decode_gemv"], dual_err)
+    rows_err, k1rows = k1_rows(arith, arith_dequant, device)
+    err["tcq2_decode_gemv"] = max(err["tcq2_decode_gemv"],
+                                  rows_err["dualmad"])
     with open(FLAGSHIP_QDICT) as f:
         shapes = flagship_shapes(LlamaConfig.llama31_8b(), json.load(f))
     check(sum(n for (_, _, KV), n in shapes.items() if len(KV) == 1)
@@ -3006,7 +3034,7 @@ def main():
                          "operations" if 2 * ops >= kbms else "bytes")
         plain = f"plain {pms:.3f} ms, " if N == 64 else ""
         print(f"[time] a zero-shot forward's 129 sum2 calls at N={N} "
-              f"(v2_wide_kernel; layers exact, head a8): kernel "
+              f"(wide_gemv_kernel; layers exact, head a8): kernel "
               f"{kms:.3f} ms, {plain}dequant route {rms:.3f} ms, bound "
               f"{kbms:.3f} ms ({kbms / kms:.1%} of it; {smi})", flush=True)
     rows_fwd = k1_rows_forward(k1rows, smi)
@@ -3090,34 +3118,34 @@ def main():
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
             "bound_by": BOUND_BY.get(kname, "bytes"),
             "library_ms": library.get(kname)})
-    # above 8 rows, kernels of their own behind the same wrappers:
-    # sum2 (v2_wide_kernel) with its launches in the 215 zero-shot run
-    # (every call at 9-200 rows) and times a zero-shot forward's 129 calls
-    # at N=64; dualmad (v2_wide_kernel) and 1mad (the arith.cuh template)
-    # with their launches in the Path A zero-shot run and 16-token
-    # prefills (a8 and exact) and times a Path A forward's 64 calls each
-    # at N=64, exact
+    # above 8 rows, wide_gemv_kernel (and its x prologue) behind the same
+    # wrappers: sum2 with its launches in the 215 zero-shot run (every
+    # call at 9-200 rows) and times a zero-shot forward's 129 calls at
+    # N=64; dualmad and 1mad with their launches in the Path A zero-shot
+    # run and 16-token prefills (a8 and exact) and times a Path A
+    # forward's 64 calls each at N=64, exact
     wide = zs["zs_k1_launches"]["tcq2s_decode_gemv"]
-    check(wide > 0, "v2_wide_kernel (sum2) launched no time")
+    check(wide > 0, "wide_gemv_kernel (sum2) launched no time")
     kms, kpms, kbms, _, kby = zs_forward[64]
     kernels.append({
         "name": "tcq2s_decode_gemv_wide", "route": "cuda",
-        "source": "qpalette_tpu_torch/csrc/v2_wide.cuh",
+        "source": "qpalette_tpu_torch/csrc/arith_wide.cuh",
         "replaces": KERNEL_INFO["tcq2s_decode_gemv"][1],
         "launches": wide, "step_launches": 0,
         "max_abs_err": row_err, "ms": kms, "plain_ms": kpms,
         "bound_ms": kbms, "bound_by": kby, "library_ms": None})
-    for kname, mode, src in (("tcq2_decode_gemv", "dualmad", "v2_wide.cuh"),
-                             ("tcq1_decode_gemv", "1mad", "arith.cuh")):
+    for kname, mode in (("tcq2_decode_gemv", "dualmad"),
+                        ("tcq1_decode_gemv", "1mad")):
         wide = zs_a["zs_k1_launches"][kname] + 2 * PATH_A_PREFILL[kname]
         check(wide > 0, f"{kname} above 8 rows launched no time")
         kms, kpms, kbms, _, kby = rows_fwd[(mode, 64, False)]
         kernels.append({
             "name": f"{kname}_wide", "route": "cuda",
-            "source": f"qpalette_tpu_torch/csrc/{src}",
+            "source": "qpalette_tpu_torch/csrc/arith_wide.cuh",
             "replaces": KERNEL_INFO[kname][1], "launches": wide,
             "step_launches": 0,
-            "max_abs_err": dual_err if mode == "dualmad" else err[kname],
+            "max_abs_err": max(e for md, e in rows_err.items()
+                               if arith.ARITH_V[md] == arith.ARITH_V[mode]),
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms, "bound_by": kby,
             "library_ms": None})
     print(json.dumps({"kernels": kernels}))

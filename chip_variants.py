@@ -18,15 +18,16 @@ SASS of its kernels.
       and ms a Path C forward.
   python chip_variants.py time wide DIR [DIR ...]
       the same for each DIR's tcq2_gemv.cu (K1 sum2 above 8 rows,
-      v2_wide_kernel): checked at o, N = 49, then the 215 shapes at N =
+      wide_gemv_kernel): checked at o, N = 49, then the 215 shapes at N =
       16, 64 and 256 as a zero-shot forward calls them (layers exact, the
       head a8); ms a zero-shot forward's 129 calls.
   python chip_variants.py sass NEW.cu PARENT.cu KERNEL[=PARENT_KERNEL],...
       the SASS of every instance of each kernel template KERNEL in two
-      builds, instruction by instruction (cuobjdump -sass of nvcc -cubin);
-      with PARENT_KERNEL, KERNEL's mode-0 instances against the parent's
-      PARENT_KERNEL of the same other arguments (v2_wide_kernel's sum2
-      instances against the older sum2_wide_kernel).
+      builds, instruction by instruction (cuobjdump -sass of nvcc -cubin),
+      each parent instance against the new one of its template arguments
+      or else any new one with its instructions; PARENT_KERNEL names the
+      parent's template where it was renamed (wide_gemv_kernel, which was
+      v2_wide_kernel).
   python chip_variants.py sass NEW_CSRC PARENT_CSRC
       the same for every kernel of every .cu file of two csrc directories,
       counted by kernel template.
@@ -151,7 +152,7 @@ def time_wide(dirs):
     _, _, smi = cs.card()
     dev = torch.device("cuda:0")
     libs = _variants(dirs, "tcq2_gemv", arith.SIGNATURES["tcq2_gemv"],
-                     "_wide_kernel")
+                     "wide_gemv_kernel")
     copies = {(n, KV): cs._copies(m, k, 4 * KV, dev)[0]
               for n, m, k, KV in cs.SHAPES_215}
     qdict, _ = cs._load_215()
@@ -303,41 +304,35 @@ def sass_dirs(new_dir, parent_dir):
 
 def sass_diff(new_src, parent_src, kernels):
     """kernels: comma-separated KERNEL or KERNEL=PARENT_KERNEL, compared
-    from one build of each source.  With PARENT_KERNEL, the parent's
-    template has another name and lacks the new one's leading mode
-    argument: each new instance of mode 0 is keyed by its other integer
-    arguments, each parent instance by its own (v2_wide_kernel<WideTile<0,
-    KV, A8>, NT> against sum2_wide_kernel<KV, A8, NT>)."""
+    from one build of each source.  A parent instance of PARENT_KERNEL
+    (default KERNEL) is the same if the new instance of KERNEL with its
+    template arguments has its instructions (a renamed template:
+    wide_gemv_kernel=v2_wide_kernel) or, failing that, if any new
+    instance of KERNEL has them (a template that took another argument:
+    wide_x_kernel<XT, A8, V> against wide_x_kernel<XT, A8>)."""
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(2) as ex:
             new_f, par_f = ex.map(_sass, [new_src, parent_src],
                                   [f"{tmp}/new.cubin", f"{tmp}/parent.cubin"])
 
-    def by_instance(funcs, name, renamed, mode0):
+    def by_instance(funcs, name):
         pat = re.compile(name + r"I(\w+)E")
         out = {}
         for f in funcs:
             m = pat.search(f.split("\n", 1)[0])
-            if not m:
-                continue
-            key = m.group(1)
-            if renamed:
-                ints = tuple(re.findall(r"L[ib](\d+)E", key))
-                if mode0 and ints[0] != "0":
-                    continue
-                key = ",".join(ints[1:] if mode0 else ints)
-            out[key] = _instructions(f)
+            if m:
+                out[m.group(1)] = _instructions(f)
         return out
 
     for spec in kernels.split(","):
         kernel, _, parent_kernel = spec.partition("=")
-        new = by_instance(new_f, kernel, bool(parent_kernel), True)
-        par = by_instance(par_f, parent_kernel or kernel,
-                          bool(parent_kernel), False)
+        new = by_instance(new_f, kernel)
+        par = by_instance(par_f, parent_kernel or kernel)
+        bodies = {tuple(v) for v in new.values()}
         same = 0
         for key in sorted(par):
             a, b = par[key], new.get(key, [])
-            if a == b:
+            if a == b or tuple(a) in bodies:
                 same += 1
                 continue
             d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),

@@ -1,7 +1,7 @@
-// Arithmetic trellis decode for Hopper (sm_90a): the shared decoder and the
-// decode-GEMV kernel template (K1 in 1mad and 2mad above 8 rows), included by
-// tcq2_gemv.cu (V=2 modes) and tcq1_gemv.cu (V=1 modes), both through
-// arith_tc.cuh, and by arith_dequant.cu (K2, K3).
+// Arithmetic trellis decode for Hopper (sm_90a): the shared decoder of K1's
+// tensor-core GEMVs, included by tcq2_gemv.cu (V=2 modes) and tcq1_gemv.cu
+// (V=1 modes), both through arith_tc.cuh and arith_wide.cuh, and by
+// arith_dequant.cu (K2, K3).
 //
 // The port's canonical trellis: (T, W) 32-bit words, T = (m/16)*(k/16)
 // tiles in tile-row-major order, W = 8*KV/V words a tile (V weights per
@@ -82,221 +82,33 @@ __device__ __forceinline__ void state_weights(uint32_t u, int (&w)[2]) {
 // Replaces qpalette_tpu/kernels/fused.py::_arith_kernel (reached through
 // _arith_decode_matmul from tcq2_decode_matmul / tcq1_decode_matmul), on
 // the canonical trellis instead of the TPU's planar layouts.  Which kernel
-// serves which case:
-//   sum2, dualmad at N <= 8        tcq2_gemv.cu's v2_gemv_kernel (tensor
-//                                  cores, per-warp TMA rings; its note is
-//                                  there, the body in arith_tc.cuh)
+// serves which case (all on tensor cores):
+//   sum2, dualmad at N <= 8        tcq2_gemv.cu's v2_gemv_kernel (per-warp
+//                                  TMA rings; its note is there, the body
+//                                  in arith_tc.cuh)
 //   1mad, 2mad at N <= 8           tcq1_gemv.cu's v1_gemv_kernel (the same
 //                                  body, its own lane map)
-//   sum2, dualmad at 8 < N <= 256  v2_wide.cuh's v2_wide_kernel (tensor
-//                                  cores, a tile decoded once for all rows)
-//   1mad, 2mad at 8 < N <= 256     this template, 8 rows a pass
+//   every mode at 8 < N <= 256     arith_wide.cuh's wide_gemv_kernel (a
+//                                  tile decoded once for all rows) under
+//                                  the mode's tile policy: WideTile (V=2,
+//                                  arith_wide.cuh), WideTile1 (V=1,
+//                                  tcq1_gemv.cu)
 //
 // Variants: exact (x rounded to bf16, f32 accumulation of x * w) and a8 (x
-// quantized to int8 inside the kernel per 512-column chunk, one absmax
-// scale per chunk over all N rows as in the TPU kernel; integer dot per
-// chunk, each chunk descaled into f32).  a8 per state: (unsigned byte sum
-// - 510) * q, the exact integer weight (the TPU kernel instead sums XOR'd
-// bytes and adds 2*sum(x) in f32).
-//
-// What bounds it: at bs=1 every weight is read once, KV/V bits of packed
-// trellis per weight, and decoding costs ~5-10 integer ops per state, so
-// the kernel is bound by the packed trellis bytes streamed from device
-// memory.  Design: one block per 16-row m-tile (its tiles are contiguous);
-// the block walks k in 512-column chunks, copies each chunk's words to
-// shared memory with 16-byte loads (the next chunk's words are loaded into
-// registers while the current chunk is decoded), and its 8 warps stride
-// over the chunk's tiles.  Lane l decodes the states l + 32q of a tile,
-// all of output row l % 16, so row sums stay in registers and are reduced
-// once through shared memory.  Activations are handled in groups of 8 rows
-// (weights are re-read from L2 once per group).  wgmma, TMA and a Hopper
-// weight layout are later work.
+// quantized to int8 per 512-column chunk, one absmax scale per chunk over
+// all N rows as in the TPU kernel; integer dot per chunk, each chunk
+// descaled into f32).  a8 per V=1 state: (unsigned byte sum - 510) * q,
+// the exact integer weight (the TPU kernel instead sums XOR'd bytes and
+// adds 2*sum(x) in f32).
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // arith_dequant.cu's blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 512;               // columns per chunk (a8 scale unit)
-constexpr int kChunkTiles = kChunk / 16;  // k-tiles per chunk
-constexpr int kMaxChunks = 64;            // k <= 32768
-constexpr int kGroup = 8;                 // activation rows per pass
-
-__device__ __forceinline__ float load_x(const float* p) { return *p; }
-__device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+constexpr int kChunk = 512;     // columns per chunk (a8 scale unit)
+constexpr int kMaxChunks = 64;  // k <= 32768
+constexpr int kV1Bias = 510;    // V=1: the weight is the byte sum - 510
 
 __device__ __forceinline__ uint32_t quant8(float v, float inv) {
   return (uint32_t)__float2int_rn(__fmul_rn(v, inv)) & 0xffu;
-}
-
-template <typename XT, int MODE, int KV, bool A8>
-__global__ void __launch_bounds__(kThreads)
-arith_gemv_kernel(const XT* __restrict__ x, const int4* __restrict__ tr,
-                  float* __restrict__ out, int N, int m, int k) {
-  static_assert(mode_v(MODE) == 1, "the V=2 modes above 8 rows are "
-                "v2_wide_kernel");
-  constexpr int NG = kGroup;
-  constexpr int V = mode_v(MODE);
-  constexpr int W = 8 * KV / V;  // 32-bit words per tile
-  constexpr int WV = W / 4;      // int4 per tile
-  constexpr int Q = 8 / V;       // states per lane per tile
-  constexpr int XW = kChunk;  // a8 activation words (q) a row of a chunk
-  constexpr int kLoads = (kChunkTiles * WV + kThreads - 1) / kThreads;
-  __shared__ __align__(16) uint32_t ws[kChunkTiles * W];
-  __shared__ __align__(16) float xs[kGroup * kChunk];  // exact: bf16 values
-  __shared__ float sx[kMaxChunks];
-  __shared__ float red[kWarps][NG][16];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row = lane & 15;
-  const int mt = blockIdx.x;
-  const int kt_total = k >> 4;
-  const int nch = (k + kChunk - 1) / kChunk;
-  const int4* tr_row = tr + (size_t)mt * kt_total * WV;
-  int* xq = reinterpret_cast<int*>(xs);
-
-  if (A8) {  // per-chunk absmax scale over all N rows
-    for (int c = warp; c < nch; c += kWarps) {
-      const int c0 = c * kChunk, cw = min(kChunk, k - c0);
-      float amax = 0.f;
-      for (int i = lane; i < N * cw; i += 32) {
-        const int n = i / cw, col = i - n * cw;
-        amax = fmaxf(amax, fabsf(load_x(x + (size_t)n * k + c0 + col)));
-      }
-      for (int o = 16; o; o >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      if (lane == 0) sx[c] = __fadd_rn(__fdiv_rn(amax, 127.0f), 1e-30f);
-    }
-    __syncthreads();
-  }
-
-  int4 wreg[kLoads];
-  auto fetch = [&](int c) {
-    const int nvec = min(kChunkTiles, kt_total - c * kChunkTiles) * WV;
-    const int4* src = tr_row + (size_t)c * kChunkTiles * WV;
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int i = tid + l * kThreads;
-      if (i < nvec) wreg[l] = src[i];
-    }
-  };
-
-  for (int g0 = 0; g0 < N; g0 += NG) {
-    const int ng = min(NG, N - g0);
-    float acc[NG];
-#pragma unroll
-    for (int n = 0; n < NG; ++n) acc[n] = 0.f;
-    fetch(0);
-
-    for (int c = 0; c < nch; ++c) {
-      const int c0 = c * kChunk, cw = min(kChunk, k - c0), ntile = cw >> 4;
-#pragma unroll
-      for (int l = 0; l < kLoads; ++l) {
-        const int i = tid + l * kThreads;
-        if (i < ntile * WV) reinterpret_cast<int4*>(ws)[i] = wreg[l];
-      }
-      if (A8) {
-        const float inv = __fdiv_rn(1.0f, sx[c]);
-        for (int i = tid; i < NG * cw; i += kThreads) {
-          const int n = i / cw, p = i - n * cw;
-          int v = 0;
-          if (n < ng) {
-            const XT* xp = x + (size_t)(g0 + n) * k + c0;
-            v = __float2int_rn(__fmul_rn(load_x(xp + p), inv));
-          }
-          xq[n * XW + p] = v;
-        }
-      } else {
-        for (int i = tid; i < NG * cw; i += kThreads) {
-          const int n = i / cw, col = i - n * cw;
-          float v = 0.f;
-          if (n < ng)
-            v = __bfloat162float(__float2bfloat16_rn(
-                load_x(x + (size_t)(g0 + n) * k + c0 + col)));
-          xs[n * kChunk + col] = v;
-        }
-      }
-      __syncthreads();
-
-      if (c + 1 < nch) fetch(c + 1);  // in flight during the decode
-
-      int iacc[NG];
-#pragma unroll
-      for (int n = 0; n < NG; ++n) iacc[n] = 0;
-      for (int j = warp; j < ntile; j += kWarps) {
-        const uint32_t* wt = ws + j * W;
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int s = lane + 32 * q;
-          const int g = s >> 4;  // the column
-          const uint32_t u = state_at<KV, W>(wt, s);
-          if (A8) {
-            int w[2];
-            state_weights<MODE>(u, w);
-            const int* xr = xq + j * 16 + g;
-#pragma unroll
-            for (int n = 0; n < NG; ++n) iacc[n] += w[0] * xr[n * XW];
-          } else {
-            int w[2];
-            state_weights<MODE>(u, w);
-            const float w0 = (float)w[0];
-            const float* xr = xs + j * 16 + g;
-#pragma unroll
-            for (int n = 0; n < NG; ++n)
-              acc[n] = fmaf(xr[n * kChunk], w0, acc[n]);
-          }
-        }
-      }
-      if (A8) {
-        const float s = sx[c];
-#pragma unroll
-        for (int n = 0; n < NG; ++n)
-          acc[n] = __fadd_rn(acc[n], __fmul_rn((float)iacc[n], s));
-      }
-      __syncthreads();  // ws / xs are overwritten by the next chunk
-    }
-
-    // lanes l and l^16 hold the same row; then sum the warps' partials
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-      acc[n] += __shfl_xor_sync(0xffffffffu, acc[n], 16);
-    if (lane < 16) {
-#pragma unroll
-      for (int n = 0; n < NG; ++n) red[warp][n][row] = acc[n];
-    }
-    __syncthreads();
-    for (int i = tid; i < ng * 16; i += kThreads) {
-      const int n = i >> 4, r = i & 15;
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red[w][n][r];
-      out[(size_t)(g0 + n) * m + mt * 16 + r] = v * kMadInv;
-    }
-    __syncthreads();  // red is reused by the next group
-  }
-}
-
-// 1mad and 2mad reach this template only at N > 8 (the tensor-core
-// kernels take N <= 8, v2_wide_kernel the V=2 modes above), so only its
-// 8-row instances of those modes are built
-template <typename XT, int MODE, int KV, bool A8>
-int launch_gemv(const void* x, const void* tr, void* out, int N, int m,
-                int k, cudaStream_t st) {
-  arith_gemv_kernel<XT, MODE, KV, A8><<<m / 16, kThreads, 0, st>>>(
-      static_cast<const XT*>(x), static_cast<const int4*>(tr),
-      static_cast<float*>(out), N, m, k);
-  return (int)cudaGetLastError();
-}
-
-template <int MODE, int KV>
-int gemv_variants(const void* x, int x_bf16, const void* tr, void* out,
-                  int N, int m, int k, int a8, cudaStream_t st) {
-  if (x_bf16)
-    return a8 ? launch_gemv<__nv_bfloat16, MODE, KV, true>(x, tr, out, N, m,
-                                                           k, st)
-              : launch_gemv<__nv_bfloat16, MODE, KV, false>(x, tr, out, N,
-                                                            m, k, st);
-  return a8 ? launch_gemv<float, MODE, KV, true>(x, tr, out, N, m, k, st)
-            : launch_gemv<float, MODE, KV, false>(x, tr, out, N, m, k, st);
 }
 
 inline bool bad_gemv_args(int N, int m, int k) {

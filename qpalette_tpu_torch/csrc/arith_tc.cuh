@@ -36,7 +36,7 @@
 //    4 banks, once a slot); a lane's B registers are that word under byte
 //    permutes.  No block barrier before the epilogue.
 //  - a8 sums are exact in int32 and descaled into f32 at each chunk
-//    boundary, as the template does for its chunk sums.  With kBias, each
+//    boundary, as the plain version does its chunk sums.  With kBias, each
 //    lane also adds up the q bytes of the x words it reads (one __dp4a a
 //    tile on the word it holds for its MMAs); at the chunk boundary four
 //    shuffles give each lane the sums of its two C columns' rows over the

@@ -1,28 +1,33 @@
-// K1 in the V=2 modes, sum2 and dualmad, above 8 rows of x (9 <= N <=
-// 256): y = x @ W_hat^T in float32, no Wscale, both variants (a8: x
-// quantized to int8 per 512-column chunk, one absmax scale a chunk over
-// all N rows; exact: x rounded to bf16).  Replaces
-// qpalette_tpu/kernels/fused.py::_arith_kernel in sum2 and dualmad modes
-// at prefill and zero-shot rows (reached through _arith_decode_matmul
-// from tcq2_decode_matmul), where the TPU kernel decodes a block of W once
-// and takes it to all N rows in one MXU product.
+// K1 above 8 rows of x (9 <= N <= 256), in every mode: y = x @ W_hat^T in
+// float32, no Wscale, both variants (a8: x quantized to int8 per
+// 512-column chunk, one absmax scale a chunk over all N rows; exact: x
+// rounded to bf16).  Replaces qpalette_tpu/kernels/fused.py::_arith_kernel
+// at prefill and zero-shot rows (reached through _arith_decode_matmul from
+// tcq2_decode_matmul and tcq1_decode_matmul), where the TPU kernel decodes
+// a block of W once and takes it to all N rows in one MXU product.  One
+// body, wide_gemv_kernel, serves both tile orders (it was v2_wide_kernel
+// while it served only V=2's): tcq2_gemv.cu launches it for sum2 and
+// dualmad, tcq1_gemv.cu for 1mad and 2mad.
 //
-// What bounds it: 2*N*m*k operations against the packed trellis (KV/16
+// What bounds it: 2*N*m*k operations against the packed trellis (KV/V/8
 // bytes a weight), x and the f32 y, each moved once.  The operations run
 // on int8 tensor cores for a8 and, for exact, on bf16 ones in sum2 (its
-// integer weights in [-256, 254] bf16 holds exactly) and tf32 ones in
-// dualmad (its weights in [-512, 508]: bf16 does not hold the odd ones
-// beyond +-256, tf32 holds every one): exact sum2 is bound by its
-// operations from N ~ 32 on, exact dualmad from N ~ 16, the rest by bytes
-// below that.  Design:
+// integer weights in [-256, 254] bf16 holds exactly) and tf32 ones in the
+// other modes (dualmad's weights in [-512, 508], V=1's in [-510, 510]:
+// bf16 does not hold the odd ones beyond +-256, tf32 holds every one):
+// exact sum2 is bound by its operations from N ~ 32 on, the other exact
+// modes from N ~ 16, the rest by bytes below that.  Design:
 //  - One decode a tile.  A warp owns one 16-row m-tile and every row of x
 //    its block takes (NT n-tiles of 8 rows): it decodes a tile once into
 //    its A registers and issues the tile's MMAs on every n-tile against
-//    them, with no branch between them.  Only these two steps depend on
-//    the mode, so they are the tile policy WideTile<MODE, KV, A8> (as
-//    arith_tc.cuh's body takes V2Tile / V1Tile); the lane map is
-//    tcq2_gemv.cu's v2_gemv_kernel's (lane (g, c) holds states 16c+2g,
-//    +1, +64, +65), and so are the MMAs a tile:
+//    them, with no branch between them.  What depends on the tile order
+//    and the mode is the tile policy TILE (as arith_tc.cuh's body takes
+//    V2Tile / V1Tile): kV, kWords (words a tile), map(g, c) (the lane's
+//    view of a tile, its own type), decode and mma, kMost (n-tiles a row
+//    group at most).  V=2 (WideTile below): lane (g, c) holds states
+//    16c+2g, +1, +64, +65, v2_gemv_kernel's map; V=1 (tcq1_gemv.cu's
+//    WideTile1): states 64c+2g + {0, 1, 16, 17, 32, 33, 48, 49}, four pairs,
+//    v1_gemv_kernel's map.  The MMAs a tile:
 //      sum2 a8      4 A registers, the hash words as they stand; one
 //                   mma.m16n8k32.s8 an n-tile
 //      sum2 exact   4 bf16x2 weight pairs; one mma.m16n8k16.bf16
@@ -36,24 +41,31 @@
 //                   half (a bf16 value as tf32 is its bits << 16: 4 ALU
 //                   ops an n-tile, against the 8 more bytes of shared
 //                   memory an n-tile that x written as tf32 would take)
+//      1mad, 2mad   8: the hashes of the four pairs as u8 A registers of
+//      a8           two mma.m16n8k32 (u8 x s8) into one int32 fragment,
+//                   against the x word's byte permutes 0x0000 / 0x1111
+//                   (columns 4c, 4c+1) and 0x2222 / 0x3333 (4c+2, 4c+3)
+//      1mad, 2mad   8 tf32 weights (v1_weight); two mma.m16n8k8.tf32, one
+//      exact        a column pair, on the x words' bf16 halves
 //    exact sum2 takes all N <= 256 rows in one block (NT <= 32, 128 f32
 //    accumulators a lane); a8 holds an int32 and an f32 fragment an
 //    n-tile, so its blocks take at most 16 n-tiles (128 rows) and a call
 //    above 128 rows splits them over blockIdx.y, decoding each tile once
-//    per row group.  dualmad's 8 A registers leave room for 24 n-tiles
-//    (exact) and 12 (a8) under the register cap (WideTile::kMost).
+//    per row group.  The other modes' 8 A registers leave room for 24
+//    n-tiles (exact) and 12 (a8) under the register cap (kMost).
 //    Instances at NT = 2, 4, 8, 12, 16, 24, 32 keep the MMAs on n-tiles
 //    past N few.
 //  - x staged once a block.  A block is 8 consumer warps on 8 adjacent
 //    m-tiles (x is read m/128 times a call, not m/16) and one producer warp.
-//    A prologue kernel (wide_x_kernel, the same for both modes) writes x
-//    once into a workspace in B-fragment order: exact as bf16x2 words,
-//    lane (g, c)'s pair for an (n-tile, k-tile) being the words of columns
-//    (2c, 2c+1) and (8+2c, 9+2c) of row 8j+g; a8 as one word [q(2c),
-//    q(2c+1), q(8+2c), q(9+2c)] per lane (the B registers are its byte
-//    permutes, as in v2_gemv_kernel), after the chunk scales (absmax over
-//    all N rows, written first).  The words of a block's rows and 8
-//    k-tiles are contiguous, so the producer copies each step's x with one
+//    A prologue kernel (wide_x_kernel, one a tile order) writes x once
+//    into a workspace in B-fragment order: exact as bf16x2 words, lane (g,
+//    c)'s pair for an (n-tile, k-tile) being the words of columns (p, p+1)
+//    and (p+s, p+s+1) of row 8j+g, p = xcol(c) and s the step (V=2: p =
+//    2c, s = 8; V=1: p = 4c, s = 2); a8 as one word [q(p), q(p+1),
+//    q(p+s), q(p+s+1)] per lane (the B registers are its byte permutes, as
+//    in the N <= 8 kernels), after the chunk scales (absmax over all N
+//    rows, written first).  The words of a block's rows and 8 k-tiles are
+//    contiguous, so the producer copies each step's x with one
 //    cp.async.bulk into a ring of kStages slots: full / empty mbarriers, no
 //    block barrier in the loop.  A lane reads its B registers of an
 //    n-tile with one conflict-free 8-byte (exact) or 4-byte (a8) load.
@@ -66,8 +78,16 @@
 //    memory, each rank writing a share of the outputs: no atomics, and two
 //    launches give the same bits.
 //  - a8: each warp's int32 fragments are exact within a chunk (|w| <= 512,
-//    |q| <= 127: at most 512*512*127 < 2^25) and are descaled into its f32
-//    fragments at each chunk boundary, as v2_gemv_kernel does.
+//    |q| <= 127: at most 512*512*127 < 2^25; V=1's byte sums, at most
+//    1020*127*512 < 2^27) and are descaled into its f32 fragments at each
+//    chunk boundary, as v2_gemv_kernel does.
+//  - V=1 a8: the MMAs sum (unsigned byte sum) * q, and the weight is that
+//    byte sum - 510, so each fragment takes -510 * sum(q) over exactly the
+//    columns whose products went into it.  A cluster splits k in steps, so
+//    a rank may hold part of a chunk: the prologue writes -510 * sum(q) of
+//    each x row and 8-tile step into the workspace (after the scales), and
+//    a warp adds its n-tiles' two rows of it to the int32 fragments at
+//    each step (one 8-byte load an n-tile a step).
 //
 // What holds sum2 on an H100 (14-19% of the bound over a zero-shot
 // forward's calls): at 16 rows the decode's issue, ~36 instructions a tile
@@ -75,10 +95,18 @@
 // of x read from shared memory an MMA, with one 9-warp block an SM.  Tried
 // and slower: a branch around each MMA for the n-tiles past N (2x at 64
 // rows), no cluster split, clusters sized for the fill of the last wave.
+// What holds 1mad on an H100 (a Path A forward's o and down calls at 13-21%
+// of the bound exact, 4-13% a8): instruction issue and its stalls, no one
+// unit.  At 64 rows a warp issues ~120 instructions a tile for 16 MMAs
+// (exact; 2mad ~132; a8 ~102, a third of them the x word's byte
+// permutes): issue ~29% busy, the tf32 pipe ~17%.  a8 holds an int32 and
+// an f32 fragment an n-tile, so from 33 rows it runs one 9-warp block an
+// SM, and above 96 rows it decodes each tile once a row group of 12.
 //
 // A call is two launches: the prologue, then the GEMV (arith.py counts
-// both).  The workspace is the caller's: kWideScaleBytes, then x padded to
-// whole n-tiles, one byte (a8) or two (exact) a value.
+// both).  The workspace is the caller's: kWideScaleBytes, then (V=1 a8)
+// the row sums, then x padded to whole n-tiles, one byte (a8) or two
+// (exact) a value.
 
 #pragma once
 
@@ -149,13 +177,14 @@ __device__ __forceinline__ uint32_t dual_weight(uint32_t h) {
   return __float_as_uint(__fsub_rn(__int_as_float(v), 12582912.0f));
 }
 
-// The tile policy of v2_wide_kernel (and of v2_gemv_kernel's dualmad
-// tiles): a tile's decode step (kRegs A registers a lane) and its MMA step
-// on one n-tile against the lane's x words (a8: one word w, exact: b)
+// The V=2 tile policy of wide_gemv_kernel (and of v2_gemv_kernel's a8
+// dualmad tiles): the lane's view of a tile (v2_gemv_kernel's lane map), a
+// tile's decode step (kRegs A registers a lane) and its MMA step on one
+// n-tile against the lane's x words (a8: one word w, exact: b)
 template <int MODE, int KV, bool A8>
 struct WideTile {
   static_assert(MODE == kSum2 || MODE == kDualmad, "the V=2 modes");
-  static constexpr int kKV = KV;
+  static constexpr int kKV = KV, kV = 2, kWords = 4 * KV;
   static constexpr bool kA8 = A8;
   static constexpr int kRegs = MODE == kSum2 ? 4 : 8;
   // n-tiles a row group at most: exact one group of all 32 (sum2), a8
@@ -165,6 +194,10 @@ struct WideTile {
   // decode each tile once a row group, twice or thrice
   static constexpr int kMost = MODE == kSum2 ? (A8 ? 16 : 32)
                                              : (A8 ? 12 : 24);
+
+  static __device__ __forceinline__ LaneMap map(int g, int c) {
+    return lane_map<KV>(16 * c + 2 * g);
+  }
 
   static __device__ __forceinline__ void decode(const uint8_t* wt,
                                                 const LaneMap& lm,
@@ -222,11 +255,19 @@ constexpr int kWideWarps = 8;  // consumer warps a block, one m-tile each
 constexpr int kWideThreads = 32 * (kWideWarps + 1);  // + the x producer
 constexpr int kWideTiles = kStageTiles;  // k-tiles a step (ring and x slot)
 constexpr int kWideMaxCluster = 8;
-// the workspace: a8's (scale, 1/scale) per chunk, then the x words
+// the workspace: a8's (scale, 1/scale) per chunk, then (V=1 a8) the row
+// sums, then the x words
 constexpr int kWideScaleBytes = kMaxChunks * 8;
 static_assert(kChunk % (16 * kWideTiles) == 0, "steps tile the chunks");
 
 __host__ __device__ constexpr int wide_words(bool a8) { return a8 ? 1 : 2; }
+
+// Bytes of the workspace's V=1 a8 row sums (none for V=2 or exact): one
+// int32 -510 * sum(q) a (step, row), rows padded to whole n-tiles
+template <int V, bool A8>
+__host__ __device__ constexpr int wide_qsum_bytes(int N, int k) {
+  return V == 1 && A8 ? 4 * 8 * ((N + 7) >> 3) * (((k >> 4) + 7) >> 3) : 0;
+}
 
 // Byte offset in the workspace's words of lane 0's words for n-tile nt at
 // k-tile t, for NT n-tiles a row group: group y = nt / NT holds k-tile
@@ -253,10 +294,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // Dynamic shared memory of a block: kStages x slots (after the loop, the
-// warps' partial fragments), the warps' trellis rings of kStages slots,
-// their barriers, then the x slots' full and empty barriers
-template <int KV, bool A8, int NT>
+// warps' partial fragments), the warps' trellis rings of kStages slots of
+// TILE's tiles, their barriers, then the x slots' full and empty barriers
+template <class TILE, int NT>
 struct WideSmem {
+  static constexpr bool A8 = TILE::kA8;
   // steps in flight: a step is short at few n-tiles, so more of them hide
   // the copies' latency; exact NT >= 24 fits three
   static constexpr int kStages = NT >= 24 ? 3 : 4;
@@ -265,7 +307,8 @@ struct WideSmem {
   static constexpr int kPart = kWideWarps * NT * 32 * 16;
   static constexpr int kX = kStages * kXSlot;
   static constexpr int kBuf = kX > kPart ? kX : kPart;
-  static constexpr int kRing = kStages * Ring<KV, kWideTiles>::kSlotBytes;
+  static constexpr int kRing =
+      kStages * Ring<TILE::kKV, kWideTiles, TILE::kWords>::kSlotBytes;
   static constexpr int kRings0 = kBuf;
   static constexpr int kBars0 = kRings0 + kWideWarps * kRing;
   static constexpr int kBytes = kBars0 + (kWideWarps + 2) * kStages * 8;
@@ -277,34 +320,41 @@ struct WideSmem {
       kAcc <= 16 ? 3 : kAcc <= (A8 ? 32 : 64) ? 2 : 1;
 };
 
-// Blocks an SM of an instance: WideSmem's, but one for exact dualmad at 16
-// n-tiles, whose 4 more A registers spill at two blocks' cap (96)
+// Blocks an SM of an instance: WideSmem's, but one for 8 A registers
+// (dualmad, V=1) exact at 16 n-tiles, whose 4 more A registers spill at
+// two blocks' cap (96), and for V=1 exact at 12 (its lane map's and four
+// windows' registers spill 8-12 bytes there)
 template <class TILE, int NT>
 __host__ __device__ constexpr int wide_min_blocks() {
-  return TILE::kRegs > 4 && !TILE::kA8 && NT == 16
+  return TILE::kRegs > 4 && !TILE::kA8 &&
+                 (NT == 16 || (TILE::kV == 1 && NT == 12))
              ? 1
-             : WideSmem<TILE::kKV, TILE::kA8, NT>::kMinBlocks;
+             : WideSmem<TILE, NT>::kMinBlocks;
 }
 
 // slot it % S of a warp's trellis ring: its 8 k-tiles it*8.. of job
-template <int KV, int S>
+template <int KV, int W, int S>
 __device__ __forceinline__ void wide_ring_issue(const WarpJob& job,
                                                 uint8_t* ring, uint64_t* bars,
                                                 int it) {
-  using R = Ring<KV, kWideTiles>;
+  using R = Ring<KV, kWideTiles, W>;
   const int n = min(kWideTiles, job.nt - it * kWideTiles);
   bulk_load(ring + (it % S) * R::kSlotBytes,
             job.src + (size_t)it * R::kSlotBytes, n * R::kTileBytes,
             bars + it % S);
 }
 
-// The prologue: x (N, k) -> the workspace.  Grid: (chunks, n-tiles), a
-// block an (n-tile, chunk); a8 blocks first take their chunk's absmax over
-// all N rows (every block of the chunk alike), 8 loads in flight a thread.
-template <typename XT, bool A8>
+// The prologue: x (N, k) -> the workspace, in tile order V's B-fragment
+// order (lane c's columns p, p+1, p+s, p+s+1 of a k-tile: V=2 p = 2c, s =
+// 8; V=1 p = 4c, s = 2).  Grid: (chunks, n-tiles), a block an (n-tile,
+// chunk); a8 blocks first take their chunk's absmax over all N rows
+// (every block of the chunk alike), 8 loads in flight a thread; V=1 a8
+// blocks then write -510 * sum(q) of each of their rows a step.
+template <typename XT, bool A8, int V>
 __global__ void __launch_bounds__(256)
 wide_x_kernel(const XT* __restrict__ x, uint8_t* __restrict__ ws, int N,
               int k, int NT) {
+  constexpr int kP = 4 / V, kS = V == 2 ? 8 : 2;  // p = kP * c, s = kS
   __shared__ float red[8];
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * kChunk, cw = min(kChunk, k - c0);
@@ -332,13 +382,14 @@ wide_x_kernel(const XT* __restrict__ x, uint8_t* __restrict__ ws, int N,
     if (nt == 0 && tid == 0)
       reinterpret_cast<float2*>(ws)[blockIdx.x] = make_float2(s, inv);
   }
-  uint8_t* words = ws + kWideScaleBytes;
+  uint8_t* words = ws + kWideScaleBytes + wide_qsum_bytes<V, A8>(N, k);
   // a8: one item a (row, k-tile), its 4 lanes' words (c = 0..3); exact:
   // one a (row, k-tile, half h), the 4 words of lanes 2h and 2h+1.  Row
   // g is the fastest index after h, so that a warp's stores fill whole
   // runs of the n-tile's words.
   constexpr int kH = A8 ? 1 : 2;
   const int items = 8 * (cw >> 4) * kH;
+  int qs = 0;  // V=1 a8: the sum of this thread's q (one item at most)
 #pragma unroll 2
   for (int i = tid; i < items; i += 256) {
     const int h = A8 ? 0 : i & 1, g = (i / kH) & 7;
@@ -357,18 +408,39 @@ wide_x_kernel(const XT* __restrict__ x, uint8_t* __restrict__ ws, int N,
         uint32_t w[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          w[c] = q[2 * c] | q[2 * c + 1] << 8 | q[8 + 2 * c] << 16 |
-                 q[9 + 2 * c] << 24;
+          w[c] = q[kP * c] | q[kP * c + 1] << 8 | q[kP * c + kS] << 16 |
+                 q[kP * c + kS + 1] << 24;
         v = make_uint4(w[0], w[1], w[2], w[3]);
+        if constexpr (V == 1) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            qs = __dp4a((int)w[c], 0x01010101, qs);  // signed bytes
+        }
       } else {
-        xp += 4 * h;  // lane 2h: columns 4h, 4h+1 and 8+4h, 9+4h; 2h+1: +2
-        v = make_uint4(x_bf16x2(xp), x_bf16x2(xp + 8), x_bf16x2(xp + 2),
-                       x_bf16x2(xp + 10));
+        // lane 2h: columns p, p+1 and p+s, p+s+1 at p = 2*kP*h; lane 2h+1
+        // at p + kP
+        xp += 2 * kP * h;
+        v = make_uint4(x_bf16x2(xp), x_bf16x2(xp + kS), x_bf16x2(xp + kP),
+                       x_bf16x2(xp + kP + kS));
       }
     }
     const size_t off = wide_x_offset(nt, t, NT, ntot, kt, A8) +
                        (size_t)(4 * g + 2 * h) * 4 * wide_words(A8);
     *reinterpret_cast<uint4*>(words + off) = v;
+  }
+  if constexpr (V == 1 && A8) {
+    // thread i held (row i % 8, k-tile i / 8 of the chunk): each warp's
+    // sum over its 4 k-tiles, then a step's two warps
+    __shared__ int qred[8][8];
+    qs += __shfl_xor_sync(0xffffffffu, qs, 8);
+    qs += __shfl_xor_sync(0xffffffffu, qs, 16);
+    if ((tid & 31) < 8) qred[tid >> 5][tid & 7] = qs;
+    __syncthreads();
+    const int sl = tid >> 3, g = tid & 7;  // the chunk's step sl, row g
+    if (tid < 32 && 8 * sl < (cw >> 4))
+      reinterpret_cast<int*>(ws + kWideScaleBytes)
+          [((c0 >> 7) + sl) * 8 * ntot + 8 * nt + g] =
+              -kV1Bias * (qred[2 * sl][g] + qred[2 * sl + 1][g]);
   }
 }
 
@@ -376,13 +448,13 @@ wide_x_kernel(const XT* __restrict__ x, uint8_t* __restrict__ ws, int N,
 // of cs blocks (cs = 1: none) splits one m-group's k in whole steps.
 template <class TILE, int NT>
 __global__ void __launch_bounds__(kWideThreads, wide_min_blocks<TILE, NT>())
-v2_wide_kernel(const uint8_t* __restrict__ ws,
-               const uint8_t* __restrict__ tr, float* __restrict__ out,
-               int N, int m, int k) {
-  constexpr int KV = TILE::kKV;
+wide_gemv_kernel(const uint8_t* __restrict__ ws,
+                 const uint8_t* __restrict__ tr, float* __restrict__ out,
+                 int N, int m, int k) {
+  constexpr int KV = TILE::kKV, W = TILE::kWords;
   constexpr bool A8 = TILE::kA8;
-  using L = WideSmem<KV, A8, NT>;
-  using R = Ring<KV, kWideTiles>;
+  using L = WideSmem<TILE, NT>;
+  using R = Ring<KV, kWideTiles, W>;
   constexpr int kTN = L::kTN, S = L::kStages;
   namespace cg = cooperative_groups;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -399,6 +471,7 @@ v2_wide_kernel(const uint8_t* __restrict__ ws,
   const int ta = s0 * kWideTiles;
   const int tb = min(kt, (s0 + nsteps) * kWideTiles);
   const uint8_t* xsrc = ws + kWideScaleBytes +
+                        wide_qsum_bytes<TILE::kV, A8>(N, k) +
                         wide_x_offset(y * NT, ta, NT, ntot, kt, A8);
   uint64_t* rbars = reinterpret_cast<uint64_t*>(smem + L::kBars0);
   uint64_t* xfull = rbars + kWideWarps * S;
@@ -427,7 +500,7 @@ v2_wide_kernel(const uint8_t* __restrict__ ws,
     for (int b = 0; b < S; ++b) mbar_init(bars + b);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int s = 0; s < min(S, nsteps); ++s)
-      wide_ring_issue<KV, S>(job, ring, bars, s);
+      wide_ring_issue<KV, W, S>(job, ring, bars, s);
   }
   __syncthreads();  // every barrier is initialized before a wait or arrive
 
@@ -462,7 +535,7 @@ v2_wide_kernel(const uint8_t* __restrict__ ws,
         issue_x(s);
       }
   } else if (consumer) {
-    const auto lm = lane_map<KV>(16 * (lane & 3) + 2 * (lane >> 2));
+    const auto lm = TILE::map(lane >> 2, lane & 3);
     const float2* scales = reinterpret_cast<const float2*>(ws);
     int ch = -1;
     for (int s = 0; s < nsteps; ++s) {
@@ -475,6 +548,22 @@ v2_wide_kernel(const uint8_t* __restrict__ ws,
           if (ch >= 0) descale();
           ch = chunk;
           sc = __ldg(&scales[ch].x);
+        }
+        if constexpr (TILE::kV == 1) {
+          // -510 * sum(q) of the step's columns, for the two x rows of
+          // each n-tile's C columns in this lane (2c, 2c+1: registers 0
+          // and 2, 1 and 3)
+          const int2* qb =
+              reinterpret_cast<const int2*>(ws + kWideScaleBytes) +
+              ((s0 + s) * 8 * ntot + y * NT * 8) / 2 + (lane & 3);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int2 b = __ldg(qb + 4 * j);
+            di[j][0] += b.x;
+            di[j][2] += b.x;
+            di[j][1] += b.y;
+            di[j][3] += b.y;
+          }
         }
       }
       mbar_wait(xfull + b, parity);
@@ -509,7 +598,8 @@ v2_wide_kernel(const uint8_t* __restrict__ ws,
       __syncwarp();  // every lane has read the step's slots
       if (lane == 0) {
         mbar_arrive(xempty + b);
-        if (s + S < nsteps) wide_ring_issue<KV, S>(job, ring, bars, s + S);
+        if (s + S < nsteps)
+          wide_ring_issue<KV, W, S>(job, ring, bars, s + S);
       }
     }
     if (A8 && ch >= 0) descale();
@@ -580,8 +670,8 @@ template <class TILE, int NT>
 static int launch_wide(const void* x, int x_bf16, const void* tr, void* out,
                        void* ws, int N, int m, int k, cudaStream_t st) {
   constexpr bool A8 = TILE::kA8;
-  using L = WideSmem<TILE::kKV, A8, NT>;
-  const auto kernel = v2_wide_kernel<TILE, NT>;
+  using L = WideSmem<TILE, NT>;
+  const auto kernel = wide_gemv_kernel<TILE, NT>;
   static unsigned long long ready = 0;  // devices that allow L::kBytes
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -595,11 +685,11 @@ static int launch_wide(const void* x, int x_bf16, const void* tr, void* out,
   const int ntot = (N + 7) / 8, rg = (ntot + NT - 1) / NT;
   const dim3 pgrid((k + kChunk - 1) / kChunk, ntot);
   if (x_bf16)
-    wide_x_kernel<__nv_bfloat16, A8><<<pgrid, 256, 0, st>>>(
+    wide_x_kernel<__nv_bfloat16, A8, TILE::kV><<<pgrid, 256, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(ws), N,
         k, NT);
   else
-    wide_x_kernel<float, A8><<<pgrid, 256, 0, st>>>(
+    wide_x_kernel<float, A8, TILE::kV><<<pgrid, 256, 0, st>>>(
         static_cast<const float*>(x), static_cast<uint8_t*>(ws), N, k, NT);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -658,19 +748,20 @@ static int wide_rows(const void* x, int x_bf16, const void* tr, void* out,
 #undef QPT_WIDE_NT
 }
 
-// mode sum2 or dualmad; x: (N, k) float32 or bfloat16, 8 < N <= 256,
-// 8-byte aligned; ws: kWideScaleBytes + 8 * ceil(N / 8) * k *
-// wide_words(a8) bytes, 16-byte aligned
-template <int MODE, int KV>
-static int v2_wide(const void* x, int x_bf16, const void* tr, void* out,
-                   void* ws, int N, int m, int k, int a8, cudaStream_t st) {
+// A call under the tile policy TILE<MODE, KV, A8> (WideTile: sum2 or
+// dualmad; WideTile1: 1mad or 2mad); x: (N, k) float32 or bfloat16, 8 < N
+// <= 256, 8-byte aligned; ws: kWideScaleBytes + wide_qsum_bytes + 8 *
+// ceil(N / 8) * k * wide_words(a8) bytes, 16-byte aligned
+template <template <int, int, bool> class TILE, int MODE, int KV>
+static int wide_gemv(const void* x, int x_bf16, const void* tr, void* out,
+                     void* ws, int N, int m, int k, int a8, cudaStream_t st) {
   if (reinterpret_cast<uintptr_t>(x) % 8 ||
       reinterpret_cast<uintptr_t>(ws) % 16)
     return (int)cudaErrorMisalignedAddress;
-  return a8 ? wide_rows<WideTile<MODE, KV, true>>(x, x_bf16, tr, out, ws, N,
-                                                  m, k, st)
-            : wide_rows<WideTile<MODE, KV, false>>(x, x_bf16, tr, out, ws,
-                                                   N, m, k, st);
+  return a8 ? wide_rows<TILE<MODE, KV, true>>(x, x_bf16, tr, out, ws, N, m,
+                                              k, st)
+            : wide_rows<TILE<MODE, KV, false>>(x, x_bf16, tr, out, ws, N, m,
+                                               k, st);
 }
 
 }  // namespace qpt

@@ -1,6 +1,6 @@
 // K1 in the V=1 modes: 1mad and 2mad (tcq1), KV 2..5.  Both modes at N <= 8
-// rows run v1_gemv_kernel below; both at N > 8 run the template of
-// arith.cuh.
+// rows run v1_gemv_kernel below; both at 8 < N <= 256 run arith_wide.cuh's
+// wide_gemv_kernel under the V=1 tile policy WideTile1 below.
 //
 // v1_gemv_kernel: y = x @ W_hat^T in float32 for N <= 8 rows of x, no
 // Wscale.  Replaces qpalette_tpu/kernels/fused.py::_arith_kernel in 1mad
@@ -11,7 +11,7 @@
 //
 // What bounds it: every weight is read once as KV bits of packed trellis,
 // so the least time is the trellis bytes over device memory rate.  What
-// held the template from that on an H100: ~9-11 scalar instructions a
+// held the scalar kernel it replaced on an H100: ~9-11 instructions a
 // weight (a state's two word reads, wrap select, funnel shift and mask,
 // its hash, a __dp4a and a shared-memory x read and IMAD); two block
 // barriers per 512-column chunk with ~3 KB of words in flight a block; an
@@ -56,7 +56,7 @@
 //    grid: one block an m-tile, of 16 warps (2 blocks an SM), so the 256
 //    m-tiles of Path A's o and down shapes keep 31 warps an SM busy.
 
-#include "arith_tc.cuh"
+#include "arith_wide.cuh"
 
 using namespace qpt;
 
@@ -151,6 +151,58 @@ struct V1Tile {
   }
 };
 
+// The V=1 tile policy of wide_gemv_kernel (8 < N <= 256): V1Tile's lane
+// map, x columns 4c..4c+3 of the n-tile's row g (the prologue's V=1
+// order: p = 4c, s = 2), a tile decoded once into 8 A registers, pair p's
+// states in registers 2p and 2p+1 as V1Tile's MMAs take them.  a8: the
+// hashes as u8 A registers of two mma.m16n8k32 an n-tile against the x
+// word's byte permutes 0x0000 / 0x1111 and 0x2222 / 0x3333 (the wide body
+// adds -510 * sum(q) a step); exact: their weights as tf32 (v1_weight), two
+// mma.m16n8k8 on the x words' bf16 halves.  8 A registers, as dualmad's:
+// at most 24 n-tiles a row group (exact) and 12 (a8).
+template <int MODE, int KV, bool A8>
+struct WideTile1 {
+  static constexpr int kKV = KV, kV = 1, kWords = 8 * KV, kRegs = 8;
+  static constexpr bool kA8 = A8;
+  static constexpr int kMost = A8 ? 12 : 24;
+  using T = V1Tile<MODE, KV>;
+
+  static __device__ __forceinline__ LaneMap1 map(int g, int c) {
+    return T::map(g, c);
+  }
+
+  static __device__ __forceinline__ void decode(const uint8_t* wt,
+                                                const LaneMap1& lm,
+                                                uint32_t (&a)[kRegs]) {
+    uint32_t f[4];
+    lane_windows1<KV>(wt, lm, f);
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) {
+      const uint32_t h = T::hash(f[r >> 1], r & 1);
+      a[r] = A8 ? h : v1_weight(h);
+    }
+  }
+
+  // a8: into the chunk's int32 fragment
+  static __device__ __forceinline__ void mma(int (&d)[4],
+                                             const uint32_t (&a)[kRegs],
+                                             uint32_t w) {
+    mma_u8s8(d, a[0], a[1], a[2], a[3], __byte_perm(w, 0, 0x0000),
+             __byte_perm(w, 0, 0x1111));
+    mma_u8s8(d, a[4], a[5], a[6], a[7], __byte_perm(w, 0, 0x2222),
+             __byte_perm(w, 0, 0x3333));
+  }
+
+  // exact: into the f32 fragment; a bf16 value as tf32 is its bits in
+  // the high half of the word
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[kRegs],
+                                             uint2 b) {
+    mma_tf32(d, a[0], a[1], a[2], a[3], b.x << 16, b.x & 0xffff0000u);
+    mma_tf32(d, a[4], a[5], a[6], a[7], b.y << 16, b.y & 0xffff0000u);
+  }
+};
+
 template <typename XT, int MODE, int KV, bool A8>
 __global__ void __launch_bounds__(32 * V1Tile<MODE, KV>::kWarps,
                                   V1Tile<MODE, KV>::kBlocks)
@@ -193,23 +245,25 @@ int v1_variants(const void* x, int x_bf16, const void* tr, void* out, int N,
 #define QPT_2MAD(KV_) \
   v1_variants<k2mad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
 #define QPT_1MAD_WIDE(KV_) \
-  gemv_variants<k1mad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
+  wide_gemv<WideTile1, k1mad, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 #define QPT_2MAD_WIDE(KV_) \
-  gemv_variants<k2mad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
+  wide_gemv<WideTile1, k2mad, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 
 // x: (N, k) float32 (x_bf16 == 0) or bfloat16, 1 <= N <= 256, 8-byte
 // aligned; tr: canonical (m/16*k/16, 8*KV) words, 16-byte aligned; out:
-// (N, m) float32; mode 0 = 1mad, 1 = 2mad.  Launches on `stream` and
+// (N, m) float32; ws: at N > 8, wide_gemv's workspace, else unused; mode 0
+// = 1mad, 1 = 2mad.  Launches on `stream` (at N > 8: two kernels) and
 // returns cudaGetLastError() (cudaErrorInvalidValue for arguments the
 // kernels do not take).
 extern "C" int tcq1_gemv(const void* x, int x_bf16, const void* tr,
-                         void* out, int N, int m, int k, int KV, int mode,
-                         int a8, void* stream) {
+                         void* out, void* ws, int N, int m, int k, int KV,
+                         int mode, int a8, void* stream) {
   if (bad_gemv_args(N, m, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = N <= kTcRows;
   if (mode == 0 && narrow) QPT_V1_KV(QPT_1MAD)
   if (mode == 1 && narrow) QPT_V1_KV(QPT_2MAD)
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == 0) QPT_V1_KV(QPT_1MAD_WIDE)
   if (mode == 1) QPT_V1_KV(QPT_2MAD_WIDE)
   return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // K1 in the V=2 modes: sum2 (tcq2s) and dualmad (tcq2), KV 4..10.  Both
 // modes at N <= 8 rows run v2_gemv_kernel below, and at 8 < N <= 256
-// v2_wide_kernel (v2_wide.cuh, its note there).
+// wide_gemv_kernel under the V=2 tile policy WideTile (arith_wide.cuh, its
+// note there).
 //
 // v2_gemv_kernel: y = x @ W_hat^T in float32 for N <= 8 rows of x, no
 // Wscale.  Replaces qpalette_tpu/kernels/fused.py::_arith_kernel in sum2
@@ -11,7 +12,7 @@
 //
 // What bounds it: every weight is read once as KV/2 bits of packed
 // trellis, so the least time is the trellis bytes over device memory
-// rate.  What held the template from that on an H100: two block barriers
+// rate.  What held the scalar kernel it replaced on an H100: two barriers
 // per 512-column chunk with 2-5 KB of words in flight a block, an absmax
 // prologue over every chunk before the first trellis load, and ~50
 // instructions a tile (four __dp4a a lane).  Design:
@@ -35,7 +36,7 @@
 //    [q(2p+1)]*4.  Exact in int32: |w| <= 512 and |q| <= 127, so a
 //    512-column chunk's partial is at most 512*512*127 < 2^25.  At each
 //    chunk boundary the warp adds (float)C * scale into an f32 fragment,
-//    as the template does for its chunk sums.
+//    as the plain version does its chunk sums.
 //  - exact, sum2: w0 and w1 lie in [-256, 254], which bf16 holds exactly;
 //    a state's pair is one bf16x2 A register of one mma.m16n8k16.bf16 in
 //    natural column order, against bf16 x; each product is exact in f32.
@@ -63,7 +64,7 @@
 // 4 warps a block (fewer warps for the small-m shapes); 3, 5 or 6 blocks
 // an SM.
 
-#include "v2_wide.cuh"
+#include "arith_wide.cuh"
 
 using namespace qpt;
 
@@ -84,7 +85,7 @@ struct V2Tile {
   static __device__ __forceinline__ void a8(const uint8_t* wt,
                                             const LaneMap& lm, uint32_t xw,
                                             int (&d)[4]) {
-    // the decode step, then the MMA step (v2_wide.cuh's tile policy)
+    // the decode step, then the MMA step (arith_wide.cuh's tile policy)
     using W = WideTile<MODE, KV, true>;
     uint32_t a[W::kRegs];
     W::decode(wt, lm, a);
@@ -162,13 +163,13 @@ int v2_variants(const void* x, int x_bf16, const void* tr, void* out, int N,
 #define QPT_DUALMAD(KV_) \
   v2_variants<kDualmad, KV_>(x, x_bf16, tr, out, N, m, k, a8, st)
 #define QPT_SUM2_WIDE(KV_) \
-  v2_wide<kSum2, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
+  wide_gemv<WideTile, kSum2, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 #define QPT_DUALMAD_WIDE(KV_) \
-  v2_wide<kDualmad, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
+  wide_gemv<WideTile, kDualmad, KV_>(x, x_bf16, tr, out, ws, N, m, k, a8, st)
 
 // x: (N, k) float32 (x_bf16 == 0) or bfloat16, 1 <= N <= 256, 8-byte
 // aligned; tr: canonical (m/16*k/16, 4*KV) words, 16-byte aligned; out:
-// (N, m) float32; ws: at N > 8, v2_wide's workspace, else unused; mode 0 =
+// (N, m) float32; ws: at N > 8, wide_gemv's workspace, else unused; mode 0 =
 // sum2, 1 = dualmad.  Launches on `stream` (at N > 8: two kernels) and
 // returns cudaGetLastError() (cudaErrorInvalidValue for arguments the
 // kernels do not take).

@@ -15,13 +15,13 @@ for V=1, and returns y = x @ W_hat^T in float32 without Wscale, for
 N <= 256 rows of x.  exact rounds x to bf16; a8 quantizes x to int8 per
 512-column chunk with one absmax scale over all rows.  On a CPU tensor a
 wrapper runs the plain version; on a CUDA tensor it launches its kernels or
-raises.  Up to 8 rows every mode runs on tensor cores (``csrc/
-arith_tc.cuh``, one body: ``v2_gemv_kernel`` for V=2, ``v1_gemv_kernel``
-for V=1).  Above 8 rows sum2 and dualmad run ``v2_wide_kernel`` (``csrc/
-v2_wide.cuh``: each tile decoded once for all rows, on tensor cores),
-after a prologue kernel that writes x into a workspace the wrapper
-allocates, so such a call counts two launches; 1mad and 2mad run the
-template of ``csrc/arith.cuh``.  Both sources are compiled with nvcc into
+raises.  Every mode runs on tensor cores.  Up to 8 rows: one body
+(``csrc/arith_tc.cuh``), ``v2_gemv_kernel`` for V=2, ``v1_gemv_kernel``
+for V=1.  Above 8 rows: ``wide_gemv_kernel`` (``csrc/arith_wide.cuh``:
+each tile decoded once for all rows) under the mode's tile policy
+(``WideTile`` for V=2, ``WideTile1`` for V=1), after a prologue kernel
+that writes x into a workspace the wrapper allocates, so such a call
+counts two launches.  Both sources are compiled with nvcc into
 ``qpalette_tpu_torch/_build/`` at first use (``kernels/_build.py``).
 """
 
@@ -42,10 +42,12 @@ CHUNK = 512  # a8 columns per activation scale (the kernel's kChunk)
 MAX_ROWS = 256
 TC_ROWS = 8  # rows the narrow tensor-core kernels take (csrc kTcRows)
 MAX_K = CHUNK * 64
-# sum2 and dualmad above TC_ROWS: the workspace holds the chunk scales (csrc
-# kWideScaleBytes), then x padded to whole 8-row n-tiles, one byte a value
-# (a8) or two (exact)
+# above TC_ROWS the workspace holds the chunk scales (csrc kWideScaleBytes),
+# for V=1 a8 then -510 * sum(q) of each x row an 8-tile step (int32, rows
+# padded to whole 8-row n-tiles), then x padded to whole n-tiles, one byte a
+# value (a8) or two (exact)
 WIDE_SCALE_BYTES = 512
+WIDE_STEP = 128  # columns an 8-tile step
 SUPPORTED_KV = {"sum2": tuple(range(4, 11)), "dualmad": tuple(range(4, 11)),
                 "1mad": (2, 3, 4, 5), "2mad": (2, 3, 4, 5)}
 # mode -> (CUDA source and its C function, the function's mode number)
@@ -55,11 +57,10 @@ SOURCES = ("tcq2_gemv", "tcq1_gemv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# the C interface of each source: one function of the source's name
-# (tcq2_gemv takes the wide kernel's workspace after out)
-SIGNATURES = {
-    "tcq2_gemv": {"tcq2_gemv": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P]},
-    "tcq1_gemv": {"tcq1_gemv": [_P, _I, _P, _P] + [_I] * 6 + [_P]}}
+# the C interface of each source: one function of the source's name, which
+# takes the wide kernel's workspace after out
+SIGNATURES = {src: {src: [_P, _I, _P, _P, _P] + [_I] * 6 + [_P]}
+              for src in SOURCES}
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,19 +69,23 @@ def _lib(source: str) -> ctypes.CDLL:
 
 
 def wide(mode: str, rows: int) -> bool:
-    """Whether a call of `rows` rows runs v2_wide_kernel."""
-    return mode in ("sum2", "dualmad") and rows > TC_ROWS
+    """Whether a call of `rows` rows runs wide_gemv_kernel (every mode
+    above 8 rows)."""
+    return mode in ARITH_V and rows > TC_ROWS
 
 
 def kernel_launches(mode: str, rows: int) -> int:
-    """Kernels one call of `rows` rows launches: 2 for sum2 and dualmad
-    above 8 rows (the x prologue, then the GEMV), else 1."""
+    """Kernels one call of `rows` rows launches: 2 above 8 rows (the x
+    prologue, then the GEMV), else 1."""
     return 2 if wide(mode, rows) else 1
 
 
-def workspace_bytes(rows: int, k: int, a8: bool) -> int:
-    """Bytes of v2_wide_kernel's workspace for `rows` rows of x."""
-    return WIDE_SCALE_BYTES + -(-rows // 8) * 8 * k * (1 if a8 else 2)
+def workspace_bytes(mode: str, rows: int, k: int, a8: bool) -> int:
+    """Bytes of wide_gemv_kernel's workspace for `rows` rows of x."""
+    padded = -(-rows // 8) * 8
+    sums = (4 * padded * -(-k // WIDE_STEP) if a8 and ARITH_V[mode] == 1
+            else 0)
+    return WIDE_SCALE_BYTES + sums + padded * k * (1 if a8 else 2)
 
 
 def words_per_tile(mode: str, KV: int) -> int:
@@ -189,14 +194,12 @@ def _gemv(wrapper, mode, x, trellis, KV, m, k, a8, out) -> torch.Tensor:
                           device=x.device)
     source, cmode = _C_MODE[mode]
     N = x.shape[0]
-    args = [x.data_ptr(), int(x.dtype == torch.bfloat16), trellis.data_ptr(),
-            out.data_ptr()]
-    if source == "tcq2_gemv":  # the wide kernel's workspace, or null
-        ws = (torch.empty(workspace_bytes(N, k, a8), dtype=torch.uint8,
-                          device=x.device) if wide(mode, N) else None)
-        args.append(0 if ws is None else ws.data_ptr())
-    _build.launch(_lib(source), source, x.device, *args, N, m, k, KV, cmode,
-                  int(a8))
+    ws = (torch.empty(workspace_bytes(mode, N, k, a8), dtype=torch.uint8,
+                      device=x.device) if wide(mode, N) else None)
+    _build.launch(_lib(source), source, x.device, x.data_ptr(),
+                  int(x.dtype == torch.bfloat16), trellis.data_ptr(),
+                  out.data_ptr(), 0 if ws is None else ws.data_ptr(), N, m, k,
+                  KV, cmode, int(a8))
     wrapper.launches += kernel_launches(mode, N)
     return out
 

@@ -1,8 +1,9 @@
-"""The V=2 decode GEMVs' fragment algebra on the CPU, shared by the
-rehearsals of tcq2_gemv.cu's v2_gemv_kernel (test_torch_arith.py) and
-v2_wide.cuh's v2_wide_kernel (wide_fragment.py): a lane's
-16-bit state windows, its hash bytes and weights, byte permutes, and the
-C fragment's layout."""
+"""The decode GEMVs' fragment algebra on the CPU, shared by the rehearsals
+of tcq2_gemv.cu's v2_gemv_kernel and tcq1_gemv.cu's v1_gemv_kernel
+(test_torch_arith.py) and arith_wide.cuh's wide_gemv_kernel
+(wide_fragment.py): a lane's 16-bit state windows in the V=2 and V=1
+tile orders, its hash bytes and weights, byte permutes, and the C
+fragment's layout."""
 
 import torch
 
@@ -88,3 +89,45 @@ def c_frag(C, g, c):
     g, columns 2c, 2c+1; c2, c3 row g+8."""
     return torch.stack([C[:, g, 2 * c], C[:, g, 2 * c + 1],
                         C[:, g + 8, 2 * c], C[:, g + 8, 2 * c + 1]], -1)
+
+
+def v1_hash(u, mode):
+    if mode == "1mad":
+        return (u * codebooks.MAD1_A + codebooks.MAD1_B) & M32
+    h0 = (u * codebooks.MAD2_A + codebooks.MAD2_B) & M32
+    return (h0 + ((h0 * codebooks.MAD2_C) >> 32)) & M32
+
+
+def v1_lane_windows(words, KV):
+    """(T, 32 lanes, 4 pairs, 2) 16-bit windows of v1_gemv_kernel's lane
+    states: lane (g, c) decodes s0 = 64c + 2g plus 16p + i (pair p, state
+    i), pair p from one funnel shift of two words.  lane_map1's offsets:
+    pairs 0 and 2 at words w0 and w0 + KV, shift sh0; pairs 1 and 3 at o1
+    and o1 + KV, shift sh1 (even KV: o1 = w0 + KV/2, sh1 = sh0); only pair
+    3's second word is a separate offset, which wraps the stream."""
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+    W = 8 * KV
+    b0 = KV * (64 * c + 2 * g)
+    b1 = b0 + 16 * KV
+    w0, sh0 = b0 >> 5, b0 & 31
+    w1, sh1 = ((b1 >> 5, b1 & 31) if KV % 2 else (w0 + KV // 2, sh0))
+    w3 = (b1 >> 5) + KV + 1
+    w3 = torch.where(w3 == W, 0, w3)
+    lo, hi = [w0, w1, w0 + KV, w1 + KV], [w0 + 1, w1 + 1, w0 + KV + 1, w3]
+    sh = [sh0, sh1, sh0, sh1]
+    for p in range(4):  # each pair's words and shift are its first state's
+        bits = KV * (64 * c + 2 * g + 16 * p)
+        nxt = (bits >> 5) + 1
+        assert torch.equal(lo[p], bits >> 5) and torch.equal(sh[p], bits & 31)
+        assert torch.equal(hi[p], torch.where(nxt == W, 0, nxt))
+        assert p == 3 or bool((nxt < W).all())
+        assert bool(((bits & 31) + KV + 16 <= 32 + 31).all())
+    assert bool((w3 == 0).any())  # state 254's pair wraps the stream
+    u = words.to(torch.int64) & M32
+
+    def funnel(a, b, s):  # __funnelshift_r(word a, word b, s)
+        return ((u[:, a] >> s) | (u[:, b] << (32 - s))) & M32
+
+    f = torch.stack([funnel(lo[p], hi[p], sh[p]) for p in range(4)], -1)
+    return torch.stack([f & 0xFFFF, (f >> KV) & 0xFFFF], -1)

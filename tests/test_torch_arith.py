@@ -28,6 +28,8 @@ from arith_fragment import lane_windows as _lane_windows
 from arith_fragment import prmt as _prmt
 from arith_fragment import sbytes as _sbytes
 from arith_fragment import unpermute as _unpermute
+from arith_fragment import v1_hash as _v1_hash
+from arith_fragment import v1_lane_windows as _v1_lane_windows
 from qpalette_tpu_torch.kernels import arith, arith_dequant, formats
 from qpalette_tpu_torch.ops import codebooks, packing
 from qpalette_tpu_torch.ops.packing import words_to_torch
@@ -453,48 +455,6 @@ _V1_BIAS = 510  # the V=1 weight is its hash's unsigned byte sum - 510
 # a8: the byte permutes of the lane's x word that give the B registers b0,
 # b1 of MMA 1 (columns 4c, 4c+1) and MMA 2 (4c+2, 4c+3)
 _V1_PERMS = ((0x0000, 0x1111), (0x2222, 0x3333))
-
-
-def _v1_hash(u, mode):
-    if mode == "1mad":
-        return (u * codebooks.MAD1_A + codebooks.MAD1_B) & _M32
-    h0 = (u * codebooks.MAD2_A + codebooks.MAD2_B) & _M32
-    return (h0 + ((h0 * codebooks.MAD2_C) >> 32)) & _M32
-
-
-def _v1_lane_windows(words, KV):
-    """(T, 32 lanes, 4 pairs, 2) 16-bit windows of v1_gemv_kernel's lane
-    states: lane (g, c) decodes s0 = 64c + 2g plus 16p + i (pair p, state
-    i), pair p from one funnel shift of two words.  lane_map1's offsets:
-    pairs 0 and 2 at words w0 and w0 + KV, shift sh0; pairs 1 and 3 at o1
-    and o1 + KV, shift sh1 (even KV: o1 = w0 + KV/2, sh1 = sh0); only pair
-    3's second word is a separate offset, which wraps the stream."""
-    lane = torch.arange(32)
-    g, c = lane >> 2, lane & 3
-    W = 8 * KV
-    b0 = KV * (64 * c + 2 * g)
-    b1 = b0 + 16 * KV
-    w0, sh0 = b0 >> 5, b0 & 31
-    w1, sh1 = ((b1 >> 5, b1 & 31) if KV % 2 else (w0 + KV // 2, sh0))
-    w3 = (b1 >> 5) + KV + 1
-    w3 = torch.where(w3 == W, 0, w3)
-    lo, hi = [w0, w1, w0 + KV, w1 + KV], [w0 + 1, w1 + 1, w0 + KV + 1, w3]
-    sh = [sh0, sh1, sh0, sh1]
-    for p in range(4):  # each pair's words and shift are its first state's
-        bits = KV * (64 * c + 2 * g + 16 * p)
-        nxt = (bits >> 5) + 1
-        assert torch.equal(lo[p], bits >> 5) and torch.equal(sh[p], bits & 31)
-        assert torch.equal(hi[p], torch.where(nxt == W, 0, nxt))
-        assert p == 3 or bool((nxt < W).all())
-        assert bool(((bits & 31) + KV + 16 <= 32 + 31).all())
-    assert bool((w3 == 0).any())  # state 254's pair wraps the stream
-    u = words.to(torch.int64) & _M32
-
-    def funnel(a, b, s):  # __funnelshift_r(word a, word b, s)
-        return ((u[:, a] >> s) | (u[:, b] << (32 - s))) & _M32
-
-    f = torch.stack([funnel(lo[p], hi[p], sh[p]) for p in range(4)], -1)
-    return torch.stack([f & 0xFFFF, (f >> KV) & 0xFFFF], -1)
 
 
 def _v1_warp_split(kt):

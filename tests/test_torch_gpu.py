@@ -6,7 +6,7 @@ dequants (K2, K3) at the same shapes, the LUT trellis kernels (tcq /
 tcomb GEMV and dequant) at the shapes of the 3.25-bit flagship and at KV 3,
 the SQ/VQ row-pack kernels (K8, K9) at the shapes of the ldlq_2_6 path and
 at every ldlq (bits, vec) (K8 also at m not a multiple of 16, and two
-launches bit-equal), K1 sum2 and dualmad above 8 rows (v2_wide_kernel,
+launches bit-equal), K1 in every mode above 8 rows (wide_gemv_kernel,
 N = 9..256, two launches bit-equal), and the int8 lm_head GEMVs (K10,
 K11) at the 8B head's shape; and the decode step captured in a CUDA
 graph on a 2-layer tcq2s model (logits bit-equal to the eager forward, seeded sampling,
@@ -129,8 +129,8 @@ SHAPES_V1 = [
 @pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_V2 + SHAPES_V1)
 def test_kernel_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
     """N = 1..8 (the tensor-core kernels) with f32 and bf16 x, and N = 16
-    (sum2, dualmad: v2_wide_kernel after its x prologue, two launches;
-    1mad, 2mad the 8-row template), each kernel counted once."""
+    (every mode: wide_gemv_kernel after its x prologue, two launches),
+    each kernel counted once."""
     cases = [(N, dt) for N in range(1, 9)
              for dt in (torch.float32, torch.bfloat16)]
     fn = _counted(mode)
@@ -200,7 +200,7 @@ def test_arith_gemv_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
         assert rel <= (1e-3 if a8 else 1e-4), (name, N, rel)
 
 
-# v2_wide_kernel (8 < N <= 256) in sum2 at a small shape: 10 m-tiles (a whole
+# wide_gemv_kernel (8 < N <= 256) in sum2 at a small shape: 10 m-tiles (a whole
 # m-group of 8 and one of 2), k = 2576 (161 k-tiles: a partial step and a
 # partial chunk), which few blocks split over a cluster; N = 9, 49, 191
 # end in a partial n-tile, a8 above 128 rows splits the rows over blocks
@@ -238,7 +238,7 @@ def test_sum2_wide_launches_are_bit_equal(cuda, m, k, a8):
         assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 
 
-# v2_wide_kernel in dualmad at Path A's shapes (merged qkv tcq2_6, ug
+# wide_gemv_kernel in dualmad at Path A's shapes (merged qkv tcq2_6, ug
 # tcq2_7) and at odd k/16 (257 k-tiles: a partial step and chunk)
 WIDE_DUALMAD = [("qkv", 6144, 4096, 6), ("ug", 28672, 4096, 7),
                 ("odd_kt", 256, 4112, 7), ("odd_kt", 256, 4112, 9)]
@@ -277,6 +277,56 @@ def test_dualmad_wide_launches_are_bit_equal(cuda, name, m, k, KV, a8):
     words, x = _case(m, k, KV, 191, torch.bfloat16, cuda, seed=191,
                      mode="dualmad")
     ys = [arith.tcq2_decode_gemv(x, words, KV, m, k, a8) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
+
+
+# wide_gemv_kernel under the V=1 tile policy (1mad, 2mad) at Path A's o and
+# down (tcq1_3), and at the ragged shapes of SHAPES_V1 (odd k/16: a
+# partial step and chunk; one m-tile, so a cluster splits k)
+WIDE_V1 = [(name, m, k, mode, 3) for name, m, k, _, _ in SHAPES_V1[:2]
+           for mode in ("1mad", "2mad")] + [
+    sh for sh in SHAPES_V1 if sh[0].startswith("m")]
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("name,m,k,mode,KV", WIDE_V1)
+def test_v1_wide_matches_plain_on_card(cuda, name, m, k, mode, KV, a8):
+    """1mad and 2mad above 8 rows: two launches a call (the x prologue,
+    then the GEMV), within 1e-4 (exact) / 1e-3 (a8) of max|y|; f32 x as
+    well as bf16 at the ragged shapes."""
+    fn = arith.tcq1_decode_gemv
+    dtypes = ((torch.bfloat16,) if not name.startswith("m")
+              else (torch.float32, torch.bfloat16))
+    for N in WIDE_ROWS:
+        for x_dtype in dtypes:
+            words, x = _case(m, k, KV, N, x_dtype, cuda, seed=KV + N,
+                             mode=mode)
+            before = fn.launches
+            y = fn(x, words, KV, mode, m, k, a8)
+            torch.cuda.synchronize()
+            assert fn.launches == before + arith.kernel_launches(mode, N) == (
+                before + 2)
+            ref = arith_gemv_plain(x, words, mode, KV, m, k, a8)
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            # exact: bf16 x times integer weights (tf32 holds them), f32
+            # sums in another order; a8: the same chunks, scales and
+            # integer chunk sums (the -510 * sum(q) bias included), but a
+            # tie may round the other way
+            assert rel <= (1e-3 if a8 else 1e-4), (name, mode, N, x_dtype,
+                                                   rel)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("name,m,k,mode,KV", [WIDE_V1[0], WIDE_V1[3],
+                                              WIDE_V1[5]])
+def test_v1_wide_launches_are_bit_equal(cuda, name, m, k, mode, KV, a8):
+    """Two launches give the same bits at 191 rows (a8: two row groups):
+    the cluster's partial fragments are summed in rank order."""
+    words, x = _case(m, k, KV, 191, torch.bfloat16, cuda, seed=191,
+                     mode=mode)
+    ys = [arith.tcq1_decode_gemv(x, words, KV, mode, m, k, a8)
+          for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 

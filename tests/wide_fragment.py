@@ -1,27 +1,44 @@
-"""csrc/v2_wide.cuh's v2_wide_kernel (K1 sum2 and dualmad at 8 < N <= 256)
-emulated on the CPU for the rehearsals in test_torch_arith_wide.py (sum2)
-and test_torch_dualmad_wide.py (dualmad).
+"""csrc/arith_wide.cuh's wide_gemv_kernel (K1 at 8 < N <= 256, every mode)
+emulated on the CPU for the rehearsals in test_torch_arith_wide.py (sum2),
+test_torch_dualmad_wide.py (dualmad) and test_torch_v1_wide.py (1mad,
+2mad).
 
 The emulation follows the kernel on the plain words: the prologue's
-workspace (a8's chunk scales over all N rows, then x in B-fragment order
-at the kernel's byte offsets), the grid (m-groups of 8 m-tiles with a
+workspace (a8's chunk scales over all N rows, V=1 a8's -510 * sum(q) of
+each row an 8-tile step, then x in the tile order's B-fragment order at
+the kernel's byte offsets), the grid (m-groups of 8 m-tiles with a
 partial last group, row groups of NT n-tiles, a cluster splitting k in
 8-tile steps), each step's x slab copied from its contiguous bytes, every
 n-tile's B registers read at the lane's offset in the slab against one A
-decode of each tile (the tile policy's MMAs: sum2 one, dualmad two),
-a8's int32 chunk fragments descaled at chunk boundaries, the fragments
-summed over the cluster in rank order and written out by the epilogue's
-index map.  Mutations: "offset" puts lane 2h+1's exact x words where lane
-2h's go, "scale" takes each a8 scale over one row group's rows only,
-"permute" swaps dualmad's h1 and h2 byte permutes of the a8 x word."""
+decode of each tile (the tile policy's MMAs: sum2 one, the other modes
+two), V=1 a8's row sums added to the int32 fragments a step, a8's int32
+chunk fragments descaled at chunk boundaries, the fragments summed over
+the cluster in rank order and written out by the epilogue's index map.
+Mutations: "offset" puts lane 2h+1's exact x words where lane 2h's go,
+"scale" takes each a8 scale over one row group's rows only, "permute"
+swaps dualmad's h1 and h2 byte permutes of the a8 x word, "order" writes
+x in V=2's order under the V=1 lane map, "chunkbias" adds a chunk's whole
+V=1 bias at the rank's first step of the chunk (wrong on a rank that
+holds part of it), "hash" decodes 2mad's states with 1mad's hash."""
 
 import torch
 
 from arith_fragment import (M32, S8_MMAS, c_frag, lane_weights, lane_windows,
-                            prmt, sbytes)
+                            prmt, sbytes, v1_hash, v1_lane_windows)
 from qpalette_tpu_torch.kernels import arith
 
 WARPS, STEP = 8, 8  # kWideWarps (m-tiles a block), kWideTiles (a step)
+V1_BIAS = 510  # kV1Bias: the V=1 weight is its hash's byte sum - 510
+# V=1 a8: the byte permutes of the lane's x word that give the B registers
+# b0, b1 of MMA 1 (columns 4c, 4c+1) and MMA 2 (4c+2, 4c+3)
+V1_PERMS = ((0x0000, 0x1111), (0x2222, 0x3333))
+# a8 int32 fragments stay below 2^bits within a chunk: |w| <= 256 (sum2),
+# 512 (dualmad), V=1 byte sums <= 1020, times |q| <= 127 over 512 columns
+FRAG_BITS = {"sum2": 24, "dualmad": 25, "1mad": 27, "2mad": 27}
+
+
+def v1(mode):
+    return arith.ARITH_V[mode] == 1
 CHUNK_TILES = arith.CHUNK // 16
 MAX_CLUSTER, SMS = 8, 132
 
@@ -44,10 +61,11 @@ def stages(NT):
 
 def cluster_size(mgroups, rg, nst, NT, a8, mode="sum2"):
     """launch_wide's cluster size on SMS SMs (WideSmem's kStages,
-    wide_min_blocks)."""
+    wide_min_blocks: one block at 8 A registers, exact, 16 n-tiles, and
+    V=1 exact at 12)."""
     acc = 4 * NT * (2 if a8 else 1)
     min_blocks = 3 if acc <= 16 else 2 if acc <= (32 if a8 else 64) else 1
-    if mode == "dualmad" and not a8 and NT == 16:
+    if mode != "sum2" and not a8 and (NT == 16 or v1(mode) and NT == 12):
         min_blocks = 1
     cs = 1
     while (cs < MAX_CLUSTER and mgroups * rg * cs < SMS * min_blocks
@@ -65,10 +83,18 @@ def x_offset(nt, t, NT, ntot, kt, a8):
     return (y * kt * NT + t * ntg + j) * 128 * (1 if a8 else 2)
 
 
-def workspace(x, NT, a8, mutate=None):
-    """wide_x_kernel: (the workspace's words after its scale bytes, a flat
-    int64 tensor of 32-bit values; a8: each chunk's (scale, 1/scale) as
-    each row group's block reads it)."""
+def x_cols(mode, c, mutate=None):
+    """(p, s): lane c's x columns p, p+1, p+s, p+s+1 of a k-tile in the
+    tile order's B-fragment order (V=2: p = 2c, s = 8; V=1: p = 4c, s =
+    2; "order" writes V=1's in V=2's)."""
+    return (4 * c, 2) if v1(mode) and mutate != "order" else (2 * c, 8)
+
+
+def workspace(x, NT, a8, mutate=None, mode="sum2"):
+    """wide_x_kernel: (the workspace's x words, a flat int64 tensor of
+    32-bit values; a8: each chunk's (scale, 1/scale) as each row group's
+    block reads it; V=1 a8: the row sums, a flat int64 tensor of
+    -510 * sum(q) at step * 8 * ceil(N / 8) + row, else None)."""
     N, k = x.shape
     kt, ntot = k // 16, -(-N // 8)
     rows, rg = 8 * ntot, -(-ntot // NT)
@@ -78,7 +104,7 @@ def workspace(x, NT, a8, mutate=None):
     nt = torch.arange(rows)[:, None] // 8
     off = x_offset(nt, torch.arange(kt)[None, :], NT, ntot, kt, a8)
     g = torch.arange(rows)[:, None] % 8
-    scales = []
+    scales, sums = [], None
     if a8:
         q = torch.zeros((rows, k), dtype=torch.int64)
         for c0 in range(0, k, arith.CHUNK):
@@ -94,10 +120,17 @@ def workspace(x, NT, a8, mutate=None):
                 groups.append((s, inv))
             scales.append(groups)
         qb = (q & 0xFF).reshape(rows, kt, 16)
-        for c in range(4):  # lane 4g + c: [q(2c), q(2c+1), q(8+2c), q(9+2c)]
-            w = (qb[..., 2 * c] | qb[..., 2 * c + 1] << 8
-                 | qb[..., 8 + 2 * c] << 16 | qb[..., 9 + 2 * c] << 24)
+        for c in range(4):  # lane 4g + c: [q(p), q(p+1), q(p+s), q(p+s+1)]
+            p, st = x_cols(mode, c, mutate)
+            w = (qb[..., p] | qb[..., p + 1] << 8
+                 | qb[..., p + st] << 16 | qb[..., p + st + 1] << 24)
             words[(off + (4 * g + c) * 4) // 4] = w
+        if v1(mode):  # a (step, row): -510 * the row's q over the step
+            nst = -(-kt // STEP)
+            qt = torch.zeros((rows, nst * STEP * 16), dtype=torch.int64)
+            qt[:, :k] = q
+            sums = (-V1_BIAS * qt.reshape(rows, nst, STEP * 16).sum(-1)
+                    ).T.reshape(-1)
     else:
         bits = (xp.to(torch.bfloat16).view(torch.int16).to(torch.int64)
                 & 0xFFFF).reshape(rows, kt, 16)
@@ -105,19 +138,57 @@ def workspace(x, NT, a8, mutate=None):
         def pair(col):
             return bits[..., col] | bits[..., col + 1] << 16
 
-        for h in (0, 1):  # [pair(4h), pair(8+4h), pair(4h+2), pair(10+4h)]
+        for h in (0, 1):  # lanes 2h, 2h+1: pair(p), pair(p+s) of each
             lane = 4 * g + (2 * (1 - h) if mutate == "offset" else 2 * h)
-            for i, col in enumerate((4 * h, 8 + 4 * h, 4 * h + 2, 10 + 4 * h)):
+            cols = [col for c in (2 * h, 2 * h + 1)
+                    for p, st in [x_cols(mode, c, mutate)]
+                    for col in (p, p + st)]
+            for i, col in enumerate(cols):
                 words[(off + lane * 8) // 4 + i] = pair(col)
-    return words, scales
+    return words, scales, sums
 
 
-def a_regs(words, KV, mt, kt, a8, mode):
+def v1_a_regs(words, KV, mt, kt, a8, mode, mutate=None):
+    """WideTile1's A matrices, decoded once a tile: register r of lane (g,
+    c) holds pair r/2's state r%2 (V1Tile's map: states 64c + 2g + 16p +
+    i), MMA q registers 4q..4q+3.  a8 two (mt, kt, 16, 32) u8 hash bytes
+    (register r at fragment row g + 8*(r&1), k 4c + 16*(r>>1) + byte);
+    exact two (mt, kt, 16, 8) tf32 weights, byte sum - 510 through the
+    f32 bits of 1.5*2^23 as v1_weight computes it (k c + 4*(r>>1))."""
+    u = v1_lane_windows(words, KV).reshape(mt, kt, 32, 4, 2)
+    h = v1_hash(u, "1mad" if mutate == "hash" else mode)
+    ub = torch.stack([(h >> (8 * b)) & 0xFF for b in range(4)], -1)
+    lane = torch.arange(32)
+    g, c = lane >> 2, lane & 3
+    bits = (0x4B400000 + ub.sum(-1)).to(torch.int32)
+    wf = bits.view(torch.float32) - torch.tensor(12583422.0)
+    tf32 = (wf.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    assert torch.equal(tf32, (ub.sum(-1) - V1_BIAS).to(torch.float32))
+    out = []
+    for q in (0, 1):
+        a = torch.zeros((mt, kt, 16, 32 if a8 else 8), dtype=torch.int64)
+        for r in range(4):
+            pair, i = 2 * q + (r >> 1), r & 1
+            if a8:
+                for b in range(4):
+                    a[:, :, g + 8 * (r & 1), 4 * c + 16 * (r >> 1) + b] = (
+                        ub[:, :, :, pair, i, b])
+            else:
+                a[:, :, g + 8 * (r & 1), c + 4 * (r >> 1)] = (
+                    tf32[:, :, :, pair, i].to(torch.int64))
+        out.append(a)
+    return out
+
+
+def a_regs(words, KV, mt, kt, a8, mode, mutate=None):
     """Each tile's A matrix of each MMA of the tile, decoded once from the
     lane registers: a8 [(mt, kt, 16, 32)] s8 hash bytes (dualmad: h1's,
     then h2's); exact sum2 [(mt, kt, 16, 16)] weights, exact dualmad two
     (mt, kt, 16, 8) tf32 weights (w0 of the four states, then w1:
-    register r of lane (g, c) at fragment row g + 8*(r&1), k c + 4*(r>>1))."""
+    register r of lane (g, c) at fragment row g + 8*(r&1), k c + 4*(r>>1));
+    V=1: v1_a_regs."""
+    if v1(mode):
+        return v1_a_regs(words, KV, mt, kt, a8, mode, mutate)
     u = lane_windows(words, KV).reshape(mt, kt, 32, 4)
     lane = torch.arange(32)
     g, c = lane >> 2, lane & 3
@@ -156,7 +227,8 @@ def b_regs(slab, a8, mode, mutate=None):
     lane = torch.arange(32)
     g, c = lane >> 2, lane & 3
     if a8:
-        sels = [sel for _, sel in S8_MMAS[mode]]
+        sels = (list(V1_PERMS) if v1(mode)
+                else [sel for _, sel in S8_MMAS[mode]])
         if mutate == "permute":
             sels = sels[::-1]
         out = []
@@ -179,11 +251,11 @@ def b_regs(slab, a8, mode, mutate=None):
             for p in (0, 1):
                 B[..., 2 * c + 8 * i + p, g] = half(i, p)
         return [B]
-    out = []  # MMA p: b.x, b.y's half p moved into the high half
-    for p in (0, 1):
+    out = []  # dualmad MMA p: b.x, b.y's half p moved into the high half;
+    for p in (0, 1):  # V=1 MMA p: word p's halves (columns 4c+2p, +1)
         B = torch.zeros(slab.shape[:-2] + (8, 8), dtype=torch.float32)
         for i in (0, 1):
-            B[..., c + 4 * i, g] = half(i, p)
+            B[..., c + 4 * i, g] = half(p, i) if v1(mode) else half(i, p)
         out.append(B)
     return out
 
@@ -196,8 +268,8 @@ def emulate(x, trellis, KV, m, k, a8, mode="sum2", cs=None, mutate=None):
     NT = n_tiles(ntot, a8, mode)
     rg, mgroups, nst = -(-ntot // NT), -(-mtiles // WARPS), -(-kt // STEP)
     cs = cs or cluster_size(mgroups, rg, nst, NT, a8, mode)
-    words, scales = workspace(x, NT, a8, mutate)
-    A = a_regs(trellis, KV, mtiles, kt, a8, mode)
+    words, scales, sums = workspace(x, NT, a8, mutate, mode)
+    A = a_regs(trellis, KV, mtiles, kt, a8, mode, mutate)
     W = 1 if a8 else 2
     out = torch.zeros((N, m))
     chunk_sums = {}
@@ -225,6 +297,12 @@ def emulate(x, trellis, KV, m, k, a8, mode="sum2", cs=None, mutate=None):
                             acc, di = descale(acc, di, scales[ch][y][0],
                                               (ch, mg, y), chunk_sums)
                         ch = t0 // CHUNK_TILES
+                        if sums is not None and mutate == "chunkbias":
+                            c0 = ch * CHUNK_TILES // STEP
+                            for st in range(c0, min(nst, c0 + 4)):
+                                di = di + bias(sums, st, y, NT, ntot, ntg)
+                    if sums is not None and mutate != "chunkbias":
+                        di = di + bias(sums, s0 + s, y, NT, ntot, ntg)
                     # the step's x: one copy of its contiguous bytes into
                     # slot s % S; every lane reads its words of all NT
                     # n-tiles at t*ntg + j (past ntg: other words of the
@@ -243,9 +321,7 @@ def emulate(x, trellis, KV, m, k, a8, mode="sum2", cs=None, mutate=None):
                     if a8:  # int32 in the kernel: exact products and sums
                         for Aw, B in zip(Aws, Bs):
                             di = di + torch.einsum("wtik,tjkn->wjin", Aw, B)
-                        # |w| <= 256 (sum2) or 512 (dualmad), |q| <= 127
-                        assert int(di.abs().max()) < 1 << (
-                            24 if mode == "sum2" else 25)
+                        assert int(di.abs().max()) < 1 << FRAG_BITS[mode]
                     else:  # the tile's MMAs an n-tile, f32 sums
                         for t in range(n):
                             for Aw, B in zip(Aws, Bs):
@@ -273,6 +349,16 @@ def emulate(x, trellis, KV, m, k, a8, mode="sum2", cs=None, mutate=None):
                         if xr + 1 < N:
                             out[xr + 1, row:row + 2] = f[1::2]
     return out, chunk_sums
+
+
+def bias(sums, step, y, NT, ntot, ntg):
+    """V=1 a8: the row sums a step adds to the int32 fragments (nact, ntg,
+    16, 8): n-tile j's column n (x row 8j + n of row group y) takes the
+    word at step * 8 * ntot + y * NT * 8 + 8j + n, as lane (g, c) reads it
+    (an int2 at 2c of each n-tile)."""
+    idx = (step * 8 * ntot + y * NT * 8 + 8 * torch.arange(ntg)[:, None]
+           + torch.arange(8)[None, :])
+    return sums[idx][None, :, None, :]
 
 
 def descale(acc, di, sc, key, chunk_sums):
