@@ -6,6 +6,8 @@
       [--ab tcq2_gemv|tcq2_wide|tcq2mix_wide|tcq1_wide|tcq2mix|tcq1_gemv|
             tcq_lut|vq]
   python chip_smoke.py --rows
+  python chip_smoke.py --serve
+  python chip_smoke.py --msq
   python chip_smoke.py --recapture N
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
@@ -24,7 +26,9 @@ or K8 at Path C's and Path D's shapes, every other ldlq scheme at o and
 down, and the Path C decode (--ab vq), with the source against the same
 source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
 `git archive`).  With --rows it runs only k1_rows (phase 3's K1 dualmad,
-1mad and 2mad above 8 rows).  With --recapture N it runs only recapture:
+1mad and 2mad above 8 rows), with --serve only the serving phases (6b,
+6c), with --msq only the MSQ phase (12).  With --recapture N it runs
+only recapture:
 fresh captures of the 215 step timed over N consecutive windows of
 replays.
 
@@ -82,7 +86,17 @@ Phases (each raises on failure):
      129 sum2 K1 calls per forward (the prefill's at 16 rows two launches
      each); then the zero-shot harness on it at impl exact (see 10c) and
      a warm 512-token prefill at a8 (K1 in 256-row chunks)
-  7. the flagship path: the 8B model from the 3.25-bit mem-constrained
+  6b. serving (runtime/serving.py) on the 215 model: a 16-slot pool step
+     captured (129 K1 sum2 calls on wide_gemv_kernel), 2 replays
+     bit-equal to 2 eager pool steps, an admission leaving the other
+     slots' cache rows bit-unchanged, 32 requests (prompts 24-300 tokens,
+     8-64 new, bursts of 16, temperature 0.6, top-k 5) each ending with
+     its tokens or at a full cache (tokens/s, admission s, steps, bursts,
+     peak memory, SM clock), and a greedy exact run whose every token is
+     a B=1 eager forward's argmax or within NEAR_TIE_8B of it
+ 6c. python -m qpalette_tpu_torch.bench_serving at its defaults (4 slots,
+     the rotated int8 head: K10 in the pool step); its JSON line
+ 7. the flagship path: the 8B model from the 3.25-bit mem-constrained
      solver output (unmerged tcq 6/8/10 and tcomb 8/9, bf16 lm_head, impl
      exact, dummy weights from seed 0); the 16-token prefill launches 194
      tcq + 30 tcomb dequants, each of 64 decode forwards 194 tcq + 30
@@ -124,6 +138,13 @@ Phases (each raises on failure):
      the top 10 device ops a step, GEMV against glue, host enqueue a
      replay); 64 replays timed while nvidia-smi samples the SM clock and
      power draw
+ 12. (before 10) MSQ: the qdict solved against the latency table
+     measured on this card (msq_results/3_8b/lat_constrained/h100/):
+     its census's launches in a counted eager run and at capture, its
+     tokens/s through generate() beside the H100 table's estimate, and
+     the 215's beside its; fit_latency_coeffs in sample mode over groups
+     q and ug x tcq2s_6, tcq_6, ldlq_2_6 (and ldlq's dequant keys), each
+     entry against the committed table's
  10. 2-layer models with each path's scheme mix on the CPU (plain
      versions) against the same weights on the card (kernels); the tcq2mix
      one with a 300-token exact prompt (K2/K3) and one decode step; the
@@ -153,7 +174,8 @@ Phases (each raises on failure):
      ctx-2560 logits and ce_loss, card against the CPU, within SMALL_TOL
  11. eager and graph tokens/s of every decode path side by side, a JSON
      line of them ("[graph] {...}"), a JSON line of the evaluation
-     ("[eval] {...}"), the run time, a JSON line of kernels
+     ("[eval] {...}"), of serving ("[serve] {...}") and of MSQ ("[msq]
+     {...}"), the run time, a JSON line of kernels
      (launches in the counted runs, step_launches in their decode
      forwards), the nvidia-smi name/power line, and the final JSON status
      line
@@ -1207,8 +1229,9 @@ def main_path(device, card_label):
     """The 215 path: 129 sum2 K1 calls per forward (a decode forward's at
     N=1 one launch each, the 16-token prefill's two); then the same model
     through the zero-shot harness (zs_check) and a warm a8 512-token
-    prefill.  Returns the launch counts of all, the qdict, graph_phase's
-    result and zs_check's summary with the prefill's ms."""
+    prefill; then the serving phase on it (serving_pool).  Returns the
+    launch counts of all, the qdict, graph_phase's result and zs_check's
+    summary with the prefill's ms and the serving summary."""
     from qpalette_tpu_torch.kernels import arith
 
     qdict, merge_info = _load_215()
@@ -1225,9 +1248,337 @@ def main_path(device, card_label):
         launches[k] += v
     zs["a8_prefill_512_ms"] = 1e3 * prefill_time(
         "main a8", spec, params, device, PREFILL_B, card_label)
+    serve_counts, serve = serving_pool(spec, params, device, card_label)
+    for k, v in serve_counts.items():
+        launches[k] += v
+    zs["serve"] = serve
     del params
     torch.cuda.empty_cache()
     return launches, qdict, graphs, zs
+
+
+# the serving phase's 16-slot pool on the 215 model (6b): requests with
+# prompts of 24-300 tokens (256-token chunks and mixed tails) and 8-64 new
+# tokens, bursts of 16, sampled at temperature 0.6, top-k 5; a cache of
+# SERVE_MAX_SEQ positions, so that the longest prompts stop at a full
+# cache.  Then a greedy run at impl exact (head exact too: no row of the
+# pool moves another's numbers) of (prompt length, new tokens) requests.
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_BURST, SERVE_MAX_SEQ = 16, 32, 16, 320
+SERVE_PROMPT, SERVE_NEW = (24, 300), (8, 64)
+SERVE_GREEDY = ((40, 6), (100, 6), (270, 6))
+# a greedy pool token against the argmax of a B=1 eager forward over its
+# prefix: equal, or short of it by at most this share of max|logit| (the
+# pool's 16-row K1 calls and cached attention sum in another order)
+NEAR_TIE_8B = 2e-2
+
+
+def _pool_state(pool):
+    return ([tuple(t.clone() for t in kv) for kv in pool.caches],
+            [t.clone() for t in (pool.token, pool.pos, pool.active,
+                                 pool.logits, pool.history)],
+            pool.generator.get_state())
+
+
+def _set_pool_state(pool, state):
+    caches, bufs, gen = state
+    for mine, kv in zip(pool.caches, caches):
+        for a, b in zip(mine, kv):
+            a.copy_(b)
+    for a, b in zip((pool.token, pool.pos, pool.active, pool.logits,
+                     pool.history), bufs):
+        a.copy_(b)
+    pool.generator.set_state(gen)
+
+
+def _equal_state(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+            and all(torch.equal(x, y) for p, q in zip(a[0], b[0])
+                    for x, y in zip(p, q)))
+
+
+def serving_pool(spec, params, device, card_label):
+    """6b. The 215 model (a8, 4-bit head) served from a 16-slot pool
+    (runtime/serving.py): the pool step captured at 16 rows (129 K1 sum2
+    calls on wide_gemv_kernel, two launches each, counted); two replays
+    bit-equal to two eager pool steps from the same buffers (per-row
+    positions, inactive rows, the generator's state); an admission that
+    leaves the other 14 slots' cache rows bit-unchanged; SERVE_REQUESTS
+    requests (every count set to 0 just before, read just after): each
+    ends with its max_new_tokens tokens or at a full cache; aggregate
+    tokens/s, admission s, steps and bursts, peak memory, SM clock; then
+    a greedy
+    run at impl exact, each token the argmax of a B=1 eager forward over
+    its prefix or within NEAR_TIE_8B of it (its pool's capture, admission
+    and forwards counted).  Returns (launch counts, summary)."""
+    from qpalette_tpu_torch.kernels import arith, launch_counts, wrappers
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.runtime import serving
+
+    V, B, T = spec.config.vocab_size, SERVE_SLOTS, SERVE_MAX_SEQ
+    t_phase = time.perf_counter()
+    pool = serving.pool_step(spec, params, B, T, 0.6, 5)
+    want = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD
+            * arith.kernel_launches("sum2", B)}
+    check(pool.graph is not None and pool.launches == want,
+          f"serve pool: launches at capture {pool.launches}, want {want}")
+    rng = np.random.default_rng(7)
+    serving.prefill_slots(spec, params, pool.caches,
+                          torch.arange(B, device=device),
+                          torch.as_tensor(rng.integers(0, V, (B, 24)),
+                                          device=device),
+                          torch.zeros(B, dtype=torch.int64, device=device))
+    pool.load(rng.integers(0, V, (B, 1)), rng.integers(24, 40, B),
+              np.arange(B) % 4 != 3)
+    state = _pool_state(pool)
+    pool.replay(2)
+    graph = _pool_state(pool)
+    _set_pool_state(pool, state)
+    pool.step_eager()
+    pool.step_eager()
+    eager = _pool_state(pool)
+    check(_equal_state(graph, eager), "serve pool: 2 replays differ from 2 "
+          "eager pool steps")
+    del state, graph
+    slots = [13, 2]
+    serving.prefill_slots(spec, params, pool.caches,
+                          torch.tensor(slots, device=device),
+                          torch.as_tensor(rng.integers(0, V, (2, 40)),
+                                          device=device),
+                          torch.tensor([0, 30], device=device))
+    others = [s for s in range(B) if s not in slots]
+    check(all(torch.equal(a[others], b[others])
+              and not torch.equal(a[slots], b[slots])
+              for kv, old in zip(pool.caches, eager[0])
+              for a, b in zip(kv, old)),
+          "serve admission: other slots' cache rows changed")
+    del eager
+    print(f"[serve] 16-slot pool of the 215 model: launches at capture "
+          f"{pool.launches}; 2 replays bit-equal to 2 eager pool steps "
+          f"(per-row positions, 4 rows inactive); an admission of 2 slots "
+          f"left the other 14 slots' cache rows bit-unchanged", flush=True)
+
+    rng = np.random.default_rng(0)
+    reqs = [(list(rng.integers(0, V, rng.integers(SERVE_PROMPT[0],
+                                                 SERVE_PROMPT[1] + 1))),
+             int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1)))
+            for _ in range(SERVE_REQUESTS)]
+    b = serving.ContinuousBatcher(spec, params, n_slots=B, max_seq=T,
+                                  temperature=0.6, top_k=5, seed=0)
+    rids = [b.submit(p, n) for p, n in reqs]
+    stats = {"admit_s": 0.0, "admissions": 0, "bursts": 0, "steps": 0}
+    admit0, burst0, step0 = b._admit, b.step_burst, b.step
+
+    def admit():
+        t0 = time.perf_counter()
+        n = admit0()
+        if n:
+            torch.cuda.synchronize()
+            stats["admit_s"] += time.perf_counter() - t0
+            stats["admissions"] += 1
+        return n
+
+    def burst(n):
+        stats["bursts"] += 1
+        stats["steps"] += n
+        return burst0(n)
+
+    def step():
+        stats["steps"] += 1
+        return step0()
+
+    b._admit, b.step_burst, b.step = admit, burst, step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for f in wrappers():
+        f.launches = 0
+    with SmClock() as clock:
+        t0 = time.perf_counter()
+        done = b.run(burst=SERVE_BURST)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = launch_counts()
+    run_counts = {k: v for k, v in counts.items() if v}
+    for k, v in pool.launches.items():
+        counts[k] += v
+    peak = torch.cuda.max_memory_allocated(device)
+    check(set(done) == set(rids), "serve: unfinished requests")
+    full = 0
+    for rid, (p, n) in zip(rids, reqs):
+        out = done[rid].output
+        check(len(out) == min(n, T - len(p)),
+              f"serve request {rid}: {len(out)} tokens, prompt {len(p)}, "
+              f"max_new_tokens {n}")
+        check(all(0 <= t < V for t in out), f"serve request {rid}: token "
+              f"out of vocab")
+        full += n > T - len(p)
+    n_tok = sum(len(done[r].output) for r in rids)
+    check(run_counts.get("tcq2s_decode_gemv", 0) > 0,
+          "serve: admission launched no K1")
+    res = {"slots": B, "requests": SERVE_REQUESTS, "tokens": n_tok,
+           "seconds": dt, "tokens_s": n_tok / dt,
+           "admission_s": stats["admit_s"],
+           "admissions": stats["admissions"], "steps": stats["steps"],
+           "bursts": stats["bursts"], "full_cache_stops": full,
+           "peak_gb": peak / 1e9, "sm_mhz": clock.mhz,
+           "run_launches": run_counts, "capture_launches": pool.launches}
+    print(f"[serve] {SERVE_REQUESTS} requests (prompts {SERVE_PROMPT[0]}-"
+          f"{SERVE_PROMPT[1]}, {SERVE_NEW[0]}-{SERVE_NEW[1]} new tokens, "
+          f"bursts of {SERVE_BURST}) through {B} slots: {n_tok} tokens in "
+          f"{dt:.3f} s, {n_tok / dt:.2f} tokens/s aggregate, admission "
+          f"{stats['admit_s']:.3f} s in {stats['admissions']} passes, "
+          f"{stats['steps']} steps in {stats['bursts']} bursts, {full} "
+          f"stopped at a full cache, peak memory {peak / 1e9:.3f} GB, "
+          f"{clock}; eager launches in the run (admission) "
+          f"{res['run_launches']}; card {card_label}", flush=True)
+
+    ex = with_impl(spec, "exact")
+    ex = dataclasses.replace(ex, lm_head_spec=dataclasses.replace(
+        ex.lm_head_spec, impl="exact"))
+    for f in wrappers():
+        f.launches = 0
+    g = serving.ContinuousBatcher(ex, params, n_slots=B, max_seq=T,
+                                  temperature=0.0)
+    prompts = [list(rng.integers(0, V, L)) for L, _ in SERVE_GREEDY]
+    ids = [g.submit(p, n) for p, (_, n) in zip(prompts, SERVE_GREEDY)]
+    done = g.run(burst=SERVE_BURST)
+    agree, worst = 0, 0.0
+    for rid, p, (_, n) in zip(ids, prompts, SERVE_GREEDY):
+        seq = list(p)
+        out = done[rid].output
+        check(len(out) == n, f"serve greedy {rid}: {len(out)} tokens")
+        for tok in out:
+            lg = llama.forward(ex, params, torch.as_tensor(
+                [seq], device=device))[0, -1]
+            best = int(torch.argmax(lg))
+            gap = float(lg[best] - lg[tok]) / float(lg.abs().max())
+            agree += tok == best
+            worst = max(worst, gap)
+            check(gap <= NEAR_TIE_8B, f"serve greedy: token {tok} against "
+                  f"argmax {best}, gap {gap:.3e} of max|logit|")
+            seq.append(tok)
+    for k, v in launch_counts().items():
+        counts[k] += v
+    n_greedy = sum(n for _, n in SERVE_GREEDY)
+    # every K1 call of this phase is above 8 rows (the 16-row pool step,
+    # admissions of 23 rows or more, B=1 forwards over 40 or more)
+    res.update(greedy_exact_agree=agree, greedy_tokens=n_greedy,
+               greedy_worst_gap=worst,
+               k1_wide_launches=counts["tcq2s_decode_gemv"])
+    print(f"[serve] greedy exact run ({len(SERVE_GREEDY)} requests in the "
+          f"16-slot pool): {agree} of {n_greedy} tokens the argmax of a B=1 "
+          f"eager forward over the prefix, the largest gap {worst:.3e} of "
+          f"max|logit| (limit {NEAR_TIE_8B:.0e}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    serving.release_pools(params)
+    return counts, res
+
+
+def serving_bench(card_label):
+    """6c. python -m qpalette_tpu_torch.bench_serving at its defaults (4
+    slots, 8 requests of 128 tokens + 64 new, the rotated int8 head: K10
+    in the pool step, K1 sum2 at N = 4 in it and above 8 rows in
+    admission), every count set to 0 just before, read just after (the
+    capture's launches and the eager admissions').  Returns (launch
+    counts, its JSON result)."""
+    from qpalette_tpu_torch import bench_serving
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+
+    t0 = time.perf_counter()
+    for f in wrappers():
+        f.launches = 0
+    res = bench_serving.main([])
+    counts = launch_counts()
+    check(res["raw_tokens"] == 8 * 64, f"bench_serving tokens {res}")
+    check(counts["int8_gemv_a8"] > 0 and counts["tcq2s_decode_gemv"] > 0,
+          f"bench_serving launches {counts}")
+    print(f"[serve] bench_serving (4 slots): {res['value']} tokens/s, "
+          f"admission {res['admission_s']} s of {res['seconds']} s, "
+          f"launches {({k: v for k, v in counts.items() if v})}; "
+          f"{time.perf_counter() - t0:.1f} s; card {card_label}", flush=True)
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+# the latency table and qdict measured and solved on the H100 (12)
+H100_TABLE = os.path.join(ROOT, "assets", "3_8b_latency_coeffs_h100.json")
+H100_QDIR = os.path.join(ROOT, "msq_results", "3_8b", "lat_constrained",
+                         "h100", "default_err")
+FIT_GROUPS = "q,ug"
+FIT_QS = "tcq2s_6_none_0.9,tcq_6_none_0.9,ldlq_2_6_none_1.0"
+
+
+def msq_path(device, card_label, tps_215):
+    """12. The H100 qdict (the latency-constrained solve against the
+    table measured on this card, committed under H100_QDIR): its census's
+    launches in a counted eager run (16-token prefill, 4 decode forwards),
+    the launches at capture, its tokens/s through generate() beside the
+    table's estimate, and the 215's (tps_215, measured through generate()
+    in 9d) beside its; then fit_latency_coeffs in sample mode over
+    FIT_GROUPS x FIT_QS (and the ldlq dequant keys), each entry beside the
+    committed table's.  Returns (launch counts, summary)."""
+    import glob
+    import tempfile
+    from qpalette_tpu_torch import fit_latency_coeffs
+    from qpalette_tpu_torch.msq.latmodel import qdict_latency
+    from qpalette_tpu_torch.runtime import decode
+
+    with open(H100_TABLE) as f:
+        table = json.load(f)
+    (path,) = glob.glob(os.path.join(H100_QDIR, "*thp_cc.json"))
+    with open(path) as f:
+        qdict = {k: tuple(v) for k, v in json.load(f).items()}
+    with open(path.replace(".json", "_merge_info.json")) as f:
+        merge_info = json.load(f)
+    q215, m215 = _load_215()
+    est = {"h100": 1.0 / qdict_latency(table, qdict, merge_info, 32),
+           "215": 1.0 / qdict_latency(table, q215, m215, 32)}
+    spec, params = _build("h100", qdict, merge_info, "a8", 4, device)
+    want, _, _ = census("h100", spec, params, (PROMPT_LEN, 1))
+    launches = drive("h100", spec, params, device, PROMPT_LEN, 4,
+                     want[PROMPT_LEN], want[1])
+    T = PROMPT_LEN + NEW_TOKENS + 1
+    got = decode.captured_step(spec, params, 1, T, 0.6, 5).launches
+    check(got == want[1], f"h100: launches at capture {got}, want {want[1]}")
+    tps = throughput("h100", spec, params, device, card_label)
+    del params
+    torch.cuda.empty_cache()
+    res = {"qdict": os.path.relpath(path, ROOT), "est_tokens_s": est,
+           "tokens_s": {"h100": tps, "215": tps_215},
+           "table_sm_mhz": table.get("__sm_mhz__")}
+    print(f"[msq] tokens/s bs=1 under the H100 table "
+          f"({table['__device__']}): the H100 qdict "
+          f"({res['qdict']}) estimated {est['h100']:.2f}, measured "
+          f"{tps:.2f}; the 215 estimated {est['215']:.2f}, measured "
+          f"{tps_215:.2f} (captured step, generate(); card {card_label})",
+          flush=True)
+    env = {k: os.environ.get(k) for k in ("QPT_FIT_GROUPS", "QPT_FIT_QS")}
+    os.environ.update(QPT_FIT_GROUPS=FIT_GROUPS, QPT_FIT_QS=FIT_QS)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            sample = fit_latency_coeffs.main([
+                "--constant", str(table["constant"]),
+                "--out", os.path.join(tmp, "sample.json")])
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ratios = {}
+    for g in FIT_GROUPS.split(","):
+        for q in FIT_QS.split(","):
+            for fl in (("False", "True") if q.startswith("ldlq")
+                       else ("False",)):
+                key = f"{g}_{q}_{fl}"
+                check(sample[key] > 0, f"fit sample {key}")
+                ratios[key] = sample[key] / table[key]
+    print(f"[msq] fit_latency_coeffs sample grid ({FIT_GROUPS} x {FIT_QS}):"
+          f" this run / the committed table: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+          + f"; SM {sample['__sm_mhz__']} MHz (card {card_label})",
+          flush=True)
+    res["fit_sample_ratio"] = ratios
+    return launches, res
 
 
 def flagship_shapes(cfg, qdict):
@@ -3007,6 +3358,10 @@ def main():
     pe, graphs["pathE"] = path_e(device, smi)
     for k in launches:
         launches[k] += pc[k] + pd[k] + pe[k]
+    sb, serve_bench = serving_bench(smi)
+    pm, msq = msq_path(device, smi, graphs["215"]["generate"])
+    for k in launches:
+        launches[k] += sb[k] + pm[k]
     small_model_checks(device)
     artifact_check(device)
     t0 = time.perf_counter()
@@ -3101,6 +3456,10 @@ def main():
         "k1_rows_forward": zs_forward,
         "k1_rows": {f"{N} {name} KV{KV}": t
                     for (N, name, KV), t in row_times.items()}}), flush=True)
+    print("[serve] " + json.dumps({"card": smi, "pool16_215": zs["serve"],
+                                   "bench_serving": serve_bench}),
+          flush=True)
+    print("[msq] " + json.dumps({"card": smi, **msq}), flush=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"({smi})", flush=True)
     kernels = []
@@ -3120,11 +3479,12 @@ def main():
             "library_ms": library.get(kname)})
     # above 8 rows, wide_gemv_kernel (and its x prologue) behind the same
     # wrappers: sum2 with its launches in the 215 zero-shot run (every
-    # call at 9-200 rows) and times a zero-shot forward's 129 calls at
-    # N=64; dualmad and 1mad with their launches in the Path A zero-shot
+    # call at 9-200 rows) and in the 16-slot serving phase, and times a
+    # zero-shot forward's 129 calls at N=64; dualmad and 1mad with their launches in the Path A zero-shot
     # run and 16-token prefills (a8 and exact) and times a Path A
     # forward's 64 calls each at N=64, exact
-    wide = zs["zs_k1_launches"]["tcq2s_decode_gemv"]
+    wide = (zs["zs_k1_launches"]["tcq2s_decode_gemv"]
+            + zs["serve"]["k1_wide_launches"])
     check(wide > 0, "wide_gemv_kernel (sum2) launched no time")
     kms, kpms, kbms, _, kby = zs_forward[64]
     kernels.append({
@@ -3152,6 +3512,36 @@ def main():
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
+
+
+def serve_only():
+    """Phases 6b and 6c alone: the 16-slot pool on the 215 model and
+    bench_serving at its defaults."""
+    _, _, smi = card()
+    build_all()
+    device = torch.device("cuda:0")
+    qdict, merge_info = _load_215()
+    spec, params = _build("serve", qdict, merge_info, "a8", 4, device)
+    _, pool = serving_pool(spec, params, device, smi)
+    del params
+    torch.cuda.empty_cache()
+    _, bench = serving_bench(smi)
+    print("[serve] " + json.dumps({"card": smi, "pool16_215": pool,
+                                   "bench_serving": bench}), flush=True)
+
+
+def msq_only():
+    """Phase 12 alone, beside the 215's tokens/s through generate()."""
+    _, _, smi = card()
+    build_all()
+    device = torch.device("cuda:0")
+    qdict, merge_info = _load_215()
+    spec, params = _build("main", qdict, merge_info, "a8", 4, device)
+    tps = throughput("main", spec, params, device, smi)
+    del params
+    torch.cuda.empty_cache()
+    _, msq = msq_path(device, smi, tps)
+    print("[msq] " + json.dumps({"card": smi, **msq}), flush=True)
 
 
 def recapture(n):
@@ -3233,6 +3623,10 @@ if __name__ == "__main__":
     ap.add_argument("--rows", action="store_true",
                     help="run only phase 3's K1 dualmad / 1mad / 2mad "
                     "above 8 rows (k1_rows)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run only the serving phases (6b, 6c)")
+    ap.add_argument("--msq", action="store_true",
+                    help="run only the MSQ phase (12)")
     ap.add_argument("--recapture", type=int, default=0,
                     help="run recapture only, with this many windows of "
                     "replays a capture of the 215 step")
@@ -3241,6 +3635,10 @@ if __name__ == "__main__":
         parent_ab(args.parent, args.ab)
     elif args.rows:
         rows_only()
+    elif args.serve:
+        serve_only()
+    elif args.msq:
+        msq_only()
     elif args.recapture:
         recapture(args.recapture)
     else:

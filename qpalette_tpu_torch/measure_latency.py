@@ -50,6 +50,7 @@ a CPU run (``--device cpu``) is for rehearsal only.
 import argparse
 import json
 import os
+import statistics
 import subprocess
 
 _QDIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -67,6 +68,28 @@ def card_label(index: int) -> str:
         ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+class SmClock:
+    """nvidia-smi's SM clock of a card, sampled every 20 ms while the
+    block runs: .mhz (the median; NaN without a sample)."""
+
+    def __init__(self, index: int = 0):
+        self.index = index
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", str(self.index), "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        log, _ = self.proc.communicate()
+        v = [float(t) for t in log.split() if t.isdigit()]
+        self.mhz = statistics.median(v) if v else float("nan")
+        return False
 
 
 def route_census(spec) -> dict:

@@ -1,8 +1,9 @@
-"""Analytic memory model: average bits per weight of a qdict.
+"""Analytic memory model: bytes of a quantized projection and average
+bits per weight of a qdict.
 
-Counterpart of ``calc_avg_bits`` in ``qpalette_tpu/msq/memmodel.py``
-(bytes per layer including LUT overhead, plus 1 bit per input column for
-the SU sign vectors of the four rotation groups).
+Counterpart of ``qpalette_tpu/msq/memmodel.py`` (bytes per layer including
+LUT overhead, plus 1 bit per input column for the SU sign vectors of the
+four rotation groups).
 """
 
 from __future__ import annotations
@@ -16,8 +17,13 @@ SU_KEYS = ["self_attn.q_proj", "self_attn.o_proj", "mlp.up_proj",
            "mlp.down_proj"]  # one SU per rotation group
 
 
+def layer_shape(cfg: LlamaConfig, key: str):
+    """(out_features, in_features) of a projection."""
+    return proj_shape(cfg, key)
+
+
 def layer_mem_bytes(cfg: LlamaConfig, key: str, quantizer_str: str) -> float:
-    m, n = proj_shape(cfg, key)
+    m, n = layer_shape(cfg, key)
     if quantizer_str == "default":
         return m * n * 2.0  # bf16
     s = parse_quantizer_str(quantizer_str)
@@ -36,6 +42,12 @@ def layer_mem_bytes(cfg: LlamaConfig, key: str, quantizer_str: str) -> float:
     raise ValueError(s.family)
 
 
+def constant_mem_bytes(cfg: LlamaConfig) -> float:
+    """SU sign bits a layer: one bit an input column of each rotation
+    group."""
+    return sum(layer_shape(cfg, k)[1] / 8 for k in SU_KEYS)
+
+
 def calc_avg_bits(cfg: LlamaConfig, qdict, num_layers=None) -> float:
     nl = num_layers or cfg.num_layers
     total = 0.0
@@ -48,5 +60,5 @@ def calc_avg_bits(cfg: LlamaConfig, qdict, num_layers=None) -> float:
             total += layer_mem_bytes(cfg, key, v)
             default += layer_mem_bytes(cfg, key, "default")
             if key in SU_KEYS:
-                total += proj_shape(cfg, key)[1] / 8
+                total += layer_shape(cfg, key)[1] / 8
     return total / default * 16

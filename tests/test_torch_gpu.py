@@ -10,7 +10,9 @@ launches bit-equal), K1 in every mode above 8 rows (wide_gemv_kernel,
 N = 9..256, two launches bit-equal), and the int8 lm_head GEMVs (K10,
 K11) at the 8B head's shape; and the decode step captured in a CUDA
 graph on a 2-layer tcq2s model (logits bit-equal to the eager forward, seeded sampling,
-positions advanced by the graph).  Marked ``gpu``; each test skips itself
+positions advanced by the graph); the serving pool step captured at 4 and
+16 slots (bit-equal to the eager pool step) and admission (other slots'
+cache rows bit-unchanged).  Marked ``gpu``; each test skips itself
 when no CUDA device is present.
 
   python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -865,3 +867,83 @@ def test_merged_model_replays_bit_equal_to_eager(cuda):
     assert all(torch.equal(a, b) for c, e in zip(step.caches, eager)
                for a, b in zip(c, e))
     decode.release_captured(params)
+
+
+def _pool_state(pool):
+    return ([tuple(t.clone() for t in kv) for kv in pool.caches],
+            [t.clone() for t in (pool.token, pool.pos, pool.active,
+                                 pool.logits, pool.history)],
+            pool.generator.get_state())
+
+
+def _set_pool_state(pool, state):
+    caches, bufs, gen = state
+    for mine, kv in zip(pool.caches, caches):
+        for a, b in zip(mine, kv):
+            a.copy_(b)
+    for a, b in zip((pool.token, pool.pos, pool.active, pool.logits,
+                     pool.history), bufs):
+        a.copy_(b)
+    pool.generator.set_state(gen)
+
+
+@pytest.mark.parametrize("slots", [4, 16])
+def test_pool_graph_bit_equal_to_eager(small_model, slots):
+    """The serving pool step (runtime/serving.PoolStep) at 4 slots (K1's
+    tensor-core kernel, one launch a call) and 16 (the wide kernel, two):
+    capture records 9 calls' launches; from the same buffers (per-row
+    positions, some rows inactive, prefilled caches, the generator's
+    state) a replay gives the eager step's logits, tokens, positions,
+    history and caches bit for bit, sampled at temperature 0.6, top-k 5."""
+    from qpalette_tpu_torch.kernels import arith
+    from qpalette_tpu_torch.runtime import serving
+
+    spec, params, _ = small_model
+    pool = serving.PoolStep(spec, params, slots, SMALL_T, 0.6, 5)
+    assert pool.launches == {
+        "tcq2s_decode_gemv": 9 * arith.kernel_launches("sum2", slots)}
+    rng = np.random.default_rng(slots)
+    llama.forward(spec, params, torch.as_tensor(
+        rng.integers(0, 512, (slots, 8)), device="cuda"),
+        kv_caches=pool.caches, cache_pos=0)
+    pool.load(rng.integers(0, 512, (slots, 1)), rng.integers(0, 9, slots),
+              np.arange(slots) % 3 != 2)
+    pool.generator.manual_seed(5)
+    state = _pool_state(pool)
+    for _ in range(2):
+        pool.replay()
+    graph = _pool_state(pool)
+    _set_pool_state(pool, state)
+    for _ in range(2):
+        pool.step_eager()
+    eager = _pool_state(pool)
+    for a, b in zip(graph[1], eager[1]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for x, y in zip(graph[0], eager[0])
+               for a, b in zip(x, y))
+    assert (pool.token[~pool.active] == 0).all()
+    serving.release_pools(params)
+
+
+def test_admission_leaves_other_rows(small_model):
+    """prefill_slots on the card writes the admitted slots' rows (two
+    chunks at their own start positions) and leaves the other 14 slots'
+    cache rows bit-unchanged."""
+    from qpalette_tpu_torch.runtime import serving
+
+    spec, params, _ = small_model
+    caches = llama.init_kv_caches(spec, 16, SMALL_T, "cuda")
+    rng = np.random.default_rng(1)
+    llama.forward(spec, params, torch.as_tensor(
+        rng.integers(0, 512, (16, 8)), device="cuda"), kv_caches=caches,
+        cache_pos=0)
+    before = [tuple(t.clone() for t in kv) for kv in caches]
+    slots = torch.tensor([11, 3], device="cuda")
+    serving.prefill_slots(spec, params, caches, slots, torch.as_tensor(
+        rng.integers(0, 512, (2, 10)), device="cuda"),
+        torch.tensor([0, 5], device="cuda"))
+    others = [s for s in range(16) if s not in (3, 11)]
+    for kv, old in zip(caches, before):
+        for a, b in zip(kv, old):
+            assert torch.equal(a[others], b[others])
+            assert not torch.equal(a[[3, 11]], b[[3, 11]])
