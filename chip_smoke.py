@@ -8,6 +8,7 @@
   python chip_smoke.py --rows
   python chip_smoke.py --serve
   python chip_smoke.py --msq
+  python chip_smoke.py --quant
   python chip_smoke.py --recapture N
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
@@ -27,7 +28,8 @@ down, and the Path C decode (--ab vq), with the source against the same
 source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
 `git archive`).  With --rows it runs only k1_rows (phase 3's K1 dualmad,
 1mad and 2mad above 8 rows), with --serve only the serving phases (6b,
-6c), with --msq only the MSQ phase (12).  With --recapture N it runs
+6c), with --msq only the MSQ phase (12), with --quant only the
+quantization phase (13).  With --recapture N it runs
 only recapture:
 fresh captures of the 215 step timed over N consecutive windows of
 replays.
@@ -82,7 +84,7 @@ Phases (each raises on failure):
      at a merged shape, W_hat bit-equal to the plain version's
   6. the 215 path: the 8B model from the 215.0thp_cc solver output (merged
      qkv/ug, 4-bit tcq2s lm_head, impl a8, dummy weights from seed 0) on
-     cuda:0; prefill 16 tokens and decode 64 at temperature 0.6, top-k 5,
+     cuda:0; prefill 16 tokens and decode 8 at temperature 0.6, top-k 5,
      129 sum2 K1 calls per forward (the prefill's at 16 rows two launches
      each); then the zero-shot harness on it at impl exact (see 10c) and
      a warm 512-token prefill at a8 (K1 in 256-row chunks)
@@ -99,11 +101,11 @@ Phases (each raises on failure):
  7. the flagship path: the 8B model from the 3.25-bit mem-constrained
      solver output (unmerged tcq 6/8/10 and tcomb 8/9, bf16 lm_head, impl
      exact, dummy weights from seed 0); the 16-token prefill launches 194
-     tcq + 30 tcomb dequants, each of 64 decode forwards 194 tcq + 30
+     tcq + 30 tcomb dequants, each of 8 decode forwards 194 tcq + 30
      tcomb GEMVs; then ctx-8192 perplexity on it at impl dequant (10c)
   8. Path A: the 8B tcq2mix model (merged qkv tcq2_6 and ug tcq2_7 in mode
      dualmad, o/down tcq1_3 in mode 1mad, the 4-bit tcq2s_8 lm_head), impl
-     a8 and impl exact; prefill 16 and decode 64, 129 K1 launches per
+     a8 and impl exact; prefill 16 and decode 8, 129 K1 launches per
      decode forward (32 dualmad KV6 + 32 dualmad KV7, 64 1mad KV3, 1
      sum2), 258 in the prefill (every call on wide_gemv_kernel, two
      launches a call); tokens/s and peak memory; then the zero-shot
@@ -115,7 +117,7 @@ Phases (each raises on failure):
      sum2 + 2); prefill time and peak memory
  9b. Path C: the 8B ldlq_2_6 model (3-bit 2-D VQ, merged qkv/ug) with the
      rotated int8 lm_head, impl a8; the 16-token prefill launches 128 K9
-     (the head a plain product), each of 64 decode forwards 128 K8 + 1 K10;
+     (the head a plain product), each of 8 decode forwards 128 K8 + 1 K10;
      tokens/s and peak memory
  9c. Path D: 8 layers of ldlq_1_4 (4-bit scalar, unmerged) with the int8
      head built here without the rotation: 56 K9 in the prefill, 56 K8 + 1
@@ -131,7 +133,7 @@ Phases (each raises on failure):
      CUDA graph replay a token): the launches recorded at capture equal
      the path's per-forward counts; 4 replays give the eager forward's
      logits and caches bit for bit from the same caches and position;
-     greedy generate_fast gives the eager loop's 65 tokens; two sampled
+     greedy generate_fast gives the eager loop's 17 tokens; two sampled
      generate_fast runs with one seed, and generate with it, agree;
      tokens/s of the eager loop beside the graph's; a torch.profiler trace
      of 8 replays (device busy share of the wall time, device time a step,
@@ -172,16 +174,40 @@ Phases (each raises on failure):
      the whole logits at the 8B's heads (S = T = 4096; S = 2048 over T =
      4096 from offset 2048; within 1e-5 of max|out|); a 2-layer model's
      ctx-2560 logits and ce_loss, card against the CPU, within SMALL_TOL
+ 13. (after 12) quantization (quant/, the entry points, the loader's
+     quantize-on-demand) at full 8B width: tcq_6, tcomb_6_7, tcq2s_6 and
+     ldlq_2_8 quantize the 4096^2 N(0, 1) matrix of numpy seed 0 within
+     1% of assets/quant_err.json (tcq2s_6 at the table's bf16 cross term,
+     its float32 value within 1e-3 of the port's recorded one), each
+     viterbi_encode call timed with CUDA events beside its bound; their
+     words through K6, K7, K2 and K9
+     equal the quantizer's W-hat in bf16, tcq2s_6's through K1 sum2 at
+     N = 1 within 1e-4, tcq1_3's at 1024x4096 through K3; python -m
+     qpalette_tpu_torch.quantize_layer on layer 0 of a 1-layer
+     Llama-3.1-8B checkpoint written from random_dense_params (seed 0)
+     with the H100 qdict (7 artifacts; a second run skips them); the
+     model from them (lm_head_bits 8, impl exact: K4 on the merged tcq_10
+     qkv, K8 on o, down and ug, K10 on the head; counted and at capture)
+     against the dense model of the quantizers' W-hat (float32 weights)
+     within SMALL_TOL over a 16-token prefill and 2 decode steps, the
+     dense model of W (unquantized) beyond it; each projection (merged
+     groups whole) through its kernel at N = 1 and 16 against x W-hat^T
+     within QUANT_PROJ_TOL, x W^T beyond it; the loader quantizing
+     the same on demand into an empty save_dir (bit-equal artifacts);
+     Hessians over 8 x 512 synthetic tokens, err_coeffs_from_hessians,
+     and tcq_10_hess (q) and ldlq_1_4_hess (down) below their _none_
+     artifacts in tr(E H E^T); seconds of each step
  11. eager and graph tokens/s of every decode path side by side, a JSON
      line of them ("[graph] {...}"), a JSON line of the evaluation
-     ("[eval] {...}"), of serving ("[serve] {...}") and of MSQ ("[msq]
-     {...}"), the run time, a JSON line of kernels
+     ("[eval] {...}"), of serving ("[serve] {...}"), of MSQ ("[msq]
+     {...}") and of quantization ("[quant] {...}"), the run time, a JSON line of kernels
      (launches in the counted runs, step_launches in their decode
      forwards), the nvidia-smi name/power line, and the final JSON status
      line
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -247,6 +273,10 @@ PATH_B = {"tcq2mix": {"tcq2_dequant": 64, "tcq1_dequant": 64,
                       "tcq2s_decode_gemv": 4},
           "215": {"tcq2_dequant": 128, "tcq2s_decode_gemv": 4}}
 PROMPT_LEN, NEW_TOKENS = 16, 64
+# decode forwards of a path's counted eager run (drive), and the tokens of
+# its graph phase's eager loop and generate_fast checks; NEW_TOKENS
+# replays are still timed
+COUNTED_TOKENS, GRAPH_TOKENS = 8, 16
 TOL = {False: 1e-4, True: 1e-3}  # GEMV kernel vs plain, of max|y|
 SMALL_TOL = 2e-2  # CPU plain vs card kernel through a 2-layer model
 # flagship projections per forward, by (shape m x k, KV): 194 tcq, 30 tcomb
@@ -1110,8 +1140,8 @@ def graph_phase(label, spec, params, device, want_step, card_label):
 
     V = spec.config.vocab_size
     prompt = np.random.default_rng(0).integers(0, V, (1, PROMPT_LEN))
-    n = NEW_TOKENS + 1
-    T = PROMPT_LEN + n
+    n = GRAPH_TOKENS + 1
+    T = PROMPT_LEN + NEW_TOKENS + 1
     eager_seq, eager_tps = eager_loop(spec, params, prompt, n, T)
     torch.cuda.reset_peak_memory_stats(device)
     seq0, st0 = decode.generate_fast(spec, params, prompt, n, max_seq=T,
@@ -1200,6 +1230,29 @@ def _load_215():
     return qdict, merge_info
 
 
+_DRAWS = {}
+
+
+def dummy_dense(num_layers):
+    """The embed and head the loader draws for a dummy 8B (numpy seed 0:
+    the embed, then the head; float64 * 0.02 cast to float32), drawn once
+    for every build of this run, and unit norms: as dense_params they give
+    the loader's own params at a fraction of the host time."""
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama31_8b()
+    if not _DRAWS:
+        rng = np.random.default_rng(0)
+        shape = (cfg.vocab_size, cfg.hidden_size)
+        for name in ("embed", "lm_head"):
+            _DRAWS[name] = (rng.standard_normal(shape) * 0.02).astype(
+                np.float32)
+    ones = np.ones(cfg.hidden_size, np.float32)
+    return {"embed": _DRAWS["embed"], "lm_head": _DRAWS["lm_head"],
+            "ln_f": ones,
+            "layers": [{"ln_attn": ones, "ln_mlp": ones}] * num_layers}
+
+
 def _build(what, qdict, merge_info, impl, lm_head_bits, device):
     from qpalette_tpu_torch.models.llama import LlamaConfig
     from qpalette_tpu_torch.runtime.loader import build_quantized_model
@@ -1207,7 +1260,8 @@ def _build(what, qdict, merge_info, impl, lm_head_bits, device):
     t0 = time.perf_counter()
     spec, params = build_quantized_model(
         LlamaConfig.llama31_8b(), qdict, merge_info=merge_info, dummy=True,
-        impl=impl, lm_head_bits=lm_head_bits, seed=0, device=device)
+        impl=impl, lm_head_bits=lm_head_bits, seed=0, device=device,
+        dense_params=dummy_dense(32))
     torch.cuda.synchronize()
     print(f"[{what}] 8B built in {time.perf_counter() - t0:.1f} s", flush=True)
     return spec, params
@@ -1239,8 +1293,8 @@ def main_path(device, card_label):
     want = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD}
     want_prefill = {"tcq2s_decode_gemv": LAUNCHES_PER_FORWARD
                     * arith.kernel_launches("sum2", PROMPT_LEN)}
-    launches = drive("main", spec, params, device, PROMPT_LEN, NEW_TOKENS,
-                     want_prefill, want)
+    launches = drive("main", spec, params, device, PROMPT_LEN,
+                     COUNTED_TOKENS, want_prefill, want)
     graphs = {"215": graph_phase("main", spec, params, device, want,
                                  card_label)}
     zs_counts, zs = zs_check(spec, params, device, card_label)
@@ -2155,7 +2209,7 @@ def flagship_path(device, card_label):
     spec, params = _build("flagship", qdict, None, "exact", 16, device)
     want = {"tcq_lut_gemv": FLAGSHIP_TCQ, "tcomb_lut_gemv": FLAGSHIP_TCOMB}
     launches = drive(
-        "flagship", spec, params, device, PROMPT_LEN, NEW_TOKENS,
+        "flagship", spec, params, device, PROMPT_LEN, COUNTED_TOKENS,
         {"tcq_lut_dequant": FLAGSHIP_TCQ, "tcomb_lut_dequant": FLAGSHIP_TCOMB},
         want)
     graph = graph_phase("flagship", spec, params, device, want, card_label)
@@ -2337,8 +2391,8 @@ def path_c(device, card_label):
     check(kinds == {("vq", 6, 2)} and spec.lm_head_spec is None
           and tuple(params["lm_head_q"].shape) == HEAD
           and "lm_head_su" in params, f"pathC model {kinds}")
-    launches = drive("pathC", spec, params, device, PROMPT_LEN, NEW_TOKENS,
-                     PATH_C_PREFILL, PATH_C_STEP)
+    launches = drive("pathC", spec, params, device, PROMPT_LEN,
+                     COUNTED_TOKENS, PATH_C_PREFILL, PATH_C_STEP)
     graph = graph_phase("pathC", spec, params, device, PATH_C_STEP,
                         card_label)
     del params
@@ -2371,14 +2425,15 @@ def path_d(device, card_label):
     t0 = time.perf_counter()
     spec, params = build_quantized_model(
         LlamaConfig.llama31_8b(), PATH_D_QSTR, dummy=True, impl="a8",
-        num_layers=PATH_D_LAYERS, lm_head_bits=16, seed=0, device=device)
+        num_layers=PATH_D_LAYERS, lm_head_bits=16, seed=0, device=device,
+        dense_params=dummy_dense(PATH_D_LAYERS))
     params["lm_head_q"], params["lm_head_s"] = unrotated_int8_head(
         params.pop("lm_head"))
     torch.cuda.synchronize()
     print(f"[pathD] 8B ({PATH_D_LAYERS} layers) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    launches = drive("pathD", spec, params, device, PROMPT_LEN, NEW_TOKENS,
-                     PATH_D_PREFILL, PATH_D_STEP)
+    launches = drive("pathD", spec, params, device, PROMPT_LEN,
+                     COUNTED_TOKENS, PATH_D_PREFILL, PATH_D_STEP)
     graph = graph_phase("pathD", spec, params, device, PATH_D_STEP,
                         card_label)
     del params
@@ -2416,7 +2471,7 @@ def path_a_b(device, card_label):
     for impl in ("a8", "exact"):
         sp = with_impl(spec, impl)
         got = drive(f"pathA {impl}", sp, params, device, PROMPT_LEN,
-                    NEW_TOKENS, PATH_A_PREFILL, PATH_A_STEP)
+                    COUNTED_TOKENS, PATH_A_PREFILL, PATH_A_STEP)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
         pre[f"pathA {impl} {PROMPT_LEN}"] = prefill_time(
@@ -2593,8 +2648,8 @@ def path_e(device, card_label):
     check(lo <= share <= hi, f"pathE dequant share {share}")
     check({parse_quantizer_str(q).family for q, _ in qdict.values()}
           == {"tcq", "tcomb", "tcq2s", "tcq2", "tcq1", "ldlq"}, "pathE mix")
-    launches = drive("pathE", spec, params, device, PROMPT_LEN, NEW_TOKENS,
-                     want[PROMPT_LEN], want[1])
+    launches = drive("pathE", spec, params, device, PROMPT_LEN,
+                     COUNTED_TOKENS, want[PROMPT_LEN], want[1])
     graph = graph_phase("pathE", spec, params, device, want[1], card_label)
     del params
     torch.cuda.empty_cache()
@@ -3292,6 +3347,623 @@ def small_ce_check(device):
 
 
 REPLACES = "qpalette_tpu/kernels/fused.py:"
+# --- 13. quantization: the port's quantizers on the card -------------------
+
+QUANT_QDIR = os.path.join(ROOT, "msq_results", "3_8b", "lat_constrained",
+                          "h100", "default_err")
+QUANT_QDICT = "108.5thp_cc"
+# step 1: schemes quantized at 4096^2 against assets/quant_err.json, and
+# the dequant kernel that decodes their words
+QUANT_PROXY = (("tcq_6_none_0.9", "tcq_lut_dequant"),
+               ("tcomb_6_7_0.5_none_0.9", "tcomb_lut_dequant"),
+               ("tcq2s_6_none_0.9", "tcq2_dequant"),
+               ("ldlq_2_8_none_1.0", "vq_dequant"))
+PROXY_TOL = 0.01  # relative, against the committed table
+PROXY_SIZE = 4096
+# table entries the reference measured on its TPU, whose default float32
+# dot takes bf16 operands: the quantizer runs again with the cross term's
+# operands so rounded (viterbi._cross_operands replaced) and that run is
+# held to the entry (tests/test_torch_viterbi.py holds the rounding to the
+# reference's at 256^2); the float32 run is held to the port's own value
+# (NVIDIA H100 80GB HBM3, three runs equal to the last digit) within
+# PORT_ERR_TOL
+TABLE_CROSS = {"tcq2s_6_none_0.9": torch.bfloat16}
+PORT_F32_ERR = {"tcq2s_6_none_0.9": 0.019430797547101974}
+PORT_ERR_TOL = 1e-3  # relative, the CPU parity tests' PROXY_TOL
+QUANT_TCQ1 = ("tcq1_3_none_0.9", 1024, 4096)  # step 2: K3, V=1 k-major
+QUANT_PROMPT, QUANT_STEPS = 16, 2
+
+# layer 0 of the H100 qdict (tcq_10 qkv merged, ldlq o / down / ug merged)
+# through the model: the prefill's launches and each decode forward's
+QUANT_PREFILL = {"tcq_lut_dequant": 1, "vq_dequant": 3}
+QUANT_STEP = {"tcq_lut_gemv": 1, "vq_gemv": 3, "int8_gemv_a8": 1}
+# layer 0's projections through their kernels (N = 1: K4, K8; N = 16: the
+# prefill's K6, K9 dequant route) against x W-hat^T in float32, of its
+# max; x W^T (unquantized) must be beyond it.  On an H100 the first read
+# 2.6-3.9e-3 (bf16 x and y) and the second 7.3e-2 to 4.5e-1
+QUANT_PROJ_ROWS = (1, QUANT_PROMPT)
+QUANT_PROJ_TOL = 1e-2
+_Q, _K, _V = "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"
+_UP, _GATE = "mlp.up_proj", "mlp.gate_proj"
+PROJ_PARTS = {"q": (_Q,), "k": (_K,), "v": (_V,), "qkv": (_Q, _K, _V),
+              "qk": (_Q, _K), "kv": (_K, _V), "qv": (_Q, _V),
+              "o": ("self_attn.o_proj",), "up": (_UP,), "gate": (_GATE,),
+              "ug": (_UP, _GATE), "down": ("mlp.down_proj",)}
+PROJ_SU = {"o": "su_o", "up": "su_ug", "gate": "su_ug", "ug": "su_ug",
+           "down": "su_dp"}  # the rest: su_qkv
+HESS_BATCHES, HESS_CTX = 8, 512
+QUANT_HESS = (("self_attn.q_proj", "qkv", "tcq_10_hess_0.9"),
+              ("mlp.down_proj", "down", "ldlq_1_4_hess_1.0"))
+
+
+def _sync_s(t0):
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def viterbi_bound_ms(B, S, KV):
+    """The least time of one viterbi_encode of B sequences of S states:
+    each of its S - 1 steps reads and writes the (B, 2^16) float32 cost
+    once and writes the step's backpointers (a byte each up to KV 8, else
+    four), over the HBM rate."""
+    per_step = 2 * B * (1 << 16) * 4 + B * (1 << (16 - KV)) * (
+        1 if KV <= 8 else 4)
+    return (S - 1) * per_step / HBM_BYTES_S * 1e3
+
+
+@contextlib.contextmanager
+def dp_timed():
+    """Inside the block viterbi.viterbi_encode runs between two CUDA
+    events a call; yields a dict that gains, on exit, the calls, their
+    device ms summed and their bounds summed (viterbi_bound_ms of each
+    call's shape)."""
+    from qpalette_tpu_torch.quant import viterbi
+
+    encode, calls, res = viterbi.viterbi_encode, [], {}
+
+    def timed(X, lut, KV, init_c=None, final_c=None, v=viterbi.V):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        states = encode(X, lut, KV, init_c, final_c, v)
+        ev[1].record()
+        B, S = X.shape[0], X.shape[1] // v
+        calls.append((ev, viterbi_bound_ms(B, S, KV)))
+        return states
+
+    viterbi.viterbi_encode = timed
+    try:
+        yield res
+    finally:
+        viterbi.viterbi_encode = encode
+        torch.cuda.synchronize()
+        res.update(calls=len(calls),
+                   ms=sum(a.elapsed_time(b) for (a, b), _ in calls),
+                   bound_ms=sum(bound for _, bound in calls))
+
+
+def _dp_note(dp):
+    return (f"the DP {dp['ms'] / 1e3:.2f} s in {dp['calls']} viterbi_encode "
+            f"calls, bound {dp['bound_ms'] / 1e3:.2f} s "
+            f"({dp['bound_ms'] / dp['ms']:.1%})" if dp["calls"] else "no DP")
+
+
+def w_hat(art, device, hat_r=None):
+    """W-hat (m, n) float32 in W's frame: the rotated, row-normalised
+    estimate (hat_r, or the f32 decode of the artifact's words, which is
+    the quantizer's own W-hat: the codebook values at its codes) times
+    Wscale, rotated back, times SU."""
+    from qpalette_tpu_torch.ops import packing
+    from qpalette_tpu_torch.ops.codebooks import trellis_lut
+    from qpalette_tpu_torch.ops.hadamard import hadamard_transform_t
+
+    meta = art["meta"]
+    m, n = meta["out_features"], meta["in_features"]
+    if hat_r is None:
+        if meta["kind"] == "tcq":
+            hat_r = packing.dequant_tcq(
+                packing.words_to_torch(art["trellis"], device),
+                trellis_lut(meta["tlut_bits"]).to(device), m, n, meta["KV"])
+        elif meta["kind"] == "vq":
+            hat_r = packing.dequant_lut(
+                packing.words_to_torch(art["qweight"], device),
+                torch.tensor(art["lut"], device=device), m, n, meta["bits"],
+                meta["vec"])
+        else:
+            raise ValueError(meta["kind"])
+    wscale = torch.tensor(art["Wscale"], device=device)
+    su = torch.tensor(art["SU"], device=device)
+    return hadamard_transform_t(hat_r * wscale[:, None]) * su[None, :]
+
+
+def quant_proxy(device, card_label):
+    """Steps 1-2: each QUANT_PROXY scheme quantizes the 4096^2 N(0, 1)
+    matrix of numpy seed 0 (err_tables.proxy_quantize) within PROXY_TOL of
+    assets/quant_err.json; its words, decoded by the scheme's dequant
+    kernel, equal the quantizer's own W-hat in bf16 (and their f32 plain
+    decode equals it exactly); tcq2s_6's words also through K1 sum2 at
+    N = 1 within TOL of max|y|.  tcq1_3 at 1024 x 4096 through K3.
+    Returns ({wrapper: max_abs_err}, summary)."""
+    from qpalette_tpu_torch.kernels import (arith, arith_dequant, tcq_lut,
+                                            vq)
+    from qpalette_tpu_torch.msq.err_tables import proxy_quantize
+    from qpalette_tpu_torch.ops import packing
+    from qpalette_tpu_torch.ops.codebooks import (trellis_lut_arith,
+                                                  trellis_tlut, vq_lut)
+    from qpalette_tpu_torch.quant import quantizers, viterbi
+    from qpalette_tpu_torch.quant.incoherent import (codebook_rms,
+                                                     parse_quantizer_str)
+
+    with open(os.path.join(ROOT, "assets", "quant_err.json")) as f:
+        table = json.load(f)
+    err, out = {}, {}
+    for qstr, kname in QUANT_PROXY:
+        t0 = time.perf_counter()
+        with dp_timed() as dp:
+            e, lin, hat = proxy_quantize(qstr, PROXY_SIZE, 0, device)
+        dt = _sync_s(t0)
+        want = table[qstr]
+        print(f"[quant] {qstr} at {PROXY_SIZE}^2: proxy err {e:.6f}, table "
+              f"{want:.6f} ({(e - want) / want:+.3%}); {dt:.2f} s, "
+              f"{_dp_note(dp)} ({card_label})", flush=True)
+        out[qstr] = {"proxy_err": e, "table": want, "s": dt, "dp": dp}
+        held = e
+        if qstr in TABLE_CROSS:
+            own = PORT_F32_ERR[qstr]
+            check(abs(e - own) <= PORT_ERR_TOL * own,
+                  f"{qstr}: float32 proxy err {e} against the port's {own}")
+            dtype = TABLE_CROSS[qstr]
+            cross = viterbi._cross_operands
+            viterbi._cross_operands = lambda X, T: (
+                X.to(dtype).to(torch.float32), T.to(dtype).to(torch.float32))
+            try:
+                held = proxy_quantize(qstr, PROXY_SIZE, 0, device)[0]
+            finally:
+                viterbi._cross_operands = cross
+            out[qstr]["proxy_err_table_precision"] = held
+            print(f"[quant] {qstr}: float32 {e:.6f}, the port's recorded "
+                  f"{own:.6f} ({(e - own) / own:+.4%}, limit "
+                  f"{PORT_ERR_TOL:.0e}); with the cross term's operands in "
+                  f"{dtype} (the table's precision) {held:.6f} "
+                  f"({(held - want) / want:+.3%} of the table)", flush=True)
+        check(abs(held - want) <= PROXY_TOL * want,
+              f"{qstr}: proxy err {held} against the table's {want}")
+        words = {k: packing.words_to_torch(v, device) for k, v in lin.items()
+                 if isinstance(v, np.ndarray)}
+        m = k = PROXY_SIZE
+        if lin["kind"] in ("tcq", "tcomb"):
+            tlut = torch.tensor(trellis_tlut(lin["tlut_bits"]), device=device)
+            lut = tcq_lut.expand_tlut(tlut)
+        if lin["kind"] == "tcq":
+            got = tcq_lut.tcq_lut_dequant(words["trellis"], tlut, lin["KV"],
+                                          m, k)
+            plain = packing.dequant_tcq(words["trellis"], lut, m, k,
+                                        lin["KV"])
+        elif lin["kind"] == "tcomb":
+            got = tcq_lut.tcomb_lut_dequant(words["trellis1"],
+                                            words["trellis2"], tlut,
+                                            lin["KV1"], lin["KV2"], m, k)
+            plain = torch.cat([
+                packing.dequant_tcq(words["trellis1"], lut, m, k // 2,
+                                    lin["KV1"]),
+                packing.dequant_tcq(words["trellis2"], lut, m, k // 2,
+                                    lin["KV2"])], dim=1)
+        elif lin["kind"] == "tcq2":
+            got = arith_dequant.tcq2_dequant(words["trellis"], lin["KV"], m,
+                                             k, lin["decode_mode"])
+            plain = packing.dequant_tcq2(
+                words["trellis"],
+                trellis_lut_arith(lin["decode_mode"]).to(device), m, k,
+                lin["KV"])
+            x = torch.randn((1, k), generator=torch.Generator(
+                device=device).manual_seed(5), device=device).to(
+                torch.bfloat16)
+            y = arith.tcq2s_decode_gemv(x, words["trellis"], lin["KV"], m, k,
+                                        False)
+            err["tcq2s_decode_gemv"] = _rel_check(
+                f"K1 sum2 N=1 on {qstr}'s words", y, x.float() @ hat.T,
+                TOL[False])
+        else:
+            lut = torch.tensor(vq_lut(lin["bits"], lin["vec"]),
+                               device=device)
+            got = vq.vq_dequant(words["qweight"], lut, lin["bits"],
+                                lin["vec"], m, k)
+            plain = packing.dequant_lut(words["qweight"], lut, m, k,
+                                        lin["bits"], lin["vec"])
+        check(torch.equal(plain, hat), f"{qstr}: the f32 decode of its "
+              f"words is not the quantizer's W-hat")
+        check(torch.equal(got, hat.to(torch.bfloat16)),
+              f"{kname} on {qstr}'s words differs from W-hat in bf16")
+        err[kname] = 0.0
+        print(f"[quant] {kname} on {qstr}'s words = the quantizer's W-hat "
+              f"in bf16", flush=True)
+    qstr, m, k = QUANT_TCQ1
+    spec = parse_quantizer_str(qstr)
+    sc = torch.tensor(spec.scale_override * codebook_rms(spec),
+                      device=device)
+    W = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (m, k)).astype(np.float32), device=device)
+    t0 = time.perf_counter()
+    with dp_timed() as dp:
+        lin, hat = quantizers.quantize_mat_tcq1(W * sc, None, spec.KV[0],
+                                                mode="1mad")
+    dt = _sync_s(t0)
+    words = packing.words_to_torch(lin["trellis"], device)
+    got = arith_dequant.tcq1_dequant(words, spec.KV[0], m, k, "1mad")
+    check(torch.equal(got, hat.to(torch.bfloat16)),
+          f"K3 on {qstr}'s words differs from W-hat in bf16")
+    err["tcq1_dequant"] = 0.0
+    print(f"[quant] {qstr} at {m}x{k} in {dt:.2f} s, {_dp_note(dp)}; K3 on "
+          f"its words = the quantizer's W-hat in bf16 ({card_label})",
+          flush=True)
+    out[f"{qstr} {m}x{k}"] = {"s": dt, "dp": dp}
+    return err, out
+
+
+def write_checkpoint(path, cfg, dense):
+    """A local Hugging Face checkpoint of dense (random_dense_params'
+    layout): config.json and one float32 safetensors file."""
+    from safetensors.numpy import save_file
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+                   "rms_norm_eps": cfg.rms_eps,
+                   "tie_word_embeddings": cfg.tie_embeddings,
+                   "torch_dtype": "float32",
+                   "architectures": ["LlamaForCausalLM"]}, f)
+    t = {"model.embed_tokens.weight": dense["embed"],
+         "lm_head.weight": dense["lm_head"],
+         "model.norm.weight": dense["ln_f"]}
+    for i, lp in enumerate(dense["layers"]):
+        for key, w in lp.items():
+            name = {"ln_attn": "input_layernorm",
+                    "ln_mlp": "post_attention_layernorm"}.get(key, key)
+            t[f"model.layers.{i}.{name}.weight"] = w
+    save_file(t, os.path.join(path, "model.safetensors"))
+
+
+def _quantize_layer_cli(ckpt, qpath, save_dir, device):
+    """python -m qpalette_tpu_torch.quantize_layer on layer 0: its stdout
+    and seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "qpalette_tpu_torch.quantize_layer",
+         "--model", ckpt, "--qdict_path", qpath, "--num_layers", "1",
+         "--save_dir", save_dir, "--device", str(device)], cwd=ROOT,
+        capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    check(res.returncode == 0, f"quantize_layer failed ({res.returncode}):\n"
+          f"{res.stdout}{res.stderr}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def _same_artifacts(a_dir, b_dir):
+    """Every artifact under a_dir is under b_dir with bit-equal arrays and
+    the same meta: the number compared."""
+    from qpalette_tpu_torch.quant.incoherent import load_artifact
+
+    files = sorted(os.path.relpath(os.path.join(r, f), a_dir)
+                   for r, _, fs in os.walk(a_dir) for f in fs)
+    for f in files:
+        a = load_artifact(os.path.join(a_dir, f))
+        b = load_artifact(os.path.join(b_dir, f))
+        check(a.keys() == b.keys(), f"{f}: {sorted(a)} != {sorted(b)}")
+        for k in a:
+            if k == "meta":
+                check(a[k] == b[k], f"{f}: meta {a[k]} != {b[k]}")
+            else:
+                check(np.array_equal(a[k], b[k]), f"{f}: {k} differs")
+    return len(files)
+
+
+def _dense_f32(cfg, weights, dense, qparams, device):
+    """The 1-layer dense model of weights ({key: (m, n) float32}) kept in
+    float32 (the dense forward's product is z.float() @ w.float().T), with
+    dense's embed and norms and qparams' int8 head."""
+    from qpalette_tpu_torch.runtime.loader import build_dense_model
+
+    names = {"self_attn.q_proj": "q", "self_attn.k_proj": "k",
+             "self_attn.v_proj": "v", "self_attn.o_proj": "o",
+             "mlp.up_proj": "up", "mlp.gate_proj": "gate",
+             "mlp.down_proj": "down"}
+    spec, params = build_dense_model(
+        cfg, {**dense, "layers": [{**dense["layers"][0], **weights}]},
+        device=device)
+    for key, nm in names.items():
+        params["layers"][0][nm]["w"] = torch.as_tensor(
+            np.asarray(weights[key], np.float32), device=device)
+    params.pop("lm_head")
+    for k in ("lm_head_q", "lm_head_s", "lm_head_su"):
+        params[k] = qparams[k]
+    return spec, params
+
+
+def _projection_rels(spec, params, refs, rows, device):
+    """Each projection of layer 0 (a merged group whole) through
+    qlinear_apply, so through its kernel at `rows` rows, on a bf16 N(0, 1)
+    x (seed 0), against x @ W^T in float32 for each refs {what: {key:
+    (m, n) float32}}: {f"{name} N={rows}": {what: max|y - x W^T| over
+    max|x W^T|}}."""
+    from qpalette_tpu_torch.runtime.qlinear import qlinear_apply
+
+    aspec, mspec = spec.layers[0]
+    lp = params["layers"][0]
+    out = {}
+    for name, lspec in aspec.projs + mspec.projs:
+        x = torch.randn((rows, lspec.in_features), generator=torch.Generator(
+            device=device).manual_seed(0), device=device).to(torch.bfloat16)
+        y = qlinear_apply(lspec, lp[name], x, pre_rot=lp[PROJ_SU.get(
+            name, "su_qkv")], luts=params.get("luts")).float()
+        res = {}
+        for what, weights in refs.items():
+            w = torch.cat([torch.as_tensor(np.asarray(weights[k], np.float32),
+                                           device=device)
+                           for k in PROJ_PARTS[name]])
+            want = x.float() @ w.T
+            res[what] = ((y - want).abs().max() / want.abs().max()).item()
+        out[f"{name} N={rows}"] = res
+    return out
+
+
+def _teacher_forced(spec, params, tokens, steps):
+    """Logits of a prefill of tokens (1, S) and of `steps` decode forwards
+    fed the argmax of the previous ones (or, given a (1, S + steps) token
+    row, those tokens): (list of logits, the token row used, the launch
+    counts of the prefill and of each decode forward)."""
+    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.models import llama
+
+    S = QUANT_PROMPT
+    caches = llama.init_kv_caches(spec, 1, S + steps + 1,
+                                  params["embed"].device)
+    for f in wrappers():
+        f.launches = 0
+    logits, caches = llama.forward(spec, params, tokens[:, :S],
+                                   kv_caches=caches, cache_pos=0)
+    counts, outs, row = [launch_counts()], [logits], tokens
+    for i in range(steps):
+        if row.shape[1] <= S + i:
+            row = torch.cat([row, logits[:, -1].argmax(-1)[:, None]], dim=1)
+        logits, caches = llama.forward(spec, params, row[:, S + i:S + i + 1],
+                                       kv_caches=caches, cache_pos=S + i)
+        counts.append(launch_counts())
+        outs.append(logits)
+    torch.cuda.synchronize()
+    return outs, row, counts
+
+
+def quant_model(device, card_label):
+    """Steps 3-5: the quantize_layer entry point on layer 0 of a 1-layer
+    Llama-3.1-8B checkpoint (random_dense_params, seed 0) with the H100
+    qdict (7 artifacts, then a second run that skips them); the model
+    from them (K4 on the merged tcq_10 qkv, K8 on o, down and the merged
+    ug, K10 on the rotated int8 head) against the dense model of the
+    quantizers' own W-hat (SMALL_TOL), its launches in a counted run and
+    at capture; the loader quantizing the same into an empty save_dir
+    (bit-equal artifacts); Hessians over 8 x 512 synthetic tokens and
+    the _hess_ schemes of q and down against their _none_ artifacts by
+    tr(E H E^T).  Returns (the counted run's launches, summary)."""
+    import tempfile
+
+    from qpalette_tpu_torch.models.hf_weights import load_dense_params
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.quant.hessian import (collect_hessians,
+                                                  err_coeffs_from_hessians)
+    from qpalette_tpu_torch.quant.incoherent import (artifact_path,
+                                                     load_artifact,
+                                                     quantize_linear)
+    from qpalette_tpu_torch.runtime import decode
+    from qpalette_tpu_torch.runtime.loader import (LAYER_KEYS,
+                                                   build_dense_model,
+                                                   build_quantized_model,
+                                                   random_dense_params,
+                                                   su_for)
+
+    out = {}
+    cfg = dataclasses.replace(LlamaConfig.llama31_8b(), num_layers=1)
+    qpath = os.path.join(QUANT_QDIR, f"{QUANT_QDICT}.json")
+    with open(qpath) as f:
+        qdict = {k: v[0] for k, v in json.load(f).items()
+                 if k.startswith("0_")}
+    with open(os.path.join(QUANT_QDIR, f"{QUANT_QDICT}_merge_info.json")) as f:
+        merge = json.load(f)[:1]
+    with open(os.path.join(ROOT, "assets", "quant_err.json")) as f:
+        table = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="qpt_quant_")
+    try:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "ckpt")
+        write_checkpoint(ckpt, cfg, random_dense_params(cfg, seed=0))
+        out["checkpoint_s"] = time.perf_counter() - t0
+        save = os.path.join(tmp, "quant")
+        log, out["quantize_layer_s"] = _quantize_layer_cli(ckpt, qpath, save,
+                                                           device)
+        check(log.count("quantizing ") == 7 and "skip" not in log,
+              f"quantize_layer wrote {log.count('quantizing ')} of 7:\n{log}")
+        for line in log.splitlines():
+            if "err=" in line:
+                print(f"[quant] quantize_layer: {line.strip()}", flush=True)
+        errs = {}
+        for key in LAYER_KEYS:
+            art = load_artifact(artifact_path(save, "custom", 0,
+                                              qdict[f"0_{key}"], 0, key))
+            errs[key] = art["meta"]["err"]
+            print(f"[quant] layer 0 {key} {qdict[f'0_{key}']}: err "
+                  f"{art['meta']['err']:.6f}, the table's "
+                  f"{table[qdict[f'0_{key}']]:.6f}", flush=True)
+        log, out["quantize_layer_resume_s"] = _quantize_layer_cli(
+            ckpt, qpath, save, device)
+        check(log.count("skip ") == 7 and "quantizing" not in log,
+              f"the second quantize_layer run did not skip all 7:\n{log}")
+        print(f"[quant] quantize_layer: 7 artifacts in "
+              f"{out['quantize_layer_s']:.1f} s (the process included), a "
+              f"second run skipped all 7 in "
+              f"{out['quantize_layer_resume_s']:.1f} s ({card_label})",
+              flush=True)
+        out["layer0_err"] = errs
+
+        # step 4: the model from those artifacts
+        dense = load_dense_params(ckpt)
+        t0 = time.perf_counter()
+        spec, params = build_quantized_model(
+            cfg, qdict, merge_info=merge, dummy=False, dense_params=dense,
+            num_layers=1, lm_head_bits=8, impl="exact", model_key="custom",
+            save_dir=save, device=device)
+        out["build_s"] = _sync_s(t0)
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, QUANT_PROMPT)), device=device)
+        logits, row, counts = _teacher_forced(spec, params, tokens,
+                                              QUANT_STEPS)
+        zero = {k: 0 for k in counts[0]}
+        check(counts[0] == {**zero, **QUANT_PREFILL},
+              f"quant: prefill launches {counts[0]}")
+        for a, b in zip(counts, counts[1:]):
+            step = {k: b[k] - a[k] for k in b}
+            check(step == {**zero, **QUANT_STEP},
+                  f"quant: decode launches per forward {step}")
+        launches = counts[-1]
+        for k in launches:
+            STEP_LAUNCHES[k] = (STEP_LAUNCHES.get(k, 0) + launches[k]
+                                - counts[0][k])
+        step = decode.captured_step(spec, params, 1,
+                                    QUANT_PROMPT + QUANT_STEPS + 1, 0.0, 5)
+        check(step.launches == QUANT_STEP,
+              f"quant: launches at capture {step.launches}")
+        decode.release_captured(params)
+        hat = {k: w_hat(load_artifact(artifact_path(
+            save, "custom", 0, qdict[f"0_{k}"], 0, k)), device).cpu().numpy()
+            for k in LAYER_KEYS}
+        refs = {"W-hat": hat, "W": dense["layers"][0]}
+        rels = {}
+        for what, weights in refs.items():
+            dspec, dparams = _dense_f32(cfg, weights, dense, params, device)
+            want, _, _ = _teacher_forced(dspec, dparams, row, QUANT_STEPS)
+            rels[what] = [((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(logits, want)]
+            del dparams
+        check(max(rels["W-hat"]) <= SMALL_TOL, f"quant: logits against the "
+              f"dense model of W-hat, rel {rels['W-hat']}")
+        check(min(rels["W"]) > SMALL_TOL, f"quant: logits of the dense "
+              f"model of W (unquantized) within {SMALL_TOL}, rel {rels['W']}")
+        print(f"[quant] layer-0 model (built in {out['build_s']:.1f} s): "
+              f"prefill {QUANT_PROMPT} {QUANT_PREFILL}, {QUANT_STEPS} decode "
+              f"forwards {QUANT_STEP} each, the same at capture; logits "
+              f"against the float32 dense model of W-hat rel "
+              + ", ".join(f"{r:.2e}" for r in rels["W-hat"])
+              + f" (limit {SMALL_TOL:.0e}), of W (unquantized) "
+              + ", ".join(f"{r:.2e}" for r in rels["W"])
+              + f" ({card_label})", flush=True)
+        proj = {}
+        for rows in QUANT_PROJ_ROWS:
+            proj.update(_projection_rels(spec, params, refs, rows, device))
+        for name, r in proj.items():
+            check(r["W-hat"] <= QUANT_PROJ_TOL < r["W"], f"quant: {name} "
+                  f"against x W-hat^T {r['W-hat']}, x W^T {r['W']} (limit "
+                  f"{QUANT_PROJ_TOL})")
+        print("[quant] layer 0's projections against x W-hat^T in float32 "
+              "(and x W^T), of its max: "
+              + "; ".join(f"{k} {r['W-hat']:.2e} ({r['W']:.2e})"
+                          for k, r in proj.items())
+              + f" (limit {QUANT_PROJ_TOL:.0e}; {card_label})", flush=True)
+        out["logits_rel"] = rels
+        out["projection_rel"] = proj
+        del params
+        torch.cuda.empty_cache()
+        save2 = os.path.join(tmp, "on_demand")
+        t0 = time.perf_counter()
+        with dp_timed() as dp:
+            spec, params = build_quantized_model(
+                cfg, qdict, merge_info=merge, dummy=False,
+                dense_params=dense, num_layers=1, lm_head_bits=8,
+                impl="exact", model_key="custom", save_dir=save2,
+                device=device)
+        out["on_demand_s"] = _sync_s(t0)
+        out["on_demand_dp"] = dp
+        n = _same_artifacts(save, save2)
+        check(n == 7, f"on demand: {n} artifacts")
+        print(f"[quant] an empty save_dir: the loader quantized layer 0 on "
+              f"demand in {out['on_demand_s']:.1f} s ({_dp_note(dp)}: q, k "
+              f"and v at tcq_10), its 7 artifacts bit-equal to "
+              f"quantize_layer's ({card_label})", flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+        # step 5: Hessians, and the _hess_ schemes against the _none_ ones
+        wspec, wparams = build_dense_model(cfg, dense, device=device)
+        rng = np.random.default_rng(0)
+        batches = [rng.integers(0, cfg.vocab_size, (1, HESS_CTX))
+                   for _ in range(HESS_BATCHES)]
+        t0 = time.perf_counter()
+        H = collect_hessians(wspec, wparams, batches)
+        out["hessians_s"] = _sync_s(t0)
+        del wparams
+        coeffs = err_coeffs_from_hessians(H, dense, 1)
+        print(f"[quant] Hessians over {HESS_BATCHES} x {HESS_CTX} tokens in "
+              f"{out['hessians_s']:.2f} s: "
+              + ", ".join(f"{k} {v.shape}" for k, v in H.items())
+              + "; err_coeffs_from_hessians "
+              + json.dumps({k: round(v, 6) for k, v in coeffs.items()})
+              + f" ({card_label})", flush=True)
+        out["err_coeffs"] = coeffs
+        for key, group, qstr in QUANT_HESS:
+            W = torch.as_tensor(dense["layers"][0][key], device=device)
+            Hg = torch.as_tensor(H[f"0_{group}"], device=device)
+            t0 = time.perf_counter()
+            with dp_timed() as dp:
+                art, hat_r = quantize_linear(
+                    dense["layers"][0][key], qstr, SU=su_for(cfg, 0, key, 0),
+                    H=H[f"0_{group}"], device=device, return_hat=True)
+            dt = _sync_s(t0)
+            none = load_artifact(artifact_path(save, "custom", 0,
+                                               qdict[f"0_{key}"], 0, key))
+            tr = {}
+            for name, Wh in (("hess", w_hat(art, device, hat_r)),
+                             ("none", w_hat(none, device))):
+                E = W - Wh
+                tr[name] = torch.trace(E @ Hg @ E.T).item()
+            check(tr["hess"] < tr["none"], f"{qstr}: tr(E H E^T) "
+                  f"{tr['hess']} not below {qdict[f'0_{key}']}'s {tr['none']}")
+            print(f"[quant] {key} {qstr} in {dt:.2f} s, {_dp_note(dp)}: "
+                  f"tr(E H E^T) "
+                  f"{tr['hess']:.6g} against {qdict[f'0_{key}']}'s "
+                  f"{tr['none']:.6g} ({tr['hess'] / tr['none']:.3f}x; "
+                  f"{card_label})", flush=True)
+            out[qstr] = {"s": dt, "dp": dp, "trEHE": tr["hess"],
+                         "trEHE_none": tr["none"]}
+        del H, Hg
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
+def quant_path(device, card_label):
+    """Phase 13, the quantizers on the card: quant_proxy, then
+    quant_model.  Returns (the counted run's launches, {wrapper:
+    max_abs_err}, summary)."""
+    t0 = time.perf_counter()
+    err, proxy = quant_proxy(device, card_label)
+    launches, model = quant_model(device, card_label)
+    summary = {"card": card_label, "proxy": proxy, "layer0": model,
+               "s": time.perf_counter() - t0}
+    return launches, err, summary
+
+
+def quant_only():
+    """Phase 13 alone (--quant)."""
+    _, _, smi = card()
+    build_all()
+    _, _, summary = quant_path(torch.device("cuda:0"), smi)
+    print("[quant] " + json.dumps(summary), flush=True)
+
+
 KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
     "tcq2s_decode_gemv": ("tcq2_gemv.cu", REPLACES + "508"),
     "tcq2_decode_gemv": ("tcq2_gemv.cu", REPLACES + "508"),
@@ -3309,6 +3981,14 @@ KERNEL_INFO = {  # name: (source, the TPU kernel body it replaces)
 }
 
 
+def timed(name, fn, *args):
+    """fn(*args), its seconds printed as a [time] line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     name, count, smi = card()
@@ -3316,7 +3996,7 @@ def main():
                                             tcq_lut, vq, wrappers)
     from qpalette_tpu_torch.models.llama import LlamaConfig
 
-    build_all()
+    timed("2 build", build_all)
     device = torch.device("cuda:0")
     t0 = time.perf_counter()
     sum2_err, sum2_times = sum2_checks(arith, device)
@@ -3345,25 +4025,31 @@ def main():
         err[kname] = max(err[kname], e)
     print(f"[time] kernel checks {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches, qdict, graphs, zs = main_path(device, smi)
-    fl, graphs["flagship"], ppl = flagship_path(device, smi)
+    launches, qdict, graphs, zs = timed("6 the 215 path, 6b serving",
+                                        main_path, device, smi)
+    fl, graphs["flagship"], ppl = timed("7 flagship, 10c evaluation",
+                                        flagship_path, device, smi)
     for k, v in fl.items():
         launches[k] += v
-    ab, tps, pre, zs_a = path_a_b(device, smi)
+    ab, tps, pre, zs_a = timed("8-9 Path A, Path B", path_a_b, device, smi)
     for k, v in ab.items():
         launches[k] += v
     graphs.update({f"pathA {k}": v for k, v in tps.items()})
-    pc, graphs["pathC"] = path_c(device, smi)
-    pd, graphs["pathD"] = path_d(device, smi)
-    pe, graphs["pathE"] = path_e(device, smi)
+    pc, graphs["pathC"] = timed("9b Path C", path_c, device, smi)
+    pd, graphs["pathD"] = timed("9c Path D", path_d, device, smi)
+    pe, graphs["pathE"] = timed("9e Path E", path_e, device, smi)
     for k in launches:
         launches[k] += pc[k] + pd[k] + pe[k]
-    sb, serve_bench = serving_bench(smi)
-    pm, msq = msq_path(device, smi, graphs["215"]["generate"])
+    sb, serve_bench = timed("6c bench_serving", serving_bench, smi)
+    pm, msq = timed("12 MSQ", msq_path, device, smi,
+                    graphs["215"]["generate"])
+    pq, quant_err, quant = timed("13 quantization", quant_path, device, smi)
     for k in launches:
-        launches[k] += sb[k] + pm[k]
-    small_model_checks(device)
-    artifact_check(device)
+        launches[k] += sb[k] + pm[k] + pq[k]
+    for kname, e in quant_err.items():
+        err[kname] = max(err[kname], e)
+    timed("10 2-layer models", small_model_checks, device)
+    timed("10b artifacts", artifact_check, device)
     t0 = time.perf_counter()
     attn_rel = attention_checks(device)
     small_rel = small_ce_check(device)
@@ -3460,6 +4146,7 @@ def main():
                                    "bench_serving": serve_bench}),
           flush=True)
     print("[msq] " + json.dumps({"card": smi, **msq}), flush=True)
+    print("[quant] " + json.dumps(quant), flush=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"({smi})", flush=True)
     kernels = []
@@ -3627,6 +4314,8 @@ if __name__ == "__main__":
                     help="run only the serving phases (6b, 6c)")
     ap.add_argument("--msq", action="store_true",
                     help="run only the MSQ phase (12)")
+    ap.add_argument("--quant", action="store_true",
+                    help="run only the quantization phase (13)")
     ap.add_argument("--recapture", type=int, default=0,
                     help="run recapture only, with this many windows of "
                     "replays a capture of the 215 step")
@@ -3639,6 +4328,8 @@ if __name__ == "__main__":
         serve_only()
     elif args.msq:
         msq_only()
+    elif args.quant:
+        quant_only()
     elif args.recapture:
         recapture(args.recapture)
     else:

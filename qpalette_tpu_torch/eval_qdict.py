@@ -4,10 +4,11 @@
       --qdict_path msq_results/3_8b/mem_constrained/default/3.25bit.json
   python -m qpalette_tpu_torch.eval_qdict --quantizer_str tcq_8_none_0.9
 
-Builds the model from the artifacts the JAX package's quantizer wrote
-under --save_dir (a missing or stale one raises: quantizing on demand is
-not ported) and the embed, norms and head of a local Hugging Face
-checkpoint (--model: a directory or a cached model name), then evaluates
+Builds the model from the artifacts under --save_dir (either package's
+quantizer writes them; a missing or stale one is quantized on demand from
+the checkpoint's weights, with the calibration Hessians of --hess_path
+for the ``_hess_`` schemes) and the embed, norms and head of a local
+Hugging Face checkpoint (--model: a directory or a cached model name), then evaluates
 the ctx-size perplexity of a dataset from the local cache (WikiText-2 by
 default).  --impl takes the reference's names: xla (the port's dequant
 route), pallas (exact), pallas_a8 (a8).  The result is cached beside the
@@ -46,7 +47,8 @@ def open_device(name: str):
 
 def load_quantized(args, qdict, merge_info, device):
     """(spec, params) of --model's checkpoint with qdict's artifacts from
-    --save_dir at --impl, on device."""
+    --save_dir at --impl, on device (--hess_path's Hessians, where the
+    args have one, for artifacts quantized on demand)."""
     from qpalette_tpu_torch.models.hf_weights import (config_from_hf,
                                                       find_local_checkpoint,
                                                       load_dense_params)
@@ -62,11 +64,15 @@ def load_quantized(args, qdict, merge_info, device):
     nl = args.num_layers if args.num_layers > 0 else cfg.num_layers
     print(f"loading dense weights from {ckpt} ({nl} layers)", flush=True)
     dense = load_dense_params(ckpt, cfg, num_layers=nl)
+    hess = None
+    if getattr(args, "hess_path", None):
+        import numpy as np
+        hess = dict(np.load(args.hess_path))
     return build_quantized_model(
         cfg, qdict, merge_info=merge_info, dummy=False,
         impl=IMPL_NAMES[args.impl], num_layers=nl, seed=args.seed,
         device=device, model_key=MODEL_KEYS.get(args.model, "custom"),
-        save_dir=args.save_dir, dense_params=dense)
+        save_dir=args.save_dir, dense_params=dense, hess=hess)
 
 
 def main(argv=None):
@@ -83,7 +89,7 @@ def main(argv=None):
     ap.add_argument("--num_layers", type=int, default=-1)
     ap.add_argument("--re_eval", action="store_true")
     ap.add_argument("--hess_path", default=None,
-                    help="calibration Hessians (not ported: raises)")
+                    help="npz of {i}_{group}: H from collect_hessians")
     ap.add_argument("--dataset", default="wikitext2",
                     choices=["wikitext2", "ptb", "c4"])
     ap.add_argument("--device", default="cuda")
@@ -92,9 +98,8 @@ def main(argv=None):
     import time
 
     from qpalette_tpu_torch.runtime.evaluate import DATASET_LOADERS, eval_ppl
-    from qpalette_tpu_torch.runtime.loader import MODEL_KEYS, refuse_unported
+    from qpalette_tpu_torch.runtime.loader import MODEL_KEYS
 
-    refuse_unported(hess=args.hess_path)
     device, dev_name = open_device(args.device)
     model_key = MODEL_KEYS.get(args.model, "custom")
     if args.quantizer_str is not None:

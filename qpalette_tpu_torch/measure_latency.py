@@ -23,9 +23,10 @@ forward):
   python -m qpalette_tpu_torch.measure_latency --dummy \
       --quantizer_str ldlq_2_6_none_1.0 --lm_head_bits 8
 
-Without --dummy the projections are read from the artifacts the JAX
+Without --dummy the projections are read from the artifacts either
 package's quantizer wrote under --save_dir (default quant_results, as the
-reference's), and the embed, norms and head from the local Hugging Face
+reference's; a missing one is quantized on demand from the dense
+weights), and the embed, norms and head from the local Hugging Face
 checkpoint of --hf_path (a directory or a cached model name; the config
 too for a model the loader does not know), or random ones as the
 reference takes them when it finds no checkpoint:

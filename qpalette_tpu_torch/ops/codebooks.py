@@ -2,9 +2,12 @@
 
 Counterpart of ``qpalette_tpu/ops/codebooks.py`` (the MAD constants, the
 arithmetic decoders ``decode_1mad`` / ``decode_2mad`` / ``decode_dualmad`` /
-``decode_sum2`` and ``trellis_lut_arith``, ``tlut_bits_for_kv``,
-``trellis_tlut`` from the committed tables and ``trellis_lut``, and the
-SQ/VQ codebook ``vq_lut``).  The
+``decode_sum2``, ``decode_3inst`` and ``trellis_lut_arith``,
+``tlut_bits_for_kv``, ``trellis_tlut`` and ``trellis_lut``, the SQ/VQ
+codebook ``vq_lut`` and ``lut_rms``).  A table that is not committed
+under ``assets/lut_cache`` is made by k-means as the reference makes it
+and written under ``$QPALETTE_ASSETS/lut_cache`` (the repo's ``assets``
+when that is unset), where a later call reads it.  The
 32-bit modular arithmetic runs in int64 and is masked with
 ``& 0xFFFFFFFF``: torch's uint32 support is partial.
 """
@@ -12,6 +15,7 @@ SQ/VQ codebook ``vq_lut``).  The
 from __future__ import annotations
 
 import functools
+import os
 from pathlib import Path
 
 import numpy as np
@@ -108,21 +112,87 @@ def decode_sum2(x: torch.Tensor) -> torch.Tensor:
     return _scaled(arith_weights_int(torch.as_tensor(x), "sum2"))
 
 
+MAD3_A, MAD3_B, MAD3_FPMASK = 89226354, 64248484, 996162400
+
+
+def _as_fp16(bits: torch.Tensor) -> torch.Tensor:
+    """int64 values < 2^16 -> the float16 numbers with those bits."""
+    return torch.where(bits >= 1 << 15, bits - (1 << 16),
+                       bits).to(torch.int16).view(torch.float16)
+
+
+def decode_3inst(x: torch.Tensor) -> torch.Tensor:
+    """fp16 bit-trick decoder (V=1): h = u*A + B mod 2^32, keep the sign,
+    the low exponent bit and the mantissa of each 16-bit half, XOR a
+    constant exponent pattern, and sum the two halves as float16 numbers.
+    Returns (len(x),) float32.  No kernel decodes it: it is a quantizer
+    table only."""
+    u = (torch.as_tensor(x).to(torch.int64) * MAD3_A + MAD3_B) & _M32
+    half = (1 << 15) + (1 << 12) - 1
+    res = (u & ((half << 16) + half)) ^ MAD3_FPMASK
+    return (_as_fp16(res >> 16).to(torch.float32)
+            + _as_fp16(res & 0xFFFF).to(torch.float32))
+
+
 @functools.lru_cache(maxsize=None)
 def trellis_lut_arith(mode: str) -> torch.Tensor:
     """State -> value table of an arithmetic decode mode, float32:
-    (2^16, 1) for 1mad / 2mad (V=1), (2^16, 2) for dualmad / sum2."""
+    (2^16, 1) for 1mad / 2mad / 3inst (V=1), (2^16, 2) for dualmad /
+    sum2."""
+    s = torch.arange(1 << L, dtype=torch.int64)
+    if mode == "3inst":
+        return decode_3inst(s)[:, None]
     if mode not in ARITH_V:
         raise NotImplementedError(f"decode mode {mode!r} is not ported")
-    s = torch.arange(1 << L, dtype=torch.int64)
     return _scaled(arith_weights_int(s, mode))
 
 
+def lut_rms(lut) -> float:
+    """RMS of a codebook's values, in float64 (Wscale's divisor)."""
+    a = lut.cpu().numpy() if isinstance(lut, torch.Tensor) else lut
+    return float(np.sqrt(np.mean(np.asarray(a, dtype=np.float64) ** 2)))
+
+
 # ---------------------------------------------------------------------------
-# LUT trellis (quantlut_sym): a 2^S x 2 table expanded to 2^16 states
+# k-means tables: the committed ones, or made and cached on first use
 # ---------------------------------------------------------------------------
 
-_ASSET_DIR = Path(__file__).resolve().parents[2] / "assets" / "lut_cache"
+ASSETS = Path(__file__).resolve().parents[2] / "assets"
+_COMMITTED = ASSETS / "lut_cache"
+
+
+def asset_dir() -> Path:
+    """Where tables made at run time are written and read:
+    ``$QPALETTE_ASSETS``, or the repo's ``assets``."""
+    root = os.environ.get("QPALETTE_ASSETS")
+    return Path(root) if root else ASSETS
+
+
+def cache_dir() -> Path:
+    """Where a codebook that is not committed is written and read."""
+    return asset_dir() / "lut_cache"
+
+
+def _table(name: str, shape, make) -> np.ndarray:
+    """The read-only float32 table ``name``: committed, else cached, else
+    ``make()`` written to the cache (through a temporary file, so that a
+    reader never sees half of it)."""
+    for d in (_COMMITTED, cache_dir()):
+        path = d / name
+        if path.exists():
+            table = np.load(path).astype(np.float32)
+            break
+    else:
+        table = np.asarray(make(), np.float32)
+        d = cache_dir()
+        d.mkdir(parents=True, exist_ok=True)
+        tmp = d / f".{name}.{os.getpid()}.npy"
+        np.save(tmp, table)
+        os.replace(tmp, d / name)
+    if table.shape != tuple(shape):
+        raise ValueError(f"{name}: shape {table.shape}, want {shape}")
+    table.setflags(write=False)
+    return table
 
 
 def tlut_bits_for_kv(kv: int) -> int:
@@ -131,19 +201,19 @@ def tlut_bits_for_kv(kv: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def trellis_tlut(tlut_bits: int) -> np.ndarray:
-    """The committed (2^S, 2) float32 k-means table
-    ``assets/lut_cache/tcq_tlut_{S}.npy``.  The port runs no k-means:
-    a missing table raises."""
-    path = _ASSET_DIR / f"tcq_tlut_{tlut_bits}.npy"
-    if not path.exists():
-        raise FileNotFoundError(f"{path}: the trellis table for S="
-                                f"{tlut_bits} is not committed")
-    tlut = np.load(path).astype(np.float32)
-    if tlut.shape != (1 << tlut_bits, 2):
-        raise ValueError(f"{path}: shape {tlut.shape}")
-    tlut.setflags(write=False)
-    return tlut
+def trellis_tlut(tlut_bits: int, n_samples: int = 1 << 20,
+                 device="cuda") -> np.ndarray:
+    """The (2^S, 2) float32 quantlut_sym table ``tcq_tlut_{S}.npy``: a
+    k-means codebook of n_samples N(0, 1)^2 draws (numpy seed 1234 + S),
+    40 Lloyd steps on ``device``, scaled to std sqrt(15/16)."""
+    def make():
+        from qpalette_tpu_torch.utils.kmeans import kmeans
+        data = np.random.default_rng(1234 + tlut_bits).standard_normal(
+            (n_samples, 2)).astype(np.float32)
+        c = kmeans(data, 1 << tlut_bits, iters=40, seed=tlut_bits,
+                   device=device)
+        return c / c.std() * 0.9682458365518543
+    return _table(f"tcq_tlut_{tlut_bits}.npy", (1 << tlut_bits, 2), make)
 
 
 def expand_tlut(tlut: torch.Tensor) -> torch.Tensor:
@@ -162,26 +232,21 @@ def expand_tlut(tlut: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def trellis_lut(tlut_bits: int) -> torch.Tensor:
-    """The full (2^16, 2) float32 quantlut_sym table of the committed
-    tlut."""
+    """The full (2^16, 2) float32 quantlut_sym table of trellis_tlut."""
     return expand_tlut(torch.from_numpy(trellis_tlut(tlut_bits).copy()))
 
 
-# ---------------------------------------------------------------------------
-# SQ / VQ codebooks (ldlq, sq, vq2): a (2^bits, vec) k-means table
-# ---------------------------------------------------------------------------
-
 @functools.lru_cache(maxsize=None)
-def vq_lut(bits: int, vec: int) -> np.ndarray:
-    """The committed (2^bits, vec) float32 k-means codebook
-    ``assets/lut_cache/vq_kmeans_{bits}_{vec}.npy``.  The port runs no
-    k-means: a table that is not committed (vec 4, for one) raises."""
-    path = _ASSET_DIR / f"vq_kmeans_{bits}_{vec}.npy"
-    if not path.exists():
-        raise NotImplementedError(f"{path}: the VQ codebook bits={bits}, "
-                                  f"vec={vec} is not committed")
-    lut = np.load(path).astype(np.float32)
-    if lut.shape != (1 << bits, vec):
-        raise ValueError(f"{path}: shape {lut.shape}")
-    lut.setflags(write=False)
-    return lut
+def vq_lut(bits: int, vec: int, n_samples: int = 1 << 20,
+           device="cuda") -> np.ndarray:
+    """The (2^bits, vec) float32 SQ/VQ codebook ``vq_kmeans_{bits}_{vec}
+    .npy``: k-means of n_samples N(0, 1)^vec draws (numpy seed
+    4321 + 64*bits + vec), 40 Lloyd steps on ``device`` (vec 1: the exact
+    1-D solution)."""
+    def make():
+        from qpalette_tpu_torch.utils.kmeans import kmeans
+        data = np.random.default_rng(4321 + 64 * bits + vec).standard_normal(
+            (n_samples, vec)).astype(np.float32)
+        return kmeans(data, 1 << bits, iters=40, seed=bits * 7 + vec,
+                      device=device)
+    return _table(f"vq_kmeans_{bits}_{vec}.npy", (1 << bits, vec), make)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["get_had_factors", "hadamard_matrix", "hadamard_transform",
-           "hadamard_transform_t"]
+           "hadamard_transform_t", "random_signs"]
 
 
 def _is_prime(q: int) -> bool:
@@ -193,3 +193,14 @@ def hadamard_transform_t(x: torch.Tensor, blocks: int = 1) -> torch.Tensor:
     ``blocks > 1`` applies the block-diagonal I_blocks (x) H^T of size
     n/blocks (the tensor-parallel rotation)."""
     return _transform(x, blocks, transpose=True)
+
+
+def random_signs(n: int, generator: torch.Generator) -> torch.Tensor:
+    """(n,) float32 +-1 signs drawn by ``generator``, on its device (the SU
+    of incoherence processing when the caller gives none).  The reference
+    draws them with jax.random.bernoulli, which the port cannot
+    reproduce; every path that must agree with it passes SU (the loader's
+    ``su_for``, the head's ``seed*7+99``)."""
+    bits = torch.randint(0, 2, (n,), generator=generator,
+                         device=generator.device)
+    return bits.to(torch.float32) * 2.0 - 1.0

@@ -1,8 +1,9 @@
 """Canonical packed formats and their executable-spec decoders.
 
-Counterpart of ``qpalette_tpu/ops/packing.py`` (``unpack_trellis``,
-``tiles_to_mat``, ``dequant_tcq`` for V=2 and V=1, ``dequant_tcq2``, and
-the SQ/VQ row-pack ``pack_rows``, ``unpack_rows``, ``dequant_lut``).  The
+Counterpart of ``qpalette_tpu/ops/packing.py`` (``pack_trellis``,
+``unpack_trellis``, ``tiles_to_mat``, ``mat_to_tiles``, ``dequant_tcq``
+for V=2 and V=1, ``dequant_tcq2``, and the SQ/VQ row-pack
+``pack_rows``, ``unpack_rows``, ``dequant_lut``).  The
 canonical ``trellis`` is (T, 8*KV/V) 32-bit words, T = (m/16)*(k/16) tiles
 in tile-row-major order.  Each tile is one tail-biting trellis of 256/V
 states (V weights per state); state i is the 16-bit window at bit KV*i of
@@ -37,6 +38,32 @@ def words_to_torch(words: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int32)).to(device)
 
 
+PACK_TILES = 4096  # tiles a pack_trellis step (bounds its bit matrix)
+
+
+def pack_trellis(states: torch.Tensor, KV: int, v: int = V) -> torch.Tensor:
+    """Tail-biting states (T, 256/v) < 2^16 -> canonical words (T, 8*KV/v)
+    int32: the stream is s_0's 16 bits, then the top KV bits (the new
+    ones) of each later state, LSB first, cut to 256*KV/v bits (the cut
+    tail repeats s_0's low bits when the chain wraps)."""
+    T, S = states.shape
+    if S != 256 // v:
+        raise ValueError(f"{S} states a tile, want {256 // v}")
+    dev = states.device
+    sh16 = torch.arange(L, dtype=torch.int64, device=dev)
+    shk = torch.arange(KV, dtype=torch.int64, device=dev)
+    w32 = torch.arange(32, dtype=torch.int64, device=dev)
+    out = []
+    for t0 in range(0, T, PACK_TILES):
+        s = states[t0:t0 + PACK_TILES].to(torch.int64)
+        first = (s[:, :1] >> sh16) & 1
+        new = ((s[:, 1:, None] >> (L - KV)) >> shk) & 1
+        bits = torch.cat([first, new.reshape(s.shape[0], -1)], 1)
+        bits = bits[:, :S * KV].reshape(s.shape[0], S * KV // 32, 32)
+        out.append(_as_int32((bits << w32).sum(-1)))
+    return torch.cat(out)
+
+
 def unpack_trellis(packed: torch.Tensor, KV: int, v: int = V) -> torch.Tensor:
     """packed (T, 8*KV/v) words -> states (T, 256/v) int64 (circular)."""
     W = packed.shape[-1]
@@ -56,6 +83,13 @@ def tiles_to_mat(tiles: torch.Tensor, m: int, k: int) -> torch.Tensor:
     """tiles ((m/16)*(k/16), 16, 16) tile-row-major -> mat (m, k)."""
     t = tiles.reshape(m // TD, k // TD, TD, TD)
     return t.permute(0, 2, 1, 3).reshape(m, k)
+
+
+def mat_to_tiles(mat: torch.Tensor) -> torch.Tensor:
+    """mat (m, k) -> tiles ((m/16)*(k/16), 16, 16), tile-row-major."""
+    m, k = mat.shape
+    t = mat.reshape(m // TD, TD, k // TD, TD).permute(0, 2, 1, 3)
+    return t.reshape(-1, TD, TD)
 
 
 def dequant_tcq2(packed: torch.Tensor, lut: torch.Tensor, m: int, k: int,

@@ -21,9 +21,12 @@ Projections keep the canonical ``trellis`` (tcomb / comb: ``trellis1`` /
 (2^bits, vec) float32 codebook ``lut``.  ``random_dense_params`` and
 ``build_dense_model`` give the unquantized bf16 baseline.
 
-Not ported: quantize-on-demand (a missing or stale artifact raises;
-ROADMAP Queue 1 item 7), ``hess`` (item 7) and ``row_parallel_tp`` with
-its unequal tcomb halves (item 9).
+With ``dense_params``, a missing artifact, or one whose Hadamard stamp is
+stale, is quantized on demand on the loader's device (``quantize_linear``
+with ``su_for``'s signs and the group's ``hess`` Hessian) and written
+where it was looked for, as the reference does.  Not ported:
+``row_parallel_tp`` with its block rotations and unequal tcomb halves
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -44,8 +47,11 @@ from qpalette_tpu_torch.ops.codebooks import (tlut_bits_for_kv, trellis_tlut,
                                               vq_lut)
 from qpalette_tpu_torch.ops.hadamard import get_had_factors, hadamard_transform
 from qpalette_tpu_torch.ops.packing import TD, words_to_torch
+from qpalette_tpu_torch.quant.hessian import HESSKEY
 from qpalette_tpu_torch.quant.incoherent import (artifact_path, load_artifact,
-                                                 parse_quantizer_str)
+                                                 parse_quantizer_str,
+                                                 quantize_linear,
+                                                 save_artifact)
 from qpalette_tpu_torch.runtime.qlinear import (GEMV_IMPLS, IMPLS, LinearSpec,
                                                 require_equal_halves)
 
@@ -318,17 +324,14 @@ def _get_dummy_artifact(cfg, layer, key, qstr, seed):
     return art
 
 
-def read_artifact(path: str, shape, stamp_required: bool = False) -> dict:
-    """The artifact at path, for a projection of shape (m, n).  Its Hadamard
-    stamp ``had_factors`` must be ``get_had_factors(n)`` (an artifact
-    without one is taken as current, as the reference takes it, unless
-    stamp_required: the reference's lm_head check).  The reference
-    re-quantizes a missing or stale artifact from the dense weights; the
-    port raises."""
+def read_artifact(path: str, shape, stamp_required: bool = False):
+    """The artifact at path, for a projection of shape (m, n), or None
+    when there is none or its Hadamard stamp ``had_factors`` is not
+    ``get_had_factors(n)`` (stale).  An artifact without a stamp is taken
+    as current, as the reference takes it, unless stamp_required (the
+    reference's lm_head check)."""
     if not os.path.exists(path):
-        raise NotImplementedError(
-            f"{path}: no artifact; quantize-on-demand is not ported "
-            f"(ROADMAP Queue 1 item 7)")
+        return None
     art = load_artifact(path)
     meta = art["meta"]
     if (meta["out_features"], meta["in_features"]) != tuple(shape):
@@ -341,11 +344,50 @@ def read_artifact(path: str, shape, stamp_required: bool = False) -> dict:
     have, want = meta.get("had_factors"), list(get_had_factors(shape[1]))
     if (have is None and stamp_required) or (
             have is not None and list(have) != want):
-        raise RuntimeError(
-            f"{path}: quantized against Hadamard factors {have}, the "
-            f"rotation is {want}; re-quantize it (quantize-on-demand is "
-            f"ROADMAP Queue 1 item 7)")
+        return None
     return art
+
+
+def get_artifact(path: str, shape, qstr: str, dense_w=None, su=None, H=None,
+                 seed: int = 0, device="cuda", stamp_required: bool = False,
+                 projection: bool = True):
+    """The artifact at path (read_artifact), or, when it is missing or
+    stale, dense_w (m, n) quantized with qstr, SU su and Hessian H on
+    device and written to path (a projection's meta gains the reference
+    loader's ``in_perm_blocks`` 0).  Without dense_w that raises."""
+    art = read_artifact(path, shape, stamp_required)
+    if art is not None:
+        return art
+    if dense_w is None:
+        what = "stale (its Hadamard stamp is not get_had_factors)" \
+            if os.path.exists(path) else "missing"
+        raise RuntimeError(f"{path}: the artifact is {what} and there are "
+                           f"no dense weights to quantize")
+    art = quantize_linear(dense_w, qstr, SU=su, H=H, seed=seed,
+                          device=device)
+    if projection:
+        art["meta"]["in_perm_blocks"] = 0
+    save_artifact(art, path)
+    return art
+
+
+def projection_artifact(cfg: LlamaConfig, i: int, key: str, qstr: str,
+                        save_dir: str, model_key: str, seed: int = 0,
+                        dense_params: Optional[dict] = None,
+                        hess: Optional[dict] = None, device="cuda"):
+    """Layer i's projection key under qstr: get_artifact at
+    ``artifact_path(save_dir, model_key, seed, qstr, i, key)``, quantizing
+    dense_params' weight with the signs su_for and the Hessian of its
+    HESSKEY group in hess ({f"{i}_{group}": H}) when it is missing or
+    stale."""
+    return get_artifact(
+        artifact_path(save_dir, model_key, seed, qstr, i, key),
+        proj_shape(cfg, key), qstr,
+        dense_w=None if dense_params is None
+        else dense_params["layers"][i][key],
+        su=su_for(cfg, i, key, seed),
+        H=hess.get(f"{i}_{HESSKEY[key]}") if hess else None, seed=seed,
+        device=device)
 
 
 def impl_for(choice, impl: str) -> str:
@@ -379,9 +421,7 @@ ROT_GROUPS = {"su_qkv": (KQ, KK, KV_), "su_o": (KO,), "su_ug": (KU, KG),
 
 # the reference's arguments that the port refuses, with what they wait for
 # (their values that change nothing are accepted)
-_UNPORTED = {"hess": (None, "calibration Hessians feed the quantizers "
-                            "(ROADMAP Queue 1 item 7)"),
-             "row_parallel_tp": (1, "block-rotated row-parallel layers "
+_UNPORTED = {"row_parallel_tp": (1, "block-rotated row-parallel layers "
                                     "(ROADMAP Queue 1 item 9)")}
 
 
@@ -401,23 +441,28 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                           lm_head_bits: int = 16, seed: int = 0,
                           device="cuda", model_key: str = "model",
                           save_dir: str = "quant_results",
-                          dense_params: Optional[dict] = None, **unported):
+                          dense_params: Optional[dict] = None,
+                          hess: Optional[dict] = None, **unported):
     """Assemble (ModelSpec, params) from dummy weights or artifacts.
 
     qdict: quantizer_str, or {f"{i}_{key}": qstr | (qstr, impl_choice)}
     (see impl_for).  merge_info: per-layer lists such as ["merge_qkv",
     "merge_ug"] (also merge_qk, merge_kv, merge_qv).  impl: exact, a8 or
-    dequant.  dummy=False reads
-    each projection's artifact from ``artifact_path(save_dir, model_key,
-    seed, qstr, i, key)`` (read_artifact).  dense_params (numpy, as
-    random_dense_params): embed, norms and lm_head; without it they are
-    the reference's numpy draws from seed.  lm_head_bits: 16 (bf16), 8
+    dequant.  dummy=False reads each projection's artifact from
+    ``artifact_path(save_dir, model_key, seed, qstr, i, key)``, quantizing
+    a missing or stale one from dense_params on device (get_artifact).
+    dense_params (numpy, as random_dense_params): the projections to
+    quantize, embed, norms and lm_head; without it they are the
+    reference's numpy draws from seed.  hess: {f"{i}_{group}": H}
+    (collect_hessians; the group by HESSKEY) for the ``_hess_`` schemes
+    quantized on demand.  lm_head_bits: 16 (bf16), 8
     (the rotated per-row int8 head, built from the dense head) or 4
     (tcq2s_8, always impl a8 as in the reference: dummy, or the
-    ``999_lm_head`` artifact; a missing one is a dummy head when there is
-    no dense_params, as in the reference).  device: the card unless the
-    caller asks for the CPU (``device="cpu"`` runs the plain versions).
-    The reference's ``hess`` and ``row_parallel_tp`` raise (see
+    ``999_lm_head`` artifact, quantized on demand from the bf16 dense
+    head padded to a 4096 multiple; a missing one is a dummy head when
+    there is no dense_params, as in the reference).  device: the card
+    unless the caller asks for the CPU (``device="cpu"`` runs the plain
+    versions).  The reference's ``row_parallel_tp`` raises (see
     _UNPORTED)."""
     refuse_unported(**unported)
     if impl not in IMPLS:
@@ -445,8 +490,8 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
     def artifact(i, key, qs):
         if dummy:
             return _get_dummy_artifact(cfg, i, key, qs, seed)
-        return read_artifact(artifact_path(save_dir, model_key, seed, qs, i,
-                                           key), proj_shape(cfg, key))
+        return projection_artifact(cfg, i, key, qs, save_dir, model_key,
+                                   seed, dense_params, hess, device)
 
     layers_params, layer_specs = [], []
     for i in range(nl):
@@ -530,7 +575,15 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         path = artifact_path(save_dir, model_key, seed, LM_HEAD_QSTR,
                              *LM_HEAD_LAYER)
         if not dummy and (dense_params is not None or os.path.exists(path)):
-            art = read_artifact(path, (VP, h), stamp_required=True)
+            w = None
+            if dense_params is not None:
+                # the reference quantizes its bf16 head, padded
+                w = torch.as_tensor(np.asarray(head, np.float32)).to(
+                    dtype).float().numpy()
+                w = np.pad(w, ((0, VP - w.shape[0]), (0, 0)))
+            art = get_artifact(path, (VP, h), LM_HEAD_QSTR, dense_w=w, su=su,
+                               seed=seed, device=device, stamp_required=True,
+                               projection=False)
             if not np.array_equal(np.asarray(art["SU"], np.float32), su):
                 raise ValueError(f"{path}: SU is not the lm_head's "
                                  f"(seed * 7 + 99)")

@@ -35,7 +35,7 @@ from qpalette_tpu.runtime.loader import build_quantized_model as jbuild
 
 from qpalette_tpu_torch import eval_qdict, eval_qdict_zeroshot
 from qpalette_tpu_torch.models import hf_weights
-from qpalette_tpu_torch.runtime import evaluate, zeroshot
+from qpalette_tpu_torch.runtime import evaluate, loader, zeroshot
 
 from test_torch_zeroshot import MockTok
 
@@ -228,8 +228,30 @@ def test_eval_qdict_main_matches_reference(quantized, monkeypatch, capsys):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(SystemExit, match="no CUDA device"):
             eval_qdict.main(argv)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        eval_qdict.main(argv + ["--device", "cpu", "--hess_path", "h.npz"])
+    # --hess_path's Hessians reach the loader (for artifacts it quantizes
+    # on demand); the spy stops the run there
+    hpath = os.path.join(os.path.dirname(qpath), "h.npz")
+    H = {"0_qkv": np.eye(128, dtype=np.float32),
+         "1_down": np.eye(256, dtype=np.float32)}
+    np.savez(hpath, **H)
+    seen = {}
+
+    class Reached(Exception):
+        pass
+
+    def spy(*args, **kwargs):
+        seen.update(kwargs)
+        raise Reached
+
+    monkeypatch.setattr(loader, "build_quantized_model", spy)
+    with pytest.raises(Reached):
+        eval_qdict.main(argv + ["--device", "cpu", "--hess_path", hpath])
+    monkeypatch.undo()
+    monkeypatch.setitem(evaluate.DATASET_LOADERS, "wikitext2",
+                        lambda name: _stream())
+    assert seen["hess"].keys() == H.keys()
+    assert all(np.array_equal(seen["hess"][k], H[k]) for k in H)
+    assert seen["save_dir"] == save and seen["dense_params"] is not None
     eval_qdict.main(argv + ["--device", "cpu"])
     result = qpath.replace(".json", "_result")
     with open(result + ".json") as f:

@@ -3,10 +3,11 @@ test_torch_loader.py (split from it so that each file's worker takes about
 half the time): a 4-layer model that the JAX package quantized on demand
 and wrote to disk at impl xla, loaded by the port from the same directory
 at impl dequant: its spec, its params against params_from_jax of the
-reference's, logits and greedy tokens; a stale, missing or foreign
-artifact raises.  The cases (CFG, QDICT, MERGE, ...) are
-test_torch_loader.py's."""
+reference's, logits and greedy tokens; a stale or missing artifact is
+quantized on demand, a foreign one raises.  The cases (CFG, QDICT,
+MERGE, ...) are test_torch_loader.py's."""
 
+import os
 import shutil
 
 import jax
@@ -27,8 +28,8 @@ from qpalette_tpu_torch.models.llama import LlamaConfig
 from qpalette_tpu_torch.quant import incoherent
 from qpalette_tpu_torch.runtime import decode, loader
 
-from test_torch_loader import (CFG, JIMPL, KQ, LOGIT_TOL, MERGE, MODEL_KEY,
-                               N_STEPS, PROMPT, QDICT, TQ, _rel)
+from test_torch_loader import (CFG, JIMPL, KD, KQ, KV_, LOGIT_TOL, MERGE,
+                               MODEL_KEY, N_STEPS, PROMPT, QDICT, _rel)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -179,28 +180,55 @@ def test_model_logits_and_greedy_tokens_match_reference(model):
 # --- (e) what the port refuses --------------------------------------------
 
 def test_stale_missing_and_foreign_artifacts_raise(model, tmp_path):
-    """A stale had_factors stamp raises (the reference re-quantizes), a
-    missing artifact raises the quantize-on-demand message, a tlut that is
-    not the committed table raises."""
+    """A missing artifact, and one whose had_factors stamp is stale, are
+    quantized on demand from the dense weights and written back, as the
+    reference does: the reference's own words (near-ties aside: Wscale
+    differs from the reference's by an ulp in some rows) and meta; without
+    dense weights a missing one raises; a tlut that is not the committed
+    table raises."""
     _, _, _, _, save_dir, dense = model
     cfg = LlamaConfig(**CFG)
 
-    def build(where):
+    def build(where, dp=dense):
         return loader.build_quantized_model(
             cfg, QDICT, merge_info=MERGE, model_key=MODEL_KEY,
-            save_dir=where, dense_params=dense, dummy=False, impl="dequant",
+            save_dir=where, dense_params=dp, dummy=False, impl="dequant",
             lm_head_bits=4, device="cpu")
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build(str(tmp_path / "empty"))
-    stale = str(tmp_path / "stale")
-    shutil.copytree(save_dir, stale)
-    path = incoherent.artifact_path(stale, MODEL_KEY, 0, TQ, 2, KQ)
-    art = incoherent.load_artifact(path)
+    work = str(tmp_path / "work")
+    shutil.copytree(save_dir, work)
+
+    def path(where, i, key):
+        return incoherent.artifact_path(where, MODEL_KEY, 0,
+                                        QDICT[f"{i}_{key}"][0], i, key)
+
+    missing, stale = [(0, KD), (1, KV_)], (2, KQ)
+    for i, key in missing:
+        os.remove(path(work, i, key))
+    art = incoherent.load_artifact(path(work, *stale))
     incoherent.save_artifact(
-        dict(art, meta=dict(art["meta"], had_factors=[2, 64])), path)
-    with pytest.raises(RuntimeError, match="Hadamard"):
-        build(stale)
+        dict(art, meta=dict(art["meta"], had_factors=[2, 64])),
+        path(work, *stale))
+    with pytest.raises(RuntimeError, match="missing"):
+        build(work, dp=None)
+    build(work)
+    for i, key in missing + [stale]:
+        got = incoherent.load_artifact(path(work, i, key))
+        want = jinc.load_artifact(path(save_dir, i, key))
+        assert got["meta"]["had_factors"] == want["meta"]["had_factors"] \
+            == list(j_had_factors(got["meta"]["in_features"]))
+        assert got.keys() == want.keys()
+        for k in want:
+            if k == "meta":
+                assert got[k].keys() == want[k].keys()
+            elif k == "Wscale":
+                assert np.allclose(got[k], want[k], rtol=1e-6, atol=0)
+            elif k in ("trellis", "qweight"):
+                assert (got[k] != want[k]).mean() <= 1e-3, (i, key)
+            elif k == "lut":  # sq_4's Lloyd's steps sum in another order
+                assert np.allclose(got[k], want[k], rtol=1e-4, atol=1e-6)
+            else:
+                assert np.array_equal(got[k], want[k]), (i, key, k)
     foreign = dict(art, tlut=art["tlut"] * 2)
     with pytest.raises(ValueError, match="tlut"):
         loader._params_from_artifact(foreign, "cpu")

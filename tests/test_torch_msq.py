@@ -141,9 +141,24 @@ def test_models_match_reference():
                                      for k in memmodel.LAYER_KEYS}
 
 
-def test_missing_err_entry_names_item_7():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_err_table(["tcq_6_none_0.9", "tcq_11_none_0.9"])
+def test_missing_err_entry_names_item_7(tmp_path, monkeypatch):
+    """A scheme missing from the table is measured (here on a 64x64
+    matrix, on the CPU: the reference's quantizer_proxy_err of the same
+    matrix) and written to the table under $QPALETTE_ASSETS; the committed
+    entries are read as they are."""
+    from qpalette_tpu.msq.err_tables import quantizer_proxy_err as jproxy
+    monkeypatch.setenv("QPALETTE_ASSETS", str(tmp_path))
+    table = build_err_table(["tcq_6_none_0.9", "ldlq_2_6_none_0.9"],
+                            size=64, verbose=False, device="cpu")
+    with open(os.path.join(ROOT, "assets", "quant_err.json")) as f:
+        committed = json.load(f)
+    assert "ldlq_2_6_none_0.9" not in committed
+    assert table["tcq_6_none_0.9"] == committed["tcq_6_none_0.9"]
+    want = jproxy("ldlq_2_6_none_0.9", size=64)
+    assert abs(table["ldlq_2_6_none_0.9"] - want) <= 1e-3 * want
+    with open(tmp_path / "quant_err.json") as f:
+        assert json.load(f) == table
+    assert len(table) == len(committed) + 1
 
 
 def _reference_cli(name):
