@@ -9,6 +9,7 @@
   python chip_smoke.py --serve
   python chip_smoke.py --msq
   python chip_smoke.py --quant
+  python chip_smoke.py --tp
   python chip_smoke.py --recapture N
 
 With --parent it runs only parent_ab (see there): K1 sum2 and the 215
@@ -29,7 +30,10 @@ source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
 `git archive`).  With --rows it runs only k1_rows (phase 3's K1 dualmad,
 1mad and 2mad above 8 rows), with --serve only the serving phases (6b,
 6c), with --msq only the MSQ phase (12), with --quant only the
-quantization phase (13).  With --recapture N it runs
+quantization phase (13), with --tp only the tensor-parallel phase (14),
+beam and refine (15), and phase 14's comparison at 8 and 32 layers
+(printed, not held).
+With --recapture N it runs
 only recapture:
 fresh captures of the 215 step timed over N consecutive windows of
 replays.
@@ -197,6 +201,29 @@ Phases (each raises on failure):
      Hessians over 8 x 512 synthetic tokens, err_coeffs_from_hessians,
      and tcq_10_hess (q) and ldlq_1_4_hess (down) below their _none_
      artifacts in tr(E H E^T); seconds of each step
+ 9f. (after 9e) Path F: 8 layers of the 8B with ldlq_2_6 merged qkv / ug
+     and ldlq_4_8 o / down (vec 4, 2 bits a weight; its codebook made by
+     k-means on the card into a temporary QPALETTE_ASSETS), the rotated
+     int8 head, impl a8: 32 K9 in the 16-token prefill (16 at vec 4), 32
+     K8 + 1 K10 a decode forward (16 K8 at vec 4), counted and through
+     the captured step
+ 14. (after 13) tensor parallelism at full 8B width, 2 layers (TP_LAYERS):
+     the flagship (3.25bit.json: tcomb o in layer 0) and the 215 built
+     with row_parallel_tp = 2 (o / down block-rotated, tcomb
+     block-permuted), impl exact; a greedy decode of 8 steps on the card
+     single-device (K4/K5, K6/K7 in the prefill; K1), the same model split
+     two ways in one process (two threads, each rank's kernels at its
+     local shapes, the float32 partials summed on the card: no gloo),
+     then TP = 2 over two gloo processes sharing the one card (gloo's
+     all_reduce of CUDA tensors: NCCL takes one rank a GPU), both fed the
+     single-device tokens, each rank's launches; gloo's logits equal to
+     the split's, the split's within TP_TOL of max|logit| at the prefill
+     and every step, each step's argmax the greedy token; host ms a step
+     of both (two ranks on one card: not a speed-up)
+ 15. beam and refine: quantize_mat_tcq(beam=16) of a 1024x1024 slice of
+     a k weight (tcq_6 with a synthetic Hessian) beside beam 0, and
+     refine_artifact_vq of a 4096x4096 o weight after ldlq_1_4 with it:
+     seconds and tr(E H E^T) of each
  11. eager and graph tokens/s of every decode path side by side, a JSON
      line of them ("[graph] {...}"), a JSON line of the evaluation
      ("[eval] {...}"), of serving ("[serve] {...}"), of MSQ ("[msq]
@@ -214,6 +241,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -302,6 +330,30 @@ PATH_D_SHAPES = [("q/o", 4096, 4096, 2 * PATH_D_LAYERS),
                  ("down", 4096, 14336, PATH_D_LAYERS)]
 HEAD = (129024, 4096)  # the int8 head: 128256 padded to 2048s
 VQ_TOL = 1e-4  # K8 vs plain, of max|y|
+# vec 4: K8 / K9 at (bits 8, vec 4) summed over a 32-layer forward of Path
+# F's scheme, 32 o + 32 down calls; other bits checked and timed, on no
+# path
+VQ4 = (8, 4)
+VQ4_QSTR, VQ2_QSTR = "ldlq_4_8_none_1.0", "ldlq_2_6_none_1.0"
+PATH_F_LAYERS = 8
+PATH_F_PREFILL = {"vq_dequant": 4 * PATH_F_LAYERS}
+PATH_F_STEP = {"vq_gemv": 4 * PATH_F_LAYERS, "int8_gemv_a8": 1}
+PATH_F_VEC4 = 2 * PATH_F_LAYERS  # vec-4 calls a forward: o and down
+# phase 14: the row-parallel 8B models' depth, ranks and decode steps.
+# A rank's kernels run at its local shapes, whose float32 sums go in
+# another order than the global ones, and the dummy model carries a
+# flipped bf16 rounding into later layers.  The in-process split
+# (tp_split: the same ranks, no gloo) measures that alone: teacher-forced
+# max|d| / max|logit| 9.76e-3 (flagship) and 1.25e-2 (215) at 2 layers,
+# 2.50e-2 / 1.86e-2 at 8, 5.06e-2 / 3.22e-2 at 32, and the gloo ranks'
+# logits are bit-equal to the split's at every depth (NVIDIA H100 80GB
+# HBM3, 700.00 W; the kernels are deterministic: the 2-layer readings
+# reproduce to every printed digit from run to run).  So gloo is held to
+# the split exactly, and the split to the 2-layer readings with a fifth
+# of headroom; deeper models are printed (--tp)
+TP_LAYERS, TP_RANKS, TP_STEPS = 2, 2, 8
+TP_TOL = 1.5e-2
+BEAM_WIDTH = 16
 I8_TOL = 1e-5  # K11 vs plain, of max|y|
 # what sets the bound of the K8-K11 calls timed, name -> "bytes" or
 # "operations", filled as they are timed (the trellis kernels' bounds are
@@ -868,7 +920,7 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
     prefill and read after it and after each decode forward; each must
     match want_prefill / want_step exactly (other kernels 0).  Returns the
     counts of the whole run."""
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import decode
 
@@ -878,8 +930,7 @@ def drive(label, spec, params, device, prompt_len, new_tokens, want_prefill,
                                   device)
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     logits, caches = decode.prefill(spec, params,
                                     torch.as_tensor(prompt, device=device),
                                     caches)
@@ -1364,7 +1415,8 @@ def serving_pool(spec, params, device, card_label):
     run at impl exact, each token the argmax of a B=1 eager forward over
     its prefix or within NEAR_TIE_8B of it (its pool's capture, admission
     and forwards counted).  Returns (launch counts, summary)."""
-    from qpalette_tpu_torch.kernels import arith, launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import (arith, launch_counts,
+                                            reset_launches)
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import serving
 
@@ -1443,8 +1495,7 @@ def serving_pool(spec, params, device, card_label):
     b._admit, b.step_burst, b.step = admit, burst, step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     with SmClock() as clock:
         t0 = time.perf_counter()
         done = b.run(burst=SERVE_BURST)
@@ -1488,8 +1539,7 @@ def serving_pool(spec, params, device, card_label):
     ex = with_impl(spec, "exact")
     ex = dataclasses.replace(ex, lm_head_spec=dataclasses.replace(
         ex.lm_head_spec, impl="exact"))
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     g = serving.ContinuousBatcher(ex, params, n_slots=B, max_seq=T,
                                   temperature=0.0)
     prompts = [list(rng.integers(0, V, L)) for L, _ in SERVE_GREEDY]
@@ -1535,11 +1585,10 @@ def serving_bench(card_label):
     capture's launches and the eager admissions').  Returns (launch
     counts, its JSON result)."""
     from qpalette_tpu_torch import bench_serving
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
 
     t0 = time.perf_counter()
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     res = bench_serving.main([])
     counts = launch_counts()
     check(res["raw_tokens"] == 8 * 64, f"bench_serving tokens {res}")
@@ -1887,9 +1936,7 @@ def _ab_lut(device, smi):
 def _vq_case(vq, name, m, k, bits, vec, calls, step, kernel, device):
     """A parent_ab case of K8 at N=1: its calls in a decode forward of the
     path `step`."""
-    from qpalette_tpu_torch.ops.codebooks import vq_lut
-
-    lut = torch.tensor(vq_lut(bits, vec), device=device)
+    lut = _vq_lut(bits, vec, device)
     nbytes = m * vq.row_words(k, bits, vec) * 4 + lut.numel() * 4
     copies = [_vq_words(m, k, bits, vec, device, seed=100 + i)
               for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
@@ -2229,32 +2276,48 @@ def _vq_words(m, k, bits, vec, device, seed):
                          generator=gen, dtype=torch.int32, device=device)
 
 
-def vq_kernel_checks(vq, device):
-    """K8 / K9 against their plain versions: ldlq_2_6 at the four 8B
-    shapes, every other ldlq (bits, vec) at o and down.  Returns
-    ({kernel: max_abs_err}, {kernel: [ms, plain ms, bound ms summed over a
-    Path C decode forward's K8 calls (N=1) or its prefill's K9 calls]},
-    {(bits, vec, name): (K8 ms, K9 ms)} at every shape)."""
+def _vq_lut(bits, vec, device):
+    """The committed codebook, or at vec 4 (none is committed) a seeded
+    stand-in: the kernels' numbers do not depend on the values."""
     from qpalette_tpu_torch.ops.codebooks import vq_lut
 
-    err = {f.__name__: 0.0 for f in vq.KERNELS}
-    times = {f.__name__: [0.0, 0.0, 0.0] for f in vq.KERNELS}
+    if vec < 4:
+        return torch.tensor(vq_lut(bits, vec), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(400 + bits)
+    return torch.randn((1 << bits, vec), generator=gen, device=device)
+
+
+def vq_kernel_checks(vq, device):
+    """K8 / K9 against their plain versions: ldlq_2_6 at the four 8B
+    shapes, every other ldlq (bits, vec) at o and down (vec 4 at N = 1
+    and 8).  Returns ({kernel: max_abs_err}, {kernel: [ms, plain ms, bound
+    ms summed over a Path C decode forward's K8 calls (N=1) or its
+    prefill's K9 calls]}, {(bits, vec, name): (K8 ms, K9 ms)} at every
+    shape); the vec-4 kernels as vq_gemv_vec4 / vq_dequant_vec4, summed
+    over a 32-layer Path F forward's VQ4 calls (32 o + 32 down)."""
+    names = [f.__name__ for f in vq.KERNELS]
+    names += [n + "_vec4" for n in names]
+    err = {n: 0.0 for n in names}
+    times = {n: [0.0, 0.0, 0.0] for n in names}
     per_scheme = {}
     cases = [(6, 2, name, m, k, 32) for name, m, k in SHAPES_8B] + [
-        (b, v, name, m, k, 0) for b, v in vq.SUPPORTED if (b, v) != (6, 2)
+        (b, v, name, m, k, 32 if (b, v) == VQ4 else 0)
+        for b, v in vq.SUPPORTED if (b, v) != (6, 2)
         for name, m, k in SHAPES_8B[1::2]]
     for bits, vec, name, m, k, calls in cases:
-        lut = torch.tensor(vq_lut(bits, vec), device=device)
+        sfx = "_vec4" if vec == 4 else ""
+        lut = _vq_lut(bits, vec, device)
         words = _vq_words(m, k, bits, vec, device, seed=m + k + bits)
         label = f"vq bits={bits} vec={vec} {name} {m}x{k}"
-        for N in range(1, 9):
+        for N in (range(1, 9) if vec < 4 else (1, 8)):
             gen = torch.Generator(device=device)
             gen.manual_seed(N)
             x = torch.randn((N, k), generator=gen, device=device).bfloat16()
             y = vq.vq_gemv(x, words, lut, bits, vec, m, k)
             torch.cuda.synchronize()
             ref = vq.vq_gemv_plain(x, words, lut, bits, vec, m, k)
-            err["vq_gemv"] = max(err["vq_gemv"], _rel_check(
+            err["vq_gemv" + sfx] = max(err["vq_gemv" + sfx], _rel_check(
                 f"vq_gemv {label} N={N}", y, ref, VQ_TOL))
             if N == 8:  # the warps' fragments add in a fixed order
                 y2 = vq.vq_gemv(x, words, lut, bits, vec, m, k)
@@ -2265,7 +2328,7 @@ def vq_kernel_checks(vq, device):
         if name == "o":  # m = 4100: the last m-tile has 4 rows
             rw = _vq_words(4100, k, bits, vec, device, seed=k + bits)
             x = torch.randn((8, k), device=device).bfloat16()
-            err["vq_gemv"] = max(err["vq_gemv"], _rel_check(
+            err["vq_gemv" + sfx] = max(err["vq_gemv" + sfx], _rel_check(
                 f"vq_gemv vq bits={bits} vec={vec} 4100x{k} N=8",
                 vq.vq_gemv(x, rw, lut, bits, vec, 4100, k),
                 vq.vq_gemv_plain(x, rw, lut, bits, vec, 4100, k), VQ_TOL))
@@ -2317,9 +2380,9 @@ def vq_kernel_checks(vq, device):
             for kname, trio, by in (("vq_gemv", (ms, pms, gb), gby),
                                     ("vq_dequant", (dms, pdms, db), dby)):
                 for j, v in enumerate(trio):
-                    times[kname][j] += calls * v
+                    times[kname + sfx][j] += calls * v
                 if by == "operations":
-                    BOUND_BY[kname] = by
+                    BOUND_BY[kname + sfx] = by
         del copies, wout
     return err, times, per_scheme
 
@@ -2439,6 +2502,384 @@ def path_d(device, card_label):
     del params
     torch.cuda.empty_cache()
     return launches, graph
+
+
+def path_f(device, card_label):
+    """Path F: PATH_F_LAYERS layers of the 8B, ldlq_2_6 merged qkv / ug and
+    ldlq_4_8 o / down (K8 / K9 at vec 4), the rotated int8 head, impl a8;
+    counted (the vec-4 launches apart, vq_gemv.by_vec) and through the
+    captured step.  Returns (launch counts, graph_phase's result, the
+    vec-4 launches of the counted run)."""
+    from qpalette_tpu_torch.kernels import vq
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.runtime.loader import (LAYER_KEYS,
+                                                   build_quantized_model)
+
+    qdict = {f"{i}_{key}": (VQ4_QSTR if key in ("self_attn.o_proj",
+                                                "mlp.down_proj")
+                            else VQ2_QSTR)
+             for i in range(PATH_F_LAYERS) for key in LAYER_KEYS}
+    t0 = time.perf_counter()
+    spec, params = build_quantized_model(
+        LlamaConfig.llama31_8b(), qdict,
+        merge_info=[["merge_qkv", "merge_ug"]] * PATH_F_LAYERS, dummy=True,
+        impl="a8", num_layers=PATH_F_LAYERS, lm_head_bits=8, seed=0,
+        device=device, dense_params=dummy_dense(PATH_F_LAYERS))
+    torch.cuda.synchronize()
+    kinds = sorted({(ls.bits, ls.vec) for a, m in spec.layers
+                    for _, ls in a.projs + m.projs})
+    check(kinds == [(6, 2), VQ4], f"pathF model {kinds}")
+    print(f"[pathF] 8B ({PATH_F_LAYERS} layers, o / down {VQ4_QSTR}) built "
+          f"in {time.perf_counter() - t0:.1f} s (its vec-4 codebook made "
+          f"or read under {os.environ.get('QPALETTE_ASSETS')})", flush=True)
+    launches = drive("pathF", spec, params, device, PROMPT_LEN,
+                     COUNTED_TOKENS, PATH_F_PREFILL, PATH_F_STEP)
+    vec4 = {"vq_gemv": vq.vq_gemv.by_vec[4],
+            "vq_dequant": vq.vq_dequant.by_vec[4]}
+    check(vec4 == {"vq_gemv": PATH_F_VEC4 * COUNTED_TOKENS,
+                   "vq_dequant": PATH_F_VEC4},
+          f"pathF: vec-4 launches {vec4}")
+    print(f"[pathF] vec-4 launches in the counted run: {vec4}", flush=True)
+    graph = graph_phase("pathF", spec, params, device, PATH_F_STEP,
+                        card_label)
+    del params
+    torch.cuda.empty_cache()
+    return launches, graph, vec4
+
+
+def tp_decode(spec, params, prompt, force, steps, device):
+    """A decode on device: the prefill of prompt (1, S) numpy, then
+    `steps` eager forwards, each fed the previous logits' argmax or, with
+    `force` (a list of `steps` tokens), the forced token (teacher forcing:
+    every run sees the same inputs).  Returns the last-position logits of
+    the prefill and each step (float32, on the CPU), the argmax tokens
+    and the host ms a step."""
+    from qpalette_tpu_torch.models import llama
+
+    S = prompt.shape[1]
+    caches = llama.init_kv_caches(spec, 1, S + steps + 1, device)
+    logits, caches = llama.forward(spec, params,
+                                   torch.as_tensor(prompt, device=device),
+                                   kv_caches=caches, cache_pos=0)
+    seq, toks = [logits[:, -1].float().cpu()], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = logits[:, -1].argmax(-1)[:, None]
+        toks.append(int(tok))
+        if force is not None:
+            tok = torch.full_like(tok, force[i])
+        logits, caches = llama.forward(spec, params, tok, kv_caches=caches,
+                                       cache_pos=S + i)
+        seq.append(logits[:, -1].float().cpu())
+    torch.cuda.synchronize()
+    return {"logits": torch.cat(seq), "tokens": toks,
+            "ms_a_step": (time.perf_counter() - t0) * 1e3 / max(steps, 1)}
+
+
+def tp_rank(rank, world, builds, prompt, steps, device, forces):
+    """One gloo rank of phase 14 (dryrun.run_ranks spawns it; every rank
+    shares the one card): for each build, the model of
+    build_quantized_model(**build, dummy=True) (the embed and head drawn
+    once a rank, dummy_dense), this rank's slices and
+    local spec (its kv heads, the all_reduce over the job's group), the
+    forced decode (tp_decode) and its launches."""
+    import torch.distributed as dist
+
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
+    from qpalette_tpu_torch.parallel import tp as tp_mod
+    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+
+    device = torch.device(device)
+    outs = []
+    for build, force in zip(builds, forces):
+        spec, params = build_quantized_model(
+            **build, dense_params=dummy_dense(build["num_layers"]),
+            dummy=True, device=device)
+        params = tp_mod.shard_params(params, spec, world, rank)
+        spec = tp_mod.localize_spec(spec, world, dist.group.WORLD)
+        torch.cuda.empty_cache()
+        reset_launches()
+        out = tp_decode(spec, params, prompt, force, steps, device)
+        out["launches"] = {k: v for k, v in launch_counts().items() if v}
+        outs.append(out)
+        del params
+    return outs
+
+
+class ThreadGroup:
+    """A tp group inside one process: `world` threads, each running one
+    rank's forward on its slices at its local shapes, whose all_reduce
+    sums the float32 partials on the card in rank order (rank 0 + rank 1:
+    what a sum of two over gloo gives, in either order) with no gloo and
+    no copy through the host.  run() routes torch.distributed.all_reduce
+    on this group here while its threads run."""
+
+    def __init__(self, world):
+        self.world = world
+        self.local = threading.local()
+        self.barrier = threading.Barrier(world, timeout=600)
+        self.parts = [None] * world
+        self.total = None
+
+    def all_reduce(self, t):
+        r = self.local.rank
+        self.parts[r] = t
+        self.barrier.wait()
+        if r == 0:  # every rank's partial is queued before this sum
+            total = self.parts[0].clone()
+            for part in self.parts[1:]:
+                total += part
+            self.total = total
+        self.barrier.wait()
+        t.copy_(self.total)
+
+    def run(self, fn):
+        """fn(rank) in each of the group's threads; results in rank order
+        (a rank that raises breaks the others' barrier and re-raises)."""
+        import torch.distributed as dist
+
+        outs, errs = [None] * self.world, []
+        orig = dist.all_reduce
+
+        def all_reduce(tensor, op=dist.ReduceOp.SUM, group=None,
+                       async_op=False):
+            if group is self:
+                return self.all_reduce(tensor)
+            return orig(tensor, op=op, group=group, async_op=async_op)
+
+        def body(r):
+            self.local.rank = r
+            try:
+                outs[r] = fn(r)
+            except BaseException as e:  # noqa: B036 -- re-raised below
+                errs.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.world)]
+        dist.all_reduce = all_reduce
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            dist.all_reduce = orig
+        if errs:
+            raise errs[0]
+        return outs
+
+
+def tp_split(spec, params, prompt, force, steps, device):
+    """The TP_RANKS-way tensor-parallel forced decode in this process
+    (ThreadGroup): each rank's slices of params, its local spec, its
+    kernels at its local shapes, the float32 partials of o / down summed
+    on the card.  Returns rank 0's tp_decode result."""
+    from qpalette_tpu_torch.parallel import tp as tp_mod
+
+    group = ThreadGroup(TP_RANKS)
+    ranks = [(tp_mod.localize_spec(spec, TP_RANKS, group),
+              tp_mod.shard_params(params, spec, TP_RANKS, r))
+             for r in range(TP_RANKS)]
+    outs = group.run(lambda r: tp_decode(*ranks[r], prompt, force, steps,
+                                         device))
+    check(all(torch.equal(o["logits"], outs[0]["logits"]) for o in outs),
+          "tp split: the ranks' logits differ")
+    return outs[0]
+
+
+def _share(a, b):
+    """max|a - b| / max|b|, and the same per row (the prefill, each step)."""
+    scale = b.abs().amax(-1)
+    d = (a - b).abs()
+    return float(d.max() / scale.max()), (d.amax(-1) / scale).tolist()
+
+
+def tp_path(device, card_label, layers=TP_LAYERS, held=True):
+    """Phase 14: the flagship and the 215 at full 8B width (`layers`
+    layers) built with row_parallel_tp = TP_RANKS, impl exact.  A greedy
+    decode of TP_STEPS steps single-device on the card; the same model
+    split TP_RANKS ways in this process (tp_split: the ranks' kernels at
+    their local shapes, no gloo); then TP_RANKS gloo ranks sharing the
+    card (one job for both models), both fed the single-device tokens.
+    held: gloo's logits equal the split's (a sum of two float32 partials
+    does not depend on its order), the split's within TP_TOL of the
+    single-device max|logit| at the prefill and every step, and every
+    argmax the single-device greedy token (else only printed, beside the
+    single-device top-2 gap, as --tp does for deeper models).  Returns
+    {model: summary}, each rank's launches among them."""
+    from qpalette_tpu_torch.dryrun import run_ranks
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+
+    with open(FLAGSHIP_QDICT) as f:
+        flagship = json.load(f)
+    q215, m215 = _load_215()
+    prompt = np.random.default_rng(0).integers(0, 128256, (1, PROMPT_LEN))
+    builds, singles, splits, secs = {}, {}, {}, {}
+    for label, qdict, merge, head in (("flagship", flagship, None, 16),
+                                      ("215", q215, m215, 4)):
+        builds[label] = dict(cfg=LlamaConfig.llama31_8b(), qdict=qdict,
+                             merge_info=merge, impl="exact",
+                             lm_head_bits=head, num_layers=layers, seed=0,
+                             row_parallel_tp=TP_RANKS)
+        t0 = time.perf_counter()
+        spec, params = build_quantized_model(
+            **builds[label], dense_params=dummy_dense(layers), dummy=True,
+            device=device)
+        reset_launches()
+        one = tp_decode(spec, params, prompt, None, TP_STEPS, device)
+        one["launches"] = {k: v for k, v in launch_counts().items() if v}
+        t1 = time.perf_counter()
+        splits[label] = tp_split(spec, params, prompt, one["tokens"],
+                                 TP_STEPS, device)
+        singles[label] = one
+        secs[label] = (t1 - t0, time.perf_counter() - t1)
+        del spec, params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP_RANKS, list(builds.values()), prompt,
+                      TP_STEPS, str(device),
+                      [singles[k]["tokens"] for k in builds])
+    t_ranks = time.perf_counter() - t0
+    out = {}
+    for i, label in enumerate(builds):
+        one, split = singles[label], splits[label]
+        ref = one["logits"]
+        gloo = [r[i] for r in ranks]
+        rel_split, steps = _share(split["logits"], ref)
+        rels = [_share(g["logits"], ref)[0] for g in gloo]
+        vs_split = [_share(g["logits"], split["logits"])[0] for g in gloo]
+        scale = ref.abs().amax(-1)
+        top2 = ref.topk(2, dim=-1).values
+        gaps = ((top2[:, 0] - top2[:, 1]) / scale).tolist()
+        print(f"[tp {label}] {layers} layers, the in-process split's max|d|"
+              f" / max|logit| at the prefill and each step: "
+              + ", ".join(f"{v:.2e}" for v in steps)
+              + "; the single-device top-2 gap: "
+              + ", ".join(f"{v:.2e}" for v in gaps), flush=True)
+        print(f"[tp {label}] in-process split ({TP_RANKS} threads, float32 "
+              f"partials summed on the card, no gloo): max|d| / max|logit| "
+              f"{rel_split:.3e} (budget {TP_TOL:.1e}), tokens "
+              f"{split['tokens']}", flush=True)
+        for r, g in enumerate(gloo):
+            print(f"[tp {label}] rank {r} of {TP_RANKS} (gloo, CUDA tensors "
+                  f"on {device}): launches {g['launches']}, max|d| / "
+                  f"max|logit| {rels[r]:.3e}, against the in-process split "
+                  f"{vs_split[r]:.3e}, host {g['ms_a_step']:.2f} ms a step",
+                  flush=True)
+        print(f"[tp {label}] single-device: launches {one['launches']}, "
+              f"host {one['ms_a_step']:.2f} ms a step; tokens "
+              f"{one['tokens']}; {secs[label][0]:.1f} s, the split "
+              f"{secs[label][1]:.1f} s, the {TP_RANKS} ranks of both models "
+              f"{t_ranks:.1f} s ({card_label})", flush=True)
+        check(one["launches"] and all(g["launches"] for g in gloo),
+              f"tp {label}: a run launched no kernel")
+        same = [split["tokens"] == one["tokens"]] + [
+            g["tokens"] == one["tokens"] for g in gloo]
+        if held:
+            check(max(vs_split) == 0.0,
+                  f"tp {label}: gloo against the in-process split {vs_split}")
+            check(rel_split <= TP_TOL, f"tp {label}: split {rel_split}")
+            check(all(same), f"tp {label}: greedy tokens differ: "
+                  f"{[split['tokens']] + [g['tokens'] for g in gloo]} vs "
+                  f"{one['tokens']}")
+        else:
+            print(f"[tp {label}] {layers} layers: argmax tokens equal "
+                  f"(split, ranks) {same}", flush=True)
+        out[label] = {
+            "layers": layers, "rel": rels, "rel_split": rel_split,
+            "rel_steps": steps, "gloo_vs_split": vs_split,
+            "top2_gap": gaps, "tokens_equal": all(same),
+            "single_launches": one["launches"],
+            "rank_launches": [g["launches"] for g in gloo],
+            "single_ms_a_step": one["ms_a_step"],
+            "rank_ms_a_step": [g["ms_a_step"] for g in gloo],
+            "tokens_s_one_card_two_ranks": 1e3 / max(
+                g["ms_a_step"] for g in gloo)}
+    return out
+
+
+def _proxy(hat, W, H):
+    from qpalette_tpu_torch.utils.precision import full_f32
+
+    E = (hat - W).float()
+    with full_f32():
+        return float(torch.einsum("ij,jk,ik->", E, H, E))
+
+
+def beam_refine(device, card_label, n=4096, m_k=1024, n_beam=1024,
+                samples=8192):
+    """Phase 15: quantize_mat_tcq of a 1024x1024 weight (layer-0 k's rows
+    and its first 1024 input columns, tcq_6 with the Hessian's block of
+    those columns) at beam 0 and BEAM_WIDTH, and refine_artifact_vq of a
+    4096x4096 one (o's shape) after LDLQ at ldlq_1_4 with the whole
+    Hessian: seconds and tr(E H E^T).  The beam's time goes with the
+    column blocks (one LDLQ step each, 128 beam steps a step), not with
+    the rows, so the slice keeps a quarter of k's.  Weights: N(0, 1) rows of
+    unit RMS; the Hessian: X^T X / n of 8192 activations whose channels
+    are scaled by exp(N(0, 1)) (a few large channels, as a layer's input
+    has).  The beam must not raise the proxy error, nor refine."""
+    from qpalette_tpu_torch.ops.codebooks import vq_lut
+    from qpalette_tpu_torch.ops.packing import dequant_lut, words_to_torch
+    from qpalette_tpu_torch.quant import quantizers, refine
+    from qpalette_tpu_torch.utils.precision import full_f32
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(15)
+    scale = torch.exp(torch.randn(n, generator=gen, device=device))
+    X = torch.randn((samples, n), generator=gen, device=device) * scale
+    with full_f32():
+        H = X.T @ X / X.shape[0]
+    del X
+
+    def unit_rows(m, cols):
+        W = torch.randn((m, cols), generator=gen, device=device)
+        return W / W.pow(2).mean(1, keepdim=True).sqrt()
+
+    out = {}
+    Wk, Hk = unit_rows(m_k, n_beam), H[:n_beam, :n_beam]
+    for width in (0, BEAM_WIDTH):
+        sync()
+        t0 = time.perf_counter()
+        _, hat = quantizers.quantize_mat_tcq(Wk, Hk, 6, use_hess=True,
+                                             beam=width)
+        sync()
+        out[f"tcq_6 beam {width}"] = {"s": time.perf_counter() - t0,
+                                      "proxy": _proxy(hat, Wk, Hk)}
+    Wo = unit_rows(n, n)
+    sync()
+    t0 = time.perf_counter()
+    lin, hat = quantizers.quantize_mat_vq(Wo, H, 4, 1, use_hess=True)
+    sync()
+    out["ldlq_1_4"] = {"s": time.perf_counter() - t0,
+                       "proxy": _proxy(hat, Wo, H)}
+    art = {"meta": {k: v for k, v in lin.items() if k != "qweight"},
+           "qweight": lin["qweight"], "lut": np.asarray(vq_lut(4, 1)),
+           "Wscale": np.ones(n, np.float32)}
+    t0 = time.perf_counter()
+    ref = refine.refine_artifact_vq(Wo, art, H, device=device)
+    sync()
+    hat2 = dequant_lut(words_to_torch(ref["qweight"], device),
+                       torch.tensor(art["lut"], device=device), n, n, 4, 1)
+    out["ldlq_1_4 refined"] = {"s": time.perf_counter() - t0,
+                               "proxy": _proxy(hat2, Wo, H)}
+    for k, v in out.items():
+        print(f"[beam/refine] {k}: {v['s']:.2f} s, tr(E H E^T) "
+              f"{v['proxy']:.6g} ({card_label})", flush=True)
+    check(out[f"tcq_6 beam {BEAM_WIDTH}"]["proxy"]
+          <= out["tcq_6 beam 0"]["proxy"] * (1 + 1e-5),
+          "the beam raised the proxy error")
+    check(out["ldlq_1_4 refined"]["proxy"]
+          <= out["ldlq_1_4"]["proxy"] * (1 + 1e-5),
+          "refine raised the proxy error")
+    return out
 
 
 def tcq2mix_qdict(num_layers=32):
@@ -2854,7 +3295,7 @@ def artifact_check(device, cfg=None):
     launches."""
     import tempfile
 
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.models.llama import LlamaConfig
     from qpalette_tpu_torch.quant.incoherent import (artifact_path,
@@ -2891,8 +3332,7 @@ def artifact_check(device, cfg=None):
                 impl="a8", num_layers=2, lm_head_bits=4, device=dev,
                 model_key="3_8b", save_dir=save_dir)
             caches = llama.init_kv_caches(spec, 1, 15, dev)
-            for f in wrappers():
-                f.launches = 0
+            reset_launches()
             l1, caches = llama.forward(spec, params, torch.as_tensor(
                 prompt, device=dev), kv_caches=caches, cache_pos=0)
             logits = [l1.cpu()]
@@ -3058,7 +3498,8 @@ def zs_check(spec, params, device, card_label, label="215", calls=None):
     and the a8 head); one loglikelihood against the sum of the forward's
     log-softmax.  Returns
     (launch counts, summary)."""
-    from qpalette_tpu_torch.kernels import arith, launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import (arith, launch_counts,
+                                            reset_launches)
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import zeroshot
 
@@ -3076,8 +3517,7 @@ def zs_check(spec, params, device, card_label, label="215", calls=None):
     # takes is loaded and set up before the timed run
     zeroshot.eval_multiple_choice(spec, params, tok, questions)
     torch.cuda.synchronize()
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = zeroshot.eval_multiple_choice(spec, params, tok, questions)
     torch.cuda.synchronize()
@@ -3210,7 +3650,7 @@ def ppl_check(spec, params, device, card_label):
     194 K6 + 30 K7 a window, the blockwise attention in every layer;
     seconds a window, eval tokens/s, peak memory; the device time of a
     window by kind.  Returns (launch counts, summary)."""
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.runtime import evaluate
 
@@ -3223,8 +3663,7 @@ def ppl_check(spec, params, device, card_label):
     # the first window's ce_loss against the CE of forward's float32
     # logits (8192 x 128256, 4.2 GB)
     tokens = torch.as_tensor(stream[None, :EVAL_CTX], device=device)
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     ce = float(evaluate.ce_loss(spec, params, tokens))
     one = launch_counts()
     zero = {k: 0 for k in one}
@@ -3243,8 +3682,7 @@ def ppl_check(spec, params, device, card_label):
     torch.cuda.reset_peak_memory_stats(device)
     flash, restore = _count_flash()
     try:
-        for f in wrappers():
-            f.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         ppl, avg = evaluate.eval_ppl(spec, params, stream, ctx_size=EVAL_CTX,
                                      progress=False)
@@ -3716,14 +4154,13 @@ def _teacher_forced(spec, params, tokens, steps):
     fed the argmax of the previous ones (or, given a (1, S + steps) token
     row, those tokens): (list of logits, the token row used, the launch
     counts of the prefill and of each decode forward)."""
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
     from qpalette_tpu_torch.models import llama
 
     S = QUANT_PROMPT
     caches = llama.init_kv_caches(spec, 1, S + steps + 1,
                                   params["embed"].device)
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     logits, caches = llama.forward(spec, params, tokens[:, :S],
                                    kv_caches=caches, cache_pos=0)
     counts, outs, row = [launch_counts()], [logits], tokens
@@ -3992,6 +4429,7 @@ def timed(name, fn, *args):
 def main():
     t_start = time.perf_counter()
     name, count, smi = card()
+    temp_assets()
     from qpalette_tpu_torch.kernels import (arith, arith_dequant, int8_gemv,
                                             tcq_lut, vq, wrappers)
     from qpalette_tpu_torch.models.llama import LlamaConfig
@@ -4038,8 +4476,9 @@ def main():
     pc, graphs["pathC"] = timed("9b Path C", path_c, device, smi)
     pd, graphs["pathD"] = timed("9c Path D", path_d, device, smi)
     pe, graphs["pathE"] = timed("9e Path E", path_e, device, smi)
+    pf, graphs["pathF"], vec4 = timed("9f Path F", path_f, device, smi)
     for k in launches:
-        launches[k] += pc[k] + pd[k] + pe[k]
+        launches[k] += pc[k] + pd[k] + pe[k] + pf[k]
     sb, serve_bench = timed("6c bench_serving", serving_bench, smi)
     pm, msq = timed("12 MSQ", msq_path, device, smi,
                     graphs["215"]["generate"])
@@ -4048,6 +4487,8 @@ def main():
         launches[k] += sb[k] + pm[k] + pq[k]
     for kname, e in quant_err.items():
         err[kname] = max(err[kname], e)
+    tp = timed("14 tensor parallelism", tp_path, device, smi)
+    beam = timed("15 beam and refine", beam_refine, device, smi)
     timed("10 2-layer models", small_model_checks, device)
     timed("10b artifacts", artifact_check, device)
     t0 = time.perf_counter()
@@ -4147,6 +4588,14 @@ def main():
           flush=True)
     print("[msq] " + json.dumps({"card": smi, **msq}), flush=True)
     print("[quant] " + json.dumps(quant), flush=True)
+    print("[tp] " + json.dumps({"card": smi, **tp}), flush=True)
+    print("[beam] " + json.dumps({"card": smi, **beam}), flush=True)
+    for kname in ("vq_gemv_vec4", "vq_dequant_vec4"):
+        kms, kpms, kbms = times[kname]
+        print(f"[time] a 32-layer Path F forward's 64 {kname} calls ({VQ4}, "
+              f"32 o + 32 down; N=1 for K8): kernel {kms:.4f} ms, plain "
+              f"{kpms:.4f} ms, bound {kbms:.4f} ms ({kbms / kms:.1%} of it; "
+              f"{smi})", flush=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
           f"({smi})", flush=True)
     kernels = []
@@ -4164,6 +4613,21 @@ def main():
             "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
             "bound_by": BOUND_BY.get(kname, "bytes"),
             "library_ms": library.get(kname)})
+    # vec 4 behind the same wrappers: the launches of Path F's counted run
+    for kname, n in vec4.items():
+        check(n > 0, f"{kname} at vec 4 launched no time")
+        src, where = KERNEL_INFO[kname]
+        kms, kpms, kbms = times[kname + "_vec4"]
+        kernels.append({
+            "name": kname + "_vec4", "route": "cuda",
+            "source": f"qpalette_tpu_torch/csrc/{src}", "replaces": where,
+            "launches": n,
+            "step_launches": PATH_F_VEC4 * COUNTED_TOKENS
+            if kname == "vq_gemv" else 0,
+            "max_abs_err": err[kname + "_vec4"],
+            "ms": kms, "plain_ms": kpms, "bound_ms": kbms,
+            "bound_by": BOUND_BY.get(kname + "_vec4", "bytes"),
+            "library_ms": None})
     # above 8 rows, wide_gemv_kernel (and its x prologue) behind the same
     # wrappers: sum2 with its launches in the 215 zero-shot run (every
     # call at 9-200 rows) and in the 16-slot serving phase, and times a
@@ -4199,6 +4663,39 @@ def main():
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
+
+
+def temp_assets():
+    """Codebooks made by k-means in this run (vec 4: none is committed) go
+    to a temporary QPALETTE_ASSETS, removed at exit, never into the
+    repo's assets (both packages read its committed lut_cache)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="qpt_assets_")
+    os.environ["QPALETTE_ASSETS"] = d
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+
+
+TP_DEPTHS = (8, 32)  # --tp: the same comparison, printed, at full depth
+
+
+def tp_only():
+    """Phases 14 and 15 alone (--tp), then phase 14's comparison at
+    TP_DEPTHS layers (printed, not held: the dummy model carries the
+    ranks' other sum order further with depth)."""
+    _, _, smi = card()
+    temp_assets()
+    build_all()
+    device = torch.device("cuda:0")
+    tp = tp_path(device, smi)
+    beam = beam_refine(device, smi)
+    print("[tp] " + json.dumps({"card": smi, **tp}), flush=True)
+    print("[beam] " + json.dumps({"card": smi, **beam}), flush=True)
+    for layers in TP_DEPTHS:
+        deep = tp_path(device, smi, layers=layers, held=False)
+        print("[tp depth] " + json.dumps({"card": smi, **deep}), flush=True)
 
 
 def serve_only():
@@ -4316,6 +4813,9 @@ if __name__ == "__main__":
                     help="run only the MSQ phase (12)")
     ap.add_argument("--quant", action="store_true",
                     help="run only the quantization phase (13)")
+    ap.add_argument("--tp", action="store_true",
+                    help="run only the tensor-parallel phase (14) and beam "
+                    "and refine (15)")
     ap.add_argument("--recapture", type=int, default=0,
                     help="run recapture only, with this many windows of "
                     "replays a capture of the 215 step")
@@ -4330,6 +4830,8 @@ if __name__ == "__main__":
         msq_only()
     elif args.quant:
         quant_only()
+    elif args.tp:
+        tp_only()
     elif args.recapture:
         recapture(args.recapture)
     else:

@@ -21,6 +21,14 @@ SASS of its kernels.
       wide_gemv_kernel): checked at o, N = 49, then the 215 shapes at N =
       16, 64 and 256 as a zero-shot forward calls them (layers exact, the
       head a8); ms a zero-shot forward's 129 calls.
+  python chip_variants.py sweep
+      K8's fixed cost a call: vq_gemv at N = 1, k = 4096, over m from 16
+      to 16384 rows, at ldlq_4_8 (vec 4) and ldlq_2_6 (vec 2) (CUDA-graph
+      replays, words cycled past L2), and a one-element fill_ in the same
+      graph setting (the replay's floor a node); a least-squares line
+      us = a + bytes / rate over the rows from 2048 up (their words
+      cycled past L2; below, the 200 replays' words fit in it), whose a
+      is the cost a call that no byte pays, beside the time at 16 rows.
   python chip_variants.py sass NEW.cu PARENT.cu KERNEL[=PARENT_KERNEL],...
       the SASS of every instance of each kernel template KERNEL in two
       builds, instruction by instruction (cuobjdump -sass of nvcc -cubin),
@@ -247,6 +255,48 @@ def time_vq(dirs):
         vq._lib = orig
 
 
+SWEEP_M = (16, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+
+
+def sweep_vq(k=4096):
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from qpalette_tpu_torch.kernels import vq
+
+    _, _, smi = cs.card()
+    dev = torch.device("cuda:0")
+    x = torch.randn((1, k), device=dev).bfloat16()
+    one = torch.empty(1, device=dev)
+    floor = cs._time_ms(lambda i=0: one.fill_(i), 200, graph=True)
+    print(f"[sweep] a one-element fill_: {floor * 1e3:.3f} us a node "
+          f"({smi})", flush=True)
+    for bits, vec in ((8, 4), (6, 2)):
+        lut = cs._vq_lut(bits, vec, dev)
+        rows = []
+        for m in SWEEP_M:
+            nbytes = m * vq.row_words(k, bits, vec) * 4
+            cp = [cs._vq_words(m, k, bits, vec, dev, seed=100 + i)
+                  for i in range(min(64, -(-3 * cs.L2_BYTES // nbytes)))]
+            out = torch.empty((1, m), device=dev)
+            t = cs._time_ms(lambda i=0: vq.vq_gemv(
+                x, cp[i % len(cp)], lut, bits, vec, m, k, out=out), 200,
+                graph=True)
+            rows.append((m, nbytes, t * 1e3))
+            print(f"[sweep] ldlq_{vec}_{bits} {m}x{k}: {t * 1e3:.3f} us, "
+                  f"{nbytes} bytes of row-pack, "
+                  f"{nbytes / (t * 1e-3) / 1e9:.0f} GB/s", flush=True)
+            del cp
+        fit = np.array([(b, us) for m, b, us in rows if m >= 2048])
+        slope, a = np.polyfit(fit[:, 0], fit[:, 1], 1)
+        us = {m: t for m, _, t in rows}
+        print(f"[sweep] ldlq_{vec}_{bits}: us = {a:.3f} + bytes / "
+              f"{1e-3 / slope:.0f} GB/s (m >= 2048); 16 rows {us[16]:.3f} "
+              f"us; the 4096x4096 call {us[4096]:.3f} us ({smi})",
+              flush=True)
+
+
 def _sass(src, cubin):
     from qpalette_tpu_torch.kernels._build import _nvcc
 
@@ -403,7 +453,9 @@ def opcodes(src, pattern, mmas=None):
 def conflicts(samples=20000, seed=0):
     """Mean and largest wavefronts of a warp's table read (uniform random
     windows): lane l reads copy l mod C of its entry, entry e's copies at
-    words e*C .. e*C + C - 1, bank = word mod 32."""
+    words e*C .. e*C + C - 1 (vec 4: two words an entry, e's copy r at
+    words 2(e*C + r), +1, the lanes' 64 words one read), bank = word mod
+    32."""
     import numpy as np
 
     from qpalette_tpu_torch.kernels import vq
@@ -412,9 +464,11 @@ def conflicts(samples=20000, seed=0):
     lane = np.arange(32)
     for bits, vec in vq.SUPPORTED:
         win = 2 * bits if vec == 1 and bits <= 4 else bits
-        cb = min(5, vq.GEMV_TABLE_BITS - 2 - win)
+        ew = 2 if vec == 4 else 1  # words an entry
+        cb = min(5, vq.GEMV_TABLE_BITS - 1 - ew - win)
         e = rng.integers(0, 1 << win, (samples, 32))
         word = (e << cb) | (lane & ((1 << cb) - 1))
+        word = np.concatenate([ew * word + i for i in range(ew)], axis=1)
         waves = np.zeros(samples, np.int64)
         for b in range(32):  # distinct words a bank serves
             w = np.where(word % 32 == b, word, -1)
@@ -422,7 +476,7 @@ def conflicts(samples=20000, seed=0):
             distinct = ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1)
             waves = np.maximum(waves, distinct + (w[:, 0] >= 0))
         print(f"[conflicts] bits={bits} vec={vec}: {1 << win} entries x "
-              f"{1 << cb} copies ({(4 << win << cb) // 1024} KB), "
+              f"{1 << cb} copies ({(4 * ew << win << cb) // 1024} KB), "
               f"wavefronts a read: mean {waves.mean():.3f}, max "
               f"{waves.max()}", flush=True)
 
@@ -434,4 +488,5 @@ if __name__ == "__main__":
                       else time_variants(args)),
      "sass": lambda: sass_diff(*args) if len(args) == 3 else sass_dirs(*args),
      "opcodes": lambda: opcodes(*args),
-     "conflicts": conflicts}[cmd]()
+     "conflicts": conflicts,
+     "sweep": sweep_vq}[cmd]()

@@ -29,9 +29,10 @@
 //    m-tile: exactly `bits` whole words of each row.  The k order inside an
 //    MMA is free as long as A and B agree: MMA j of a chunk takes, at k slots
 //    (2c, 2c+1) and (2c+8, 2c+9), run positions 2j and 2j+1 (vec 2: one
-//    bf16x2 entry each) or 4j, 4j+1 and 4j+2, 4j+3 (vec 1), so its B is x
-//    row g at the run's columns 4j .. 4j+3: 8 bytes, two MMAs a 16-byte
-//    load.  Every window's word and shift is a compile-time constant; a
+//    bf16x2 entry each), 4j, 4j+1 and 4j+2, 4j+3 (vec 1), or position j
+//    (vec 4: its entry's two bf16x2 words, values 0, 1 and 2, 3), so its B
+//    is x row g at the run's columns 4j .. 4j+3: 8 bytes, two MMAs a
+//    16-byte load.  Every window's word and shift is a compile-time constant; a
 //    window across two words is one funnel shift; the pad word is never read.
 //  - The stream: the rows are only 4-byte aligned, so a warp copies the
 //    16-byte pieces that hold its 16 rows' next two chunks (cp.async, 16
@@ -45,10 +46,12 @@
 //    offset) and one LDS.  vec 2: the bf16x2 of a codebook row.  vec 1 at
 //    bits <= 4: a pair table of 2^(2 bits) entries, indexed by the window of
 //    two adjacent positions, each the bf16x2 of two weights.  vec 1 at bits
-//    5-8: bf16 entries, two reads and a PRMT an A register.  The table is at
-//    most 32 KB (8 KB at bits 6, vec 2), so vec 2 at bits 9-12 keeps 16, 8,
-//    4 and 2 copies (lane l reads copy l mod copies) and lanes that share a
-//    copy can conflict.
+//    5-8: bf16 entries, two reads and a PRMT an A register.  vec 4: 8-byte
+//    entries (two bf16x2 words), one ld.shared.v2 for two A registers, entry
+//    e's copy r at byte 8*(copies*e + r).  The table is at most 32 KB (8 KB
+//    at bits 6, vec 2), so vec 2 at bits 9-12 keeps 16, 8, 4 and 2 copies
+//    and vec 4 at bits 8-12 half as many (16 .. 1; lane l reads copy l mod
+//    copies), and lanes that share a copy can conflict.
 //  - Work split: a capped grid of blocks of 8 warps walks the m-tiles (the
 //    table is built once a block, while the first stage streams); in an
 //    m-tile the warps split its chunks into 8 contiguous ranges, and their C
@@ -60,7 +63,8 @@
 // it: 2 bytes written per weight against bits/(8*vec) read, so the bf16
 // writes.  Design: a capped grid of blocks (the table, one bf16 or bf16x2
 // entry a codebook row, is loaded once per block); each warp takes 256
-// columns of one row at a time, lane l the 8 columns l*8 .. l*8 + 7,
+// columns of one row at a time, lane l the 8 columns l*8 .. l*8 + 7 (8, 4
+// or 2 positions),
 // written as one 16-byte store: 512 contiguous bytes a warp.
 //
 // A row stride padded to 16 bytes, which would let TMA or 16-byte loads
@@ -84,7 +88,9 @@ constexpr int kAlignPos = 128; // P must be a multiple of this
 constexpr int kDequantBlocks = 2112;  // two waves of 8 per SM
 
 template <int VEC>
-using Entry = typename std::conditional<VEC == 1, uint16_t, uint32_t>::type;
+using Entry = typename std::conditional<
+    VEC == 1, uint16_t,
+    typename std::conditional<VEC == 2, uint32_t, uint2>::type>::type;
 
 // (2^BITS, VEC) float32 codebook -> bf16 entries in shared memory
 template <int BITS, int VEC>
@@ -93,6 +99,12 @@ __device__ __forceinline__ void load_table(const float* __restrict__ lut,
   for (int i = threadIdx.x; i < (1 << BITS); i += blockDim.x) {
     if constexpr (VEC == 1) {
       tab[i] = __bfloat16_as_ushort(__float2bfloat16_rn(lut[i]));
+    } else if constexpr (VEC == 4) {
+      const float4 v = reinterpret_cast<const float4*>(lut)[i];
+      const auto bf = [](float f) {
+        return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f));
+      };
+      tab[i] = make_uint2(bf(v.x) | bf(v.y) << 16, bf(v.z) | bf(v.w) << 16);
     } else {
       const float2 v = reinterpret_cast<const float2*>(lut)[i];
       const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v.x));
@@ -124,13 +136,16 @@ struct VqGemv {
   static constexpr bool kPair = VEC == 1 && BITS <= 4;  // a read, two weights
   static constexpr int kWin = kPair ? 2 * BITS : BITS;  // bits a read's window
   static constexpr int kEntries = 1 << kWin;
+  static constexpr int kEntryShift = VEC == 4 ? 3 : 2;  // log2 entry bytes
   // copies of an entry: 32, or as many as fit in kTabBytes
-  static constexpr int kCopyBits = 13 - kWin < 5 ? 13 - kWin : 5;
-  static constexpr int kShift = 2 + kCopyBits;  // entry e at byte e << kShift
+  static constexpr int kTabBits = 15 - kEntryShift;  // entries kTabBytes holds
+  static constexpr int kCopyBits = kTabBits - kWin < 5 ? kTabBits - kWin : 5;
+  // entry e at byte e << kShift
+  static constexpr int kShift = kEntryShift + kCopyBits;
   static constexpr int kCols = kAlignPos * VEC;  // x columns a chunk
   static constexpr int kMmas = kCols / 16;       // MMAs a chunk
   static constexpr int kLaneCols = kCols / 4;    // a lane's x columns of it
-  static_assert((kEntries << kCopyBits) * 4 <= kTabBytes, "table size");
+  static_assert((kEntries << kShift) <= kTabBytes, "table size");
 };
 
 // entry e of the table: the codebook rounded to bf16 (vec 2: row e as
@@ -171,6 +186,27 @@ __device__ __forceinline__ uint32_t lookup(const uint32_t (&w)[NW], int o,
   uint32_t e;
   asm volatile("ld.shared.u32 %0, [%1];"
                : "=r"(e)
+               : "r"(((v & (((1u << kW) - 1u) << kS)) | lo) + tab));
+  return e;
+}
+
+// vec 4: the two words (bf16x2 of values 0, 1 and of 2, 3) of the table
+// entry of the window at bit o, as lookup reads one
+template <class T, int NW>
+__device__ __forceinline__ uint2 lookup2(const uint32_t (&w)[NW], int o,
+                                         uint32_t tab, uint32_t lo) {
+  constexpr int kW = T::kWin, kS = T::kShift;
+  const int i = o >> 5, sh = o & 31;
+  uint32_t v;  // the window at bits [kS, kS + kW)
+  if (sh + kW > 32)  // then sh > 32 - kW >= 20 > kS
+    v = __funnelshift_r(w[i], w[i + 1 < NW ? i + 1 : i], sh - kS);
+  else if (sh >= kS)
+    v = w[i] >> (sh - kS);
+  else
+    v = w[i] << (kS - sh);
+  uint2 e;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+               : "=r"(e.x), "=r"(e.y)
                : "r"(((v & (((1u << kW) - 1u) << kS)) | lo) + tab));
   return e;
 }
@@ -217,6 +253,43 @@ __device__ __forceinline__ void build_table(const float* __restrict__ lut,
       for (int q = 0; q < kCopies / 4; ++q)
         dst[(q + tid) & (kCopies / 4 - 1)] =
             make_uint4(ent[r], ent[r], ent[r], ent[r]);
+    }
+  }
+}
+
+// vec 4: each 8-byte entry in 2^kCopyBits copies (1 at bits 12, 16 at
+// bits 8, 32 up to bits 7), 16 bytes (two copies) a store where there are
+// two or more, from a lane-rotated start
+template <int BITS>
+__device__ __forceinline__ void build_table4(const float* __restrict__ lut,
+                                             uint32_t* tab) {
+  using T = VqGemv<BITS, 4>;
+  constexpr int kCopies = 1 << T::kCopyBits;
+  constexpr int kPer = (T::kEntries + kGemvThreads - 1) / kGemvThreads;
+  const int tid = threadIdx.x;
+  const auto bf = [](float f) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f));
+  };
+  uint2 ent[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r)
+    if (tid + r * kGemvThreads < T::kEntries) {
+      const float4 v =
+          reinterpret_cast<const float4*>(lut)[tid + r * kGemvThreads];
+      ent[r] = make_uint2(bf(v.x) | bf(v.y) << 16, bf(v.z) | bf(v.w) << 16);
+    }
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int e = tid + r * kGemvThreads;
+    if (e >= T::kEntries) break;
+    if constexpr (kCopies == 1) {
+      reinterpret_cast<uint2*>(tab)[e] = ent[r];
+    } else {
+      uint4* dst = reinterpret_cast<uint4*>(tab) + e * (kCopies / 2);
+#pragma unroll
+      for (int q = 0; q < kCopies / 2; ++q)
+        dst[(q + tid) & (kCopies / 2 - 1)] =
+            make_uint4(ent[r].x, ent[r].y, ent[r].x, ent[r].y);
     }
   }
 }
@@ -287,8 +360,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // still fit an SM, else of one-chunk stages (vec 2 at bits 9-12)
 template <int BITS, int VEC>
 struct VqSmem {
-  static constexpr int kTab = (VqGemv<BITS, VEC>::kEntries
-                               << VqGemv<BITS, VEC>::kCopyBits) * 4;
+  static constexpr int kTab = VqGemv<BITS, VEC>::kEntries
+                              << VqGemv<BITS, VEC>::kShift;
   static constexpr int kRed = kTab;
   static constexpr int kRing0 = kRed + 2 * kGemvWarps * 32 * 16;
   static constexpr int kChunks =
@@ -367,13 +440,16 @@ vq_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();
   };
   issue(0);  // the first stage streams while the table is built
-  build_table<BITS, VEC>(lut, reinterpret_cast<uint32_t*>(smem));
+  if constexpr (VEC == 4)
+    build_table4<BITS>(lut, reinterpret_cast<uint32_t*>(smem));
+  else
+    build_table<BITS, VEC>(lut, reinterpret_cast<uint32_t*>(smem));
   __syncthreads();
   const uint32_t ta = qpt::smem_addr(smem);
-  const uint32_t lo = (lane & ((1 << T::kCopyBits) - 1)) << 2;
+  const uint32_t lo = (lane & ((1 << T::kCopyBits) - 1)) << T::kEntryShift;
   const bool xrow = g < N;  // B columns n >= N stay 0
   const __nv_bfloat16* xp = x + (size_t)(xrow ? g : 0) * k + c * T::kLaneCols;
-  uint4 xv[T::kMmas / 2] = {};
+  uint4 xv[VEC == 4 ? 1 : T::kMmas / 2] = {};
   float acc[4];
   // one chunk: its runs from the stage at st (rows g and g+8, words
   // c*BITS ..), multiplied against x's columns of chunk ch
@@ -386,19 +462,40 @@ vq_gemv_kernel(const __nv_bfloat16* __restrict__ x,
         asm volatile("ld.shared.u32 %0, [%1];"
                      : "=r"(w[h][i])
                      : "r"(st + run[h] + 4 * i));
-    if (xrow) {
+    if constexpr (VEC == 4) {
+      // MMA j takes run position j: its entry's two words are the row's
+      // k slots (2c, 2c+1) and (2c+8, 2c+9), so x is read at the run's
+      // columns 4j .. 4j+3, as at vec 2; 16 bytes of x a pair of MMAs
 #pragma unroll
-      for (int j = 0; j < T::kMmas / 2; ++j)
-        xv[j] = __ldg(reinterpret_cast<const uint4*>(xp + ch * T::kCols) + j);
+      for (int j = 0; j < T::kMmas / 2; ++j) {
+        const uint4 xj =
+            xrow ? __ldg(reinterpret_cast<const uint4*>(xp + ch * T::kCols) +
+                         j)
+                 : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint2 r0 = lookup2<T>(w[0], (2 * j + h) * BITS, ta, lo);
+          const uint2 r1 = lookup2<T>(w[1], (2 * j + h) * BITS, ta, lo);
+          qpt::mma_bf16(acc, r0.x, r1.x, r0.y, r1.y,
+                        h ? make_uint2(xj.z, xj.w) : make_uint2(xj.x, xj.y));
+        }
+      }
+    } else {
+      if (xrow) {
+#pragma unroll
+        for (int j = 0; j < T::kMmas / 2; ++j)
+          xv[j] =
+              __ldg(reinterpret_cast<const uint4*>(xp + ch * T::kCols) + j);
+      }
+#pragma unroll
+      for (int j = 0; j < T::kMmas; ++j)
+        qpt::mma_bf16(acc, a_reg<T, BITS, VEC>(w[0], j, 0, ta, lo),
+                      a_reg<T, BITS, VEC>(w[1], j, 0, ta, lo),
+                      a_reg<T, BITS, VEC>(w[0], j, 1, ta, lo),
+                      a_reg<T, BITS, VEC>(w[1], j, 1, ta, lo),
+                      j & 1 ? make_uint2(xv[j / 2].z, xv[j / 2].w)
+                            : make_uint2(xv[j / 2].x, xv[j / 2].y));
     }
-#pragma unroll
-    for (int j = 0; j < T::kMmas; ++j)
-      qpt::mma_bf16(acc, a_reg<T, BITS, VEC>(w[0], j, 0, ta, lo),
-                    a_reg<T, BITS, VEC>(w[1], j, 0, ta, lo),
-                    a_reg<T, BITS, VEC>(w[0], j, 1, ta, lo),
-                    a_reg<T, BITS, VEC>(w[1], j, 1, ta, lo),
-                    j & 1 ? make_uint2(xv[j / 2].z, xv[j / 2].w)
-                          : make_uint2(xv[j / 2].x, xv[j / 2].y));
   };
   int slot = 0;
   for (int mt = blockIdx.x, buf = 0; mt < mtiles;
@@ -466,7 +563,10 @@ vq_dequant_kernel(const uint32_t* __restrict__ qw,
     uint32_t v[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      if constexpr (VEC == 1) {
+      if constexpr (VEC == 4) {
+        const uint2 e = tab[index_at<BITS>(rw, p0 + q / 2)];
+        v[q] = q & 1 ? e.y : e.x;
+      } else if constexpr (VEC == 1) {
         v[q] = (uint32_t)tab[index_at<BITS>(rw, p0 + 2 * q)] |
                ((uint32_t)tab[index_at<BITS>(rw, p0 + 2 * q + 1)] << 16);
       } else {
@@ -521,7 +621,8 @@ int dequant(const void* qw, const void* lut, void* w, int m, int k, int ldw,
 
 // words a row, pad word included; 0 for shapes the kernels do not take
 int row_words(int m, int k, int bits, int vec) {
-  if (m <= 0 || k <= 0 || (vec != 1 && vec != 2) || k % vec) return 0;
+  if (m <= 0 || k <= 0 || (vec != 1 && vec != 2 && vec != 4) || k % vec)
+    return 0;
   const int P = k / vec;
   if (P % kAlignPos) return 0;
   return P / 32 * bits + 1;
@@ -529,8 +630,8 @@ int row_words(int m, int k, int bits, int vec) {
 
 }  // namespace
 
-// The 17 (bits, vec) pairs of the ldlq palette: vec 1 with bits 2..8, vec 2
-// with bits 3..12.
+// The 26 (bits, vec) pairs of the ldlq palette: vec 1 with bits 2..8, vec 2
+// with bits 3..12, vec 4 with bits 4..12.
 #define QPT_VQ_CASES(FN, ...)                            \
   switch (vec * 16 + bits) {                             \
     case 16 + 2: return FN<2, 1>(__VA_ARGS__);           \
@@ -550,12 +651,21 @@ int row_words(int m, int k, int bits, int vec) {
     case 32 + 10: return FN<10, 2>(__VA_ARGS__);         \
     case 32 + 11: return FN<11, 2>(__VA_ARGS__);         \
     case 32 + 12: return FN<12, 2>(__VA_ARGS__);         \
+    case 64 + 4: return FN<4, 4>(__VA_ARGS__);           \
+    case 64 + 5: return FN<5, 4>(__VA_ARGS__);           \
+    case 64 + 6: return FN<6, 4>(__VA_ARGS__);           \
+    case 64 + 7: return FN<7, 4>(__VA_ARGS__);           \
+    case 64 + 8: return FN<8, 4>(__VA_ARGS__);           \
+    case 64 + 9: return FN<9, 4>(__VA_ARGS__);           \
+    case 64 + 10: return FN<10, 4>(__VA_ARGS__);         \
+    case 64 + 11: return FN<11, 4>(__VA_ARGS__);         \
+    case 64 + 12: return FN<12, 4>(__VA_ARGS__);         \
     default: return (int)cudaErrorInvalidValue;          \
   }
 
 // x: (N, k) bfloat16, 1 <= N <= 8; qweight: the canonical row-pack
 // (m, P*bits/32 + 1) words, P = k/vec a multiple of 128; lut: (2^bits,
-// vec) float32, 8-byte aligned; out: (N, m) float32.  Each function
+// vec) float32, 8-byte aligned (16 at vec 4); out: (N, m) float32.  Each function
 // launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for arguments the kernels do not take).
 extern "C" int vq_gemv(const void* x, const void* qweight, const void* lut,

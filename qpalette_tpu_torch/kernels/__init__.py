@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, each behind a wrapper that runs its
 plain PyTorch version on CPU tensors and counts its launches on the card
-in ``<wrapper>.launches``."""
+in ``<wrapper>.launches`` (K8 / K9 also by vec, in ``<wrapper>.by_vec``)."""
 
 
 def wrappers() -> tuple:
@@ -15,3 +15,11 @@ def wrappers() -> tuple:
 def launch_counts() -> dict:
     """{wrapper name: its launch count}."""
     return {f.__name__: f.launches for f in wrappers()}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0, the counts by vec included."""
+    for f in wrappers():
+        f.launches = 0
+        for vec in getattr(f, "by_vec", ()):
+            f.by_vec[vec] = 0

@@ -9,8 +9,9 @@ words, P = k/vec indices a row, and a (2^bits, vec) float32 codebook, and
 round every decoded value to bf16 as the TPU kernels do.  ``vq_gemv`` takes
 N <= 8 rows of bf16 x and returns y = x @ W_hat^T in float32 without
 Wscale; ``vq_dequant`` returns W_hat (m, k) bf16 in natural order.  They
-take P a multiple of 128 and the (bits, vec) pairs of the ldlq palette
-(vec 1 with bits 2-8, vec 2 with bits 3-12); vec 4 waits for its codebook.
+take P a multiple of 128 and the (bits, vec) pairs of the ldlq palette:
+vec 1 with bits 2-8, vec 2 with bits 3-12 and vec 4 with bits 4-12 (1-3
+bits a weight); vec 4 at other bits raises NotImplementedError.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (counted in ``<wrapper>.launches``) or raises.  The
@@ -32,9 +33,11 @@ SOURCE = "vq"  # csrc/vq.cu
 MAX_ROWS = 8  # GEMV rows; more rows take the dequant + product path
 ALIGN_P = 128  # indices a row must be a multiple of this
 SUPPORTED = tuple([(b, 1) for b in range(2, 9)]
-                  + [(b, 2) for b in range(3, 13)])  # (bits, vec)
+                  + [(b, 2) for b in range(3, 13)]
+                  + [(b, 4) for b in range(4, 13)])  # (bits, vec)
 # the GEMV's shared-memory table (kTabBytes of csrc/vq.cu): 2^15 bytes,
-# min(32, 2^(13-w)) copies of each 32-bit entry of a w-bit window
+# min(32, 2^(13-w)) copies of each 32-bit entry of a w-bit window (vec 4:
+# min(32, 2^(12-w)) of each 8-byte entry)
 GEMV_TABLE_BITS = 15
 GEMV_WARPS = 8  # warps a block of the GEMV: they split a row's chunks
 
@@ -58,6 +61,9 @@ def row_words(k: int, bits: int, vec: int) -> int:
 
 def _check(qweight, lut, bits, vec, m, k, device, x=None, out=None,
            out_dtype=None, out_shape=None):
+    if vec == 4 and (bits, vec) not in SUPPORTED:
+        raise NotImplementedError(f"vec 4 at bits={bits}: the kernels take "
+                                  f"bits 4-12")
     if (bits, vec) not in SUPPORTED:
         raise ValueError(f"(bits, vec)=({bits}, {vec}) not in {SUPPORTED}")
     if m <= 0 or k <= 0 or k % (ALIGN_P * vec):
@@ -125,6 +131,7 @@ def vq_gemv(x, qweight, lut, bits, vec, m, k, out=None) -> torch.Tensor:
                   qweight.data_ptr(), lut.data_ptr(), out.data_ptr(), N, m, k,
                   bits, vec)
     vq_gemv.launches += 1
+    vq_gemv.by_vec[vec] += 1
     return out
 
 
@@ -140,9 +147,13 @@ def vq_dequant(qweight, lut, bits, vec, m, k, out=None) -> torch.Tensor:
     _build.launch(_lib(), "vq_dequant", dev, qweight.data_ptr(),
                   lut.data_ptr(), out.data_ptr(), m, k, bits, vec)
     vq_dequant.launches += 1
+    vq_dequant.by_vec[vec] += 1
     return out
 
 
 KERNELS = (vq_gemv, vq_dequant)
 for _fn in KERNELS:
     _fn.launches = 0
+    # the launches of each vec, counted beside .launches (both set to 0
+    # by kernels.reset_launches)
+    _fn.by_vec = {1: 0, 2: 0, 4: 0}

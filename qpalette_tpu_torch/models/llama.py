@@ -7,7 +7,9 @@ int8 ``(k8, ks, v8, vs)`` with per-(token, head) scales, and the forward
 writes it in place.  The cache position is a Python int, a 0-d integer
 tensor or a (B,) tensor (one position a row); as a tensor it stays on
 the device, so a step can be captured in a CUDA graph and replayed at a
-new position.
+new position.  A spec with a ``tp_group`` is one rank's local spec of the
+tensor-parallel forward (parallel/tp.py): its row-parallel o and down
+outputs are summed over that ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from qpalette_tpu_torch.kernels.int8_gemv import int8_gemv, int8_gemv_a8
 from qpalette_tpu_torch.ops.hadamard import hadamard_transform_t
@@ -70,15 +73,22 @@ class LlamaConfig:
 class AttnSpec:
     """merge in {None, 'qkv', 'qk', 'kv', 'qv'}; projs = ((name,
     LinearSpec), ..., ('o', _)): q, k, v unmerged, else the merged group
-    and the projection it leaves out, in the loader's order."""
+    and the projection it leaves out, in the loader's order.
+    rot_blocks_o > 1: o's input rotation is block-diagonal (I_b x H-hat),
+    as quantized for row-parallel sharding; in_perm_o > 0: o's input is
+    block-permuted first (_block_perm_in; row-parallel tcomb)."""
     merge: Optional[str]
     projs: tuple
+    rot_blocks_o: int = 1
+    in_perm_o: int = 0
 
 
 @dataclass(frozen=True)
 class MLPSpec:
     merge_ug: bool
     projs: tuple  # (("ug",) | ("up", "gate")) + ("down",)
+    rot_blocks_down: int = 1
+    in_perm_down: int = 0  # see AttnSpec.in_perm_o
 
 
 @dataclass(frozen=True)
@@ -89,6 +99,10 @@ class ModelSpec:
     # None: the bf16 "lm_head", or the int8 head ("lm_head_q" (vocab
     # padded, hidden) int8, "lm_head_s" scales, "lm_head_su" if rotated)
     lm_head_spec: Optional[object] = None
+    # set on a rank's local spec of the tensor-parallel forward: the
+    # torch.distributed group its row-parallel o / down outputs are summed
+    # over (the reference's tp_axis); None: the single-device forward
+    tp_group: Optional[object] = None
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -119,6 +133,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 def _rotate_in(x: torch.Tensor, su: torch.Tensor) -> torch.Tensor:
     """Incoherence rotation of activations: z = (x * SU) @ H^T."""
     return hadamard_transform_t(x * su).to(x.dtype)
+
+
+def _block_perm_in(z: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """Row-parallel tcomb's input permutation (AttnSpec.in_perm_o): the
+    column blocks of width n/nblocks in the order 0, 2, 4, ..., 1, 3, 5,
+    ..., so that each tensor-parallel shard's contiguous slice holds one
+    KV1 and one KV2 piece."""
+    N, n = z.shape
+    tp = nblocks // 2
+    return (z.reshape(N, tp, 2, n // nblocks).transpose(1, 2)
+            .reshape(N, n))
+
+
+def _tp_sum(y: torch.Tensor, group, dtype) -> torch.Tensor:
+    """A row-parallel projection's output in dtype: with a group, the
+    ranks' float32 partial outputs summed over it (the reference's psum)
+    and rounded once, as the single-device product rounds its sum."""
+    if group is not None:
+        dist.all_reduce(y, group=group)
+    return y.to(dtype)
 
 
 def _positions(S: int, offset, device) -> torch.Tensor:
@@ -253,13 +287,16 @@ def _q8(x: torch.Tensor):
 
 
 def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
-                 cos, sin, kv_cache=None, cache_pos=0, luts=None):
+                 cos, sin, kv_cache=None, cache_pos=0, luts=None,
+                 tp_group=None):
     """x (B, S, hidden) -> (out, kv).  With kv_cache, k/v are written into
     the caches in place at cache_pos (see _store) and attention runs over
     the whole cache: bf16 ``(k, v)``, or int8 ``(k8, ks, v8, vs)`` holding
     the values quantized by _q8 and read back as (q * s) in bf16.  The
     group's activations are rotated unless its first projection is
-    ``dense`` (the bf16 baseline, whose weights are not rotated)."""
+    ``dense`` (the bf16 baseline, whose weights are not rotated).  Under
+    tensor parallelism cfg and spec are a rank's local ones and o's
+    partial output is summed over tp_group."""
     B, S, N = x.shape
     xs = x.reshape(-1, N)
     rotated = spec.projs[0][1].kind != "dense"
@@ -312,14 +349,20 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     oname, ospec = spec.projs[-1]
     if oname != "o":
         raise ValueError(f"last attention projection is {oname!r}")
-    out = qlinear_apply(ospec, p["o"], att.reshape(B * S, -1),
-                        pre_rot=p["su_o"] if rotated else None, luts=luts)
-    return out.reshape(B, S, N), new_kv
+    z_o = att.reshape(B * S, -1)
+    if spec.in_perm_o:
+        z_o = _block_perm_in(z_o, spec.in_perm_o)
+    out = qlinear_apply(ospec, p["o"], z_o,
+                        pre_rot=p["su_o"] if rotated else None, luts=luts,
+                        rot_blocks=spec.rot_blocks_o,
+                        out_dtype=None if tp_group is None else torch.float32)
+    return _tp_sum(out, tp_group, x.dtype).reshape(B, S, N), new_kv
 
 
 def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
-                luts=None):
-    """x (B, S, hidden) -> out; rotated as in attn_forward."""
+                luts=None, tp_group=None):
+    """x (B, S, hidden) -> out; rotated (and down summed over tp_group) as
+    in attn_forward."""
     B, S, N = x.shape
     I = cfg.intermediate_size
     xs = x.reshape(-1, N)
@@ -336,9 +379,13 @@ def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
         up = qlinear_apply(u_spec, p["up"], z, luts=luts)
         gate = qlinear_apply(g_spec, p["gate"], z, luts=luts)
     h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
+    if spec.in_perm_down:
+        h = _block_perm_in(h, spec.in_perm_down)
     out = qlinear_apply(d_spec, p["down"], h,
-                        pre_rot=p["su_dp"] if rotated else None, luts=luts)
-    return out.reshape(B, S, N)
+                        pre_rot=p["su_dp"] if rotated else None, luts=luts,
+                        rot_blocks=spec.rot_blocks_down,
+                        out_dtype=None if tp_group is None else torch.float32)
+    return _tp_sum(out, tp_group, x.dtype).reshape(B, S, N)
 
 
 @torch.inference_mode()
@@ -362,10 +409,11 @@ def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
         a, kv = attn_forward(aspec, cfg, lp, h, cos, sin,
                              kv_cache=None if kv_caches is None
                              else kv_caches[li], cache_pos=offset,
-                             luts=luts)
+                             luts=luts, tp_group=spec.tp_group)
         x = x + a
         h = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-        x = x + mlp_forward(mspec, cfg, lp, h, luts=luts)
+        x = x + mlp_forward(mspec, cfg, lp, h, luts=luts,
+                            tp_group=spec.tp_group)
         new_caches.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
     if return_hidden:

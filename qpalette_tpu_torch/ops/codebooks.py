@@ -143,7 +143,7 @@ def trellis_lut_arith(mode: str) -> torch.Tensor:
     if mode == "3inst":
         return decode_3inst(s)[:, None]
     if mode not in ARITH_V:
-        raise NotImplementedError(f"decode mode {mode!r} is not ported")
+        raise NotImplementedError(f"unknown decode mode {mode!r}")
     return _scaled(arith_weights_int(s, mode))
 
 

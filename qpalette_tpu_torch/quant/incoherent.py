@@ -135,13 +135,10 @@ def quantize_linear(W, quantizer_str: str, SU=None, H=None, seed: int = 0,
     loader passes ``su_for``).  H: the (in, in) input Hessian, used by the
     ``_hess_`` schemes.  return_hat: return (art, Wr-hat), the quantizer's
     own (m, n) float32 estimate of the rotated, row-normalised weight on
-    ``device``.  rot_blocks > 1 (row-parallel layers) is ROADMAP Queue 1
-    item 9 and raises."""
+    ``device``.  rot_blocks > 1 rotates W and H block-diagonally, I_b x
+    H-hat_{n/b}: a row-parallel layer's shards each rotate their own slice
+    of the input (parallel/tp.py); the stamp is then get_had_factors(n/b)."""
     from qpalette_tpu_torch.quant import quantizers
-    if rot_blocks != 1:
-        raise NotImplementedError("rot_blocks > 1: block rotations are the "
-                                  "row-parallel layout (ROADMAP Queue 1 "
-                                  "item 9)")
     spec = parse_quantizer_str(quantizer_str)
     device = torch.device(device)
     W = torch.as_tensor(np.asarray(W, np.float32) if not isinstance(

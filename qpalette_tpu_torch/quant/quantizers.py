@@ -87,15 +87,30 @@ def _stack_tile_codes(states: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return states.transpose(0, 1).reshape((m // TD) * (n // TD), -1)
 
 
-def _trellis_blocks(Wr, L, lut, kvs, v, order):
+def _trellis_blocks(Wr, L, lut, kvs, v, order, D=None, beam=0):
     """TCQ of every 16-column block of Wr, block j at KV kvs[j]:
-    (hatW (m, n), states (n/16, m/16, 256/v))."""
+    (hatW (m, n), states (n/16, m/16, 256/v)).  With L, LDLQ feeds each
+    block in turn; beam > 0 (with L and the LDL blocks D) then refines
+    each block's Viterbi states by the Hessian-weighted beam
+    (quant/beam.py) under its within-tile weight, D[j] over a tile's 16
+    rows: kron(eye, D[j]) in row-major tile order, kron(D[j], eye)
+    k-major."""
     m, n = Wr.shape
     to_seqs, to_block = ORDERS[order]
     nb = n // TD
     if L is not None:
+        if beam > 0:
+            from qpalette_tpu_torch.quant.beam import tcq_quantize_beam
+            eye = torch.eye(TD, dtype=torch.float32, device=Wr.device)
+
         def qblock(E, idx):
-            hat, st = tcq_quantize(to_seqs(E), lut, kvs[idx], v=v)
+            seqs = to_seqs(E)
+            hat, st = tcq_quantize(seqs, lut, kvs[idx], v=v)
+            if beam > 0:
+                Dt = torch.kron(D[idx], eye) if order == "kmajor" else \
+                    torch.kron(eye, D[idx])
+                hat, st = tcq_quantize_beam(seqs, lut, Dt, st, kvs[idx],
+                                            v=v, beam=beam)
             return to_block(hat, m), st
         hatW, codes = ldlq(Wr, L, qblock, block=TD)
         return hatW, torch.stack(codes)
@@ -122,21 +137,34 @@ def _trellis_blocks(Wr, L, lut, kvs, v, order):
     return hatW, states
 
 
-def _trellis(Wr, H, lut, KV, v, order):
+def _trellis(Wr, H, lut, KV, v, order, beam=0):
     m, n = Wr.shape
-    hatW, states = _trellis_blocks(Wr, _ldl(H, TD), lut, [KV] * (n // TD),
-                                   v, order)
+    L = D = None
+    if beam > 0:
+        # the beam runs inside LDLQ, on the LDL blocks of H (without one,
+        # no feedback and identity blocks)
+        if H is not None:
+            L, D = block_ldl(regularize_h(H.to(torch.float32)), TD)
+        else:
+            L = torch.zeros((n, n), dtype=torch.float32, device=Wr.device)
+            D = torch.eye(TD, dtype=torch.float32,
+                          device=Wr.device).expand(n // TD, TD, TD)
+    else:
+        L = _ldl(H, TD)
+    hatW, states = _trellis_blocks(Wr, L, lut, [KV] * (n // TD), v, order,
+                                   D, beam)
     return hatW, packing.pack_trellis(_stack_tile_codes(states, m, n), KV,
                                       v=v)
 
 
-def quantize_mat_tcq(Wr, H, KV: int, use_hess: bool = False):
-    """quantlut_sym trellis (tcq_{KV}): KV/2 bits a weight, V=2.  (The
-    reference's beam refinement, quant/beam.py, is not ported: ROADMAP
-    Queue 1.)"""
+def quantize_mat_tcq(Wr, H, KV: int, use_hess: bool = False, beam: int = 0):
+    """quantlut_sym trellis (tcq_{KV}): KV/2 bits a weight, V=2.  beam > 0
+    refines each tile's Viterbi states by a Hessian-weighted beam of that
+    width (quant/beam.py; the reference's quality tool, slow)."""
     tlut_bits = tlut_bits_for_kv(KV)
     lut = trellis_lut(tlut_bits).to(Wr.device)
-    hatW, packed = _trellis(Wr, H if use_hess else None, lut, KV, 2, "rows")
+    hatW, packed = _trellis(Wr, H if use_hess else None, lut, KV, 2, "rows",
+                            beam)
     linear = {"kind": "tcq", "KV": KV, "tlut_bits": tlut_bits,
               "trellis": _words(packed),
               "in_features": Wr.shape[1], "out_features": Wr.shape[0]}
@@ -144,11 +172,12 @@ def quantize_mat_tcq(Wr, H, KV: int, use_hess: bool = False):
 
 
 def quantize_mat_tcq1(Wr, H, KV: int, mode: str = "1mad",
-                      use_hess: bool = False):
-    """V=1 arithmetic trellis (1mad / 2mad), KV bits a weight, k-major."""
+                      use_hess: bool = False, beam: int = 0):
+    """V=1 arithmetic trellis (1mad / 2mad), KV bits a weight, k-major;
+    beam as in quantize_mat_tcq."""
     lut = trellis_lut_arith(mode).to(Wr.device)
     hatW, packed = _trellis(Wr, H if use_hess else None, lut, KV, 1,
-                            "kmajor")
+                            "kmajor", beam)
     linear = {"kind": "tcq1", "KV": KV, "decode_mode": mode,
               "trellis": _words(packed),
               "in_features": Wr.shape[1], "out_features": Wr.shape[0]}

@@ -24,9 +24,14 @@ Projections keep the canonical ``trellis`` (tcomb / comb: ``trellis1`` /
 With ``dense_params``, a missing artifact, or one whose Hadamard stamp is
 stale, is quantized on demand on the loader's device (``quantize_linear``
 with ``su_for``'s signs and the group's ``hess`` Hessian) and written
-where it was looked for, as the reference does.  Not ported:
-``row_parallel_tp`` with its block rotations and unequal tcomb halves
-(ROADMAP Queue 1 item 9).
+where it was looked for, as the reference does.  ``row_parallel_tp`` =
+tp > 1 builds o and down for the row-parallel tensor-parallel forward
+(parallel/tp.py): quantized (or dummied) against the block-diagonal
+rotation I_tp x H-hat_{n/tp} (``rot_blocks`` = tp, artifacts under
+``{qstr}__rb{tp}``), and input-split tcomb against the block-permuted
+W[:, pi] with 2*tp rotation blocks (``in_perm_blocks`` = 2*tp, under
+``{qstr}__rb{2tp}__perm{2tp}``), so that each shard's contiguous input
+slice holds one KV1 and one KV2 piece.
 """
 
 from __future__ import annotations
@@ -114,8 +119,8 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
         if (mode not in (("1mad", "2mad") if kind == "tcq1"
                          else ("sum2", "dualmad"))
                 or KV not in SUPPORTED_KV[mode]):
-            raise NotImplementedError(f"{kind} mode {mode!r} KV={KV} is "
-                                      f"not ported")
+            raise NotImplementedError(f"{kind} mode {mode!r} KV={KV}: K1 "
+                                      f"takes the palette's {SUPPORTED_KV}")
         return LinearSpec(kind, KV=(KV,), mode=mode, **common)
     if kind == "tcq":
         return LinearSpec("tcq", KV=(meta["KV"],),
@@ -133,11 +138,13 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
     if kind == "vq":
         if (meta["bits"], meta["vec"]) not in vq.SUPPORTED:
             raise NotImplementedError(f"vq bits={meta['bits']} vec="
-                                      f"{meta['vec']} is not ported")
+                                      f"{meta['vec']}: K8/K9 take "
+                                      f"{vq.SUPPORTED}")
         return LinearSpec("vq", bits=meta["bits"], vec=meta["vec"], **common)
     if kind == "dense_rot":
         return LinearSpec("dense_rot", **common)
-    raise NotImplementedError(f"scheme kind {kind!r} is not ported")
+    raise NotImplementedError(f"scheme kind {kind!r}: not one the "
+                              f"reference loads")
 
 
 def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
@@ -165,7 +172,8 @@ def dummy_artifact(qstr: str, shape, seed: int = 0) -> dict:
     elif spec.family in ("ldlq", "sq", "vq2"):
         meta = {"kind": "vq", "bits": spec.bits, "vec": spec.vec, **dims}
     else:
-        raise NotImplementedError(f"dummy {spec.family!r} is not ported")
+        raise NotImplementedError(f"no dummy artifact of {spec.family!r} "
+                                  f"(the reference has none either)")
     rng = np.random.default_rng(seed)
     return {"SU": (rng.standard_normal(n) > 0).astype(np.float32) * 2 - 1,
             "Wscale": np.full((m,), 0.02, np.float32),
@@ -316,20 +324,32 @@ def int8_head_weights(w: torch.Tensor, su: torch.Tensor):
     return q, s
 
 
-def _get_dummy_artifact(cfg, layer, key, qstr, seed):
+def _get_dummy_artifact(cfg, layer, key, qstr, seed, rot_blocks=1,
+                        in_perm_blocks=0):
     # crc32, not hash(): stable across processes
     dseed = zlib.crc32(f"{layer}_{key}".encode()) % (1 << 31)
     art = dummy_artifact(qstr, proj_shape(cfg, key), seed=dseed)
     art["SU"] = su_for(cfg, layer, key, seed)
+    art["meta"]["rot_blocks"] = rot_blocks
+    art["meta"]["in_perm_blocks"] = in_perm_blocks
     return art
 
 
-def read_artifact(path: str, shape, stamp_required: bool = False):
-    """The artifact at path, for a projection of shape (m, n), or None
-    when there is none or its Hadamard stamp ``had_factors`` is not
-    ``get_had_factors(n)`` (stale).  An artifact without a stamp is taken
-    as current, as the reference takes it, unless stamp_required (the
-    reference's lm_head check)."""
+def block_perm(n: int, nblocks: int) -> np.ndarray:
+    """pi of row-parallel tcomb: the input's column blocks of width
+    n/nblocks in the order 0, 2, 4, ..., 1, 3, 5, ... (W[:, pi] is what is
+    quantized; models/llama._block_perm_in permutes the activation)."""
+    return (np.arange(n).reshape(nblocks // 2, 2, n // nblocks)
+            .transpose(1, 0, 2).reshape(-1))
+
+
+def read_artifact(path: str, shape, stamp_required: bool = False,
+                  rot_blocks: int = 1):
+    """The artifact at path, for a projection of shape (m, n) rotated in
+    rot_blocks blocks, or None when there is none or its Hadamard stamp
+    ``had_factors`` is not ``get_had_factors(n / rot_blocks)`` (stale).
+    An artifact without a stamp is taken as current, as the reference
+    takes it, unless stamp_required (the reference's lm_head check)."""
     if not os.path.exists(path):
         return None
     art = load_artifact(path)
@@ -337,11 +357,8 @@ def read_artifact(path: str, shape, stamp_required: bool = False):
     if (meta["out_features"], meta["in_features"]) != tuple(shape):
         raise ValueError(f"{path}: ({meta['out_features']}, "
                          f"{meta['in_features']}), want {tuple(shape)}")
-    if meta.get("rot_blocks", 1) != 1 or meta.get("in_perm_blocks", 0):
-        raise NotImplementedError(
-            f"{path}: block rotations are the row-parallel layout "
-            f"(ROADMAP Queue 1 item 9)")
-    have, want = meta.get("had_factors"), list(get_had_factors(shape[1]))
+    have = meta.get("had_factors")
+    want = list(get_had_factors(shape[1] // rot_blocks))
     if (have is None and stamp_required) or (
             have is not None and list(have) != want):
         return None
@@ -350,12 +367,14 @@ def read_artifact(path: str, shape, stamp_required: bool = False):
 
 def get_artifact(path: str, shape, qstr: str, dense_w=None, su=None, H=None,
                  seed: int = 0, device="cuda", stamp_required: bool = False,
-                 projection: bool = True):
+                 projection: bool = True, rot_blocks: int = 1,
+                 in_perm_blocks: int = 0):
     """The artifact at path (read_artifact), or, when it is missing or
-    stale, dense_w (m, n) quantized with qstr, SU su and Hessian H on
-    device and written to path (a projection's meta gains the reference
-    loader's ``in_perm_blocks`` 0).  Without dense_w that raises."""
-    art = read_artifact(path, shape, stamp_required)
+    stale, dense_w (m, n) quantized with qstr, SU su, Hessian H and
+    rot_blocks rotation blocks on device and written to path (a
+    projection's meta gains the reference loader's ``in_perm_blocks``).
+    Without dense_w that raises."""
+    art = read_artifact(path, shape, stamp_required, rot_blocks)
     if art is not None:
         return art
     if dense_w is None:
@@ -364,9 +383,9 @@ def get_artifact(path: str, shape, qstr: str, dense_w=None, su=None, H=None,
         raise RuntimeError(f"{path}: the artifact is {what} and there are "
                            f"no dense weights to quantize")
     art = quantize_linear(dense_w, qstr, SU=su, H=H, seed=seed,
-                          device=device)
+                          rot_blocks=rot_blocks, device=device)
     if projection:
-        art["meta"]["in_perm_blocks"] = 0
+        art["meta"]["in_perm_blocks"] = in_perm_blocks
     save_artifact(art, path)
     return art
 
@@ -374,20 +393,31 @@ def get_artifact(path: str, shape, qstr: str, dense_w=None, su=None, H=None,
 def projection_artifact(cfg: LlamaConfig, i: int, key: str, qstr: str,
                         save_dir: str, model_key: str, seed: int = 0,
                         dense_params: Optional[dict] = None,
-                        hess: Optional[dict] = None, device="cuda"):
+                        hess: Optional[dict] = None, device="cuda",
+                        rot_blocks: int = 1, in_perm_blocks: int = 0):
     """Layer i's projection key under qstr: get_artifact at
-    ``artifact_path(save_dir, model_key, seed, qstr, i, key)``, quantizing
+    ``artifact_path(save_dir, model_key, seed, qdir, i, key)``, quantizing
     dense_params' weight with the signs su_for and the Hessian of its
     HESSKEY group in hess ({f"{i}_{group}": H}) when it is missing or
-    stale."""
+    stale.  rot_blocks > 1 (qdir ``{qstr}__rb{rot_blocks}``) rotates in
+    blocks; in_perm_blocks > 0 (qdir ``...__perm{in_perm_blocks}``)
+    quantizes W[:, pi] against H[pi][:, pi] and su[pi] (block_perm)."""
+    qdir = qstr if rot_blocks == 1 else f"{qstr}__rb{rot_blocks}"
+    dense_w = None if dense_params is None else dense_params["layers"][i][key]
+    H = hess.get(f"{i}_{HESSKEY[key]}") if hess else None
+    su = su_for(cfg, i, key, seed)
+    if in_perm_blocks:
+        qdir += f"__perm{in_perm_blocks}"
+        pi = block_perm(proj_shape(cfg, key)[1], in_perm_blocks)
+        su = su[pi]
+        if dense_w is not None:
+            dense_w = np.asarray(dense_w)[:, pi]
+        if H is not None:
+            H = np.asarray(H)[pi][:, pi]
     return get_artifact(
-        artifact_path(save_dir, model_key, seed, qstr, i, key),
-        proj_shape(cfg, key), qstr,
-        dense_w=None if dense_params is None
-        else dense_params["layers"][i][key],
-        su=su_for(cfg, i, key, seed),
-        H=hess.get(f"{i}_{HESSKEY[key]}") if hess else None, seed=seed,
-        device=device)
+        artifact_path(save_dir, model_key, seed, qdir, i, key),
+        proj_shape(cfg, key), qstr, dense_w=dense_w, su=su, H=H, seed=seed,
+        device=device, rot_blocks=rot_blocks, in_perm_blocks=in_perm_blocks)
 
 
 def impl_for(choice, impl: str) -> str:
@@ -419,22 +449,6 @@ ROT_GROUPS = {"su_qkv": (KQ, KK, KV_), "su_o": (KO,), "su_ug": (KU, KG),
               "su_dp": (KD,)}
 
 
-# the reference's arguments that the port refuses, with what they wait for
-# (their values that change nothing are accepted)
-_UNPORTED = {"row_parallel_tp": (1, "block-rotated row-parallel layers "
-                                    "(ROADMAP Queue 1 item 9)")}
-
-
-def refuse_unported(**unported) -> None:
-    """Raise for a reference argument the port refuses (see _UNPORTED)
-    unless its value changes nothing."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected argument {name!r}")
-        if value != _UNPORTED[name][0]:
-            raise NotImplementedError(f"{name}: {_UNPORTED[name][1]}")
-
-
 def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                           dummy: bool = True, impl: str = "a8",
                           num_layers: Optional[int] = None,
@@ -442,7 +456,8 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                           device="cuda", model_key: str = "model",
                           save_dir: str = "quant_results",
                           dense_params: Optional[dict] = None,
-                          hess: Optional[dict] = None, **unported):
+                          hess: Optional[dict] = None,
+                          row_parallel_tp: int = 1):
     """Assemble (ModelSpec, params) from dummy weights or artifacts.
 
     qdict: quantizer_str, or {f"{i}_{key}": qstr | (qstr, impl_choice)}
@@ -462,9 +477,9 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
     head padded to a 4096 multiple; a missing one is a dummy head when
     there is no dense_params, as in the reference).  device: the card
     unless the caller asks for the CPU (``device="cpu"`` runs the plain
-    versions).  The reference's ``row_parallel_tp`` raises (see
-    _UNPORTED)."""
-    refuse_unported(**unported)
+    versions).  row_parallel_tp > 1: o and down for the tensor-parallel
+    forward of parallel/tp.py, block-rotated (and tcomb block-permuted),
+    as in the module docstring; the single-device forward runs them too."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if lm_head_bits not in LM_HEAD_BITS:
@@ -487,11 +502,11 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         return torch.as_tensor(np.asarray(a, np.float32),
                                device=device).to(dtype)
 
-    def artifact(i, key, qs):
+    def artifact(i, key, qs, rb, pb):
         if dummy:
-            return _get_dummy_artifact(cfg, i, key, qs, seed)
+            return _get_dummy_artifact(cfg, i, key, qs, seed, rb, pb)
         return projection_artifact(cfg, i, key, qs, save_dir, model_key,
-                                   seed, dense_params, hess, device)
+                                   seed, dense_params, hess, device, rb, pb)
 
     layers_params, layer_specs = [], []
     for i in range(nl):
@@ -503,10 +518,18 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
         for mm in ("qkv", "qk", "kv", "qv"):  # the last one named wins
             if f"merge_{mm}" in mi:
                 merge_attn = mm
-        arts, impls = {}, {}
+        arts, impls, perms = {}, {}, {}
         for key in LAYER_KEYS:
             qs, impls[key] = qstr_for(i, key)
-            arts[key] = artifact(i, key, qs)
+            rb = pb = 0
+            if key in (KO, KD) and row_parallel_tp > 1:
+                rb = row_parallel_tp
+                if qs.startswith("tcomb"):
+                    # each shard's slice holds a KV1 and a KV2 piece, each
+                    # rotated on its own
+                    rb = pb = 2 * row_parallel_tp
+            perms[key] = pb
+            arts[key] = artifact(i, key, qs, rb or 1, pb)
 
         lp = {}
         for name, keys in ROT_GROUPS.items():
@@ -536,8 +559,13 @@ def build_quantized_model(cfg: LlamaConfig, qdict, merge_info=None,
                         torch.ones(cfg.hidden_size, dtype=dtype,
                                    device=device))
         layers_params.append(lp)
-        layer_specs.append((AttnSpec(merge_attn, attn_projs),
-                            MLPSpec(merge_ug, mlp_projs)))
+        layer_specs.append((
+            AttnSpec(merge_attn, attn_projs,
+                     rot_blocks_o=perms[KO] or row_parallel_tp,
+                     in_perm_o=perms[KO]),
+            MLPSpec(merge_ug, mlp_projs,
+                    rot_blocks_down=perms[KD] or row_parallel_tp,
+                    in_perm_down=perms[KD])))
 
     cfg_nl = cfg if nl == cfg.num_layers else \
         LlamaConfig(**{**cfg.__dict__, "num_layers": nl})

@@ -51,10 +51,11 @@ class LinearSpec:
         return f"tcq{self.tlut_bits}"
 
 
-def can_fuse_rot(spec: LinearSpec, rows: int) -> bool:
+def can_fuse_rot(spec: LinearSpec, rows: int, rot_blocks: int = 1) -> bool:
     """True where the reference fuses the incoherence rotation into the
     kernel's activation prologue: tcq1 (any mode) or tcq2 sum2, decode
-    regime (rows <= 8), a <= 2-factor Hadamard and, for the reference's
+    regime (rows <= 8), a <= 2-factor Hadamard of the (per-block,
+    in_features / rot_blocks) rotation width and, for the reference's
     dense odd-KV layout (odd KV, even k/16), a last factor that is a
     multiple of 32.  Then the rotated activation reaches the kernel in
     float32 instead of being cast back to the activation dtype."""
@@ -63,7 +64,7 @@ def can_fuse_rot(spec: LinearSpec, rows: int) -> bool:
     if not (spec.kind == "tcq1"
             or (spec.kind == "tcq2" and spec.mode == "sum2")):
         return False
-    facs = get_had_factors(spec.in_features)
+    facs = get_had_factors(spec.in_features // rot_blocks)
     if len(facs) > 2:
         return False
     if spec.KV[0] % 2 and (spec.in_features // 16) % 2 == 0:
@@ -72,12 +73,14 @@ def can_fuse_rot(spec: LinearSpec, rows: int) -> bool:
 
 
 def require_equal_halves(spec: LinearSpec) -> None:
-    """K5 / K7 take tcomb's two input halves at k/2 each."""
+    """K5 / K7 take tcomb's two input halves at k/2 each: the only split
+    the quantizer writes (in_part = (n/2, n/2)), and what a row-parallel
+    shard holds too ((n1/tp, n2/tp) of a local width n/tp)."""
     n = spec.in_features
     if spec.split != (n // 2, n // 2):
         raise NotImplementedError(
-            f"tcomb in_part {spec.split}: unequal halves come only from "
-            f"tensor-parallel sharding (ROADMAP Queue 1 item 9)")
+            f"tcomb in_part {spec.split}: K5 / K7 take equal halves "
+            f"({n // 2}, {n // 2}), the only split the quantizer writes")
 
 
 def dequant_weight(spec: LinearSpec, p: dict, luts: dict) -> torch.Tensor:
@@ -171,21 +174,24 @@ def _arith_matmul(spec: LinearSpec, p: dict,
 
 
 def qlinear_apply(spec: LinearSpec, p: dict, z: torch.Tensor, pre_rot=None,
-                  out_dtype=None, luts=None) -> torch.Tensor:
+                  out_dtype=None, luts=None, rot_blocks: int = 1
+                  ) -> torch.Tensor:
     """z (rows, in_features) -> (rows, out_features), Wscale applied in f32.
 
-    pre_rot=su: z is UN-rotated; the rotation (z * su) @ H^T is applied
+    pre_rot=su: z is UN-rotated; the rotation (z * su) @ H^T (block-
+    diagonal in rot_blocks blocks for a row-parallel layer) is applied
     here, in float32 and kept float32 where the reference fuses it
     (can_fuse_rot), else cast back to z's dtype.  out_dtype overrides the
     output dtype (default z's dtype).  luts: the model's tables
     ({"tcq{S}": (2^S, 2) float32}), read by tcq / tcomb / comb."""
     odt = out_dtype or z.dtype
     rows = z.shape[0]
-    fused = pre_rot is not None and can_fuse_rot(spec, rows)
+    fused = pre_rot is not None and can_fuse_rot(spec, rows, rot_blocks)
     if fused:
-        z = hadamard_transform_t(z.float() * pre_rot.float())
+        z = hadamard_transform_t(z.float() * pre_rot.float(), rot_blocks)
     elif pre_rot is not None:
-        z = hadamard_transform_t(z * pre_rot.to(z.dtype)).to(z.dtype)
+        z = hadamard_transform_t(z * pre_rot.to(z.dtype),
+                                 rot_blocks).to(z.dtype)
     if spec.kind == "dense":
         return (z.float() @ p["w"].float().T).to(odt)
     if spec.kind == "dense_rot":

@@ -12,7 +12,8 @@ K11) at the 8B head's shape; and the decode step captured in a CUDA
 graph on a 2-layer tcq2s model (logits bit-equal to the eager forward, seeded sampling,
 positions advanced by the graph); the serving pool step captured at 4 and
 16 slots (bit-equal to the eager pool step) and admission (other slots'
-cache rows bit-unchanged).  Marked ``gpu``; each test skips itself
+cache rows bit-unchanged); the dry run and entry() on the card.  Marked
+``gpu``; each test skips itself
 when no CUDA device is present.
 
   python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -470,6 +471,9 @@ def _vq_case(bits, vec, m, k, device, seed):
     words = torch.randint(-(1 << 31), 1 << 31,
                           (m, vq.row_words(k, bits, vec)), generator=gen,
                           dtype=torch.int32, device=device)
+    if vec == 4:  # no vec-4 codebook is committed: a seeded stand-in
+        return words, torch.randn((1 << bits, vec), generator=gen,
+                                  device=device)
     return words, torch.tensor(vq_lut(bits, vec), device=device)
 
 
@@ -819,7 +823,7 @@ def test_merged_model_replays_bit_equal_to_eager(cuda):
     and "pallas" beside "0" (session a8): the capture records an eager
     forward's launches, dequant kernels among them, and 4 replays give the
     eager forward's logits and caches bit for bit."""
-    from qpalette_tpu_torch.kernels import launch_counts, wrappers
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
 
     t8, tc, t2s, t2, t1, ld = ("tcq_8_none_0.9", "tcomb_8_9_0.5_none_0.9",
                                "tcq2s_6_none_0.9", "tcq2_6_none_0.9",
@@ -846,8 +850,7 @@ def test_merged_model_replays_bit_equal_to_eager(cuda):
     caches = llama.init_kv_caches(spec, 1, SMALL_T, "cuda")
     logits, caches = decode.prefill(spec, params, prompt, caches)
     tok = logits[:, -1].argmax(dim=-1)[:, None]
-    for f in wrappers():
-        f.launches = 0
+    reset_launches()
     llama.forward(spec, params, tok, kv_caches=caches, cache_pos=SMALL_S)
     torch.cuda.synchronize()
     eager_counts = {k: v for k, v in launch_counts().items() if v}
@@ -947,3 +950,18 @@ def test_admission_leaves_other_rows(small_model):
         for a, b in zip(kv, old):
             assert torch.equal(a[others], b[others])
             assert not torch.equal(a[[3, 11]], b[[3, 11]])
+
+
+def test_dryrun_on_card(cuda, capsys):
+    """python -m qpalette_tpu_torch.dryrun 2: two gloo ranks sharing the
+    card (tp = 2) against the one-process forward on it, within the dry
+    run's budget; entry()'s forward runs on the card."""
+    from qpalette_tpu_torch import dryrun
+
+    worst = dryrun.dryrun_multichip(2)
+    assert worst < dryrun.TP_BUDGET
+    assert "on cuda" in capsys.readouterr().out
+    fn, args = dryrun.entry()
+    out = fn(*args)
+    assert out.is_cuda and out.shape == (1, 8, 256)
+    assert bool(torch.isfinite(out).all())

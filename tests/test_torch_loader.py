@@ -309,23 +309,31 @@ def test_impl_choices_match_reference_qstr_for():
 # --- (e) what the port refuses --------------------------------------------
 
 def test_out_of_scope_raises_with_its_roadmap_item(arts):
-    """tcomb halves of unequal width (tensor-parallel sharding) and the
-    reference's row_parallel_tp raise naming ROADMAP Queue 1 item 9 (its
-    value 1, which changes nothing, is accepted); hess is taken (the
-    Hessians of artifacts quantized on demand)."""
+    """Nothing of the reference's is refused now: row_parallel_tp = 2
+    builds block-rotated o / down (rot_blocks 2 on the spec and the dummy
+    meta) whose forward runs, and hess is taken (the Hessians of artifacts
+    quantized on demand).  What the kernels cannot take still raises:
+    tcomb halves of unequal width, which the quantizer never writes (K5 /
+    K7 take (k/2, k/2))."""
     cfg = LlamaConfig(**dict(CFG, num_layers=1))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loader.build_quantized_model(cfg, T2S, device="cpu",
-                                     row_parallel_tp=2)
+    spec, params = loader.build_quantized_model(cfg, T2S, device="cpu",
+                                                row_parallel_tp=2)
+    (a, m), = spec.layers
+    assert (a.rot_blocks_o, a.in_perm_o, m.rot_blocks_down,
+            m.in_perm_down) == (2, 0, 2, 0)
+    from qpalette_tpu_torch.models.llama import forward
+    out = forward(spec, params, torch.zeros((1, 3), dtype=torch.int64))
+    assert out.shape == (1, 3, CFG["vocab_size"])
+    assert bool(torch.isfinite(out).all())
     loader.build_quantized_model(cfg, T2S, device="cpu", hess={"0_qkv": None},
                                  row_parallel_tp=1)
     art = arts["tcomb"]
     bad = dict(art, meta=dict(art["meta"], in_part=(32, 96)))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="equal halves"):
         loader._params_from_artifact(bad, "cpu")
     spec = dataclasses.replace(
         loader._spec_from_meta(art["meta"], "dequant"), split=(32, 96))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="equal halves"):
         dequant_weight(spec, loader._params_from_artifact(art, "cpu"),
                        _luts(art["meta"]))
 

@@ -87,9 +87,11 @@ def _lut(bits, vec):
     return torch.tensor(codebooks.vq_lut(bits, vec))
 
 
-@pytest.mark.parametrize("bits,vec", vq.SUPPORTED)
+@pytest.mark.parametrize("bits,vec", [p for p in vq.SUPPORTED if p[1] < 4])
 def test_vq_lut_matches_reference(bits, vec):
-    """The 17 codebooks of the ldlq palette, as committed."""
+    """The 17 committed codebooks of the ldlq palette (vec 1 and 2; no vec-4
+    codebook is committed: the port's k-means for d > 1 is not the
+    reference's, and both packages read the committed directory)."""
     lut = codebooks.vq_lut(bits, vec)
     assert lut.dtype == np.float32 and lut.shape == (1 << bits, vec)
     assert np.array_equal(lut, jcb.vq_lut(bits, vec))

@@ -1,6 +1,6 @@
 """The fragment algebra of the tensor-core K8 GEMV (csrc/vq.cu,
 vq_gemv_kernel), emulated in torch from its lane map and held to
-vq_gemv_plain, for all 17 ldlq (bits, vec) pairs:
+vq_gemv_plain, for all 26 ldlq (bits, vec) pairs:
 
   - lane (g, c)'s run: positions 32c .. 32c+31 of a 128-position chunk of
     rows g and g+8 of an m-tile, exactly `bits` words of each row (rows
@@ -15,10 +15,12 @@ vq_gemv_plain, for all 17 ldlq (bits, vec) pairs:
     (window << shift) masked, OR the lane's byte offset; vec 2 a bf16x2
     codebook row, vec 1 at bits <= 4 a pair table indexed by two adjacent
     windows, vec 1 at bits 5-8 a bf16 entry (two reads and a PRMT a
-    register);
+    register); vec 4 8-byte entries (the bf16x2 of values 0, 1 and of 2,
+    3), copy r of entry e at byte 8 * ((e << copy_bits) + r);
   - MMA j of a chunk: A registers a0/a2 = rows g, a1/a3 = rows g+8, k slots
-    (2c, 2c+1) and (2c+8, 2c+9) from run positions 2j and 2j+1 (vec 2) or
-    4j, 4j+1 and 4j+2, 4j+3 (vec 1); B = x row g at the run's columns
+    (2c, 2c+1) and (2c+8, 2c+9) from run positions 2j and 2j+1 (vec 2),
+    4j, 4j+1 and 4j+2, 4j+3 (vec 1) or position j's two words (vec 4);
+    B = x row g at the run's columns
     4j .. 4j+3 of the lane's columns (zero for rows n >= N); one m16n8k16
     product;
   - C element (row, n) in lane 4*(row % 8) + n // 2, register
@@ -48,23 +50,28 @@ def _layout(bits, vec):
     of an entry) as vq_gemv_kernel's table has them."""
     pair = vec == 1 and bits <= 4
     win = 2 * bits if pair else bits
-    copy_bits = min(5, vq.GEMV_TABLE_BITS - 2 - win)
-    return pair, win, copy_bits, 2 + copy_bits
+    entry_shift = 3 if vec == 4 else 2  # 8-byte entries at vec 4
+    copy_bits = min(5, vq.GEMV_TABLE_BITS - entry_shift - win)
+    return pair, win, copy_bits, entry_shift + copy_bits
 
 
 def _table(lut, bits, vec):
-    """The shared-memory table as 32-bit words (int64)."""
-    pair, win, copy_bits, _ = _layout(bits, vec)
+    """The shared-memory table as 32-bit words (int64), (words, 1) or at
+    vec 4 (entries, 2): an entry's two words."""
+    pair, win, copy_bits, shift = _layout(bits, vec)
     b = lut.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
     e = torch.arange(1 << win)
-    if vec == 2:
-        ent = b[e, 0] | (b[e, 1] << 16)
+    if vec == 4:
+        ent = torch.stack([b[e, 0] | (b[e, 1] << 16),
+                           b[e, 2] | (b[e, 3] << 16)], 1)
+    elif vec == 2:
+        ent = (b[e, 0] | (b[e, 1] << 16))[:, None]
     elif pair:
-        ent = b[e & ((1 << bits) - 1), 0] | (b[e >> bits, 0] << 16)
+        ent = (b[e & ((1 << bits) - 1), 0] | (b[e >> bits, 0] << 16))[:, None]
     else:
-        ent = b[e, 0]
-    assert (1 << win) * (1 << copy_bits) * 4 <= 1 << vq.GEMV_TABLE_BITS
-    return ent.repeat_interleave(1 << copy_bits)
+        ent = b[e, 0][:, None]
+    assert (1 << win) << shift <= 1 << vq.GEMV_TABLE_BITS
+    return ent.repeat_interleave(1 << copy_bits, dim=0)
 
 
 def _ring_row_words(bits, pieces):
@@ -150,9 +157,9 @@ def _emulate(x, words, lut, bits, vec, m, k, mutate=None):
         ring = _ring_runs(words, bits, vec, m, k, chunks)
         assert all(torch.equal(a, b) for a, b in zip(ring, run)), chunks
     run = ring
-    lo = (lane & ((1 << copy_bits) - 1)) << 2
+    lo = (lane & ((1 << copy_bits) - 1)) << (shift - copy_bits)
 
-    def look(w, q):  # the entry of the window at run position q
+    def look(w, q, word=0):  # the entry of the window at run position q
         o = q * bits
         i, sh = o >> 5, o & 31
         if sh + win > 32:  # __funnelshift_r(w[i], w[i + 1], sh - shift)
@@ -163,9 +170,11 @@ def _emulate(x, words, lut, bits, vec, m, k, mutate=None):
         else:
             v = (w[..., i] << (shift - sh)) & _M32
         off = (v & (((1 << win) - 1) << shift)) | lo
-        return table[off >> 2]
+        return table[off >> (shift - copy_bits), word]
 
     def reg(w, j, hi):  # k slots 2c, 2c+1 (hi 0) or 2c+8, 2c+9 (hi 1)
+        if vec == 4:
+            return look(w, j, word=hi)
         if vec == 2:
             return look(w, 2 * j + hi)
         q = 4 * j + 2 * hi
@@ -221,7 +230,11 @@ def _case(bits, vec, chunks, N, seed):
         -(1 << 31), 1 << 31, (M, vq.row_words(k, bits, vec))).astype(
             np.int32))
     x = torch.from_numpy(rng.standard_normal((N, k)).astype(np.float32))
-    lut = torch.tensor(codebooks.vq_lut(bits, vec))
+    # vec 4: a seeded stand-in (no vec-4 codebook is committed; the layout
+    # does not depend on the values)
+    lut = (torch.tensor(codebooks.vq_lut(bits, vec)) if vec < 4 else
+           torch.from_numpy(rng.standard_normal((1 << bits, vec)).astype(
+               np.float32)))
     return x, words, lut, k
 
 
@@ -245,7 +258,8 @@ def test_vq_fragment_matches_plain(bits, vec):
 
 
 @pytest.mark.parametrize("mutate", ["swap_a02", "natural_x"])
-@pytest.mark.parametrize("bits,vec", [(6, 2), (4, 1), (7, 1), (11, 2)])
+@pytest.mark.parametrize("bits,vec", [(6, 2), (4, 1), (7, 1), (11, 2),
+                                      (8, 4)])
 def test_vq_fragment_mutation_fails(bits, vec, mutate):
     """The check has teeth: a0 and a2 swapped, or B taken from x in the
     MMA's natural k order, is far from the plain version."""
