@@ -161,6 +161,12 @@ Phases (each raises on failure):
      random words in the reference's meta schema, loaded with dummy=False
      on the card and on the CPU: a 12-token prefill and 2 decode steps
      within SMALL_TOL
+ 10d. (after 10) the six schemes outside the palette's GEMV sets
+     (OFF_PALETTE: tcq_2, tcomb_5_7, tcq2s_3, tcq1_6, ldlq_1_9,
+     ldlq_2_2) on a 1-layer SMALL_CFG model at impl dequant, run by the
+     dequant kernels' off-palette instances (K6, K7, K2, K3, K9): card
+     against CPU within SMALL_TOL, 14 launches of the kind's dequant
+     kernel and no other, each W-hat bit-equal to the plain version's
  10c. evaluation (runtime/evaluate.py, runtime/zeroshot.py): eval_ppl
      of the 32-layer flagship at impl dequant over two ctx-8192 windows of
      a synthetic stream from seed 0 (194 K6 + 30 K7 a window, the
@@ -219,7 +225,20 @@ Phases (each raises on failure):
      single-device tokens, each rank's launches; gloo's logits equal to
      the split's, the split's within TP_TOL of max|logit| at the prefill
      and every step, each step's argmax the greedy token; host ms a step
-     of both (two ranks on one card: not a speed-up)
+     of both (two ranks on one card: not a speed-up).  Its column leg
+     (parallel/sharding.py), in the same gloo job: the flagship, the 215
+     and the dry run's mixed qdict (K1 dualmad / 1mad, K4, K8) built
+     single-device, impl exact, each decoded greedily single-device and
+     then by the two ranks column-parallel (each rank's kernels at its
+     output rows: K1 sum2 on 3072 qkv rows and 65536 head rows, K4 / K5
+     on 2048 q / o rows; all-gathers where a consumer needs the whole
+     output, attention on its heads, logits gathered over vocab),
+     teacher-forced: each rank's
+     logits within TP_COL_TOL of the single-device run's, its argmax the
+     greedy token wherever the top-2 gap clears 2 * TP_COL_TOL, its
+     launches beside the single-device counts; col_rows: each layer-0
+     projection's kernel (and attention, the bf16 head) at the ranks'
+     rows against the whole, which names what moves with m
  15. beam and refine: quantize_mat_tcq(beam=16) of a 1024x1024 slice of
      a k weight (tcq_6 with a synthetic Hessian) beside beam 0, and
      refine_artifact_vq of a 4096x4096 o weight after ldlq_1_4 with it:
@@ -353,6 +372,22 @@ PATH_F_VEC4 = 2 * PATH_F_LAYERS  # vec-4 calls a forward: o and down
 # of headroom; deeper models are printed (--tp)
 TP_LAYERS, TP_RANKS, TP_STEPS = 2, 2, 8
 TP_TOL = 1.5e-2
+# the column-parallel leg: every input of every kernel is whole and the
+# gathers copy, so a rank's output rows would equal the single-device
+# run's but for kernels whose per-row float32 sums depend on m.  On the
+# card (col_rows, NVIDIA H100 80GB HBM3, 700.00 W) K4 / K5 at N = 1 (the
+# k-split cluster chosen from the m-tiles, csrc/tcq_lut.cu) and K1 above 8
+# rows (the cluster chosen from the m-groups, csrc/arith_wide.cuh: the
+# prefill's ug) move by 3e-7 to 1.8e-6 of max|y|, as does the dequant
+# route's float32 product at a small m (cuBLAS's choice); K1 at N <= 8,
+# K8, the 4-bit head, the bf16 head and attention on half the heads are
+# bit-equal.  The dummy 8B carries such a
+# flipped bf16 rounding to the logits: teacher-forced max|d| / max|logit|
+# 1.115e-2 (flagship), 1.171e-2 (215), 6.15e-3 (mixed qdict) at 2
+# layers; TP_COL_TOL is the largest plus a fifth.  An argmax is held to
+# the greedy token where the single-device top-2 gap exceeds 2 *
+# TP_COL_TOL (no deviation within the tolerance can flip it there)
+TP_COL_TOL = 1.4e-2
 BEAM_WIDTH = 16
 I8_TOL = 1e-5  # K11 vs plain, of max|y|
 # what sets the bound of the K8-K11 calls timed, name -> "bytes" or
@@ -2579,25 +2614,32 @@ def tp_decode(spec, params, prompt, force, steps, device):
 
 def tp_rank(rank, world, builds, prompt, steps, device, forces):
     """One gloo rank of phase 14 (dryrun.run_ranks spawns it; every rank
-    shares the one card): for each build, the model of
+    shares the one card): for each (build, scheme), the model of
     build_quantized_model(**build, dummy=True) (the embed and head drawn
-    once a rank, dummy_dense), this rank's slices and
-    local spec (its kv heads, the all_reduce over the job's group), the
+    once a rank, dummy_dense), this rank's slices and local spec under the
+    scheme ("row": parallel/tp.py, its kv heads, the all_reduce of o /
+    down over the job's group; "column": parallel/sharding.py, its output
+    rows, heads and vocab rows, the all_gathers over the group), the
     forced decode (tp_decode) and its launches."""
     import torch.distributed as dist
 
     from qpalette_tpu_torch.kernels import launch_counts, reset_launches
+    from qpalette_tpu_torch.parallel import sharding
     from qpalette_tpu_torch.parallel import tp as tp_mod
     from qpalette_tpu_torch.runtime.loader import build_quantized_model
 
     device = torch.device(device)
     outs = []
-    for build, force in zip(builds, forces):
+    for (build, scheme), force in zip(builds, forces):
         spec, params = build_quantized_model(
             **build, dense_params=dummy_dense(build["num_layers"]),
             dummy=True, device=device)
-        params = tp_mod.shard_params(params, spec, world, rank)
-        spec = tp_mod.localize_spec(spec, world, dist.group.WORLD)
+        if scheme == "column":
+            params = sharding.local_params(params, spec, world, rank)
+            spec = sharding.localize_spec(spec, world, dist.group.WORLD)
+        else:
+            params = tp_mod.shard_params(params, spec, world, rank)
+            spec = tp_mod.localize_spec(spec, world, dist.group.WORLD)
         torch.cuda.empty_cache()
         reset_launches()
         out = tp_decode(spec, params, prompt, force, steps, device)
@@ -2696,6 +2738,68 @@ def _share(a, b):
     return float(d.max() / scale.max()), (d.amax(-1) / scale).tolist()
 
 
+def col_rows(spec, params, device):
+    """Each projection of layer 0 and the 4-bit head at its whole width
+    against the TP_RANKS ranks' outputs at their local rows
+    (sharding.local_params / localize_spec, in this process, put together
+    as the gathers would), on the same random x at N = 1 and PROMPT_LEN:
+    {"name kind mode N": max|d| / max|y|}, 0 where the kernel's output
+    rows do not depend on m (or on a grid chosen from m)."""
+    from qpalette_tpu_torch.models.llama import _attention, cat_cols
+    from qpalette_tpu_torch.parallel import sharding
+    from qpalette_tpu_torch.runtime.qlinear import qlinear_apply
+
+    lspec = sharding.localize_spec(spec, TP_RANKS)
+    ranks = [sharding.local_params(params, spec, TP_RANKS, r)
+             for r in range(TP_RANKS)]
+    projs = [(n, ls, lls, params["layers"][0][n],
+              [r["layers"][0][n] for r in ranks])
+             for (n, ls), (_, lls) in zip(
+                 spec.layers[0][0].projs + spec.layers[0][1].projs,
+                 lspec.layers[0][0].projs + lspec.layers[0][1].projs)]
+    if spec.lm_head_spec is not None:
+        projs.append(("lm_head", spec.lm_head_spec, lspec.lm_head_spec,
+                      params["lm_head_q4"], [r["lm_head_q4"] for r in ranks]))
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for name, ls, lls, p, rps in projs:
+        for N in (1, PROMPT_LEN):
+            x = torch.randn((N, ls.in_features), generator=gen,
+                            device=device).to(torch.bfloat16)
+            y = qlinear_apply(ls, p, x, luts=params["luts"],
+                              out_dtype=torch.float32)
+            got = cat_cols([qlinear_apply(lls, rp, x, luts=params["luts"],
+                                          out_dtype=torch.float32)
+                            for rp in rps],
+                           lls.split if lls.kind == "comb" else None)
+            out[f"{name} {ls.kind} {ls.mode or ls.KV or ls.bits} N={N}"] = \
+                float((got - y).abs().max() / y.abs().max())
+    # the glue the ranks run at their own widths: attention on half the
+    # heads (head-major halves), the bf16 head on half the vocab rows
+    cfg = spec.config
+    D, H, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    q, k, v = (torch.randn((1, PROMPT_LEN, h, D), generator=gen,
+                           device=device).to(torch.bfloat16)
+               for h in (H, hk, hk))
+    att = _attention(q, k, v, 0, cfg)
+    hq, hkv = H // TP_RANKS, hk // TP_RANKS
+    got = torch.cat([_attention(q[:, :, r * hq:(r + 1) * hq],
+                                k[:, :, r * hkv:(r + 1) * hkv],
+                                v[:, :, r * hkv:(r + 1) * hkv], 0, cfg)
+                     for r in range(TP_RANKS)], -1)
+    out[f"attention S={PROMPT_LEN}"] = float(
+        (got.float() - att.float()).abs().max() / att.float().abs().max())
+    if "lm_head" in params:
+        for N in (1, PROMPT_LEN):
+            x = torch.randn((N, cfg.hidden_size), generator=gen,
+                            device=device).to(torch.bfloat16).float()
+            y = x @ params["lm_head"].float().T
+            got = cat_cols([x @ r["lm_head"].float().T for r in ranks])
+            out[f"bf16 head N={N}"] = float((got - y).abs().max()
+                                            / y.abs().max())
+    return out
+
+
 def tp_path(device, card_label, layers=TP_LAYERS, held=True):
     """Phase 14: the flagship and the 215 at full 8B width (`layers`
     layers) built with row_parallel_tp = TP_RANKS, impl exact.  A greedy
@@ -2707,9 +2811,20 @@ def tp_path(device, card_label, layers=TP_LAYERS, held=True):
     does not depend on its order), the split's within TP_TOL of the
     single-device max|logit| at the prefill and every step, and every
     argmax the single-device greedy token (else only printed, beside the
-    single-device top-2 gap, as --tp does for deeper models).  Returns
-    {model: summary}, each rank's launches among them."""
-    from qpalette_tpu_torch.dryrun import run_ranks
+    single-device top-2 gap, as --tp does for deeper models).
+
+    The column-parallel leg (parallel/sharding.py) in the same gloo job:
+    the flagship, the 215 and the dry run's mixed qdict (merged tcq2 qkv,
+    tcq1 o, merged tcq ug, ldlq_2_6 down in layer 0, unmerged in layer 1)
+    built single-device (row_parallel_tp = 1), impl exact, each decoded
+    greedily on the card single-device, then by the TP_RANKS ranks
+    teacher-forced on its tokens; col_rows holds each layer-0 projection's
+    kernel at the ranks' rows against the whole.  held: each rank's logits
+    within TP_COL_TOL of the single-device run's (bit for bit where it is
+    0) and every argmax the greedy token.  Returns {model: summary}, each
+    rank's launches among them."""
+    from qpalette_tpu_torch.dryrun import DRYRUN_MERGES, dryrun_qdict, \
+        run_ranks
     from qpalette_tpu_torch.kernels import launch_counts, reset_launches
     from qpalette_tpu_torch.models.llama import LlamaConfig
     from qpalette_tpu_torch.runtime.loader import build_quantized_model
@@ -2717,11 +2832,12 @@ def tp_path(device, card_label, layers=TP_LAYERS, held=True):
     with open(FLAGSHIP_QDICT) as f:
         flagship = json.load(f)
     q215, m215 = _load_215()
+    cfg = LlamaConfig.llama31_8b()
     prompt = np.random.default_rng(0).integers(0, 128256, (1, PROMPT_LEN))
     builds, singles, splits, secs = {}, {}, {}, {}
     for label, qdict, merge, head in (("flagship", flagship, None, 16),
                                       ("215", q215, m215, 4)):
-        builds[label] = dict(cfg=LlamaConfig.llama31_8b(), qdict=qdict,
+        builds[label] = dict(cfg=cfg, qdict=qdict,
                              merge_info=merge, impl="exact",
                              lm_head_bits=head, num_layers=layers, seed=0,
                              row_parallel_tp=TP_RANKS)
@@ -2739,10 +2855,33 @@ def tp_path(device, card_label, layers=TP_LAYERS, held=True):
         secs[label] = (t1 - t0, time.perf_counter() - t1)
         del spec, params
         torch.cuda.empty_cache()
+    cols, col_singles = {}, {}
+    for label, qdict, merge, head in (
+            ("flagship", flagship, None, 16), ("215", q215, m215, 4),
+            ("mixed", dryrun_qdict(cfg), (DRYRUN_MERGES * layers)[:layers],
+             16)):
+        cols[label] = dict(cfg=cfg, qdict=qdict, merge_info=merge,
+                           impl="exact", lm_head_bits=head,
+                           num_layers=layers, seed=0)
+        t0 = time.perf_counter()
+        spec, params = build_quantized_model(
+            **cols[label], dense_params=dummy_dense(layers), dummy=True,
+            device=device)
+        reset_launches()
+        one = tp_decode(spec, params, prompt, None, TP_STEPS, device)
+        one["launches"] = {k: v for k, v in launch_counts().items() if v}
+        one["rows"] = col_rows(spec, params, device)
+        one["s"] = time.perf_counter() - t0
+        col_singles[label] = one
+        del spec, params
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = run_ranks(tp_rank, TP_RANKS, list(builds.values()), prompt,
-                      TP_STEPS, str(device),
-                      [singles[k]["tokens"] for k in builds])
+    ranks = run_ranks(
+        tp_rank, TP_RANKS,
+        [(b, "row") for b in builds.values()]
+        + [(b, "column") for b in cols.values()], prompt, TP_STEPS,
+        str(device), [singles[k]["tokens"] for k in builds]
+        + [col_singles[k]["tokens"] for k in cols])
     t_ranks = time.perf_counter() - t0
     out = {}
     for i, label in enumerate(builds):
@@ -2773,7 +2912,7 @@ def tp_path(device, card_label, layers=TP_LAYERS, held=True):
         print(f"[tp {label}] single-device: launches {one['launches']}, "
               f"host {one['ms_a_step']:.2f} ms a step; tokens "
               f"{one['tokens']}; {secs[label][0]:.1f} s, the split "
-              f"{secs[label][1]:.1f} s, the {TP_RANKS} ranks of both models "
+              f"{secs[label][1]:.1f} s, the {TP_RANKS} ranks of all models "
               f"{t_ranks:.1f} s ({card_label})", flush=True)
         check(one["launches"] and all(g["launches"] for g in gloo),
               f"tp {label}: a run launched no kernel")
@@ -2799,6 +2938,59 @@ def tp_path(device, card_label, layers=TP_LAYERS, held=True):
             "rank_ms_a_step": [g["ms_a_step"] for g in gloo],
             "tokens_s_one_card_two_ranks": 1e3 / max(
                 g["ms_a_step"] for g in gloo)}
+    for i, label in enumerate(cols, len(builds)):
+        one = col_singles[label]
+        ref = one["logits"]
+        gloo = [r[i] for r in ranks]
+        rels = [_share(g["logits"], ref) for g in gloo]
+        equal = [torch.equal(g["logits"], ref) for g in gloo]
+        same = [g["tokens"] == one["tokens"] for g in gloo]
+        top2 = ref.topk(2, dim=-1).values
+        gaps = ((top2[:, 0] - top2[:, 1]) / ref.abs().amax(-1)).tolist()
+        # the steps whose argmax a rank flipped, with their top-2 gaps; a
+        # flip is held against only where the gap clears 2 * TP_COL_TOL
+        flips = sorted({(i, round(gaps[i], 6)) for g in gloo
+                        for i, (a, b) in enumerate(zip(g["tokens"],
+                                                       one["tokens"]))
+                        if a != b})
+        print(f"[tp col {label}] {layers} layers, each projection of layer "
+              f"0 (and the 4-bit head) at the {TP_RANKS} ranks' rows against "
+              f"the whole, max|d| / max|y|: " + json.dumps(one["rows"]),
+              flush=True)
+        for r, g in enumerate(gloo):
+            print(f"[tp col {label}] rank {r} of {TP_RANKS} (gloo, column-"
+                  f"parallel): launches {g['launches']} (single-device "
+                  f"{one['launches']}); max|d| / max|logit| {rels[r][0]:.3e} "
+                  f"(prefill and steps "
+                  + ", ".join(f"{v:.2e}" for v in rels[r][1])
+                  + f"), bit-equal {equal[r]}, argmax = greedy {same[r]} "
+                  f"(flipped at (step, single-device top-2 gap) {flips}), "
+                  f"host {g['ms_a_step']:.2f} ms a step (single-device "
+                  f"{one['ms_a_step']:.2f}); single-device run "
+                  f"{one['s']:.1f} s ({card_label})", flush=True)
+        check(one["launches"] and all(g["launches"] for g in gloo),
+              f"tp col {label}: a run launched no kernel")
+        if held:
+            check(all(equal) if TP_COL_TOL == 0.0 else
+                  max(r[0] for r in rels) <= TP_COL_TOL,
+                  f"tp col {label}: ranks' logits {rels} (limit "
+                  f"{TP_COL_TOL})")
+            check(all(gap < 2 * TP_COL_TOL for _, gap in flips),
+                  f"tp col {label}: an argmax flipped where the top-2 gap "
+                  f"clears 2 * TP_COL_TOL: {flips}; "
+                  f"{[g['tokens'] for g in gloo]} vs {one['tokens']}")
+        out[f"column {label}"] = {
+            "layers": layers, "rel": [r[0] for r in rels],
+            "rel_steps": [r[1] for r in rels], "bit_equal": equal,
+            "tokens_equal": all(same), "flips": flips, "top2_gap": gaps,
+            "kernel_rows": one["rows"],
+            "single_launches": one["launches"],
+            "rank_launches": [g["launches"] for g in gloo],
+            "single_ms_a_step": one["ms_a_step"],
+            "rank_ms_a_step": [g["ms_a_step"] for g in gloo]}
+    print(f"[time] phase 14 column leg: single-device runs "
+          f"{sum(o['s'] for o in col_singles.values()):.1f} s; the gloo job "
+          f"(both schemes) {t_ranks:.1f} s", flush=True)
     return out
 
 
@@ -3409,6 +3601,85 @@ def small_model_check(device, what, qdict, merge_info, impl, lm_head_bits,
         print(f"[small] 2-layer {what} {step}: card vs CPU plain "
               f"rel={rel:.3e} (limit {SMALL_TOL})", flush=True)
         check(rel <= SMALL_TOL, f"small model {what} {step}: rel {rel}")
+
+
+# phase 10d: schemes outside the palette's GEMV sets at impl dequant, run by
+# the dequant kernels' instances that read their KVs (K2, K3, K6, K7) or
+# (bits, vec) (K9) beyond the palette's
+OFF_PALETTE = ("tcq_2_none_0.9", "tcomb_5_7_0.5_none_0.9", "tcq2s_3_none_0.9",
+               "tcq1_6_none_0.9", "ldlq_1_9_none_1.0", "ldlq_2_2_none_1.0")
+
+
+def off_palette_check(device):
+    """Phase 10d: each OFF_PALETTE scheme on every projection of a 1-layer
+    SMALL_CFG model at impl dequant, the card (the kind's dequant kernel)
+    against the CPU (its plain version): a 12-token prefill and a decode
+    step within SMALL_TOL of max|logit|, the kind's dequant kernel
+    launched 14 times (7 projections a forward) and no other; then each
+    projection's W-hat from the kernel held to the plain version's, bit
+    for bit.  The codebooks of ldlq_1_9 and ldlq_2_2 are not committed:
+    seeded stand-ins in the temporary QPALETTE_ASSETS.  Returns {qstr:
+    (rel, max_abs_err of W-hat)}."""
+    from qpalette_tpu_torch.kernels import launch_counts, reset_launches
+    from qpalette_tpu_torch.models import llama
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+    from qpalette_tpu_torch.ops import codebooks
+    from qpalette_tpu_torch.runtime import qlinear
+    from qpalette_tpu_torch.runtime.loader import build_quantized_model
+
+    d = codebooks.cache_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    for bits, vec in ((9, 1), (2, 2)):
+        np.save(d / f"vq_kmeans_{bits}_{vec}.npy",
+                np.random.default_rng(500 + 16 * bits + vec).standard_normal(
+                    (1 << bits, vec)).astype(np.float32))
+    codebooks.vq_lut.cache_clear()
+    cfg = LlamaConfig(**dict(SMALL_CFG, num_layers=1))
+    prompt = np.random.default_rng(5).integers(0, 512, (1, 12))
+    out = {}
+    for qstr in OFF_PALETTE:
+        t0 = time.perf_counter()
+        spec, p_cpu = build_quantized_model(cfg, qstr, dummy=True,
+                                            impl="dequant", device="cpu")
+        p_dev = to_device(p_cpu, device)
+        runs = {}
+        for dev, p in (("cpu", p_cpu), (device, p_dev)):
+            reset_launches()
+            caches = llama.init_kv_caches(spec, 1, 13, dev)
+            l1, caches = llama.forward(spec, p, torch.as_tensor(
+                prompt, device=dev), kv_caches=caches, cache_pos=0)
+            l2, _ = llama.forward(spec, p, torch.tensor([[17]], device=dev),
+                                  kv_caches=caches, cache_pos=12)
+            runs[str(dev)] = ((l1.cpu(), l2.cpu()),
+                              {k: v for k, v in launch_counts().items() if v})
+        (want, _), (got, launched) = runs["cpu"], runs[str(device)]
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        projs = [(nm, ls) for a, m in spec.layers for nm, ls in
+                 a.projs + m.projs]
+        kernel = {DEQUANT_OF[ls.kind] for _, ls in projs}
+        err = 0.0
+        for nm, ls in projs:
+            w_dev = qlinear.dequant_weight(ls, p_dev["layers"][0][nm],
+                                           p_dev.get("luts"))
+            w_cpu = qlinear.dequant_weight(ls, p_cpu["layers"][0][nm],
+                                           p_cpu.get("luts"))
+            err = max(err, float((w_dev.cpu().float() - w_cpu.float())
+                                 .abs().max()))
+        out[qstr] = (rel, err)
+        print(f"[off-palette] {qstr} at impl dequant, 1 layer: card vs CPU "
+              f"rel={rel:.3e} (limit {SMALL_TOL}); card launches "
+              f"{launched}; W-hat kernel vs plain max_abs_err={err:.3e} "
+              f"(limit 0); {time.perf_counter() - t0:.1f} s", flush=True)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"off-palette {qstr}: non-finite logits")
+        check(len(kernel) == 1 and launched == {kernel.pop(): 14},
+              f"off-palette {qstr}: card launches {launched}, want 14 of "
+              f"the kind's dequant kernel")
+        check(err == 0.0, f"off-palette {qstr}: W-hat err {err}")
+        check(rel <= SMALL_TOL, f"off-palette {qstr}: rel {rel}")
+        del p_dev
+    return out
 
 
 def small_model_checks(device):
@@ -4490,6 +4761,7 @@ def main():
     tp = timed("14 tensor parallelism", tp_path, device, smi)
     beam = timed("15 beam and refine", beam_refine, device, smi)
     timed("10 2-layer models", small_model_checks, device)
+    off_palette = timed("10d off-palette schemes", off_palette_check, device)
     timed("10b artifacts", artifact_check, device)
     t0 = time.perf_counter()
     attn_rel = attention_checks(device)
@@ -4590,6 +4862,9 @@ def main():
     print("[quant] " + json.dumps(quant), flush=True)
     print("[tp] " + json.dumps({"card": smi, **tp}), flush=True)
     print("[beam] " + json.dumps({"card": smi, **beam}), flush=True)
+    print("[off-palette] " + json.dumps({"card": smi,
+                                         "rel_and_w_err": off_palette}),
+          flush=True)
     for kname in ("vq_gemv_vec4", "vq_dequant_vec4"):
         kms, kpms, kbms = times[kname]
         print(f"[time] a 32-layer Path F forward's 64 {kname} calls ({VQ4}, "

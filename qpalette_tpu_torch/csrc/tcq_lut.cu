@@ -75,7 +75,10 @@
 // H100, one tile per warp writing 32-byte row pieces took 3-4x as long.)
 //
 // The dequant's table is one copy (its reads are not its bound); a
-// Hopper weight layout is later work.
+// Hopper weight layout is later work.  The dequant takes every KV from 1
+// to 16 and every pair of them: the palette's KV and (KV, KV+1) have an
+// instance each (KV a compile-time constant), any other runs the instance
+// KV = 0, which reads the KVs of its launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -93,6 +96,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;               // GEMV activation rows
 constexpr int kMaxTlutBits = 11;
+constexpr int kMaxKV = 16;                // the dequant's largest KV
 constexpr int kDequantBlocks = 2112;      // two waves of 8 per SM
 constexpr int kTabBits = 15;     // the GEMV's table: 32 KB static shared
 constexpr int kRingBytes = kSlots * kStageTiles * 16 * 10;  // KV <= 10
@@ -114,10 +118,13 @@ __device__ __forceinline__ void load_table(const float2* __restrict__ tlut,
 }
 
 // state s of the tile whose 4*KV words are wt -> its bf16x2 weight pair
-template <int KV>
+// (KV = KV_, or kv where KV_ = 0)
+template <int KV_>
 __device__ __forceinline__ uint32_t decode_state(const uint32_t* wt, int s,
-                                                 const uint32_t* tab, int S) {
-  constexpr int W = 4 * KV;
+                                                 int kv, const uint32_t* tab,
+                                                 int S) {
+  const int KV = KV_ ? KV_ : kv;
+  const int W = 4 * KV;
   const int off = KV * s;
   const int w0 = off >> 5, sh = off & 31;
   const int w1 = (w0 + 1 == W) ? 0 : w0 + 1;  // the stream is circular
@@ -306,11 +313,11 @@ lut_gemv_kernel(const __nv_bfloat16* __restrict__ x,
 // Up to 4 adjacent k-tiles of one m-tile (a 16 x 64 block of W_hat): lane
 // l decodes the 4 states of tile (l/2)%4 that cover 8 columns of row
 // 4*rg + l/8, so the 8 lanes of a row write 128 contiguous bytes.
-template <int KV>
+template <int KV_>
 __device__ __forceinline__ void dequant_group(
-    const uint32_t* __restrict__ tiles, int ntile, uint32_t* wsw,
+    const uint32_t* __restrict__ tiles, int ntile, int kv, uint32_t* wsw,
     const uint32_t* tab, int S, __nv_bfloat16* __restrict__ wo, int k) {
-  constexpr int W = 4 * KV;
+  const int W = 4 * (KV_ ? KV_ : kv);
   const int lane = threadIdx.x & 31;
   for (int i = lane; i < ntile * W; i += 32) wsw[i] = tiles[i];
   __syncwarp();
@@ -321,24 +328,27 @@ __device__ __forceinline__ void dequant_group(
     for (int rg = 0; rg < 4; ++rg) {
       const int row = rg * 4 + (lane >> 3);
       uint4 e;
-      e.x = decode_state<KV>(wt, 8 * row + t0, tab, S);
-      e.y = decode_state<KV>(wt, 8 * row + t0 + 1, tab, S);
-      e.z = decode_state<KV>(wt, 8 * row + t0 + 2, tab, S);
-      e.w = decode_state<KV>(wt, 8 * row + t0 + 3, tab, S);
+      e.x = decode_state<KV_>(wt, 8 * row + t0, kv, tab, S);
+      e.y = decode_state<KV_>(wt, 8 * row + t0 + 1, kv, tab, S);
+      e.z = decode_state<KV_>(wt, 8 * row + t0 + 2, kv, tab, S);
+      e.w = decode_state<KV_>(wt, 8 * row + t0 + 3, kv, tab, S);
       *reinterpret_cast<uint4*>(wo + (size_t)row * k + tl * 16 + 2 * t0) = e;
     }
   }
   __syncwarp();  // wsw is overwritten by the warp's next group
 }
 
-template <int KV1, int KV2>
+// KV1_ = KV2_ = 0: the instance of the KVs outside the palette's, read
+// from kv1 and kv2
+template <int KV1_, int KV2_>
 __global__ void __launch_bounds__(kThreads)
 lut_dequant_kernel(const uint32_t* __restrict__ tr1,
                    const uint32_t* __restrict__ tr2,
                    const float2* __restrict__ tlut, int S,
                    __nv_bfloat16* __restrict__ w, int m, int k, int kt1,
-                   int kt2) {
-  constexpr int KVM = KV1 > KV2 ? KV1 : KV2;
+                   int kt2, int kv1, int kv2) {
+  constexpr int KVM = KV1_ == 0 ? kMaxKV : KV1_ > KV2_ ? KV1_ : KV2_;
+  const int KV1 = KV1_ ? KV1_ : kv1, KV2 = KV2_ ? KV2_ : kv2;
   __shared__ uint32_t tab[1 << kMaxTlutBits];
   __shared__ uint32_t wsm[kWarps][4 * 4 * KVM];
   load_table(tlut, S, tab);
@@ -352,14 +362,14 @@ lut_dequant_kernel(const uint32_t* __restrict__ tr1,
     __nv_bfloat16* wrow = w + (size_t)mt * 16 * k;
     if (q < g1) {
       const int j0 = 4 * q;
-      dequant_group<KV1>(tr1 + ((size_t)mt * kt1 + j0) * 4 * KV1,
-                         min(4, kt1 - j0), wsm[warp], tab, S,
-                         wrow + j0 * 16, k);
+      dequant_group<KV1_>(tr1 + ((size_t)mt * kt1 + j0) * 4 * KV1,
+                          min(4, kt1 - j0), KV1, wsm[warp], tab, S,
+                          wrow + j0 * 16, k);
     } else {
       const int j0 = 4 * (q - g1);
-      dequant_group<KV2>(tr2 + ((size_t)mt * kt2 + j0) * 4 * KV2,
-                         min(4, kt2 - j0), wsm[warp], tab, S,
-                         wrow + (kt1 + j0) * 16, k);
+      dequant_group<KV2_>(tr2 + ((size_t)mt * kt2 + j0) * 4 * KV2,
+                          min(4, kt2 - j0), KV2, wsm[warp], tab, S,
+                          wrow + (kt1 + j0) * 16, k);
     }
   }
 }
@@ -425,7 +435,8 @@ int gemv(const void* x, const void* tr1, const void* tr2, const void* tlut,
 
 template <int KV1, int KV2>
 int dequant(const void* tr1, const void* tr2, const void* tlut, int S,
-            void* w, int m, int k, int kt1, int kt2, cudaStream_t st) {
+            void* w, int m, int k, int kt1, int kt2, int kv1, int kv2,
+            cudaStream_t st) {
   const long long groups = (kt1 + 3) / 4 + (kt2 + 3) / 4;
   const long long total = (long long)(m / 16) * groups;
   const long long need = (total + kWarps - 1) / kWarps;
@@ -433,9 +444,11 @@ int dequant(const void* tr1, const void* tr2, const void* tlut, int S,
   lut_dequant_kernel<KV1, KV2><<<grid, kThreads, 0, st>>>(
       static_cast<const uint32_t*>(tr1), static_cast<const uint32_t*>(tr2),
       static_cast<const float2*>(tlut), S, static_cast<__nv_bfloat16*>(w),
-      m, k, kt1, kt2);
+      m, k, kt1, kt2, kv1, kv2);
   return (int)cudaGetLastError();
 }
+
+bool bad_kv(int kv) { return kv < 1 || kv > kMaxKV; }
 
 bool bad_args(int m, int k, int S) {
   return m <= 0 || k <= 0 || m % 16 || k % 16 || S < 1 || S > kMaxTlutBits;
@@ -496,19 +509,28 @@ extern "C" int tcomb_lut_gemv(const void* x, const void* trellis1,
                   k / 32, st)
 }
 
-// w: (m, k) bfloat16, 16-byte aligned, W_hat in natural order.
+// w: (m, k) bfloat16, 16-byte aligned, W_hat in natural order; the
+// dequant takes 1 <= KV <= 16 (tcomb: any two).
 extern "C" int tcq_lut_dequant(const void* trellis, const void* tlut, int S,
                                void* w, int m, int k, int KV, void* stream) {
-  if (bad_args(m, k, S)) return (int)cudaErrorInvalidValue;
+  if (bad_args(m, k, S) || bad_kv(KV)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  QPT_TCQ_CASES(dequant, trellis, trellis, tlut, S, w, m, k, k / 16, 0, st)
+  if (KV < 3 || KV > 10)  // no instance of its own
+    return dequant<0, 0>(trellis, trellis, tlut, S, w, m, k, k / 16, 0, KV,
+                         KV, st);
+  QPT_TCQ_CASES(dequant, trellis, trellis, tlut, S, w, m, k, k / 16, 0, KV,
+                KV, st)
 }
 
 extern "C" int tcomb_lut_dequant(const void* trellis1, const void* trellis2,
                                  const void* tlut, int S, void* w, int m,
                                  int k, int KV1, int KV2, void* stream) {
-  if (bad_args(m, k, S) || k % 32) return (int)cudaErrorInvalidValue;
+  if (bad_args(m, k, S) || k % 32 || bad_kv(KV1) || bad_kv(KV2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (KV2 != KV1 + 1 || KV1 < 3 || KV1 > 9)  // no instance of its own
+    return dequant<0, 0>(trellis1, trellis2, tlut, S, w, m, k, k / 32,
+                         k / 32, KV1, KV2, st);
   QPT_TCOMB_CASES(dequant, trellis1, trellis2, tlut, S, w, m, k, k / 32,
-                  k / 32, st)
+                  k / 32, KV1, KV2, st)
 }

@@ -557,7 +557,7 @@ vq_dequant_kernel(const uint32_t* __restrict__ qw,
        t += (long long)gridDim.x * kWarps) {
     const int row = (int)(t / segs);
     const int col0 = (int)(t - (long long)row * segs) * kSeg + lane * kCols;
-    if (col0 >= k) continue;  // k is a multiple of 128: whole lanes only
+    if (col0 >= k) continue;  // k is a multiple of 8: whole lanes only
     const uint32_t* rw = qw + (size_t)row * ldw;
     const int p0 = col0 / VEC;
     uint32_t v[4];
@@ -619,13 +619,15 @@ int dequant(const void* qw, const void* lut, void* w, int m, int k, int ldw,
   return (int)cudaGetLastError();
 }
 
-// words a row, pad word included; 0 for shapes the kernels do not take
-int row_words(int m, int k, int bits, int vec) {
+// words a row, pad word included; 0 for shapes the kernel does not take:
+// the GEMV wants P a multiple of kAlignPos, the dequant k a multiple of 8
+// (a lane's 16-byte store)
+int row_words(int m, int k, int bits, int vec, bool gemv) {
   if (m <= 0 || k <= 0 || (vec != 1 && vec != 2 && vec != 4) || k % vec)
     return 0;
   const int P = k / vec;
-  if (P % kAlignPos) return 0;
-  return P / 32 * bits + 1;
+  if (gemv ? P % kAlignPos : k % 8) return 0;
+  return (P * bits + 31) / 32 + 1;
 }
 
 }  // namespace
@@ -671,17 +673,32 @@ int row_words(int m, int k, int bits, int vec) {
 extern "C" int vq_gemv(const void* x, const void* qweight, const void* lut,
                        void* out, int N, int m, int k, int bits, int vec,
                        void* stream) {
-  const int ldw = row_words(m, k, bits, vec);
+  const int ldw = row_words(m, k, bits, vec, true);
   if (!ldw || N < 1 || N > kMaxRows) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   QPT_VQ_CASES(gemv, x, qweight, lut, out, N, m, k, ldw, st)
 }
 
-// w: (m, k) bfloat16, 16-byte aligned, W_hat in natural order.
+// w: (m, k) bfloat16, 16-byte aligned, W_hat in natural order.  The
+// dequant takes every bits from 1 to 12 at vec 1, 2 and 4: the palette's
+// 26 pairs and the 10 below, which have no GEMV.
 extern "C" int vq_dequant(const void* qweight, const void* lut, void* w,
                           int m, int k, int bits, int vec, void* stream) {
-  const int ldw = row_words(m, k, bits, vec);
+  const int ldw = row_words(m, k, bits, vec, false);
   if (!ldw) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (vec * 16 + bits) {
+    case 16 + 1: return dequant<1, 1>(qweight, lut, w, m, k, ldw, st);
+    case 16 + 9: return dequant<9, 1>(qweight, lut, w, m, k, ldw, st);
+    case 16 + 10: return dequant<10, 1>(qweight, lut, w, m, k, ldw, st);
+    case 16 + 11: return dequant<11, 1>(qweight, lut, w, m, k, ldw, st);
+    case 16 + 12: return dequant<12, 1>(qweight, lut, w, m, k, ldw, st);
+    case 32 + 1: return dequant<1, 2>(qweight, lut, w, m, k, ldw, st);
+    case 32 + 2: return dequant<2, 2>(qweight, lut, w, m, k, ldw, st);
+    case 64 + 1: return dequant<1, 4>(qweight, lut, w, m, k, ldw, st);
+    case 64 + 2: return dequant<2, 4>(qweight, lut, w, m, k, ldw, st);
+    case 64 + 3: return dequant<3, 4>(qweight, lut, w, m, k, ldw, st);
+    default: break;
+  }
   QPT_VQ_CASES(dequant, qweight, lut, w, m, k, ldw, st)
 }

@@ -105,10 +105,11 @@ def arith_weights_mat(trellis: torch.Tensor, mode: str, KV: int, m: int,
     return tiles_to_mat(tiles.reshape(-1, TD, TD), m, k)
 
 
-def check_trellis(trellis, mode, KV, m, k, device):
-    if mode not in SUPPORTED_KV or KV not in SUPPORTED_KV[mode]:
-        raise ValueError(f"mode {mode!r} KV={KV}: supported "
-                         f"{SUPPORTED_KV}")
+def check_trellis(trellis, mode, KV, m, k, device, kvs=SUPPORTED_KV):
+    """The trellis of (mode, KV) for an (m, k) W_hat, on device; kvs: the
+    KVs of each mode that the calling kernel takes."""
+    if mode not in kvs or KV not in kvs[mode]:
+        raise ValueError(f"mode {mode!r} KV={KV}: supported {kvs}")
     if m % TD or k % TD or m <= 0 or k <= 0:
         raise ValueError(f"m={m}, k={k} must be positive multiples of 16")
     T, W = (m // TD) * (k // TD), words_per_tile(mode, KV)

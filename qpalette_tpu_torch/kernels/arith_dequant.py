@@ -10,7 +10,10 @@ Both (``csrc/arith_dequant.cu``) read the canonical trellis and write
 W_hat (m, k) bf16 in natural order: each weight's integer value times
 1/147.800537109375 in float32, rounded to bf16, as the TPU kernels'
 output is.  They serve impl ``exact`` above 256 rows, where the product
-with the activations follows (``runtime/qlinear.py``).  On a CPU tensor a
+with the activations follows (``runtime/qlinear.py``), and impl
+``dequant``, which takes every KV from 1 to 16 (``DEQUANT_KV``; the
+palette's KVs have a kernel instance each, any other the instance that
+reads its KV at run time).  On a CPU tensor a
 wrapper runs the plain version; on a CUDA tensor it launches its kernel
 (counted in ``<wrapper>.launches``) or raises.
 """
@@ -24,11 +27,14 @@ import torch
 
 from qpalette_tpu_torch.kernels import _build
 from qpalette_tpu_torch.kernels.arith import (PLAIN_ROWS, MAD_INV,
-                                              arith_weights_mat, check_trellis)
+                                              SUPPORTED_KV, arith_weights_mat,
+                                              check_trellis)
 from qpalette_tpu_torch.ops.packing import TD
 
 SOURCE = "arith_dequant"  # csrc/arith_dequant.cu
 _C_MODE = {"sum2": 0, "dualmad": 1, "1mad": 0, "2mad": 1}
+# the KVs of each mode the kernels take (csrc kMaxKV: the 16-bit state)
+DEQUANT_KV = {mode: tuple(range(1, 17)) for mode in SUPPORTED_KV}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +62,7 @@ def arith_dequant_plain(trellis: torch.Tensor, mode: str, KV: int, m: int,
 
 def _dequant(wrapper, fn_name, trellis, mode, KV, m, k, out):
     dev = trellis.device
-    check_trellis(trellis, mode, KV, m, k, dev)
+    check_trellis(trellis, mode, KV, m, k, dev, DEQUANT_KV)
     if out is not None and (out.dtype != torch.bfloat16
                             or tuple(out.shape) != (m, k)
                             or out.device != dev or not out.is_contiguous()

@@ -11,7 +11,9 @@ words and a (2^S, 2) float32 table, and round every decoded weight to
 bf16 as the TPU kernels do.  The GEMVs take N <= 8 rows of bf16 x and
 return y = x @ W_hat^T in float32 without Wscale; the dequants return
 W_hat (m, k) bf16 in natural order.  tcomb holds two canonical arrays,
-KV1 on columns [0, k/2) and KV2 on [k/2, k).
+KV1 on columns [0, k/2) and KV2 on [k/2, k).  The GEMVs take the
+palette's KV 3-10 and tcomb's (KV, KV+1); the dequants every KV from 1 to
+16 and every pair of them (``DEQUANT_KV``).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (counted in ``<wrapper>.launches``) or raises.  The
@@ -34,6 +36,10 @@ SOURCE = "tcq_lut"  # csrc/tcq_lut.cu
 MAX_ROWS = 8  # GEMV rows; more rows take the dequant + product path
 SUPPORTED_KV = (3, 4, 5, 6, 7, 8, 9, 10)
 SUPPORTED_TCOMB = tuple((kv, kv + 1) for kv in range(3, 10))
+# the dequant kernels' KVs (csrc kMaxKV), each tcomb half any of them: the
+# GEMVs' have an instance each, any other the instance that reads its KVs
+# at run time
+DEQUANT_KV = tuple(range(1, 17))
 SUPPORTED_S = (9, 10, 11)
 # the GEMV's shared-memory table (kTabBits of csrc/tcq_lut.cu): 2^15 bytes,
 # 2^(13-S) bf16x2 copies of each of the 2^S entries
@@ -185,8 +191,8 @@ def tcomb_lut_gemv(x, trellis1, trellis2, tlut, KV1, KV2, m, k,
 
 def tcq_lut_dequant(trellis, tlut, KV, m, k, out=None) -> torch.Tensor:
     """W_hat (m, k) bf16, natural order (K6)."""
-    if KV not in SUPPORTED_KV:
-        raise ValueError(f"KV={KV} not in {SUPPORTED_KV}")
+    if KV not in DEQUANT_KV:
+        raise ValueError(f"KV={KV} not in {DEQUANT_KV}")
     dev = trellis.device
     S = _check((("trellis", trellis, KV, k),), tlut, m, k, dev, out=out,
                out_dtype=torch.bfloat16, out_shape=(m, k))
@@ -203,8 +209,9 @@ def tcq_lut_dequant(trellis, tlut, KV, m, k, out=None) -> torch.Tensor:
 def tcomb_lut_dequant(trellis1, trellis2, tlut, KV1, KV2, m, k,
                       out=None) -> torch.Tensor:
     """Both tcomb halves -> W_hat (m, k) bf16, natural order (K7)."""
-    if (KV1, KV2) not in SUPPORTED_TCOMB:
-        raise ValueError(f"KV=({KV1}, {KV2}) not in {SUPPORTED_TCOMB}")
+    if KV1 not in DEQUANT_KV or KV2 not in DEQUANT_KV:
+        raise ValueError(f"KV=({KV1}, {KV2}): each half's KV in "
+                         f"{DEQUANT_KV}")
     dev = trellis1.device
     S = _check((("trellis1", trellis1, KV1, k // 2),
                 ("trellis2", trellis2, KV2, k // 2)), tlut, m, k, dev,

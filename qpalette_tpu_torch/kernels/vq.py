@@ -4,14 +4,16 @@ PyTorch versions.
   vq_gemv     replaces qpalette_tpu/kernels/fused.py::_vq_kernel
   vq_dequant  replaces fused.py::_vq_dequant_kernel
 
-Both (``csrc/vq.cu``) read the canonical row-pack (m, P*bits/32 + 1) int32
-words, P = k/vec indices a row, and a (2^bits, vec) float32 codebook, and
-round every decoded value to bf16 as the TPU kernels do.  ``vq_gemv`` takes
-N <= 8 rows of bf16 x and returns y = x @ W_hat^T in float32 without
-Wscale; ``vq_dequant`` returns W_hat (m, k) bf16 in natural order.  They
-take P a multiple of 128 and the (bits, vec) pairs of the ldlq palette:
-vec 1 with bits 2-8, vec 2 with bits 3-12 and vec 4 with bits 4-12 (1-3
-bits a weight); vec 4 at other bits raises NotImplementedError.
+Both (``csrc/vq.cu``) read the canonical row-pack (m, ceil(P*bits/32) +
+1) int32 words, P = k/vec indices a row, and a (2^bits, vec) float32
+codebook, and round every decoded value to bf16 as the TPU kernels do.
+``vq_gemv`` takes N <= 8 rows of bf16 x and returns y = x @ W_hat^T in
+float32 without Wscale; ``vq_dequant`` returns W_hat (m, k) bf16 in
+natural order.  The GEMV takes P a multiple of 128 and the (bits, vec)
+pairs of the ldlq palette (``SUPPORTED``): vec 1 with bits 2-8, vec 2
+with bits 3-12 and vec 4 with bits 4-12 (1-3 bits a weight).  The dequant
+takes k a multiple of 8 and bits 1-12 at vec 1, 2 and 4 (``DEQUANT``).
+vec 4 at other bits raises NotImplementedError.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (counted in ``<wrapper>.launches``) or raises.  The
@@ -31,10 +33,13 @@ from qpalette_tpu_torch.ops.packing import dequant_lut
 
 SOURCE = "vq"  # csrc/vq.cu
 MAX_ROWS = 8  # GEMV rows; more rows take the dequant + product path
-ALIGN_P = 128  # indices a row must be a multiple of this
+ALIGN_P = 128  # the GEMV's indices a row must be a multiple of this
+DEQUANT_ALIGN_K = 8  # the dequant's k: a lane's 16-byte store
 SUPPORTED = tuple([(b, 1) for b in range(2, 9)]
                   + [(b, 2) for b in range(3, 13)]
                   + [(b, 4) for b in range(4, 13)])  # (bits, vec)
+# the dequant's pairs: the GEMV's and the 10 more of csrc's vq_dequant
+DEQUANT = tuple((b, v) for v in (1, 2, 4) for b in range(1, 13))
 # the GEMV's shared-memory table (kTabBytes of csrc/vq.cu): 2^15 bytes,
 # min(32, 2^(13-w)) copies of each 32-bit entry of a w-bit window (vec 4:
 # min(32, 2^(12-w)) of each 8-byte entry)
@@ -59,16 +64,21 @@ def row_words(k: int, bits: int, vec: int) -> int:
     return -(-(k // vec * bits) // 32) + 1
 
 
-def _check(qweight, lut, bits, vec, m, k, device, x=None, out=None,
-           out_dtype=None, out_shape=None):
-    if vec == 4 and (bits, vec) not in SUPPORTED:
+def _check(qweight, lut, bits, vec, m, k, device, pairs=SUPPORTED, x=None,
+           out=None, out_dtype=None, out_shape=None):
+    """pairs: the (bits, vec) the calling kernel takes; the GEMV (pairs
+    SUPPORTED) wants k/vec a multiple of ALIGN_P, the dequant k a multiple
+    of DEQUANT_ALIGN_K."""
+    if vec == 4 and (bits, vec) not in pairs:
+        b4 = [b for b, v in pairs if v == 4]
         raise NotImplementedError(f"vec 4 at bits={bits}: the kernels take "
-                                  f"bits 4-12")
-    if (bits, vec) not in SUPPORTED:
-        raise ValueError(f"(bits, vec)=({bits}, {vec}) not in {SUPPORTED}")
-    if m <= 0 or k <= 0 or k % (ALIGN_P * vec):
-        raise ValueError(f"m={m}, k={k}: want k/vec a positive multiple of "
-                         f"{ALIGN_P}")
+                                  f"bits {min(b4)}-{max(b4)}")
+    if (bits, vec) not in pairs:
+        raise ValueError(f"(bits, vec)=({bits}, {vec}) not in {pairs}")
+    align = ALIGN_P * vec if pairs is SUPPORTED else DEQUANT_ALIGN_K
+    if m <= 0 or k <= 0 or k % align:
+        raise ValueError(f"m={m}, k={k}: want k a positive multiple of "
+                         f"{align}")
     W = row_words(k, bits, vec)
     if qweight.dtype != torch.int32 or tuple(qweight.shape) != (m, W):
         raise ValueError(f"qweight {qweight.dtype} {tuple(qweight.shape)}: "
@@ -138,7 +148,7 @@ def vq_gemv(x, qweight, lut, bits, vec, m, k, out=None) -> torch.Tensor:
 def vq_dequant(qweight, lut, bits, vec, m, k, out=None) -> torch.Tensor:
     """W_hat (m, k) bf16, natural order (K9)."""
     dev = qweight.device
-    _check(qweight, lut, bits, vec, m, k, dev, out=out,
+    _check(qweight, lut, bits, vec, m, k, dev, DEQUANT, out=out,
            out_dtype=torch.bfloat16, out_shape=(m, k))
     if dev.type == "cpu":
         return _result(vq_dequant_plain(qweight, lut, bits, vec, m, k), out)

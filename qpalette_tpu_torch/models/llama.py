@@ -9,7 +9,14 @@ tensor or a (B,) tensor (one position a row); as a tensor it stays on
 the device, so a step can be captured in a CUDA graph and replayed at a
 new position.  A spec with a ``tp_group`` is one rank's local spec of the
 tensor-parallel forward (parallel/tp.py): its row-parallel o and down
-outputs are summed over that ``torch.distributed`` group.
+outputs are summed over that ``torch.distributed`` group.  A spec with a
+``col_group`` is one rank's spec of the column-parallel forward
+(parallel/sharding.py): its projections hold the rank's output rows and
+their outputs are gathered over the group where the next consumer needs
+the whole activation, attention runs on the rank's heads (its cache holds
+its kv heads), the embedding holds its vocab rows
+(the lookups summed over the group) and the head's logits are gathered
+over vocab; the residual stream stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -103,6 +110,10 @@ class ModelSpec:
     # torch.distributed group its row-parallel o / down outputs are summed
     # over (the reference's tp_axis); None: the single-device forward
     tp_group: Optional[object] = None
+    # set on a rank's spec of the column-parallel forward
+    # (parallel/sharding.py): the group its projections' output rows, heads
+    # and vocab rows are split over; None: not column-parallel
+    col_group: Optional[object] = None
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -155,6 +166,63 @@ def _tp_sum(y: torch.Tensor, group, dtype) -> torch.Tensor:
     return y.to(dtype)
 
 
+def cat_cols(chunks, parts=None) -> torch.Tensor:
+    """The ranks' output columns (..., c) each, in rank order, put together
+    (..., n*c); with parts (the local widths of comb's two output halves)
+    each part on its own, [part 1 of every rank | part 2 of every rank]."""
+    if not parts or len(parts) == 1:
+        return torch.cat(chunks, dim=-1)
+    pieces, off = [], 0
+    for width in parts:
+        pieces += [c[..., off:off + width] for c in chunks]
+        off += width
+    return torch.cat(pieces, dim=-1)
+
+
+def _gather_cols(y: torch.Tensor, group, parts=None) -> torch.Tensor:
+    """Column parallelism: the ranks' columns of y all-gathered over group
+    and put together (cat_cols).  No group: y."""
+    if group is None:
+        return y
+    y = y.contiguous()
+    chunks = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(chunks, y, group=group)
+    return cat_cols(chunks, parts)
+
+
+def _project(lspec, p: dict, z: torch.Tensor, group, **kw) -> torch.Tensor:
+    """qlinear_apply, and under column parallelism (group) the ranks'
+    output rows gathered to the whole width (comb by its halves)."""
+    y = qlinear_apply(lspec, p, z, **kw)
+    return _gather_cols(y, group, lspec.split if lspec.kind == "comb"
+                        else None)
+
+
+def _col_rank(group) -> tuple:
+    """(rank, ranks) of a column-parallel group, (0, 1) without one."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor,
+           group) -> torch.Tensor:
+    """The embedding rows of tokens; under column parallelism table holds
+    the rank's contiguous vocab rows: each rank looks up the tokens it
+    holds (zeros elsewhere) and the lookups are summed over the group in
+    float32, exact (one nonzero a token)."""
+    if group is None:
+        return table[tokens]
+    r, _ = _col_rank(group)
+    v = table.shape[0]
+    local = tokens - r * v
+    held = (local >= 0) & (local < v)
+    x = torch.where(held[..., None], table[local.clamp(0, v - 1)].float(),
+                    0.0)
+    dist.all_reduce(x, group=group)
+    return x
+
+
 def _positions(S: int, offset, device) -> torch.Tensor:
     """Positions of S queries from offset: (S,) for an int or a 0-d
     tensor, (B, S) for per-row (B,) offsets."""
@@ -189,8 +257,7 @@ def _attention(q, k, v, offset, cfg: LlamaConfig):
 def _attention_whole(q, k, v, offset, cfg: LlamaConfig):
     """_attention over the whole (B, h, S, T) float32 logits."""
     B, S, H, D = q.shape
-    T = k.shape[1]
-    hk = cfg.num_kv_heads
+    T, hk = k.shape[1], k.shape[2]
     g = H // hk
     qf = (q.float() * (D ** -0.5)).reshape(B, S, hk, g, D)
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
@@ -210,8 +277,7 @@ def _attention_flash(q, k, v, offset, cfg: LlamaConfig, qc: int = 512,
     KV chunks wholly after a query chunk's last position are skipped; a
     0-d or per-row (B,) tensor offset scans them all (masked)."""
     B, S, H, D = q.shape
-    T = k.shape[1]
-    hk = cfg.num_kv_heads
+    T, hk = k.shape[1], k.shape[2]
     g = H // hk
     qc = next(c for c in (qc, 256, 128, 64, 32, 16, 8, 4, 2, 1)
               if S % c == 0)
@@ -288,7 +354,7 @@ def _q8(x: torch.Tensor):
 
 def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
                  cos, sin, kv_cache=None, cache_pos=0, luts=None,
-                 tp_group=None):
+                 tp_group=None, col_group=None):
     """x (B, S, hidden) -> (out, kv).  With kv_cache, k/v are written into
     the caches in place at cache_pos (see _store) and attention runs over
     the whole cache: bf16 ``(k, v)``, or int8 ``(k8, ks, v8, vs)`` holding
@@ -296,25 +362,37 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     group's activations are rotated unless its first projection is
     ``dense`` (the bf16 baseline, whose weights are not rotated).  Under
     tensor parallelism cfg and spec are a rank's local ones and o's
-    partial output is summed over tp_group."""
+    partial output is summed over tp_group.  Under column parallelism
+    (col_group) cfg is the global one, spec the rank's: q, k and v of
+    their own hold the rank's heads as computed, a merged group's output
+    and comb's halves are gathered over col_group whole, attention runs on
+    the rank's heads (kv_cache holds its kv heads), and its output is
+    gathered before o, o's output for the residual."""
     B, S, N = x.shape
     xs = x.reshape(-1, N)
     rotated = spec.projs[0][1].kind != "dense"
     non_o = [(nm, ls) for nm, ls in spec.projs if nm != "o"]
     hs = cfg.num_heads * cfg.head_dim
     kv = cfg.kv_out
+
+    def group(nm, ls):
+        # the group an output is gathered over: not q, k or v of their own
+        # (their rows are the rank's heads), unless comb splits them
+        return None if nm in ("q", "k", "v") and ls.kind != "comb" \
+            else col_group
+
     if len(non_o) == 1:
         # a lone group (merged qkv) takes the un-rotated activation, so
         # that qlinear_apply can keep the rotation in float32 where the
         # reference fuses it into the kernel's prologue
         (name, lspec), = non_o
-        outs = {name: qlinear_apply(lspec, p[name], xs,
-                                    pre_rot=p["su_qkv"] if rotated else None,
-                                    luts=luts)}
+        outs = {name: _project(lspec, p[name], xs, group(name, lspec),
+                               pre_rot=p["su_qkv"] if rotated else None,
+                               luts=luts)}
     else:
         # several groups share one rotated activation
         z = _rotate_in(xs, p["su_qkv"]) if rotated else xs
-        outs = {nm: qlinear_apply(ls, p[nm], z, luts=luts)
+        outs = {nm: _project(ls, p[nm], z, group(nm, ls), luts=luts)
                 for nm, ls in non_o}
     if spec.merge is None:
         q, k, v = outs["q"], outs["k"], outs["v"]
@@ -328,9 +406,21 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
         (q, v), k = torch.split(outs["qv"], [hs, kv], dim=-1), outs["k"]
     else:
         raise NotImplementedError(f"attention merge {spec.merge!r}")
-    q = apply_rope(q.reshape(B, S, cfg.num_heads, cfg.head_dim), cos, sin)
-    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim), cos, sin)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    # the rank's heads (all of them but under column parallelism)
+    r, n = _col_rank(col_group)
+    D = cfg.head_dim
+    h, hk = cfg.num_heads // n, cfg.num_kv_heads // n
+
+    def own(t, heads):
+        # a gathered output's columns of the rank's heads; a local one as
+        # it is
+        w = heads * D
+        return t if t.shape[-1] == w else t[:, r * w:(r + 1) * w]
+
+    q, k, v = own(q, h), own(k, hk), own(v, hk)
+    q = apply_rope(q.reshape(B, S, h, D), cos, sin)
+    k = apply_rope(k.reshape(B, S, hk, D), cos, sin)
+    v = v.reshape(B, S, hk, D)
     if kv_cache is not None and len(kv_cache) == 4:
         ck, cks, cv, cvs = kv_cache
         for cache, val in zip(kv_cache, (*_q8(k), *_q8(v))):
@@ -349,42 +439,49 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
     oname, ospec = spec.projs[-1]
     if oname != "o":
         raise ValueError(f"last attention projection is {oname!r}")
-    z_o = att.reshape(B * S, -1)
+    z_o = _gather_cols(att.reshape(B * S, -1), col_group)
     if spec.in_perm_o:
         z_o = _block_perm_in(z_o, spec.in_perm_o)
-    out = qlinear_apply(ospec, p["o"], z_o,
-                        pre_rot=p["su_o"] if rotated else None, luts=luts,
-                        rot_blocks=spec.rot_blocks_o,
-                        out_dtype=None if tp_group is None else torch.float32)
+    out = _project(ospec, p["o"], z_o, col_group,
+                   pre_rot=p["su_o"] if rotated else None, luts=luts,
+                   rot_blocks=spec.rot_blocks_o,
+                   out_dtype=None if tp_group is None else torch.float32)
     return _tp_sum(out, tp_group, x.dtype).reshape(B, S, N), new_kv
 
 
 def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: torch.Tensor,
-                luts=None, tp_group=None):
+                luts=None, tp_group=None, col_group=None):
     """x (B, S, hidden) -> out; rotated (and down summed over tp_group) as
-    in attn_forward."""
+    in attn_forward.  Under col_group, up and gate of their own (not comb)
+    give h of the rank's rows, gathered once before down; a merged ug's
+    output or comb's is gathered whole; down's output is gathered for the
+    residual."""
     B, S, N = x.shape
     I = cfg.intermediate_size
     xs = x.reshape(-1, N)
     rotated = spec.projs[0][1].kind != "dense"
     if spec.merge_ug:
         (ug_name, ug_spec), (_, d_spec) = spec.projs
-        y = qlinear_apply(ug_spec, p[ug_name], xs,
-                          pre_rot=p["su_ug"] if rotated else None,
-                          luts=luts)
+        y = _project(ug_spec, p[ug_name], xs, col_group,
+                     pre_rot=p["su_ug"] if rotated else None, luts=luts)
         up, gate = y[:, :I], y[:, I:]
+        local = False
     else:
         z = _rotate_in(xs, p["su_ug"]) if rotated else xs
         (_, u_spec), (_, g_spec), (_, d_spec) = spec.projs
-        up = qlinear_apply(u_spec, p["up"], z, luts=luts)
-        gate = qlinear_apply(g_spec, p["gate"], z, luts=luts)
+        local = u_spec.kind != "comb" and g_spec.kind != "comb"
+        grp = None if local else col_group
+        up = _project(u_spec, p["up"], z, grp, luts=luts)
+        gate = _project(g_spec, p["gate"], z, grp, luts=luts)
     h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
+    if local:
+        h = _gather_cols(h, col_group)
     if spec.in_perm_down:
         h = _block_perm_in(h, spec.in_perm_down)
-    out = qlinear_apply(d_spec, p["down"], h,
-                        pre_rot=p["su_dp"] if rotated else None, luts=luts,
-                        rot_blocks=spec.rot_blocks_down,
-                        out_dtype=None if tp_group is None else torch.float32)
+    out = _project(d_spec, p["down"], h, col_group,
+                   pre_rot=p["su_dp"] if rotated else None, luts=luts,
+                   rot_blocks=spec.rot_blocks_down,
+                   out_dtype=None if tp_group is None else torch.float32)
     return _tp_sum(out, tp_group, x.dtype).reshape(B, S, N)
 
 
@@ -394,10 +491,13 @@ def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, vocab) float32 (and the caches when
     kv_caches is given: the incremental path writing at cache_pos, an int,
     a 0-d tensor or per-row (B,)).  return_hidden=True returns the
-    final-norm hidden state (B, S, hidden) instead of the logits."""
+    final-norm hidden state (B, S, hidden) instead of the logits.  Under
+    column parallelism (spec.col_group) every rank returns the whole
+    logits of its rows, and its caches hold its kv heads."""
     cfg = spec.config
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    col = spec.col_group
+    x = _embed(params["embed"], tokens, col).to(cfg.dtype)
     offset = cache_pos if kv_caches is not None else 0
     cos, sin = rope_tables(_positions(S, offset, tokens.device), cfg.head_dim,
                            cfg.rope_theta)
@@ -409,27 +509,29 @@ def forward(spec: ModelSpec, params: dict, tokens: torch.Tensor,
         a, kv = attn_forward(aspec, cfg, lp, h, cos, sin,
                              kv_cache=None if kv_caches is None
                              else kv_caches[li], cache_pos=offset,
-                             luts=luts, tp_group=spec.tp_group)
+                             luts=luts, tp_group=spec.tp_group,
+                             col_group=col)
         x = x + a
         h = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
         x = x + mlp_forward(mspec, cfg, lp, h, luts=luts,
-                            tp_group=spec.tp_group)
+                            tp_group=spec.tp_group, col_group=col)
         new_caches.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
     if return_hidden:
         return (x, new_caches) if kv_caches is not None else x
     if spec.lm_head_spec is not None:
         # quantized lm_head: f32 logits over the padded vocab, sliced back
-        logits = qlinear_apply(spec.lm_head_spec, params["lm_head_q4"],
-                               x.reshape(-1, cfg.hidden_size),
-                               pre_rot=params["lm_head_su"],
-                               out_dtype=torch.float32)
+        logits = _project(spec.lm_head_spec, params["lm_head_q4"],
+                          x.reshape(-1, cfg.hidden_size), col,
+                          pre_rot=params["lm_head_su"],
+                          out_dtype=torch.float32)
         logits = logits[:, :cfg.vocab_size].reshape(B, S, cfg.vocab_size)
     elif "lm_head_q" in params:
         logits = int8_head(params, x.reshape(-1, cfg.hidden_size))
         logits = logits[:, :cfg.vocab_size].reshape(B, S, cfg.vocab_size)
     else:
-        logits = x.float() @ params["lm_head"].float().T
+        logits = _gather_cols(x.float() @ params["lm_head"].float().T,
+                              col)
     if kv_caches is not None:
         return logits, new_caches
     return logits
@@ -467,7 +569,9 @@ def init_kv_caches(spec: ModelSpec, batch: int, max_seq: int, device,
     (k, v), or with quantized=True int8 (k8, ks, v8, vs) with f32
     per-(token, head) scales (B, T, kv_heads, 1), about half the bytes."""
     cfg = spec.config
-    shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    # under column parallelism: the rank's kv heads
+    shp = (batch, max_seq, cfg.num_kv_heads // _col_rank(spec.col_group)[1],
+           cfg.head_dim)
     if quantized:
         sshp = shp[:3] + (1,)
         return [(torch.zeros(shp, dtype=torch.int8, device=device),

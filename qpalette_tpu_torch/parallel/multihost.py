@@ -4,9 +4,10 @@ Counterpart of ``qpalette_tpu/parallel/multihost.py``.  One process a
 device joins one ``torch.distributed`` job (``init_distributed``); the
 mesh's outer axis ``dp`` splits the batch (each dp group holds a whole
 copy of the weights), and its inner axis ``tp`` splits the weights as
-parallel/tp.py does, inside one host, so that the tensor-parallel
-all_reduce of every layer stays on the host's own links (``dcn_mesh``
-asserts it).  Only the batch crosses hosts.
+parallel/tp.py (scheme "row") or parallel/sharding.py (scheme
+"column") does, inside one host, so that the tensor-parallel collectives
+of every layer stay on the host's own links (``dcn_mesh`` asserts it).
+Only the batch crosses hosts.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from qpalette_tpu_torch.models import llama
+from qpalette_tpu_torch.parallel import sharding
 from qpalette_tpu_torch.parallel import tp as tp_mod
+
+SCHEMES = ("row", "column")
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -73,13 +77,18 @@ def dcn_mesh(tp: int, dp: Optional[int] = None,
                             mesh_dim_names=("dp", "tp"))
 
 
-def shard_model_dcn(params: dict, spec, mesh: DeviceMesh):
+def shard_model_dcn(params: dict, spec, mesh: DeviceMesh,
+                    scheme: str = "row"):
     """This rank's (local spec, params) on a (dp, tp) mesh: the weights
-    replicated across dp and split across tp exactly as parallel/tp.py
-    places them (every dp group the same slices)."""
+    replicated across dp and split across tp as the scheme places them,
+    "row" parallel/tp.py and "column" parallel/sharding.py (every dp group
+    the same slices)."""
+    lspec = _local_spec(spec, mesh, scheme)
+    if scheme == "column":
+        return lspec, sharding.shard_params(params, spec, mesh)
     tpn = mesh.size(mesh.mesh_dim_names.index("tp"))
-    return (_local_spec(spec, mesh),
-            tp_mod.shard_params(params, spec, tpn, mesh.get_local_rank("tp")))
+    return lspec, tp_mod.shard_params(params, spec, tpn,
+                                      mesh.get_local_rank("tp"))
 
 
 def dp_batch_spec(tokens: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
@@ -91,13 +100,14 @@ def dp_batch_spec(tokens: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return tokens[r * b:(r + 1) * b]
 
 
-def dcn_forward_fn(spec, mesh: DeviceMesh, with_cache: bool = False):
+def dcn_forward_fn(spec, mesh: DeviceMesh, with_cache: bool = False,
+                   scheme: str = "row"):
     """The (dp, tp) forward of one rank: fn(local_params, tokens) with the
     whole batch on every rank -> the logits of this rank's rows
     (dp_batch_spec); with_cache: fn(local_params, tokens, kv_caches,
     cache_pos) -> (logits, caches), the caches this rank's rows and kv
-    heads.  Weights as shard_model_dcn places them."""
-    lspec = _local_spec(spec, mesh)
+    heads.  Weights as shard_model_dcn places them under the scheme."""
+    lspec = _local_spec(spec, mesh, scheme)
 
     if not with_cache:
         def fwd(params, tokens):
@@ -110,9 +120,14 @@ def dcn_forward_fn(spec, mesh: DeviceMesh, with_cache: bool = False):
     return fwd_cache
 
 
-def _local_spec(spec, mesh: DeviceMesh):
-    """spec localized over the mesh's tp axis (its group), or spec."""
+def _local_spec(spec, mesh: DeviceMesh, scheme: str = "row"):
+    """spec localized over the mesh's tp axis (its group) under the
+    scheme, or spec."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"scheme {scheme!r} not in {SCHEMES}")
     tpn = mesh.size(mesh.mesh_dim_names.index("tp"))
     if tpn == 1:
         return spec
+    if scheme == "column":
+        return sharding.localize_spec(spec, tpn, mesh.get_group("tp"))
     return tp_mod.localize_spec(spec, tpn, mesh.get_group("tp"))

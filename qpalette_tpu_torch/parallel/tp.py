@@ -122,10 +122,11 @@ def _scale_linear_spec(lspec, tp: int, row: bool):
             "comb as a column-parallel projection: its output halves' rows "
             "are not a rank's rows")
     m = lspec.out_features
-    if m % tp or (lspec.kind not in ("vq", "dense", "dense_rot")
-                  and (m // tp) % TD):
+    tiled = lspec.kind not in ("vq", "dense", "dense_rot")
+    if m % tp or (tiled and (m // tp) % TD):
         raise ValueError(f"column-parallel {lspec.kind} with out_features "
-                         f"{m} over tp={tp}")
+                         f"{m} over tp={tp}: a rank needs whole "
+                         f"{'16-row tiles' if tiled else 'rows'}")
     return dataclasses.replace(lspec, out_features=m // tp)
 
 
@@ -229,16 +230,15 @@ def shard_interleave_tcomb_rows(params: dict, spec: ModelSpec,
 
 
 def _rows(a: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+    """Rank `rank`'s rows of dim 0 split tp ways: of a tile-row-major
+    trellis (mt*kt, W), its m-tiles."""
     n = a.shape[0] // tp
     return a[rank * n:(rank + 1) * n].contiguous()
 
 
 def _col_leaf(leaf: str, a: torch.Tensor, ls, tp: int, rank: int):
-    if leaf in ("wscale", "w", "qweight"):
+    if leaf in ("wscale", "w", "qweight", "trellis", "trellis1", "trellis2"):
         return _rows(a, tp, rank)
-    if leaf in ("trellis", "trellis1", "trellis2"):
-        t = _tiles(a, ls.out_features // TD)
-        return _rows(t, tp, rank).reshape(-1, a.shape[1])
     return a  # lut
 
 
@@ -295,12 +295,15 @@ def shard_params(params: dict, spec: ModelSpec, tp: int,
     return dict(params, layers=layers)
 
 
-def kv_cache_slice(caches, tp: int, rank: int):
+def kv_cache_slice(caches, tp: int, rank: int, dp: int = 1,
+                   dp_rank: int = 0):
     """A rank's part of global KV caches: each (B, T, kv_heads, ...)
-    tensor's kv heads [rank*hk/tp, ...), as a copy."""
+    tensor (the int8 cache's scales too) at its kv heads [rank*hk/tp, ...)
+    and, over dp, its batch rows [dp_rank*B/dp, ...), as a copy."""
     out = []
     for kv in caches:
-        out.append(tuple(c[:, :, rank * (c.shape[2] // tp):
-                           (rank + 1) * (c.shape[2] // tp)].contiguous()
+        b, h = kv[0].shape[0] // dp, kv[0].shape[2] // tp
+        out.append(tuple(c[dp_rank * b:(dp_rank + 1) * b, :,
+                           rank * h:(rank + 1) * h].contiguous()
                          for c in kv))
     return out

@@ -58,6 +58,7 @@ from qpalette_tpu_torch.quant.incoherent import (artifact_path, load_artifact,
                                                  quantize_linear,
                                                  save_artifact)
 from qpalette_tpu_torch.runtime.qlinear import (GEMV_IMPLS, IMPLS, LinearSpec,
+                                                kernel_gap,
                                                 require_equal_halves)
 
 LAYER_KEYS = [
@@ -111,17 +112,36 @@ def su_for(cfg: LlamaConfig, layer: int, key: str, seed: int) -> np.ndarray:
 
 
 def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
+    """The LinearSpec of an artifact's meta under impl, refused where the
+    impl's kernels do not take the scheme (qlinear.kernel_gap): the GEMV
+    impls (exact, a8) take the palette's kernel sets, impl dequant (the
+    reference's xla route) the dequant kernels' wider ones."""
+    ls = _linear_spec(meta, impl)
+    gap = kernel_gap(ls)
+    if gap is not None and impl in GEMV_IMPLS:
+        dq = kernel_gap(dataclasses.replace(ls, impl="dequant"))
+        raise NotImplementedError(
+            f"{gap}: outside the palette's kernel sets, so impl {impl!r} "
+            f"cannot run it; "
+            + ("impl 'dequant' runs it" if dq is None else
+               f"nor can impl 'dequant': {dq}"))
+    if gap is not None:
+        raise NotImplementedError(f"{gap}: outside the dequant kernels' "
+                                  f"sets, so impl {impl!r} cannot run it")
+    return ls
+
+
+def _linear_spec(meta: dict, impl: str) -> LinearSpec:
     kind = meta["kind"]
     common = dict(in_features=meta["in_features"],
                   out_features=meta["out_features"], impl=impl)
     if kind in ("tcq1", "tcq2"):
-        mode, KV = meta["decode_mode"], meta["KV"]
-        if (mode not in (("1mad", "2mad") if kind == "tcq1"
-                         else ("sum2", "dualmad"))
-                or KV not in SUPPORTED_KV[mode]):
-            raise NotImplementedError(f"{kind} mode {mode!r} KV={KV}: K1 "
-                                      f"takes the palette's {SUPPORTED_KV}")
-        return LinearSpec(kind, KV=(KV,), mode=mode, **common)
+        mode = meta["decode_mode"]
+        if mode not in (("1mad", "2mad") if kind == "tcq1"
+                        else ("sum2", "dualmad")):
+            raise NotImplementedError(f"{kind} mode {mode!r}: not a mode of "
+                                      f"{kind} (K1 takes {SUPPORTED_KV})")
+        return LinearSpec(kind, KV=(meta["KV"],), mode=mode, **common)
     if kind == "tcq":
         return LinearSpec("tcq", KV=(meta["KV"],),
                           tlut_bits=meta["tlut_bits"], **common)
@@ -136,10 +156,6 @@ def _spec_from_meta(meta: dict, impl: str) -> LinearSpec:
                           tlut_bits=meta["tlut_bits"],
                           split=tuple(meta["out_part"]), **common)
     if kind == "vq":
-        if (meta["bits"], meta["vec"]) not in vq.SUPPORTED:
-            raise NotImplementedError(f"vq bits={meta['bits']} vec="
-                                      f"{meta['vec']}: K8/K9 take "
-                                      f"{vq.SUPPORTED}")
         return LinearSpec("vq", bits=meta["bits"], vec=meta["vec"], **common)
     if kind == "dense_rot":
         return LinearSpec("dense_rot", **common)
@@ -265,7 +281,7 @@ def _params_from_artifact(art: dict, device) -> dict:
     p = {"wscale": torch.tensor(np.asarray(art["Wscale"], np.float32),
                                 device=device)}
     meta = art["meta"]
-    ls = _spec_from_meta(meta, "exact")
+    ls = _linear_spec(meta, "dequant")
     if ls.kind == "dense_rot":
         w = np.asarray(art["w"], np.float32)
         if w.shape != (ls.out_features, ls.in_features):

@@ -11,7 +11,12 @@ inside the kernel; for tcq/tcomb/comb/vq the reference runs the same bf16
 kernels, and so does the port) take the decode GEMVs up to 8 rows (the
 arithmetic kinds up to 256); ``dequant`` (the reference's ``xla``)
 decodes bf16 W_hat with the kind's dequant kernel (K2, K3, K6, K7, K9)
-at any row count and takes the float32 product.  The LUT kinds read
+at any row count and takes the float32 product.  The dequant kernels take
+more schemes than the GEMVs (every trellis KV from 1 to 16, any tcomb
+pair, vq bits 1-12), so a scheme outside the palette's GEMV sets runs
+under ``dequant`` as the reference's ``xla`` route runs it; the loader
+refuses at build what an impl's kernels do not take (``kernel_gap``).
+The LUT kinds read
 their (2^S, 2) table from the model's shared ``luts`` dict, one entry per
 ``tlut_bits``; a vq projection holds its own (2^bits, vec) codebook,
 ``lut``.
@@ -24,7 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from qpalette_tpu_torch.kernels import arith_dequant, tcq_lut, vq
-from qpalette_tpu_torch.kernels.arith import MAX_ROWS, decode_gemv
+from qpalette_tpu_torch.kernels.arith import MAX_ROWS, SUPPORTED_KV, decode_gemv
 from qpalette_tpu_torch.ops.hadamard import get_had_factors, hadamard_transform_t
 
 IMPLS = ("exact", "a8", "dequant")
@@ -81,6 +86,38 @@ def require_equal_halves(spec: LinearSpec) -> None:
         raise NotImplementedError(
             f"tcomb in_part {spec.split}: K5 / K7 take equal halves "
             f"({n // 2}, {n // 2}), the only split the quantizer writes")
+
+
+def kernel_gap(spec: LinearSpec):
+    """None where the kernels that the spec's impl runs take its scheme,
+    else what falls outside their sets.  The GEMV impls (exact, a8) run
+    the palette's GEMVs: K1 (tcq1 / tcq2) the modes' KVs of
+    arith.SUPPORTED_KV, K4 (tcq, each comb half) tcq_lut.SUPPORTED_KV, K5
+    (tcomb) tcq_lut.SUPPORTED_TCOMB, K8 (vq) vq.SUPPORTED.  Impl dequant
+    runs the dequant kernels: K2 / K3 arith_dequant.DEQUANT_KV, K6 / K7
+    tcq_lut.DEQUANT_KV (each half of a comb or tcomb), K9 vq.DEQUANT.  A
+    pure function of the spec: the loader refuses a gap at build."""
+    kind, gemv = spec.kind, spec.impl in GEMV_IMPLS
+    if kind in ("tcq1", "tcq2"):
+        kvs = SUPPORTED_KV if gemv else arith_dequant.DEQUANT_KV
+        if spec.KV[0] not in kvs.get(spec.mode, ()):
+            return (f"{kind} mode {spec.mode!r} KV={spec.KV[0]} "
+                    f"({'K1' if gemv else 'K2 / K3'} take {kvs})")
+    elif kind in ("tcq", "comb") or (kind == "tcomb" and not gemv):
+        kvs = tcq_lut.SUPPORTED_KV if gemv else tcq_lut.DEQUANT_KV
+        if any(kv not in kvs for kv in spec.KV):
+            return (f"{kind} KV={spec.KV} ({'K4' if gemv else 'K6 / K7'} "
+                    f"take KV in {kvs})")
+    elif kind == "tcomb":
+        if tuple(spec.KV) not in tcq_lut.SUPPORTED_TCOMB:
+            return (f"tcomb KV={spec.KV} (K5 takes "
+                    f"{tcq_lut.SUPPORTED_TCOMB})")
+    elif kind == "vq":
+        pairs = vq.SUPPORTED if gemv else vq.DEQUANT
+        if (spec.bits, spec.vec) not in pairs:
+            return (f"vq bits={spec.bits} vec={spec.vec} "
+                    f"({'K8' if gemv else 'K9'} takes {pairs})")
+    return None
 
 
 def dequant_weight(spec: LinearSpec, p: dict, luts: dict) -> torch.Tensor:

@@ -253,7 +253,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # vec 4: no codebook, no kernel
         vq.vq_gemv(x, words, lut, 6, 4, 64, 256)
     with pytest.raises(ValueError):  # P = 64, not a multiple of 128
-        vq.vq_dequant(words[:, :13].contiguous(), lut, 6, 2, 64, 128)
+        vq.vq_gemv(x[:, :128].contiguous(), words[:, :13].contiguous(), lut,
+                   6, 2, 64, 128)
+    with pytest.raises(ValueError):  # k = 132, not a multiple of 8
+        vq.vq_dequant(words, lut, 6, 2, 64, 132)
     with pytest.raises(ValueError):  # words of another bits
         vq.vq_gemv(x, words, _lut(5, 2), 5, 2, 64, 256)
     with pytest.raises(ValueError):  # a codebook of another shape

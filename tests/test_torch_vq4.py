@@ -113,7 +113,8 @@ def test_vec4_kernels_match_reference_interpret(bits, k, N):
 
 def test_vec4_outside_bits_4_to_12_raises():
     """vec 4 at bits 3 or 13 is refused by the wrappers (and so by the
-    loader's spec) with NotImplementedError; k must be a multiple of 512."""
+    loader's spec) with NotImplementedError; the GEMV's k must be a
+    multiple of 512."""
     x = torch.zeros((1, 512), dtype=torch.bfloat16)
     for bits in (3, 13):
         words = torch.zeros((M, vq.row_words(512, bits, 4)), dtype=torch.int32)
@@ -125,7 +126,8 @@ def test_vec4_outside_bits_4_to_12_raises():
                                    "exact")
     words = torch.zeros((M, vq.row_words(256, 8, 4)), dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple"):
-        vq.vq_dequant(words, torch.zeros((256, 4)), 8, 4, M, 256)
+        vq.vq_gemv(torch.zeros((1, 256), dtype=torch.bfloat16), words,
+                   torch.zeros((256, 4)), 8, 4, M, 256)
 
 
 def test_vec4_dummy_artifact_and_spec(assets):
