@@ -4,7 +4,7 @@
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
       [--ab tcq2_gemv|tcq2_wide|tcq2mix_wide|tcq1_wide|tcq2mix|tcq1_gemv|
-            tcq_lut|vq]
+            tcq_lut|vq|vq4]
   python chip_smoke.py --rows
   python chip_smoke.py --serve
   python chip_smoke.py --msq
@@ -24,8 +24,11 @@ ab_wide), K1 dualmad at Path A's shapes with
 K1 sum2 at the 215 shapes and the Path A a8 decode (--ab tcq2mix), K1
 1mad at Path A's shapes with 2mad at 4096x4096 and the Path A a8 decode
 (--ab tcq1_gemv), the LUT GEMVs and the flagship decode (--ab tcq_lut),
-or K8 at Path C's and Path D's shapes, every other ldlq scheme at o and
-down, and the Path C decode (--ab vq), with the source against the same
+K8 at Path C's and Path D's shapes, every other ldlq scheme at o and
+down, and the Path C decode (--ab vq), or K8 at vec 4 (ldlq_4_8) at Path
+F's o and down, summed apart over a 32-layer forward, the other vec-4
+bits at o and down, and the Path F decode (--ab vq4), with the source
+against the same
 source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
 `git archive`).  With --rows it runs only k1_rows (phase 3's K1 dualmad,
 1mad and 2mad above 8 rows), with --serve only the serving phases (6b,
@@ -166,7 +169,10 @@ Phases (each raises on failure):
      ldlq_2_2) on a 1-layer SMALL_CFG model at impl dequant, run by the
      dequant kernels' off-palette instances (K6, K7, K2, K3, K9): card
      against CPU within SMALL_TOL, 14 launches of the kind's dequant
-     kernel and no other, each W-hat bit-equal to the plain version's
+     kernel and no other, each W-hat bit-equal to the plain version's;
+     then those instances timed at 4096x4096 beside their bound (K2 sum2
+     KV 3, K3 1mad KV 6, K6 KV 2, K7 KV 5/7, K9 at the 10 (bits, vec) no
+     GEMV takes) and a palette instance of each kernel beside them
  10c. evaluation (runtime/evaluate.py, runtime/zeroshot.py): eval_ppl
      of the 32-layer flagship at impl dequant over two ctx-8192 windows of
      a synthetic stream from seed 0 (194 K6 + 30 K7 a window, the
@@ -2010,8 +2016,27 @@ def _ab_vq(device, smi):
     return vq, vq.SOURCE, vq.SIGNATURES, cases, ("Path C", spec, params)
 
 
+def _ab_vq4(device, smi):
+    """parent_ab's K8 cases at vec 4: ldlq_4_8 at Path F's o and down (32
+    calls a 32-layer forward each, summed apart), the other eight vec-4
+    bits at o and down (on no path: timed, 0 calls), and Path F's a8
+    decode (its vec-4 codebook made into a temporary QPALETTE_ASSETS)."""
+    from qpalette_tpu_torch.kernels import vq
+
+    temp_assets()
+    cases = [_vq_case(vq, name, m, k, *VQ4, 32, "32-layer Path F",
+                      f"vq_gemv_vec4 {name}", device)
+             for name, m, k in SHAPES_8B[1::2]]
+    cases += [_vq_case(vq, name, m, k, b, 4, 0, "no path", "vq_gemv_vec4",
+                       device)
+              for b, v in vq.SUPPORTED if v == 4 and (b, v) != VQ4
+              for name, m, k in SHAPES_8B[1::2]]
+    spec, params = path_f_model(device)
+    return vq, vq.SOURCE, vq.SIGNATURES, cases, ("Path F", spec, params)
+
+
 AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
-      "tcq_lut": _ab_lut, "vq": _ab_vq, "tcq2_wide": None,
+      "tcq_lut": _ab_lut, "vq": _ab_vq, "vq4": _ab_vq4, "tcq2_wide": None,
       "tcq2mix_wide": None, "tcq1_wide": None}
 # ab_wide's mode
 WIDE_AB = {"tcq2_wide": "sum2", "tcq2mix_wide": "dualmad", "tcq1_wide": "1mad"}
@@ -2202,8 +2227,9 @@ def parent_ab(parent_csrc, which):
     (K1 sum2 on the 215 path), "tcq2_wide" (ab_wide: K1 sum2 above 8
     rows), "tcq2mix" (K1 dualmad on Path A, with K1
     sum2 at the 215 shapes), "tcq1_gemv" (K1 1mad on Path A, with 2mad at
-    4096x4096), "tcq_lut" (K4/K5 on the flagship) or "vq" (K8 on Paths C
-    and D, every other ldlq scheme at o and down).  Both
+    4096x4096), "tcq_lut" (K4/K5 on the flagship), "vq" (K8 on Paths C
+    and D, every other ldlq scheme at o and down) or "vq4" (K8 at vec 4 on
+    Path F's o and down, the other vec-4 bits beside them).  Both
     libraries are first checked against the plain versions at N = 1 and 8.
     Each turn puts its library behind the wrappers, times every shape's
     calls (CUDA-graph replays at N=1, weights cycled past L2), sums each
@@ -2250,26 +2276,28 @@ def parent_ab(parent_csrc, which):
     for label in ("parent", "new", "new", "parent"):
         use(libs[label])
         ms, step = {}, {}
-        for case in cases:
-            x = torch.randn((1, case["k"]), device=device).to(case["x_dtype"])
-            out = torch.empty((1, case["m"]), device=device)
-            copies = case["copies"]
-            t = _time_ms(lambda i=0: case["run"](x, copies[i % len(copies)],
-                                                 out), 200, graph=True)
-            if case["calls"]:
-                ms[case["kernel"]] = (ms.get(case["kernel"], 0.0)
-                                      + case["calls"] * t)
-                step[case["kernel"]] = case["step"]
-            print(f"[ab] {label} {case['label']}: {t * 1e3:.3f} us a call "
-                  f"(bound {case['bound'] * 1e3:.3f} us, {case['calls']} a "
-                  f"{case['step']} step)", flush=True)
+        with SmClock() as clock:
+            for case in cases:
+                x = torch.randn((1, case["k"]), device=device).to(
+                    case["x_dtype"])
+                out = torch.empty((1, case["m"]), device=device)
+                copies = case["copies"]
+                t = _time_ms(lambda i=0: case["run"](
+                    x, copies[i % len(copies)], out), 200, graph=True)
+                if case["calls"]:
+                    ms[case["kernel"]] = (ms.get(case["kernel"], 0.0)
+                                          + case["calls"] * t)
+                    step[case["kernel"]] = case["step"]
+                print(f"[ab] {label} {case['label']}: {t * 1e3:.3f} us a "
+                      f"call (bound {case['bound'] * 1e3:.3f} us, "
+                      f"{case['calls']} a {case['step']} step)", flush=True)
         tps = throughput(f"{path}, {label} {source}.cu", spec, params, device,
                          smi)
-        turns.append({"lib": label, "tokens_per_s": tps,
+        turns.append({"lib": label, "tokens_per_s": tps, "sm_mhz": clock.mhz,
                       **{f"{n}_ms_a_step": v for n, v in ms.items()}})
         print(f"[ab] {label}: " + ", ".join(
             f"{n} {v:.4f} ms a {step[n]} decode step" for n, v in ms.items())
-            + f"; {path} {tps:.2f} tokens/s ({smi})", flush=True)
+            + f"; {path} {tps:.2f} tokens/s ({smi}, {clock})", flush=True)
     mod._lib = lib_of
     bound = {}
     for case in cases:
@@ -2539,13 +2567,8 @@ def path_d(device, card_label):
     return launches, graph
 
 
-def path_f(device, card_label):
-    """Path F: PATH_F_LAYERS layers of the 8B, ldlq_2_6 merged qkv / ug and
-    ldlq_4_8 o / down (K8 / K9 at vec 4), the rotated int8 head, impl a8;
-    counted (the vec-4 launches apart, vq_gemv.by_vec) and through the
-    captured step.  Returns (launch counts, graph_phase's result, the
-    vec-4 launches of the counted run)."""
-    from qpalette_tpu_torch.kernels import vq
+def path_f_model(device):
+    """Path F's PATH_F_LAYERS-layer 8B model: (spec, params)."""
     from qpalette_tpu_torch.models.llama import LlamaConfig
     from qpalette_tpu_torch.runtime.loader import (LAYER_KEYS,
                                                    build_quantized_model)
@@ -2567,6 +2590,18 @@ def path_f(device, card_label):
     print(f"[pathF] 8B ({PATH_F_LAYERS} layers, o / down {VQ4_QSTR}) built "
           f"in {time.perf_counter() - t0:.1f} s (its vec-4 codebook made "
           f"or read under {os.environ.get('QPALETTE_ASSETS')})", flush=True)
+    return spec, params
+
+
+def path_f(device, card_label):
+    """Path F: PATH_F_LAYERS layers of the 8B, ldlq_2_6 merged qkv / ug and
+    ldlq_4_8 o / down (K8 / K9 at vec 4), the rotated int8 head, impl a8;
+    counted (the vec-4 launches apart, vq_gemv.by_vec) and through the
+    captured step.  Returns (launch counts, graph_phase's result, the
+    vec-4 launches of the counted run)."""
+    from qpalette_tpu_torch.kernels import vq
+
+    spec, params = path_f_model(device)
     launches = drive("pathF", spec, params, device, PROMPT_LEN,
                      COUNTED_TOKENS, PATH_F_PREFILL, PATH_F_STEP)
     vec4 = {"vq_gemv": vq.vq_gemv.by_vec[4],
@@ -3618,8 +3653,8 @@ def off_palette_check(device):
     launched 14 times (7 projections a forward) and no other; then each
     projection's W-hat from the kernel held to the plain version's, bit
     for bit.  The codebooks of ldlq_1_9 and ldlq_2_2 are not committed:
-    seeded stand-ins in the temporary QPALETTE_ASSETS.  Returns {qstr:
-    (rel, max_abs_err of W-hat)}."""
+    seeded stand-ins in the temporary QPALETTE_ASSETS.  Returns ({qstr:
+    (rel, max_abs_err of W-hat)}, off_palette_times' times)."""
     from qpalette_tpu_torch.kernels import launch_counts, reset_launches
     from qpalette_tpu_torch.models import llama
     from qpalette_tpu_torch.models.llama import LlamaConfig
@@ -3679,6 +3714,85 @@ def off_palette_check(device):
         check(err == 0.0, f"off-palette {qstr}: W-hat err {err}")
         check(rel <= SMALL_TOL, f"off-palette {qstr}: rel {rel}")
         del p_dev
+    return out, off_palette_times(device)
+
+
+# the dequant kernels' off-palette instances timed at 4096x4096 (phase 10d):
+# K2 / K3 / K6 at the run-time KV of OFF_PALETTE's scheme, K7 at its
+# run-time pair (kernel, mode, KVs), and K9 at the 10 (bits, vec) that no
+# GEMV takes; beside each kernel, its instance of a palette scheme at the
+# same shape
+OFF_PALETTE_TIMED = [("tcq2_dequant", "sum2", (3,)),
+                     ("tcq1_dequant", "1mad", (6,)),
+                     ("tcq_lut_dequant", None, (2,)),
+                     ("tcomb_lut_dequant", None, (5, 7))]
+PALETTE_TIMED = [("tcq2_dequant", "sum2", (6,)),
+                 ("tcq1_dequant", "1mad", (3,)),
+                 ("tcq_lut_dequant", None, (6,)),
+                 ("tcomb_lut_dequant", None, (6, 7)),
+                 ("vq_dequant", 2, (6,))]
+
+
+def off_palette_times(device, shape=(4096, 4096)):
+    """Each OFF_PALETTE_TIMED instance (and PALETTE_TIMED beside it) at
+    `shape`: ms a call (CUDA-graph replays, words cycled past L2), its
+    bound (the packed words read once and the bf16 W-hat written once at
+    3.35 TB/s) and its share of it.  Returns {label: [ms, bound ms, off the
+    palette?]}."""
+    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut, vq
+    from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+
+    m, k = shape
+    k9 = [("vq_dequant", v, (b,)) for b, v in vq.DEQUANT
+          if (b, v) not in vq.SUPPORTED]
+    out = {}
+    for off, cases in ((True, OFF_PALETTE_TIMED + k9),
+                       (False, PALETTE_TIMED)):
+        for kname, mode, KV in cases:
+            if kname == "vq_dequant":
+                bits, vec = KV[0], mode
+                # a seeded stand-in codebook: the time does not depend on it
+                gen = torch.Generator(device=device)
+                gen.manual_seed(600 + 16 * bits + vec)
+                lut = torch.randn((1 << bits, vec), generator=gen,
+                                  device=device)
+                nbytes = m * vq.row_words(k, bits, vec) * 4 + lut.numel() * 4
+                n = min(64, -(-3 * L2_BYTES // nbytes))
+                cp = [_vq_words(m, k, bits, vec, device, seed=100 + i)
+                      for i in range(n)]
+                label = f"vq_dequant bits={bits} vec={vec}"
+
+                def run(i, o, cp=cp, lut=lut, bits=bits, vec=vec):
+                    vq.vq_dequant(cp[i % len(cp)], lut, bits, vec, m, k,
+                                  out=o)
+            elif kname in ("tcq2_dequant", "tcq1_dequant"):
+                cp, nbytes = _copies(m, k, arith.words_per_tile(mode, KV[0]),
+                                     device)
+                fn = getattr(arith_dequant, kname)
+                label = f"{kname} {mode} KV={KV[0]}"
+
+                def run(i, o, cp=cp, fn=fn, mode=mode, kv=KV[0]):
+                    fn(cp[i % len(cp)], kv, m, k, mode, out=o)
+            else:
+                tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
+                                    device=device)
+                nbytes = m * k * sum(KV) // (16 * len(KV))
+                cp = [_lut_words(m, k, KV, device, seed=100 * i)
+                      for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
+                nbytes += tlut.numel() * 4
+                fn = getattr(tcq_lut, kname)
+                label = f"{kname} KV={'/'.join(map(str, KV))}"
+
+                def run(i, o, cp=cp, fn=fn, tlut=tlut, KV=KV):
+                    fn(*cp[i % len(cp)], tlut, *KV, m, k, out=o)
+            wout = torch.empty((m, k), dtype=torch.bfloat16, device=device)
+            ms = _time_ms(lambda i=0: run(i, wout), 50, graph=True)
+            bms, _ = dequant_bound(nbytes, m, k)
+            out[label] = [ms, bms, off]
+            print(f"[time] {'off-palette' if off else 'palette'} {label} "
+                  f"{m}x{k}: {ms:.4f} ms, bound {bms:.4f} ms "
+                  f"({bms / ms:.1%} of it)", flush=True)
+            del cp, wout
     return out
 
 
@@ -4761,7 +4875,8 @@ def main():
     tp = timed("14 tensor parallelism", tp_path, device, smi)
     beam = timed("15 beam and refine", beam_refine, device, smi)
     timed("10 2-layer models", small_model_checks, device)
-    off_palette = timed("10d off-palette schemes", off_palette_check, device)
+    off_palette, off_times = timed("10d off-palette schemes",
+                                   off_palette_check, device)
     timed("10b artifacts", artifact_check, device)
     t0 = time.perf_counter()
     attn_rel = attention_checks(device)
@@ -4862,9 +4977,9 @@ def main():
     print("[quant] " + json.dumps(quant), flush=True)
     print("[tp] " + json.dumps({"card": smi, **tp}), flush=True)
     print("[beam] " + json.dumps({"card": smi, **beam}), flush=True)
-    print("[off-palette] " + json.dumps({"card": smi,
-                                         "rel_and_w_err": off_palette}),
-          flush=True)
+    print("[off-palette] " + json.dumps({
+        "card": smi, "rel_and_w_err": off_palette,
+        "dequant_4096x4096_ms_bound_ms_off": off_times}), flush=True)
     for kname in ("vq_gemv_vec4", "vq_dequant_vec4"):
         kms, kpms, kbms = times[kname]
         print(f"[time] a 32-layer Path F forward's 64 {kname} calls ({VQ4}, "

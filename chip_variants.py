@@ -13,17 +13,19 @@ SASS of its kernels.
       down and at 4096x4096, in turns A B .. B A: us a call, SM cycles a
       tile at 132 SMs and 1.755 GHz, and ms a Path A step.
   python chip_variants.py time vq DIR [DIR ...]
-      the same for each DIR's vq.cu (K8, vq_gemv_kernel): ldlq_2_6 at
-      Path C's four shapes and ldlq_1_4 at Path D's down, N = 1; us a call
-      and ms a Path C forward.
+      the same for each DIR's vq.cu (K8): ldlq_2_6 at Path C's four shapes,
+      ldlq_1_4 at Path D's down and ldlq_4_8 at Path F's o and down, N = 1;
+      us a call, ms a Path C forward and a 32-layer Path F forward's 64
+      vec-4 calls.
   python chip_variants.py time wide DIR [DIR ...]
       the same for each DIR's tcq2_gemv.cu (K1 sum2 above 8 rows,
       wide_gemv_kernel): checked at o, N = 49, then the 215 shapes at N =
       16, 64 and 256 as a zero-shot forward calls them (layers exact, the
       head a8); ms a zero-shot forward's 129 calls.
-  python chip_variants.py sweep
+  python chip_variants.py sweep [DIR ...]
       K8's fixed cost a call: vq_gemv at N = 1, k = 4096, over m from 16
-      to 16384 rows, at ldlq_4_8 (vec 4) and ldlq_2_6 (vec 2) (CUDA-graph
+      to 16384 rows, at ldlq_4_8 (vec 4) and ldlq_2_6 (vec 2), of the
+      repo's vq.cu or, in turns A B .. B A, of each DIR's (CUDA-graph
       replays, words cycled past L2), and a one-element fill_ in the same
       graph setting (the replay's floor a node); a least-squares line
       us = a + bytes / rate over the rows from 2048 up (their words
@@ -47,10 +49,11 @@ SASS of its kernels.
       vec 2, 8 at vec 1) in the smallest loop that holds an MMA (branches
       taken once a tile included), and the instructions an MMA between
       that loop's first and last MMA.
-  python chip_variants.py conflicts
-      no card: the shared-memory wavefronts a warp's table read of
-      vq_gemv_kernel takes, on uniform random indices, for every ldlq
-      (bits, vec) (vec 2 at bits 9-12 keeps fewer than 32 copies).
+  python chip_variants.py conflicts [COPIES ...]
+      no card: the shared-memory wavefronts a warp's table read of K8
+      takes, on uniform random indices, for every ldlq (bits, vec) at the
+      kernels' copies (vec 2 at bits 9-12 keeps fewer than 32); at vec 4
+      also at each COPIES (default 1, 2, .., 32) that fits the table.
 
 Needs the CUDA toolkit (nvcc, cuobjdump); `time` needs a CUDA device.
 """
@@ -70,10 +73,15 @@ CASES = [("o", 4096, 4096, "1mad", 3, 32),
          ("2mad3", 4096, 4096, "2mad", 3, 0),
          ("2mad4", 4096, 4096, "2mad", 4, 0),
          ("kv5", 4096, 4096, "1mad", 5, 0)]
-# (name, m, k, bits, vec, calls a Path C forward)
-VQ_CASES = [("qkv", 6144, 4096, 6, 2, 32), ("o", 4096, 4096, 6, 2, 32),
-            ("ug", 28672, 4096, 6, 2, 32), ("down", 4096, 14336, 6, 2, 32),
-            ("D down", 4096, 14336, 4, 1, 0)]
+# (name, m, k, bits, vec, path, calls a forward of it): Path C's four
+# shapes, Path D's down (timed), Path F's vec-4 o and down (32 layers)
+VQ_CASES = [("qkv", 6144, 4096, 6, 2, "Path C", 32),
+            ("o", 4096, 4096, 6, 2, "Path C", 32),
+            ("ug", 28672, 4096, 6, 2, "Path C", 32),
+            ("down", 4096, 14336, 6, 2, "Path C", 32),
+            ("D down", 4096, 14336, 4, 1, "Path D", 0),
+            ("F o", 4096, 4096, 8, 4, "Path F", 32),
+            ("F down", 4096, 14336, 8, 4, "Path F", 32)]
 SM_HZ, SMS = 1.755e9, 132
 
 
@@ -212,16 +220,15 @@ def time_vq(dirs):
 
     import chip_smoke as cs
     from qpalette_tpu_torch.kernels import vq
-    from qpalette_tpu_torch.ops.codebooks import vq_lut
 
     _, _, smi = cs.card()
     dev = torch.device("cuda:0")
-    libs = _variants(dirs, "vq", vq.SIGNATURES, "vq_gemv_kernel")
+    libs = _variants(dirs, "vq", vq.SIGNATURES, "_gemv_kernel")
     cases = {}
-    for name, m, k, bits, vec, calls in VQ_CASES:
+    for name, m, k, bits, vec, path, calls in VQ_CASES:
         nbytes = m * vq.row_words(k, bits, vec) * 4
-        cases[name] = (m, k, bits, vec, calls, torch.tensor(
-            vq_lut(bits, vec), device=dev), [
+        cases[name] = (m, k, bits, vec, path, calls,
+                       cs._vq_lut(bits, vec, dev), [
             cs._vq_words(m, k, bits, vec, dev, seed=100 + i)
             for i in range(min(64, -(-3 * cs.L2_BYTES // nbytes)))])
     orig = vq._lib
@@ -230,7 +237,7 @@ def time_vq(dirs):
             if Path(d).name.startswith("probe"):
                 continue
             vq._lib = lambda lib=lib: lib
-            for name, (m, k, bits, vec, _, lut, cp) in cases.items():
+            for name, (m, k, bits, vec, _, _, lut, cp) in cases.items():
                 for N in (1, 8):
                     x = torch.randn((N, k), device=dev).bfloat16()
                     cs._rel_check(
@@ -240,17 +247,21 @@ def time_vq(dirs):
                         cs.VQ_TOL)
         for d in list(libs) + list(libs)[::-1]:
             vq._lib = lambda lib=libs[d]: lib
-            fwd, per = 0.0, []
-            for name, (m, k, bits, vec, calls, lut, cp) in cases.items():
-                x = torch.randn((1, k), device=dev).bfloat16()
-                out = torch.empty((1, m), device=dev)
-                t = cs._time_ms(lambda i=0: vq.vq_gemv(
-                    x, cp[i % len(cp)], lut, bits, vec, m, k, out=out), 200,
-                    graph=True)
-                fwd += calls * t
-                per.append(f"{name} {t * 1e3:.3f}us")
-            print(f"[time] {d}: vq_gemv {fwd:.4f} ms a Path C forward; "
-                  + ", ".join(per) + f" ({smi})", flush=True)
+            fwd, per = collections.Counter(), []
+            with cs.SmClock() as clock:
+                for name, (m, k, bits, vec, path, calls, lut, cp) in \
+                        cases.items():
+                    x = torch.randn((1, k), device=dev).bfloat16()
+                    out = torch.empty((1, m), device=dev)
+                    t = cs._time_ms(lambda i=0: vq.vq_gemv(
+                        x, cp[i % len(cp)], lut, bits, vec, m, k, out=out),
+                        200, graph=True)
+                    fwd[path] += calls * t
+                    per.append(f"{name} {t * 1e3:.3f}us")
+            print(f"[time] {d}: vq_gemv {fwd['Path C']:.4f} ms a Path C "
+                  f"forward, {fwd['Path F']:.4f} ms a 32-layer Path F "
+                  f"forward's vec-4 calls; " + ", ".join(per)
+                  + f" ({smi}, {clock})", flush=True)
     finally:
         vq._lib = orig
 
@@ -258,7 +269,7 @@ def time_vq(dirs):
 SWEEP_M = (16, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
-def sweep_vq(k=4096):
+def sweep_vq(dirs=(), k=4096):
     import numpy as np
     import torch
 
@@ -267,34 +278,43 @@ def sweep_vq(k=4096):
 
     _, _, smi = cs.card()
     dev = torch.device("cuda:0")
+    libs = (_variants(dirs, "vq", vq.SIGNATURES, "_gemv_kernel") if dirs
+            else {"repo": vq._lib()})
     x = torch.randn((1, k), device=dev).bfloat16()
     one = torch.empty(1, device=dev)
     floor = cs._time_ms(lambda i=0: one.fill_(i), 200, graph=True)
     print(f"[sweep] a one-element fill_: {floor * 1e3:.3f} us a node "
           f"({smi})", flush=True)
-    for bits, vec in ((8, 4), (6, 2)):
-        lut = cs._vq_lut(bits, vec, dev)
-        rows = []
-        for m in SWEEP_M:
-            nbytes = m * vq.row_words(k, bits, vec) * 4
-            cp = [cs._vq_words(m, k, bits, vec, dev, seed=100 + i)
-                  for i in range(min(64, -(-3 * cs.L2_BYTES // nbytes)))]
-            out = torch.empty((1, m), device=dev)
-            t = cs._time_ms(lambda i=0: vq.vq_gemv(
-                x, cp[i % len(cp)], lut, bits, vec, m, k, out=out), 200,
-                graph=True)
-            rows.append((m, nbytes, t * 1e3))
-            print(f"[sweep] ldlq_{vec}_{bits} {m}x{k}: {t * 1e3:.3f} us, "
-                  f"{nbytes} bytes of row-pack, "
-                  f"{nbytes / (t * 1e-3) / 1e9:.0f} GB/s", flush=True)
-            del cp
-        fit = np.array([(b, us) for m, b, us in rows if m >= 2048])
-        slope, a = np.polyfit(fit[:, 0], fit[:, 1], 1)
-        us = {m: t for m, _, t in rows}
-        print(f"[sweep] ldlq_{vec}_{bits}: us = {a:.3f} + bytes / "
-              f"{1e-3 / slope:.0f} GB/s (m >= 2048); 16 rows {us[16]:.3f} "
-              f"us; the 4096x4096 call {us[4096]:.3f} us ({smi})",
-              flush=True)
+    orig = vq._lib
+    try:
+        for d in list(libs) + (list(libs)[::-1] if dirs else []):
+            vq._lib = lambda lib=libs[d]: lib
+            for bits, vec in ((8, 4), (6, 2)):
+                lut = cs._vq_lut(bits, vec, dev)
+                rows = []
+                for m in SWEEP_M:
+                    nbytes = m * vq.row_words(k, bits, vec) * 4
+                    cp = [cs._vq_words(m, k, bits, vec, dev, seed=100 + i)
+                          for i in range(min(64, -(-3 * cs.L2_BYTES
+                                                   // nbytes)))]
+                    out = torch.empty((1, m), device=dev)
+                    t = cs._time_ms(lambda i=0: vq.vq_gemv(
+                        x, cp[i % len(cp)], lut, bits, vec, m, k, out=out),
+                        200, graph=True)
+                    rows.append((m, nbytes, t * 1e3))
+                    print(f"[sweep] {d} ldlq_{vec}_{bits} {m}x{k}: "
+                          f"{t * 1e3:.3f} us, {nbytes} bytes of row-pack, "
+                          f"{nbytes / (t * 1e-3) / 1e9:.0f} GB/s", flush=True)
+                    del cp
+                fit = np.array([(b, us) for m, b, us in rows if m >= 2048])
+                slope, a = np.polyfit(fit[:, 0], fit[:, 1], 1)
+                us = {m: t for m, _, t in rows}
+                print(f"[sweep] {d} ldlq_{vec}_{bits}: us = {a:.3f} + bytes "
+                      f"/ {1e-3 / slope:.0f} GB/s (m >= 2048); 16 rows "
+                      f"{us[16]:.3f} us; the 4096x4096 call {us[4096]:.3f} "
+                      f"us ({smi})", flush=True)
+    finally:
+        vq._lib = orig
 
 
 def _sass(src, cubin):
@@ -450,12 +470,13 @@ def opcodes(src, pattern, mmas=None):
                   f"{op} {n / 14:.2f}" for op, n in win.most_common()))
 
 
-def conflicts(samples=20000, seed=0):
+def conflicts(copies=(), samples=20000, seed=0):
     """Mean and largest wavefronts of a warp's table read (uniform random
     windows): lane l reads copy l mod C of its entry, entry e's copies at
     words e*C .. e*C + C - 1 (vec 4: two words an entry, e's copy r at
     words 2(e*C + r), +1, the lanes' 64 words one read), bank = word mod
-    32."""
+    32.  C: the kernel's (vq_gemv_kernel, vq4_gemv_kernel) and, at vec 4,
+    each of `copies` (default 1, 2, .., 32) whose table fits 32 KB."""
     import numpy as np
 
     from qpalette_tpu_torch.kernels import vq
@@ -465,20 +486,30 @@ def conflicts(samples=20000, seed=0):
     for bits, vec in vq.SUPPORTED:
         win = 2 * bits if vec == 1 and bits <= 4 else bits
         ew = 2 if vec == 4 else 1  # words an entry
-        cb = min(5, vq.GEMV_TABLE_BITS - 1 - ew - win)
+        if vec == 4:
+            mine = vq.gemv4_copy_bits(bits)
+            counts = sorted({mine, *(int(c).bit_length() - 1
+                                     for c in copies or (1, 2, 4, 8, 16, 32))})
+            counts = [cb for cb in counts
+                      if (4 * ew << win << cb) <= 1 << vq.GEMV_TABLE_BITS]
+        else:
+            mine = min(5, vq.GEMV_TABLE_BITS - 2 - win)
+            counts = [mine]
         e = rng.integers(0, 1 << win, (samples, 32))
-        word = (e << cb) | (lane & ((1 << cb) - 1))
-        word = np.concatenate([ew * word + i for i in range(ew)], axis=1)
-        waves = np.zeros(samples, np.int64)
-        for b in range(32):  # distinct words a bank serves
-            w = np.where(word % 32 == b, word, -1)
-            w.sort(axis=1)
-            distinct = ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1)
-            waves = np.maximum(waves, distinct + (w[:, 0] >= 0))
-        print(f"[conflicts] bits={bits} vec={vec}: {1 << win} entries x "
-              f"{1 << cb} copies ({(4 * ew << win << cb) // 1024} KB), "
-              f"wavefronts a read: mean {waves.mean():.3f}, max "
-              f"{waves.max()}", flush=True)
+        for cb in counts:
+            word = (e << cb) | (lane & ((1 << cb) - 1))
+            word = np.concatenate([ew * word + i for i in range(ew)], axis=1)
+            waves = np.zeros(samples, np.int64)
+            for b in range(32):  # distinct words a bank serves
+                w = np.where(word % 32 == b, word, -1)
+                w.sort(axis=1)
+                distinct = ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1)
+                waves = np.maximum(waves, distinct + (w[:, 0] >= 0))
+            print(f"[conflicts] bits={bits} vec={vec}: {1 << win} entries x "
+                  f"{1 << cb} copies ({(4 * ew << win << cb) // 1024} KB"
+                  f"{', the kernel' if cb == mine else ''}), wavefronts a "
+                  f"read: mean {waves.mean():.3f}, max {waves.max()}",
+                  flush=True)
 
 
 if __name__ == "__main__":
@@ -488,5 +519,5 @@ if __name__ == "__main__":
                       else time_variants(args)),
      "sass": lambda: sass_diff(*args) if len(args) == 3 else sass_dirs(*args),
      "opcodes": lambda: opcodes(*args),
-     "conflicts": conflicts,
-     "sweep": sweep_vq}[cmd]()
+     "conflicts": lambda: conflicts(args),
+     "sweep": lambda: sweep_vq(args)}[cmd]()

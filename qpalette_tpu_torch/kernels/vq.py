@@ -41,10 +41,21 @@ SUPPORTED = tuple([(b, 1) for b in range(2, 9)]
 # the dequant's pairs: the GEMV's and the 10 more of csrc's vq_dequant
 DEQUANT = tuple((b, v) for v in (1, 2, 4) for b in range(1, 13))
 # the GEMV's shared-memory table (kTabBytes of csrc/vq.cu): 2^15 bytes,
-# min(32, 2^(13-w)) copies of each 32-bit entry of a w-bit window (vec 4:
-# min(32, 2^(12-w)) of each 8-byte entry)
+# min(32, 2^(13-w)) copies of each 32-bit entry of a w-bit window (vec 1,
+# 2); vec 4 (vq4_gemv_kernel): min(16, 2^(12-bits)) copies of each 8-byte
+# entry, 16 being the fewest that keep a warp's read at its least two
+# wavefronts (chip_variants.py conflicts), fewer above bits 8 to stay in
+# 32 KB
 GEMV_TABLE_BITS = 15
 GEMV_WARPS = 8  # warps a block of the GEMV: they split a row's chunks
+GEMV4_ACC = 2  # vq4_gemv_kernel: a warp's accumulators (MMA j into j % 2)
+GEMV4_MAX_COPY_BITS = 4
+
+
+def gemv4_copy_bits(bits: int) -> int:
+    """log2 of the copies of each 8-byte entry of the vec-4 table."""
+    return min(GEMV4_MAX_COPY_BITS, 12 - bits)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

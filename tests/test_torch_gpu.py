@@ -504,11 +504,13 @@ def test_vq_kernels_match_plain_on_card(cuda, bits, vec, m, k):
 
 @pytest.mark.parametrize("N", [1, 8])
 @pytest.mark.parametrize("bits,vec,m,k", [(6, 2, 4096, 4096),
-                                          (4, 1, 4096, 14336)])
+                                          (4, 1, 4096, 14336),
+                                          (8, 4, 4096, 4096),
+                                          (8, 4, 4096, 14336)])
 def test_vq_gemv_launches_are_bit_equal(cuda, bits, vec, m, k, N):
     """Two launches on the same inputs give the same bits (the warps' C
-    fragments are summed in a fixed order, without atomics), at Path C's o
-    and Path D's down."""
+    fragments are summed in a fixed order, without atomics), at Path C's o,
+    Path D's down and Path F's vec-4 o and down."""
     words, lut = _vq_case(bits, vec, m, k, cuda, seed=5 * m + k)
     x = torch.randn((N, k), device=cuda).bfloat16()
     ys = []
@@ -534,6 +536,26 @@ def test_vq_gemv_ragged_m_matches_plain(cuda, bits, vec):
             ref = vq.vq_gemv_plain(x, words, lut, bits, vec, m, k)
             rel = ((y - ref).abs().max() / ref.abs().max()).item()
             assert rel <= 1e-4, (m, k, N, rel)
+
+
+@pytest.mark.parametrize("bits", range(4, 13))
+def test_vq4_gemv_row_slice_is_bit_equal(cuda, bits):
+    """K8 at vec 4 sums each output element in an order fixed by k alone:
+    the rows of a slice of the row-pack (a column-parallel rank's half,
+    and rows 37-1000) come out bit-equal to the same rows of the whole,
+    at o (8 chunks a row) and down (28), N in {1, 8}."""
+    for m, k in ((4096, 4096), (4096, 14336)):
+        words, lut = _vq_case(bits, 4, m, k, cuda, seed=3 * m + k + bits)
+        for N in (1, 8):
+            x = torch.randn((N, k), device=cuda).bfloat16()
+            y = vq.vq_gemv(x, words, lut, bits, 4, m, k)
+            for r0, r1 in ((m // 2, m), (37, 1000)):
+                part = vq.vq_gemv(x, words[r0:r1].clone(), lut, bits, 4,
+                                  r1 - r0, k)
+                torch.cuda.synchronize()
+                assert torch.equal(part.view(torch.int32),
+                                   y[:, r0:r1].contiguous().view(
+                                       torch.int32)), (m, k, N, r0, r1)
 
 
 def _head_case(device, N, seed):

@@ -1,6 +1,7 @@
-"""The fragment algebra of the tensor-core K8 GEMV (csrc/vq.cu,
-vq_gemv_kernel), emulated in torch from its lane map and held to
-vq_gemv_plain, for all 26 ldlq (bits, vec) pairs:
+"""The fragment algebra of the tensor-core K8 GEMV at vec 1 and 2
+(csrc/vq.cu, vq_gemv_kernel), emulated in torch from its lane map and held
+to vq_gemv_plain, for the 17 ldlq (bits, vec) pairs it takes (vec 4 has a
+kernel of its own: tests/test_torch_vq4_fragment.py):
 
   - lane (g, c)'s run: positions 32c .. 32c+31 of a 128-position chunk of
     rows g and g+8 of an m-tile, exactly `bits` words of each row (rows
@@ -15,11 +16,10 @@ vq_gemv_plain, for all 26 ldlq (bits, vec) pairs:
     (window << shift) masked, OR the lane's byte offset; vec 2 a bf16x2
     codebook row, vec 1 at bits <= 4 a pair table indexed by two adjacent
     windows, vec 1 at bits 5-8 a bf16 entry (two reads and a PRMT a
-    register); vec 4 8-byte entries (the bf16x2 of values 0, 1 and of 2,
-    3), copy r of entry e at byte 8 * ((e << copy_bits) + r);
+    register);
   - MMA j of a chunk: A registers a0/a2 = rows g, a1/a3 = rows g+8, k slots
-    (2c, 2c+1) and (2c+8, 2c+9) from run positions 2j and 2j+1 (vec 2),
-    4j, 4j+1 and 4j+2, 4j+3 (vec 1) or position j's two words (vec 4);
+    (2c, 2c+1) and (2c+8, 2c+9) from run positions 2j and 2j+1 (vec 2) or
+    4j, 4j+1 and 4j+2, 4j+3 (vec 1);
     B = x row g at the run's columns
     4j .. 4j+3 of the lane's columns (zero for rows n >= N); one m16n8k16
     product;
@@ -43,6 +43,7 @@ from qpalette_tpu_torch.ops import codebooks
 _M32 = 0xFFFFFFFF
 CHUNK = 128  # positions a chunk (vq.ALIGN_P)
 M = 37  # three m-tiles, the last with 5 rows
+PAIRS = [(b, v) for b, v in vq.SUPPORTED if v < 4]  # vq_gemv_kernel's
 
 
 def _layout(bits, vec):
@@ -50,21 +51,16 @@ def _layout(bits, vec):
     of an entry) as vq_gemv_kernel's table has them."""
     pair = vec == 1 and bits <= 4
     win = 2 * bits if pair else bits
-    entry_shift = 3 if vec == 4 else 2  # 8-byte entries at vec 4
-    copy_bits = min(5, vq.GEMV_TABLE_BITS - entry_shift - win)
-    return pair, win, copy_bits, entry_shift + copy_bits
+    copy_bits = min(5, vq.GEMV_TABLE_BITS - 2 - win)
+    return pair, win, copy_bits, 2 + copy_bits
 
 
 def _table(lut, bits, vec):
-    """The shared-memory table as 32-bit words (int64), (words, 1) or at
-    vec 4 (entries, 2): an entry's two words."""
+    """The shared-memory table as 32-bit words (int64), (words, 1)."""
     pair, win, copy_bits, shift = _layout(bits, vec)
     b = lut.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
     e = torch.arange(1 << win)
-    if vec == 4:
-        ent = torch.stack([b[e, 0] | (b[e, 1] << 16),
-                           b[e, 2] | (b[e, 3] << 16)], 1)
-    elif vec == 2:
+    if vec == 2:
         ent = (b[e, 0] | (b[e, 1] << 16))[:, None]
     elif pair:
         ent = (b[e & ((1 << bits) - 1), 0] | (b[e >> bits, 0] << 16))[:, None]
@@ -159,7 +155,7 @@ def _emulate(x, words, lut, bits, vec, m, k, mutate=None):
     run = ring
     lo = (lane & ((1 << copy_bits) - 1)) << (shift - copy_bits)
 
-    def look(w, q, word=0):  # the entry of the window at run position q
+    def look(w, q):  # the entry of the window at run position q
         o = q * bits
         i, sh = o >> 5, o & 31
         if sh + win > 32:  # __funnelshift_r(w[i], w[i + 1], sh - shift)
@@ -170,11 +166,9 @@ def _emulate(x, words, lut, bits, vec, m, k, mutate=None):
         else:
             v = (w[..., i] << (shift - sh)) & _M32
         off = (v & (((1 << win) - 1) << shift)) | lo
-        return table[off >> (shift - copy_bits), word]
+        return table[off >> (shift - copy_bits), 0]
 
     def reg(w, j, hi):  # k slots 2c, 2c+1 (hi 0) or 2c+8, 2c+9 (hi 1)
-        if vec == 4:
-            return look(w, j, word=hi)
         if vec == 2:
             return look(w, 2 * j + hi)
         q = 4 * j + 2 * hi
@@ -230,19 +224,14 @@ def _case(bits, vec, chunks, N, seed):
         -(1 << 31), 1 << 31, (M, vq.row_words(k, bits, vec))).astype(
             np.int32))
     x = torch.from_numpy(rng.standard_normal((N, k)).astype(np.float32))
-    # vec 4: a seeded stand-in (no vec-4 codebook is committed; the layout
-    # does not depend on the values)
-    lut = (torch.tensor(codebooks.vq_lut(bits, vec)) if vec < 4 else
-           torch.from_numpy(rng.standard_normal((1 << bits, vec)).astype(
-               np.float32)))
-    return x, words, lut, k
+    return x, words, torch.tensor(codebooks.vq_lut(bits, vec)), k
 
 
 def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("bits,vec", vq.SUPPORTED)
+@pytest.mark.parametrize("bits,vec", PAIRS)
 def test_vq_fragment_matches_plain(bits, vec):
     """Every scheme, N = 1 and 8, k of two and three chunks, m = 37: the
     emulated kernel gives vq_gemv_plain's y up to the order of the f32
@@ -258,8 +247,7 @@ def test_vq_fragment_matches_plain(bits, vec):
 
 
 @pytest.mark.parametrize("mutate", ["swap_a02", "natural_x"])
-@pytest.mark.parametrize("bits,vec", [(6, 2), (4, 1), (7, 1), (11, 2),
-                                      (8, 4)])
+@pytest.mark.parametrize("bits,vec", [(6, 2), (4, 1), (7, 1), (11, 2)])
 def test_vq_fragment_mutation_fails(bits, vec, mutate):
     """The check has teeth: a0 and a2 swapped, or B taken from x in the
     MMA's natural k order, is far from the plain version."""
