@@ -4,7 +4,7 @@
   python chip_smoke.py
   python chip_smoke.py --parent OLD_CSRC_DIR
       [--ab tcq2_gemv|tcq2_wide|tcq2mix_wide|tcq1_wide|tcq2mix|tcq1_gemv|
-            tcq_lut|vq|vq4]
+            tcq_lut|vq|vq4|dequant]
   python chip_smoke.py --rows
   python chip_smoke.py --serve
   python chip_smoke.py --msq
@@ -30,7 +30,13 @@ F's o and down, summed apart over a 32-layer forward, the other vec-4
 bits at o and down, and the Path F decode (--ab vq4), with the source
 against the same
 source of an older tree's qpalette_tpu_torch/csrc (e.g. unpacked with
-`git archive`).  With --rows it runs only k1_rows (phase 3's K1 dualmad,
+`git archive`); --ab dequant (ab_dequant) takes both dequant sources,
+arith_dequant.cu and tcq_lut.cu: K3 and K7 at 4096x4096 with K2 and K6
+beside them, K3/K2 over the tcq2mix prefill's calls, K2 over the 215's
+and K7/K6 over the flagship prefill's, the Path B exact 512-token
+prefill and the Path E decode (tokens/s and each replay's time; the
+sources and the turns through dequant_turns).  With --rows it runs only
+k1_rows (phase 3's K1 dualmad,
 1mad and 2mad above 8 rows), with --serve only the serving phases (6b,
 6c), with --msq only the MSQ phase (12), with --quant only the
 quantization phase (13), with --tp only the tensor-parallel phase (14),
@@ -1072,9 +1078,16 @@ def eager_loop(spec, params, prompt, n, T, temperature=0.0, top_k=5,
 # a decode step's kernels of the port (K1, K4/K5, K8, K10 with its
 # quantize kernel, K11; the dequants K2/K3, K6/K7, K9 of the dequant
 # route), by their CUDA names; every other device op is glue
-PORT_GEMV = re.compile(r"(v1|v2|wide|lut|vq)_gemv_kernel|wide_x_kernel|"
+PORT_GEMV = re.compile(r"(v1|v2|wide|lut|vq|vq4)_gemv_kernel|wide_x_kernel|"
                        r"i8gemv_kernel|quantize_kernel")
-PORT_DEQUANT = re.compile(r"(arith|lut|vq)_dequant_kernel")
+# the dequant kernels by CUDA name, each with the wrappers that launch it
+# once a call
+DEQUANT_KERNELS = {"arith_dequant_kernel": ("tcq2_dequant",),
+                   "v1_dequant_kernel": ("tcq1_dequant",),
+                   "lut_ring_kernel": ("tcq_lut_dequant",
+                                       "tcomb_lut_dequant"),
+                   "vq_dequant_kernel": ("vq_dequant",)}
+PORT_DEQUANT = re.compile("|".join(rf"\b{k}\b" for k in DEQUANT_KERNELS))
 BIT_STEPS, PROFILE_STEPS = 4, 8
 # the glue's kinds of device op, by name (first match; the rest "other")
 GLUE_KINDS = [(kind, re.compile(pattern, re.I)) for kind, pattern in (
@@ -1085,7 +1098,21 @@ GLUE_KINDS = [(kind, re.compile(pattern, re.I)) for kind, pattern in (
     ("elementwise", r"elementwise"))]
 
 
-def profile_replays(label, step, pos, n, card_label):
+def dequant_ops_check(label, names, want, n=1):
+    """The dequant kernels' device ops among `names` (the traced ops of n
+    runs), counted by kernel, equal to n times the launches `want` (by
+    wrapper) gives each: a kernel renamed past PORT_DEQUANT fails here,
+    not as time moved to the glue.  Returns the counts a run."""
+    got = {kern: sum(bool(re.search(rf"\b{kern}\b", name))
+                     for name in names) / n for kern in DEQUANT_KERNELS}
+    need = {kern: sum(want.get(w, 0) for w in wrappers)
+            for kern, wrappers in DEQUANT_KERNELS.items()}
+    check(got == need, f"{label}: dequant kernels traced {got} a run, "
+          f"launched {need}")
+    return got
+
+
+def profile_replays(label, step, pos, n, card_label, want=None):
     """torch.profiler over n replays of a captured step: device time a step
     (the ops' summed durations; the union of their intervals is the busy
     time), GEMV against glue, the top 10 ops.  Then the same n replays
@@ -1093,7 +1120,8 @@ def profile_replays(label, step, pos, n, card_label):
     synchronize, and CUDA events around them.  The device's busy share is
     the traced busy time over that unprofiled wall time (the profiler's
     own host work would inflate the wall).  Each window starts at position
-    pos.  Returns the summary."""
+    pos.  With want (the step's launches by wrapper), the dequant kernels
+    traced must match it (dequant_ops_check).  Returns the summary."""
     from torch.profiler import ProfilerActivity, profile
 
     step.reset(step.token.clone(), pos)
@@ -1126,6 +1154,8 @@ def profile_replays(label, step, pos, n, card_label):
               f"{enqueue * 1e3:.3f} ms, CUDA events {event_ms:.3f} ms; card "
               f"{card_label}", flush=True)
         return timing
+    if want is not None:
+        dequant_ops_check(f"{label} graph", [e.name for e in ops], want, n)
     spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:
@@ -1275,7 +1305,7 @@ def graph_phase(label, spec, params, device, want_step, card_label):
     check(all(torch.equal(a, b) for c, e in zip(step.caches, eager)
               for a, b in zip(c, e)), f"{label}: captured caches differ")
     prof = profile_replays(label, step, PROMPT_LEN, PROFILE_STEPS,
-                           card_label)
+                           card_label, want_step)
     prof.update(clocked_replays(label, step, PROMPT_LEN, NEW_TOKENS,
                                 card_label))
     decode.release_captured(params)
@@ -1744,6 +1774,80 @@ def _lut_words(m, k, KV, device, seed):
             for i, kv in enumerate(KV)]
 
 
+# (label, wrapper, mode, KVs, m, k) of the dequants timed alone: K3 at a
+# palette and an off-palette KV (once a run-time instance) and 2mad, K7
+# at the palette's 6/7, the off-palette 5/7 and the flagship's 8/9, K6 and
+# K2 beside them (the palette's and a run-time KV), all at 4096x4096; then
+# the largest path shapes, whose W-hat does not fit L2: K6 at the
+# flagship's gate/up and down, K2 at the tcq2mix and 215 ug, K3 at the
+# tcq2mix down
+DQ_CASES = [("K3 1mad KV3", "tcq1_dequant", "1mad", (3,)),
+            ("K3 1mad KV6", "tcq1_dequant", "1mad", (6,)),
+            ("K3 2mad KV4", "tcq1_dequant", "2mad", (4,)),
+            ("K7 6/7", "tcomb_lut_dequant", None, (6, 7)),
+            ("K7 5/7", "tcomb_lut_dequant", None, (5, 7)),
+            ("K7 8/9", "tcomb_lut_dequant", None, (8, 9)),
+            ("K6 KV6", "tcq_lut_dequant", None, (6,)),
+            ("K6 KV2", "tcq_lut_dequant", None, (2,)),
+            ("K2 sum2 KV6", "tcq2_dequant", "sum2", (6,)),
+            ("K2 sum2 KV3", "tcq2_dequant", "sum2", (3,))]
+DQ_CASES = [c + (4096, 4096) for c in DQ_CASES] + [
+    ("K6 KV6 14336x4096", "tcq_lut_dequant", None, (6,), 14336, 4096),
+    ("K6 KV6 4096x14336", "tcq_lut_dequant", None, (6,), 4096, 14336),
+    ("K2 dualmad KV7 28672x4096", "tcq2_dequant", "dualmad", (7,), 28672,
+     4096),
+    ("K2 sum2 KV4 28672x4096", "tcq2_dequant", "sum2", (4,), 28672, 4096),
+    ("K3 1mad KV3 4096x14336", "tcq1_dequant", "1mad", (3,), 4096, 14336)]
+# ragged shapes each instance is also checked at: tile-rows of 17, 34 and
+# 258 k-tiles (tcomb halves of 17 and 129), so last groups of 1 or 2 tiles
+DQ_RAGGED = [(16, 272), (16, 544), (48, 4128)]
+
+
+def dq_shapes(KV):
+    """4096x4096 and the DQ_RAGGED shapes that KV's kernel takes (tcomb: k
+    a multiple of 32)."""
+    return [(m, k) for m, k in [(4096, 4096)] + DQ_RAGGED
+            if k % (16 * len(KV)) == 0]
+
+
+def dq_case(wrapper, mode, KV, m, k, dev, cycled=False):
+    """(run(i, out), plain(), bound ms) of a dequant instance at (m, k):
+    run writes W-hat from copy i of the words (one copy, or with `cycled`
+    enough to exceed L2 three times), plain() from copy 0."""
+    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut
+    from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+
+    if mode is not None:
+        W = arith.words_per_tile(mode, KV[0])
+        nbytes = (m // 16) * (k // 16) * W * 4
+        n = min(64, -(-3 * L2_BYTES // nbytes)) if cycled else 1
+        cp = [_words(m, k, W, dev, seed=100 + i) for i in range(n)]
+        fn = getattr(arith_dequant, wrapper)
+
+        def run(i, out=None):
+            return fn(cp[i % len(cp)], KV[0], m, k, mode, out=out)
+
+        def plain():
+            return arith_dequant.arith_dequant_plain(cp[0], mode, KV[0], m, k)
+    else:
+        tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
+                            device=dev)
+        nbytes = m * k * sum(KV) // (16 * len(KV))
+        n = min(64, -(-3 * L2_BYTES // nbytes)) if cycled else 1
+        cp = [_lut_words(m, k, KV, dev, seed=100 * i + 1)
+              for i in range(n)]
+        nbytes += tlut.numel() * 4
+        fn = getattr(tcq_lut, wrapper)
+        plain_fn = getattr(tcq_lut, wrapper + "_plain")
+
+        def run(i, out=None):
+            return fn(*cp[i % len(cp)], tlut, *KV, m, k, out=out)
+
+        def plain():
+            return plain_fn(*cp[0], tlut, *KV, m, k)
+    return run, plain, dequant_bound(nbytes, m, k)[0]
+
+
 def lut_kernel_checks(tcq_lut, shapes, device):
     """K4-K7 against their plain versions at every flagship shape; returns
     ({kernel: max_abs_err}, {kernel: [ms, plain ms, bound ms per
@@ -2037,7 +2141,7 @@ def _ab_vq4(device, smi):
 
 AB = {"tcq2_gemv": _ab_sum2, "tcq2mix": _ab_tcq2mix, "tcq1_gemv": _ab_tcq1,
       "tcq_lut": _ab_lut, "vq": _ab_vq, "vq4": _ab_vq4, "tcq2_wide": None,
-      "tcq2mix_wide": None, "tcq1_wide": None}
+      "tcq2mix_wide": None, "tcq1_wide": None, "dequant": None}
 # ab_wide's mode
 WIDE_AB = {"tcq2_wide": "sum2", "tcq2mix_wide": "dualmad", "tcq1_wide": "1mad"}
 
@@ -2219,6 +2323,213 @@ def ab_wide(parent_csrc, mode):
                       "turns": turns}))
 
 
+def _dq_path_cases():
+    """{path: [(wrapper, mode, KVs, m, k, calls)]}: K3 and K2 over the
+    tcq2mix 512-token exact prefill's calls (Path B), K2 over the 215's
+    (its ug KVs as the 215 qdict mixes them), K7 and K6 over the flagship
+    16-token prefill's."""
+    from qpalette_tpu_torch.models.llama import LlamaConfig
+
+    mix = [("tcq2_dequant" if mode in ("sum2", "dualmad") else
+            "tcq1_dequant", mode, (KV,), m, k, calls)
+           for _, m, k, mode, KV, calls in SHAPES_ARITH if calls]
+    qdict_215, _ = _load_215()
+    ug = [int(qdict_215[f"{i}_mlp.up_proj"][0].split("_")[1])
+          for i in range(32)]
+    p215 = [("tcq2_dequant", "sum2", (KV,), m, k,
+             ug.count(KV) if name == "ug" else CALLS_PER_STEP[name])
+            for name, m, k, KV in SHAPES_215 if name != "lm_head"]
+    with open(FLAGSHIP_QDICT) as f:
+        qdict = json.load(f)
+    flag = [("tcomb_lut_dequant" if len(KV) == 2 else "tcq_lut_dequant",
+             None, KV, m, k, calls)
+            for (m, k, KV), calls in sorted(flagship_shapes(
+                LlamaConfig.llama31_8b(), qdict).items())]
+    return {"tcq2mix prefill": mix, "215 prefill": p215,
+            "flagship prefill": flag}
+
+
+def replay_paces(label, spec, params, card_label, windows=2):
+    """ms of each replay of a freshly captured decode step (CUDA events
+    around every replay), windows of NEW_TOKENS replays from PROMPT_LEN:
+    the captured step replays at one of two paces (PERF.md, section 7), so
+    the times are split at their widest gap and each pace is reported with
+    its count.  Returns the sorted times."""
+    from qpalette_tpu_torch.runtime import decode
+
+    V = spec.config.vocab_size
+    T = PROMPT_LEN + NEW_TOKENS + 1
+    step = decode.captured_step(spec, params, 1, T, 0.6, 5)
+    prompt = np.random.default_rng(0).integers(0, V, (1, PROMPT_LEN))
+    logits, _ = decode.prefill(spec, params,
+                               torch.as_tensor(prompt, device="cuda"),
+                               step.caches)
+    tok = decode.sample_logits(logits[:, -1], step.generator, 0.6, 5)[:, None]
+    ms = []
+    for _ in range(windows):
+        step.reset(tok, PROMPT_LEN)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(NEW_TOKENS + 1)]
+        ev[0].record()
+        for i in range(NEW_TOKENS):
+            step.replay()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        ms += [ev[i].elapsed_time(ev[i + 1]) for i in range(NEW_TOKENS)]
+    decode.release_captured(params)
+    ms.sort()
+    cut = max(range(1, len(ms)), key=lambda i: ms[i] - ms[i - 1])
+    paces = [(float(np.median(part)), len(part))
+             for part in (ms[:cut], ms[cut:])]
+    print(f"[{label}] {len(ms)} replays, ms each (CUDA events): min "
+          f"{ms[0]:.3f}, median {np.median(ms):.3f}, max {ms[-1]:.3f}; "
+          f"split at the widest gap ({ms[cut - 1]:.3f} | {ms[cut]:.3f}): "
+          + ", ".join(f"{c} at median {m:.3f}" for m, c in paces)
+          + f"; card {card_label}", flush=True)
+    return ms
+
+
+def dequant_turns(trees, order, paths=True, unchecked=()):
+    """arith_dequant.cu (K2, K3) and tcq_lut.cu (K6, K7) of several trees
+    on one card, in turns: trees maps a label to a csrc directory (None:
+    the checkout's own sources), order the labels' turns.  Every build is
+    first held bit-equal to the plain versions, two launches each, at each
+    instance and shape timed and the DQ_RAGGED (but the labels in
+    `unchecked`: sources that drop work on purpose).  A turn times each
+    DQ_CASES instance (CUDA-graph replays, words cycled past L2) and, with
+    `paths`, K3 and K2 summed over the tcq2mix 512-token prefill's calls,
+    K2 over the 215's, K7 and K6 over the flagship prefill's, the Path B
+    512-token exact prefill (tcq2mix), the Path E decode tokens/s and its
+    captured step's replay paces; the SM clock a turn."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from qpalette_tpu_torch.kernels import _build as kb
+    from qpalette_tpu_torch.kernels import arith_dequant, tcq_lut
+
+    _, _, smi = card()
+    device = torch.device("cuda:0")
+    mods = {"arith_dequant": arith_dequant, "tcq_lut": tcq_lut}
+
+    def so(i, label, src):
+        return (kb.lib_path(src) if trees[label] is None
+                else kb.BUILD / f"lib{src}_tree{i}.so")
+
+    with ThreadPoolExecutor(2 * len(trees)) as ex:
+        builds = {(label, src): (
+            ex.submit(kb.build, src) if d is None else
+            ex.submit(kb.compile_cu, Path(d) / f"{src}.cu",
+                      so(i, label, src)))
+            for i, (label, d) in enumerate(trees.items()) for src in mods}
+        for (label, src), b in builds.items():
+            entries = ptxas_entries(b.result())
+            print(f"[dq] {label} {src}.cu: {len(entries)} kernels, "
+                  f"{sum(bool(SPILL.search(e[2])) for e in entries)} with "
+                  f"spills; " + "; ".join(
+                      f"{e[0]}: {e[1]}" for e in entries
+                      if PORT_DEQUANT.search(e[0])
+                      or "dequant" in e[0] or "ring" in e[0]), flush=True)
+    libs = {label: {src: kb.bind(so(i, label, src), m.SIGNATURES)
+                    for src, m in mods.items()}
+            for i, label in enumerate(trees)}
+    lib_of = {s: m._lib for s, m in mods.items()}
+
+    def use(label):
+        for s, m in mods.items():
+            m._lib = lambda lib=libs[label][s]: lib
+
+    dq_paths = _dq_path_cases() if paths else {}
+    shapes = ([(w, mode, KV, m, k) for _, w, mode, KV, _, _ in DQ_CASES
+               for m, k in dq_shapes(KV)]
+              + sorted({c[:5] for cases in dq_paths.values()
+                        for c in cases}))
+    try:
+        for label in trees:
+            if label in unchecked:
+                continue
+            use(label)
+            for wrapper, mode, KV, m, k in shapes:
+                run, plain, _ = dq_case(wrapper, mode, KV, m, k, device)
+                ref = plain()
+                same = all(torch.equal(run(0).view(torch.int16),
+                                       ref.view(torch.int16))
+                           for _ in range(2))
+                print(f"[dq] {label} {wrapper} {mode or ''} KV={KV} "
+                      f"{m}x{k}: two launches bit-equal to plain={same}",
+                      flush=True)
+                check(same, f"{label} {wrapper} KV={KV} {m}x{k}: not "
+                      f"bit-equal")
+                del ref
+        timed = {lab: (dq_case(w, mode, KV, m, k, device, cycled=True),
+                       (m, k), None) for lab, w, mode, KV, m, k in DQ_CASES}
+        for path, cases in dq_paths.items():
+            for w, mode, KV, m, k, calls in cases:
+                lab = f"{path} {w} KV={'/'.join(map(str, KV))} {m}x{k}"
+                timed[lab] = (dq_case(w, mode, KV, m, k, device,
+                                      cycled=True), (m, k), (path, w, calls))
+        if paths:
+            spec_b, params_b = _build(
+                "pathB tcq2mix", tcq2mix_qdict(),
+                [["merge_qkv", "merge_ug"]] * 32, "exact", 4, device)
+            qdict_e, merge_e = path_e_qdict()
+            spec_e, params_e = _build("pathE", qdict_e, merge_e, "a8", 4,
+                                      device)
+        turns = []
+        for label in order:
+            use(label)
+            us, paths_ms, bounds = {}, {}, {}
+            with SmClock() as clock:
+                for lab, ((run, _, bound), shape, on) in timed.items():
+                    out = torch.empty(shape, dtype=torch.bfloat16,
+                                      device=device)
+                    t = _time_ms(lambda i=0: run(i, out), 50, graph=True)
+                    us[lab] = t * 1e3
+                    if on is not None:
+                        key = f"{on[1]} {on[0]}"
+                        paths_ms[key] = paths_ms.get(key, 0.0) + on[2] * t
+                        bounds[key] = bounds.get(key, 0.0) + on[2] * bound
+                    print(f"[dq] {label} {lab}: {t * 1e3:.2f} us a call, "
+                          f"bound {bound * 1e3:.2f} us ({bound / t:.1%})",
+                          flush=True)
+                    del out
+            turn = {"lib": label, "sm_mhz": clock.mhz, "us": us}
+            if paths:
+                prefill = min(prefill_time(f"pathB tcq2mix, {label}",
+                                           spec_b, params_b, device,
+                                           PREFILL_B, smi)
+                              for _ in range(2))
+                tps = throughput(f"pathE, {label}", spec_e, params_e,
+                                 device, smi)
+                paces = replay_paces(f"pathE, {label}", spec_e, params_e,
+                                     smi)
+                turn.update(path_ms=paths_ms,
+                            pathB_prefill_ms=prefill * 1e3,
+                            pathE_tokens_per_s=tps,
+                            pathE_replay_ms=paces)
+                print(f"[dq] {label}: " + ", ".join(
+                    f"{k} {v:.4f} ms ({bounds[k] / v:.1%} of "
+                    f"{bounds[k]:.4f})" for k, v in paths_ms.items())
+                    + f"; Path B 512-token prefill {prefill * 1e3:.1f} ms;"
+                    f" Path E {tps:.2f} tokens/s, replays' median "
+                    f"{np.median(paces):.3f} ms", flush=True)
+            print(f"[dq] {label}: " + ", ".join(
+                f"{lab} {v:.2f}us" for lab, v in us.items())
+                + f" ({smi}, {clock})", flush=True)
+            turns.append(turn)
+    finally:
+        for s, m in mods.items():
+            m._lib = lib_of[s]
+    print(json.dumps({"card": smi, "sources": sorted(mods),
+                      "bound_ms": bounds, "turns": turns}))
+
+
+def ab_dequant(parent_csrc):
+    """--ab dequant: dequant_turns of the checkout's sources against an
+    older tree's, in turns parent, new, new, parent, with the paths."""
+    return dequant_turns({"parent": parent_csrc, "new": None},
+                         ("parent", "new", "new", "parent"))
+
+
 def parent_ab(parent_csrc, which):
     """One CUDA source of the port against the same source of an older
     tree (parent_csrc: that tree's qpalette_tpu_torch/csrc, e.g. unpacked
@@ -2242,6 +2553,8 @@ def parent_ab(parent_csrc, which):
 
     if which in WIDE_AB:
         return ab_wide(parent_csrc, WIDE_AB[which])
+    if which == "dequant":
+        return ab_dequant(parent_csrc)
     _, _, smi = card()
     device = torch.device("cuda:0")
     mod, source, sigs, cases, (path, spec, params) = AB[which](device, smi)
@@ -3720,8 +4033,8 @@ def off_palette_check(device):
 # the dequant kernels' off-palette instances timed at 4096x4096 (phase 10d):
 # K2 / K3 / K6 at the run-time KV of OFF_PALETTE's scheme, K7 at its
 # run-time pair (kernel, mode, KVs), and K9 at the 10 (bits, vec) that no
-# GEMV takes; beside each kernel, its instance of a palette scheme at the
-# same shape
+# GEMV takes; beside each kernel, its instances of palette schemes at the
+# same shape (K7 also at the flagship's 8/9)
 OFF_PALETTE_TIMED = [("tcq2_dequant", "sum2", (3,)),
                      ("tcq1_dequant", "1mad", (6,)),
                      ("tcq_lut_dequant", None, (2,)),
@@ -3730,22 +4043,29 @@ PALETTE_TIMED = [("tcq2_dequant", "sum2", (6,)),
                  ("tcq1_dequant", "1mad", (3,)),
                  ("tcq_lut_dequant", None, (6,)),
                  ("tcomb_lut_dequant", None, (6, 7)),
+                 ("tcomb_lut_dequant", None, (8, 9)),
                  ("vq_dequant", 2, (6,))]
 
 
 def off_palette_times(device, shape=(4096, 4096)):
     """Each OFF_PALETTE_TIMED instance (and PALETTE_TIMED beside it) at
-    `shape`: ms a call (CUDA-graph replays, words cycled past L2), its
-    bound (the packed words read once and the bf16 W-hat written once at
-    3.35 TB/s) and its share of it.  Returns {label: [ms, bound ms, off the
-    palette?]}."""
-    from qpalette_tpu_torch.kernels import arith, arith_dequant, tcq_lut, vq
-    from qpalette_tpu_torch.ops.codebooks import tlut_bits_for_kv, trellis_tlut
+    `shape`, then K2 / K3 summed over the tcq2mix 512-token prefill's calls
+    and K6 / K7 over the flagship prefill's (_dq_path_cases): ms a call
+    (CUDA-graph replays, words cycled past L2), its bound (the packed
+    words read once and the bf16 W-hat written once at 3.35 TB/s) and its
+    share of it.  Returns {label: [ms, bound ms, off the palette?]}, a
+    path's label "<wrapper> over the <path>'s <n> calls"."""
+    from qpalette_tpu_torch.kernels import vq
 
     m, k = shape
     k9 = [("vq_dequant", v, (b,)) for b, v in vq.DEQUANT
           if (b, v) not in vq.SUPPORTED]
     out = {}
+
+    def timed(run, m, k):
+        wout = torch.empty((m, k), dtype=torch.bfloat16, device=device)
+        return _time_ms(lambda i=0: run(i, wout), 50, graph=True)
+
     for off, cases in ((True, OFF_PALETTE_TIMED + k9),
                        (False, PALETTE_TIMED)):
         for kname, mode, KV in cases:
@@ -3765,36 +4085,33 @@ def off_palette_times(device, shape=(4096, 4096)):
                 def run(i, o, cp=cp, lut=lut, bits=bits, vec=vec):
                     vq.vq_dequant(cp[i % len(cp)], lut, bits, vec, m, k,
                                   out=o)
-            elif kname in ("tcq2_dequant", "tcq1_dequant"):
-                cp, nbytes = _copies(m, k, arith.words_per_tile(mode, KV[0]),
-                                     device)
-                fn = getattr(arith_dequant, kname)
-                label = f"{kname} {mode} KV={KV[0]}"
-
-                def run(i, o, cp=cp, fn=fn, mode=mode, kv=KV[0]):
-                    fn(cp[i % len(cp)], kv, m, k, mode, out=o)
+                bms, _ = dequant_bound(nbytes, m, k)
             else:
-                tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
-                                    device=device)
-                nbytes = m * k * sum(KV) // (16 * len(KV))
-                cp = [_lut_words(m, k, KV, device, seed=100 * i)
-                      for i in range(min(64, -(-3 * L2_BYTES // nbytes)))]
-                nbytes += tlut.numel() * 4
-                fn = getattr(tcq_lut, kname)
-                label = f"{kname} KV={'/'.join(map(str, KV))}"
-
-                def run(i, o, cp=cp, fn=fn, tlut=tlut, KV=KV):
-                    fn(*cp[i % len(cp)], tlut, *KV, m, k, out=o)
-            wout = torch.empty((m, k), dtype=torch.bfloat16, device=device)
-            ms = _time_ms(lambda i=0: run(i, wout), 50, graph=True)
-            bms, _ = dequant_bound(nbytes, m, k)
+                run, _, bms = dq_case(kname, mode, KV, m, k, device,
+                                      cycled=True)
+                label = (f"{kname} {mode or ''} "
+                         f"KV={'/'.join(map(str, KV))}").replace("  ", " ")
+            ms = timed(run, m, k)
             out[label] = [ms, bms, off]
             print(f"[time] {'off-palette' if off else 'palette'} {label} "
                   f"{m}x{k}: {ms:.4f} ms, bound {bms:.4f} ms "
                   f"({bms / ms:.1%} of it)", flush=True)
-            del cp, wout
+            del run
+    for path, cases in _dq_path_cases().items():
+        sums = {}
+        for w, mode, KV, pm, pk, calls in cases:
+            run, _, bms = dq_case(w, mode, KV, pm, pk, device, cycled=True)
+            s = sums.setdefault(w, [0.0, 0.0, 0])
+            s[0] += calls * timed(run, pm, pk)
+            s[1] += calls * bms
+            s[2] += calls
+            del run
+        for w, (ms, bms, n) in sums.items():
+            label = f"{w} over the {path}'s {n} calls"
+            out[label] = [ms, bms, False]
+            print(f"[time] {label}: {ms:.4f} ms, bound {bms:.4f} ms "
+                  f"({bms / ms:.1%} of it)", flush=True)
     return out
-
 
 def small_model_checks(device):
     kvs = [dict(qkv=6, o=4, ug=6, down=8), dict(qkv=8, o=6, ug=4, down=6)]
@@ -3958,12 +4275,13 @@ def _device_us(event):
     return event.cuda_time_total if total is None else total
 
 
-def profile_window(spec, params, tokens, card_label):
+def profile_window(spec, params, tokens, card_label, want):
     """torch.profiler over one ce_loss window: device time by kind.  The
     attention, the f32 products of the dequant route (qlinear._product:
     the f32 copies of x and W_hat and the product) and the forward run
-    inside ranges for the trace; the dequant kernels are named; the head's
-    CE is the window's device time outside the forward."""
+    inside ranges for the trace; the dequant kernels are named, and their
+    ops must match want (the window's launches, dequant_ops_check); the
+    head's CE is the window's device time outside the forward."""
     from torch.profiler import ProfilerActivity, profile
 
     from qpalette_tpu_torch.models import llama
@@ -3991,6 +4309,7 @@ def profile_window(spec, params, tokens, card_label):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not e.name.startswith("eval::")]
     check(ops, "profiler: no device op in the trace of a window")
+    dequant_ops_check("eval window", [e.name for e in ops], want)
     total = sum(e.time_range.elapsed_us() for e in ops) / 1e3
     deq = sum(e.time_range.elapsed_us() for e in ops
               if PORT_DEQUANT.search(e.name)) / 1e3
@@ -4092,7 +4411,7 @@ def ppl_check(spec, params, device, card_label):
           f"memory {peak / 1e9:.3f} GB; "
           f"{FLAGSHIP_TCQ} K6 + {FLAGSHIP_TCOMB} K7 a window, blockwise "
           f"attention in all {nl} layers; card {card_label}", flush=True)
-    prof = profile_window(spec, params, tokens, card_label)
+    prof = profile_window(spec, params, tokens, card_label, want)
     return counts, {"ppl_window_s": dt / EVAL_WINDOWS,
                     "eval_tokens_s": n_tok / dt, "peak_gb": peak / 1e9,
                     "loss": avg, "ce_diff": abs(ce - ref), **prof}

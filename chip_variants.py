@@ -22,6 +22,15 @@ SASS of its kernels.
       wide_gemv_kernel): checked at o, N = 49, then the 215 shapes at N =
       16, 64 and 256 as a zero-shot forward calls them (layers exact, the
       head a8); ms a zero-shot forward's 129 calls.
+  python chip_variants.py time dequant DIR [DIR ...]
+      the same for each DIR's arith_dequant.cu (K2, K3) and tcq_lut.cu (K6,
+      K7), through chip_smoke.dequant_turns (what --ab dequant runs, without
+      the paths): ptxas registers, checked bit-equal to the plain versions
+      at 4096x4096 and at the ragged m 16 / 48, k 272 / 544 / 4128 (but a
+      DIR named probe*: a copy whose kernels drop work on purpose), then
+      each chip_smoke.DQ_CASES instance (CUDA-graph replays, words cycled
+      past L2) in turns A B .. B A: us a call and its share of the bound,
+      the SM clock a turn.
   python chip_variants.py sweep [DIR ...]
       K8's fixed cost a call: vq_gemv at N = 1, k = 4096, over m from 16
       to 16384 rows, at ldlq_4_8 (vec 4) and ldlq_2_6 (vec 2), of the
@@ -48,7 +57,8 @@ SASS of its kernels.
       share of one unit of MMAS MMAs (vq_gemv_kernel: a chunk, 16 MMAs at
       vec 2, 8 at vec 1) in the smallest loop that holds an MMA (branches
       taken once a tile included), and the instructions an MMA between
-      that loop's first and last MMA.
+      that loop's first and last MMA; a kernel without MMAs (the dequants)
+      gets the whole function's counts alone.
   python chip_variants.py conflicts [COPIES ...]
       no card: the shared-memory wavefronts a warp's table read of K8
       takes, on uniform random indices, for every ldlq (bits, vec) at the
@@ -266,6 +276,17 @@ def time_vq(dirs):
         vq._lib = orig
 
 
+def time_dequant(dirs):
+    """chip_smoke.dequant_turns over the dirs, A B .. B A, at DQ_CASES
+    alone; a dir named probe* is timed but not checked."""
+    import chip_smoke as cs
+
+    cs.dequant_turns({d: d for d in dirs}, list(dirs) + list(dirs)[::-1],
+                     paths=False,
+                     unchecked={d for d in dirs
+                                if Path(d).name.startswith("probe")})
+
+
 SWEEP_M = (16, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
@@ -464,6 +485,8 @@ def opcodes(src, pattern, mmas=None):
                               for op, c in win.most_common()), flush=True)
             continue
         mma = [i for i, op in enumerate(ops) if op in ("IMMA", "HMMA")]
+        if len(mma) < 31:  # no unrolled MMA slots (a dequant)
+            continue
         win = collections.Counter(ops[mma[2]:mma[30]])
         print(f"  first unrolled slot: {sum(win.values()) / 14:.1f} "
               f"instructions a tile; " + ", ".join(
@@ -516,6 +539,7 @@ if __name__ == "__main__":
     cmd, args = sys.argv[1], sys.argv[2:]
     {"time": lambda: (time_vq(args[1:]) if args[0] == "vq"
                       else time_wide(args[1:]) if args[0] == "wide"
+                      else time_dequant(args[1:]) if args[0] == "dequant"
                       else time_variants(args)),
      "sass": lambda: sass_diff(*args) if len(args) == 3 else sass_dirs(*args),
      "opcodes": lambda: opcodes(*args),

@@ -68,23 +68,25 @@
 //
 // Dequant: the trellis -> bf16 W_hat (m, k), natural order.  What bounds
 // it: 2 bytes written per weight against KV/16 bytes read, so the bf16
-// writes, and how whole the written lines are.  Design: a capped grid of
-// blocks (the table is loaded once per block); each warp takes 4 adjacent
-// tiles of one m-tile at a time, a 16 x 64 block of W_hat, and its 8 lanes
-// of a row write that row's 128 contiguous bytes as 16-byte stores.  (On an
-// H100, one tile per warp writing 32-byte row pieces took 3-4x as long.)
-//
-// The dequant's table is one copy (its reads are not its bound); a
-// Hopper weight layout is later work.  The dequant takes every KV from 1
-// to 16 and every pair of them: the palette's KV and (KV, KV+1) have an
-// instance each (KV a compile-time constant), any other runs the instance
-// KV = 0, which reads the KVs of its launch.
+// writes, and how whole the written lines are.  Design: the walk of
+// dequant.cuh (a persistent grid; each warp streams 16 x 64 blocks of W_hat
+// through its own ring of bulk copies, tcomb's from the array of their
+// half), so a block stages the table once: the GEMV's 32 KB table with
+// 2^(13-S) copies of each entry, lane l reading copy l % copies.  Lane l
+// decodes the 4 states of tile (l/2)%4 that cover 8 columns of row
+// 4*rg + l/8 from two funnel shifts, so the 8 lanes of a row write its 128
+// contiguous bytes as 16-byte stores.  (On an H100, one tile per warp
+// writing 32-byte row pieces took 3-4x as long.)  The dequant takes every
+// KV from 1 to 16 and every pair of them: the palette's KV and (KV, KV+1)
+// have an instance each (KV a compile-time constant), any other runs the
+// instance KV = 0, which reads the KVs of its launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dequant.cuh"
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -97,7 +99,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;               // GEMV activation rows
 constexpr int kMaxTlutBits = 11;
 constexpr int kMaxKV = 16;                // the dequant's largest KV
-constexpr int kDequantBlocks = 2112;      // two waves of 8 per SM
 constexpr int kTabBits = 15;     // the GEMV's table: 32 KB static shared
 constexpr int kRingBytes = kSlots * kStageTiles * 16 * 10;  // KV <= 10
 constexpr int kGemvBlocksPerSM = 4;
@@ -110,28 +111,24 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float2 v) {
   return lo | (hi << 16);
 }
 
-// (2^S, 2) float32 table -> 2^S bf16x2 words in shared memory
-__device__ __forceinline__ void load_table(const float2* __restrict__ tlut,
-                                           int S, uint32_t* tab) {
-  for (int i = threadIdx.x; i < (1 << S); i += blockDim.x)
-    tab[i] = pack_bf16x2(tlut[i]);
-}
-
-// state s of the tile whose 4*KV words are wt -> its bf16x2 weight pair
-// (KV = KV_, or kv where KV_ = 0)
-template <int KV_>
-__device__ __forceinline__ uint32_t decode_state(const uint32_t* wt, int s,
-                                                 int kv, const uint32_t* tab,
-                                                 int S) {
-  const int KV = KV_ ? KV_ : kv;
-  const int W = 4 * KV;
-  const int off = KV * s;
-  const int w0 = off >> 5, sh = off & 31;
-  const int w1 = (w0 + 1 == W) ? 0 : w0 + 1;  // the stream is circular
-  const uint32_t u = __funnelshift_r(wt[w0], wt[w1], sh) & 0xffffu;
-  const uint32_t h = u * (u + 1u);
-  const uint32_t e = tab[(h >> (15 - S)) & ((1u << S) - 1u)];
-  return e ^ (h & 0x8000u);  // bit 15 of h: sign of component 0
+// The table of the GEMV and the dequant, staged by a block of kBlock
+// threads: 2^rb copies of each bf16x2 entry (rb = 13 - S), copy j of entry
+// e at word e*2^rb + j; S <= 11, so rb >= 2 and a thread stores whole
+// 16-byte groups of copies.  A thread's loads of the table are all in
+// flight before its stores.
+template <int kBlock>
+__device__ __forceinline__ void stage_table(const float2* __restrict__ tlut,
+                                            int S, uint8_t* tab, int tid) {
+  const int rb = kTabBits - 2 - S;
+  constexpr int kPer = (1 << (kTabBits - 4)) / kBlock;
+  float2 v[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) v[r] = tlut[(tid + r * kBlock) >> (rb - 2)];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const uint32_t p = pack_bf16x2(v[r]);
+    reinterpret_cast<uint4*>(tab)[tid + r * kBlock] = make_uint4(p, p, p, p);
+  }
 }
 
 // --- GEMV -------------------------------------------------------------------
@@ -257,23 +254,12 @@ lut_gemv_kernel(const __nv_bfloat16* __restrict__ x,
       issue_first<KV1>(job, ring, bars);
   }
 
-  // 2^rb copies of each entry, copy j of entry e at word e*2^rb + j; S <=
-  // 11, so rb >= 2 and a thread stores whole 16-byte groups of copies.  A
-  // thread's loads of the table are all in flight before its stores.
-  const int rb = kTabBits - 2 - S;
-  constexpr int kPer = (1 << (kTabBits - 4)) / kThreads;
-  float2 v[kPer];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) v[r] = tlut[(tid + r * kThreads) >> (rb - 2)];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const uint32_t p = pack_bf16x2(v[r]);
-    reinterpret_cast<uint4*>(tab)[tid + r * kThreads] = make_uint4(p, p, p, p);
-  }
+  stage_table<kThreads>(tlut, S, tab, tid);
   __syncthreads();
 
   const uint32_t tmask = ((1u << S) - 1u) << (kTabBits - S);
-  const uint32_t lcb = (uint32_t)(lane & ((1 << rb) - 1)) << 2;
+  const uint32_t lcb = (uint32_t)(lane & ((1 << (kTabBits - 2 - S)) - 1))
+                       << 2;
   float d[4] = {0.f, 0.f, 0.f, 0.f};
   if constexpr (KV1 == KV2) {
     warp_gemv<KV1>(job, ring, bars, tab, tmask, lcb, x, N, k, d);
@@ -310,67 +296,125 @@ lut_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   if (cs > 1) cluster.sync();  // every block's sums live until rank 0 read them
 }
 
-// Up to 4 adjacent k-tiles of one m-tile (a 16 x 64 block of W_hat): lane
-// l decodes the 4 states of tile (l/2)%4 that cover 8 columns of row
-// 4*rg + l/8, so the 8 lanes of a row write 128 contiguous bytes.
-template <int KV_>
-__device__ __forceinline__ void dequant_group(
-    const uint32_t* __restrict__ tiles, int ntile, int kv, uint32_t* wsw,
-    const uint32_t* tab, int S, __nv_bfloat16* __restrict__ wo, int k) {
-  const int W = 4 * (KV_ ? KV_ : kv);
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < ntile * W; i += 32) wsw[i] = tiles[i];
-  __syncwarp();
-  const int tl = (lane >> 1) & 3, t0 = (lane & 1) * 4;
-  if (tl < ntile) {
-    const uint32_t* wt = wsw + tl * W;
-#pragma unroll
-    for (int rg = 0; rg < 4; ++rg) {
-      const int row = rg * 4 + (lane >> 3);
-      uint4 e;
-      e.x = decode_state<KV_>(wt, 8 * row + t0, kv, tab, S);
-      e.y = decode_state<KV_>(wt, 8 * row + t0 + 1, kv, tab, S);
-      e.z = decode_state<KV_>(wt, 8 * row + t0 + 2, kv, tab, S);
-      e.w = decode_state<KV_>(wt, 8 * row + t0 + 3, kv, tab, S);
-      *reinterpret_cast<uint4*>(wo + (size_t)row * k + tl * 16 + 2 * t0) = e;
-    }
-  }
-  __syncwarp();  // wsw is overwritten by the warp's next group
+// --- dequant ----------------------------------------------------------------
+
+// ring slot bytes of the instance (KV1_, KV2_): a group of the larger KV
+template <int KV1_, int KV2_>
+constexpr int kLutSlot =
+    kDqTiles * 16 * (KV1_ == 0 ? kMaxKV : KV1_ > KV2_ ? KV1_ : KV2_);
+
+// Lane l of a group: rows 4*rg + l/8 (rg = 0..3) of tile (l/2)%4, columns
+// 8*(l%2) .. +8, i.e. states 8*row + 4*(l%2) + i, i = 0..3, cut from two
+// funnel shifts (i = 0, 1 and i = 2, 3).  rg steps 32 states, KV words at
+// one shift: a and b are the byte offsets of the two windows' first words
+// at rg = 0, sa and sb their shifts, a3 and b3 their second words at rg =
+// 3, the only rg whose windows wrap the tile's circular stream.
+struct LutLane {
+  uint32_t a, b, a3, b3;
+  int sa, sb;
+};
+
+__device__ __forceinline__ LutLane lut_lane(int lane, int KV) {
+  const int W = 4 * KV;  // words a tile
+  const uint32_t tile = (uint32_t)((lane >> 1) & 3) * 4 * W;
+  const int offa = KV * (8 * (lane >> 3) + 4 * (lane & 1)),
+            offb = offa + 2 * KV;
+  const int wa = offa >> 5, wb = offb >> 5;
+  const int wa3 = wa + 3 * KV + 1, wb3 = wb + 3 * KV + 1;
+  return {tile + 4 * wa, tile + 4 * wb, tile + 4 * (wa3 == W ? 0 : wa3),
+          tile + 4 * (wb3 == W ? 0 : wb3), offa & 31, offb & 31};
 }
 
+// The group's tiles at st; wo = W_hat at row l/8 of the m-tile, the lane's
+// first column of the group.
+template <int KV_>
+__device__ __forceinline__ void lut_group(const uint8_t* st, const LutLane& L,
+                                          int kv, const uint8_t* tab,
+                                          uint32_t tmask, uint32_t lcb,
+                                          int ntile, __nv_bfloat16* wo, int k,
+                                          int lane) {
+  const int KV = KV_ ? KV_ : kv;
+  if (((lane >> 1) & 3) >= ntile) return;  // a last group's missing tile
+#pragma unroll
+  for (int rg = 0; rg < 4; ++rg) {
+    const uint32_t d = 4 * KV * rg;
+    const uint32_t fa = __funnelshift_r(
+        dq_word(st, L.a + d), dq_word(st, rg == 3 ? L.a3 : L.a + d + 4),
+        L.sa);
+    const uint32_t fb = __funnelshift_r(
+        dq_word(st, L.b + d), dq_word(st, rg == 3 ? L.b3 : L.b + d + 4),
+        L.sb);
+    dq_store(wo + (size_t)4 * rg * k,
+             make_uint4(lut_pair(fa, tab, tmask, lcb),
+                        lut_pair(fa >> KV, tab, tmask, lcb),
+                        lut_pair(fb, tab, tmask, lcb),
+                        lut_pair(fb >> KV, tab, tmask, lcb)));
+  }
+}
+
+// tcq: KV1 == KV2 and kt2 == 0; tcomb: the KV1 tiles (trellis1) on columns
+// [0, 16*kt1), the KV2 tiles (trellis2) on [16*kt1, k).  A tile-row's
+// groups: ceil(kt1/4) of the first half, then ceil(kt2/4) of the second.
 // KV1_ = KV2_ = 0: the instance of the KVs outside the palette's, read
-// from kv1 and kv2
+// from kv1 and kv2.  Dynamic shared memory: each warp's kDqSlots slots,
+// then their barriers.
 template <int KV1_, int KV2_>
-__global__ void __launch_bounds__(kThreads)
-lut_dequant_kernel(const uint32_t* __restrict__ tr1,
-                   const uint32_t* __restrict__ tr2,
-                   const float2* __restrict__ tlut, int S,
-                   __nv_bfloat16* __restrict__ w, int m, int k, int kt1,
-                   int kt2, int kv1, int kv2) {
-  constexpr int KVM = KV1_ == 0 ? kMaxKV : KV1_ > KV2_ ? KV1_ : KV2_;
-  const int KV1 = KV1_ ? KV1_ : kv1, KV2 = KV2_ ? KV2_ : kv2;
-  __shared__ uint32_t tab[1 << kMaxTlutBits];
-  __shared__ uint32_t wsm[kWarps][4 * 4 * KVM];
-  load_table(tlut, S, tab);
+__global__ void __launch_bounds__(kDqThreads)
+lut_ring_kernel(const uint8_t* __restrict__ tr1,
+                const uint8_t* __restrict__ tr2,
+                const float2* __restrict__ tlut, int S,
+                __nv_bfloat16* __restrict__ w, int m, int k, int kt1,
+                int kt2, int kv1, int kv2) {
+  constexpr int kSlot = kLutSlot<KV1_, KV2_>;
+  __shared__ __align__(128) uint8_t tab[1 << kTabBits];
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint8_t* ring = smem + warp * kDqSlots * kSlot;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + kDqWarps * kDqSlots * kSlot) +
+      warp * kDqSlots;
+  const int KV1 = KV1_ ? KV1_ : kv1, KV2 = KV1_ ? KV2_ : kv2;
+  const int g1 = (kt1 + kDqTiles - 1) / kDqTiles, mtiles = m >> 4;
+  DqCursor cur(g1 + (kt2 + kDqTiles - 1) / kDqTiles), ahead = cur;
+  const auto issue = [&](int slot) {  // lane 0: the group at `ahead`
+    const bool second = ahead.q >= g1;
+    const int j0 = kDqTiles * (second ? ahead.q - g1 : ahead.q);
+    const int kt = second ? kt2 : kt1, tb = 16 * (second ? KV2 : KV1);
+    bulk_load(ring + slot * kSlot,
+              (second ? tr2 : tr1) + ((size_t)ahead.mt * kt + j0) * tb,
+              min(kDqTiles, kt - j0) * tb, bars + slot);
+  };
+  dq_init_bars(bars);
+  for (int s = 0; s < kDqSlots; ++s, ahead.next())
+    if (lane == 0 && ahead.mt < mtiles) issue(s);
+  stage_table<kDqThreads>(tlut, S, tab, tid);  // as the first groups stream
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int g1 = (kt1 + 3) / 4, gr = g1 + (kt2 + 3) / 4;  // groups a row
-  const long long total = (long long)(m >> 4) * gr;
-  for (long long g = (long long)blockIdx.x * kWarps + warp; g < total;
-       g += (long long)gridDim.x * kWarps) {
-    const int mt = (int)(g / gr), q = (int)(g - (long long)mt * gr);
-    __nv_bfloat16* wrow = w + (size_t)mt * 16 * k;
-    if (q < g1) {
-      const int j0 = 4 * q;
-      dequant_group<KV1_>(tr1 + ((size_t)mt * kt1 + j0) * 4 * KV1,
-                          min(4, kt1 - j0), KV1, wsm[warp], tab, S,
-                          wrow + j0 * 16, k);
+
+  const uint32_t tmask = ((1u << S) - 1u) << (kTabBits - S);
+  const uint32_t lcb = (uint32_t)(lane & ((1 << (kTabBits - 2 - S)) - 1))
+                       << 2;
+  const LutLane L1 = lut_lane(lane, KV1), L2 = lut_lane(lane, KV2);
+  const int col = 16 * ((lane >> 1) & 3) + 8 * (lane & 1);
+  for (int it = 0; cur.mt < mtiles; ++it, cur.next()) {
+    const int slot = it % kDqSlots;
+    const bool second = cur.q >= g1;
+    const int j0 = kDqTiles * (second ? cur.q - g1 : cur.q);
+    const int ntile = min(kDqTiles, (second ? kt2 : kt1) - j0);
+    __nv_bfloat16* wo = w + (size_t)(cur.mt * 16 + (lane >> 3)) * k +
+                        16 * ((second ? kt1 : 0) + j0) + col;
+    const uint8_t* st = ring + slot * kSlot;
+    mbar_wait(bars + slot, (it / kDqSlots) & 1);
+    if constexpr (KV1_ != 0 && KV1_ == KV2_) {
+      lut_group<KV1_>(st, L1, KV1, tab, tmask, lcb, ntile, wo, k, lane);
     } else {
-      const int j0 = 4 * (q - g1);
-      dequant_group<KV2_>(tr2 + ((size_t)mt * kt2 + j0) * 4 * KV2,
-                          min(4, kt2 - j0), KV2, wsm[warp], tab, S,
-                          wrow + (kt1 + j0) * 16, k);
+      if (second)
+        lut_group<KV2_>(st, L2, KV2, tab, tmask, lcb, ntile, wo, k, lane);
+      else
+        lut_group<KV1_>(st, L1, KV1, tab, tmask, lcb, ntile, wo, k, lane);
     }
+    __syncwarp();  // every lane has read the slot before it is refilled
+    if (lane == 0 && ahead.mt < mtiles) issue(slot);
+    ahead.next();
   }
 }
 
@@ -437,12 +481,19 @@ template <int KV1, int KV2>
 int dequant(const void* tr1, const void* tr2, const void* tlut, int S,
             void* w, int m, int k, int kt1, int kt2, int kv1, int kv2,
             cudaStream_t st) {
-  const long long groups = (kt1 + 3) / 4 + (kt2 + 3) / 4;
-  const long long total = (long long)(m / 16) * groups;
-  const long long need = (total + kWarps - 1) / kWarps;
-  const int grid = (int)(need < kDequantBlocks ? need : kDequantBlocks);
-  lut_dequant_kernel<KV1, KV2><<<grid, kThreads, 0, st>>>(
-      static_cast<const uint32_t*>(tr1), static_cast<const uint32_t*>(tr2),
+  constexpr int smem =
+      kDqWarps * kDqSlots * (kLutSlot<KV1, KV2> + (int)sizeof(uint64_t));
+  static int fit[64] = {};  // blocks that fit on the card, by device
+  const long long groups = (long long)(m / 16) *
+                           ((kt1 + kDqTiles - 1) / kDqTiles +
+                            (kt2 + kDqTiles - 1) / kDqTiles);
+  int grid = 0;
+  const cudaError_t e =
+      dq_grid((const void*)lut_ring_kernel<KV1, KV2>, smem,
+              (groups + kDqWarps - 1) / kDqWarps, fit, grid);
+  if (e != cudaSuccess) return (int)e;
+  lut_ring_kernel<KV1, KV2><<<grid, kDqThreads, smem, st>>>(
+      static_cast<const uint8_t*>(tr1), static_cast<const uint8_t*>(tr2),
       static_cast<const float2*>(tlut), S, static_cast<__nv_bfloat16*>(w),
       m, k, kt1, kt2, kv1, kv2);
   return (int)cudaGetLastError();

@@ -38,12 +38,13 @@ DEQUANT_KV = {mode: tuple(range(1, 17)) for mode in SUPPORTED_KV}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+SIGNATURES = {fn: [_P, _P, _I, _I, _I, _I, _P]  # csrc/arith_dequant.cu
+              for fn in ("tcq2_dequant", "tcq1_dequant")}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    sig = [_P, _P, _I, _I, _I, _I, _P]
-    return _build.load(SOURCE, {"tcq2_dequant": sig, "tcq1_dequant": sig})
+    return _build.load(SOURCE, SIGNATURES)
 
 
 def arith_dequant_plain(trellis: torch.Tensor, mode: str, KV: int, m: int,

@@ -334,26 +334,41 @@ def test_v1_wide_launches_are_bit_equal(cuda, name, m, k, mode, KV, a8):
     assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 
 
-@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_DEQUANT)
+# K2 / K3 beyond the paths' shapes: K3 at KVs outside the GEMV's set (an
+# instance each since the persistent walk) and both at ragged shapes: one
+# m-tile with k/16 = 17 (a last group of one tile), three with k/16 = 258
+# (a last group of two)
+DEQUANT_MORE = [(f"kv{kv}", 4096, 4096, "1mad", kv) for kv in (1, 6, 11, 16)]
+DEQUANT_MORE += [("m16 k272", 16, 272, "1mad", 3),
+                 ("m16 k272", 16, 272, "sum2", 3),
+                 ("m48 k4128", 48, 4128, "2mad", 16),
+                 ("m48 k4128", 48, 4128, "dualmad", 11)]
+
+
+@pytest.mark.parametrize("name,m,k,mode,KV", SHAPES_DEQUANT + DEQUANT_MORE)
 def test_arith_dequant_bit_equal_to_plain_on_card(cuda, name, m, k, mode,
                                                   KV):
+    """Both launches bit-equal to the plain version, each adding exactly 1
+    to the wrapper's count."""
     words, _ = _case(m, k, KV, 1, torch.float32, cuda, seed=m + k + KV + 7,
                      mode=mode)
     fn = (arith_dequant.tcq2_dequant if mode in ("sum2", "dualmad")
           else arith_dequant.tcq1_dequant)
-    before = fn.launches
-    w = arith_dequant.dequant(mode, words, KV, m, k)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
     ref = arith_dequant.arith_dequant_plain(words, mode, KV, m, k)
-    assert torch.equal(w.view(torch.int16), ref.view(torch.int16)), name
+    for _ in range(2):
+        before = fn.launches
+        w = arith_dequant.dequant(mode, words, KV, m, k)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(w.view(torch.int16), ref.view(torch.int16)), name
 
 
 @pytest.mark.parametrize("kind,mode,KV", [("tcq2", "dualmad", 7),
                                           ("tcq1", "1mad", 3)])
 def test_qlinear_large_rows_on_card(cuda, kind, mode, KV):
     """300 rows: exact through one dequant launch and a product, a8 through
-    two 256-row GEMV chunks; both against the CPU plain path."""
+    two GEMV chunks (256 and 44 rows, each an x prologue and the wide
+    GEMV); both against the CPU plain path."""
     m, k = 256, 512
     words, x = _case(m, k, KV, 300, torch.bfloat16, cuda, seed=KV,
                      mode=mode)
@@ -361,7 +376,9 @@ def test_qlinear_large_rows_on_card(cuda, kind, mode, KV):
     p_cpu = {n: t.cpu() for n, t in p.items()}
     deq = (arith_dequant.tcq2_dequant if kind == "tcq2"
            else arith_dequant.tcq1_dequant)
-    for impl, fn, launches in (("exact", deq, 1), ("a8", _counted(mode), 2)):
+    a8_launches = sum(arith.kernel_launches(mode, r) for r in (256, 44))
+    for impl, fn, launches in (("exact", deq, 1),
+                               ("a8", _counted(mode), a8_launches)):
         spec = LinearSpec(kind, k, m, KV=(KV,), mode=mode, impl=impl)
         before = fn.launches
         y = qlinear_apply(spec, p, x, out_dtype=torch.float32)
@@ -379,8 +396,9 @@ def _lut_case(m, k, KV, device, seed):
     words = [torch.randint(-(1 << 31), 1 << 31, ((m // 16) * (kh // 16),
                                                  4 * kv), generator=gen,
                            dtype=torch.int32, device=device) for kv in KV]
-    tlut = torch.tensor(trellis_tlut(tlut_bits_for_kv(max(KV))),
-                        device=device)
+    # the kernels take S <= 11: a KV above 10 gets the largest table
+    S = min(max(tcq_lut.SUPPORTED_S), tlut_bits_for_kv(max(KV)))
+    tlut = torch.tensor(trellis_tlut(S), device=device)
     return words, tlut
 
 
@@ -441,19 +459,32 @@ def test_lut_gemv_launches_are_bit_equal(cuda, name, m, k, KV):
     assert torch.equal(ys[0].view(torch.int32), ys[1].view(torch.int32))
 
 
-@pytest.mark.parametrize("name,m,k,KV", SHAPES_FLAGSHIP)
+# K6 / K7 beyond the flagship: pairs outside the GEMV's set (the instance
+# that reads its KVs) and the ragged shapes, with KV 2 / 16 halves
+LUT_DEQUANT_MORE = [("5/7", 4096, 4096, (5, 7)), ("2/16", 4096, 4096, (2, 16)),
+                    ("m16 k272", 16, 272, (2,)),
+                    ("m48 k4128", 48, 4128, (5, 7)),
+                    ("m48 k4128", 48, 4128, (2, 16))]
+
+
+@pytest.mark.parametrize("name,m,k,KV",
+                         SHAPES_FLAGSHIP + SHAPES_LUT_RAGGED
+                         + LUT_DEQUANT_MORE)
 def test_lut_dequant_bit_equal_to_plain_on_card(cuda, name, m, k, KV):
+    """Both launches bit-equal to the plain version, each adding exactly 1
+    to the wrapper's count."""
     words, tlut = _lut_case(m, k, KV, cuda, seed=m + k + sum(KV) + 1)
     deq, plain = ((tcq_lut.tcq_lut_dequant, tcq_lut.tcq_lut_dequant_plain)
                   if len(KV) == 1 else
                   (tcq_lut.tcomb_lut_dequant,
                    tcq_lut.tcomb_lut_dequant_plain))
-    before = deq.launches
-    w = deq(*words, tlut, *KV, m, k)
-    torch.cuda.synchronize()
-    assert deq.launches == before + 1
     ref = plain(*words, tlut, *KV, m, k)
-    assert torch.equal(w.view(torch.int16), ref.view(torch.int16)), name
+    for _ in range(2):
+        before = deq.launches
+        w = deq(*words, tlut, *KV, m, k)
+        torch.cuda.synchronize()
+        assert deq.launches == before + 1
+        assert torch.equal(w.view(torch.int16), ref.view(torch.int16)), name
 
 
 def test_lut_kernels_reject_cpu_trellis_with_cuda_x(cuda):
