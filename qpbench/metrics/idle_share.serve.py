@@ -1,0 +1,8 @@
+"""idle_share.serve: the share of the traced slice's window (host clock,
+ending in a synchronize) in which no device op ran, in percent."""
+
+
+def read(rec, config):
+    if rec.kind != "serve" or rec.slice is None or not rec.slice.ops:
+        return None
+    return 100.0 * (1.0 - rec.slice.busy_s / rec.slice.window_s)
